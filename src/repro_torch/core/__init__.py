@@ -1,0 +1,48 @@
+"""Triangle counting: options, registry, plan/execute engine, front door."""
+
+from repro_torch.core.options import CountOptions, DEFAULT_WIDTHS
+from repro_torch.core.registry import (
+    available_algorithms,
+    choose_algorithm,
+    get_algorithm,
+    register_algorithm,
+)
+from repro_torch.core.engine import (
+    TrianglePlan,
+    cache_info,
+    clear_caches,
+    executable_cache_info,
+    plan_triangle_count,
+    set_cache_limit,
+)
+from repro_torch.core.api import CountResult, CounterSession, TriangleCounter
+from repro_torch.core.oracle import (
+    triangle_count_brute,
+    triangle_count_forward_cpu,
+    triangle_count_forward_scipy,
+    triangle_count_scipy,
+)
+from repro_torch.core import prep
+
+__all__ = [
+    "CountOptions",
+    "CountResult",
+    "CounterSession",
+    "DEFAULT_WIDTHS",
+    "TriangleCounter",
+    "TrianglePlan",
+    "available_algorithms",
+    "cache_info",
+    "choose_algorithm",
+    "clear_caches",
+    "executable_cache_info",
+    "get_algorithm",
+    "plan_triangle_count",
+    "prep",
+    "register_algorithm",
+    "set_cache_limit",
+    "triangle_count_brute",
+    "triangle_count_forward_cpu",
+    "triangle_count_forward_scipy",
+    "triangle_count_scipy",
+]

@@ -1,0 +1,227 @@
+"""One front door for triangle counting: ``TriangleCounter`` + ``CountResult``.
+
+The port of ``repro.core.api`` for the intersection lane:
+
+    from repro_torch.core import TriangleCounter
+
+    tc = TriangleCounter(g)                  # on the card; algorithm="auto"
+    res = tc.count()                         # CountResult
+    res.count, res.algorithm, res.bucket_strategies
+    tc.triangles_per_vertex()                # (n,) int64, cached plan
+
+A session runs on the CUDA device unless it is given another
+(``device="cpu"`` runs the plain torch versions of the kernels). It owns
+one ``TrianglePlan``, built lazily through the algorithm registry, so every
+``count()`` is a device replay.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core import registry
+from repro_torch.core.engine import executable_cache_info, plan_triangle_count
+from repro_torch.core.options import CountOptions
+from repro_torch.graphs.device import resolve_device
+from repro_torch.graphs.formats import Graph
+
+__all__ = ["CountResult", "CounterSession", "TriangleCounter"]
+
+
+@dataclasses.dataclass(eq=False)
+class CountResult:
+    """One triangle count plus how it was produced.
+
+    Attributes:
+      count: the exact triangle count.
+      algorithm: the lane that ran (the resolution of ``"auto"``).
+      options: the session's ``CountOptions``.
+      bucket_strategies: the per-bucket ``(width, strategy)`` picks.
+      prep_seconds: the plan's one-time prep stage.
+      exec_seconds: this count's device replay, measured around ``count()``
+        (which ends in a host sync).
+      plan: the live ``TrianglePlan``.
+      meta: the plan's statistics dict.
+
+    Compares equal to ints via ``count``.
+    """
+
+    count: int
+    algorithm: str
+    options: CountOptions
+    bucket_strategies: Optional[List[Tuple[int, str]]]
+    prep_seconds: float
+    exec_seconds: float
+    plan: Any
+    meta: Dict[str, Any]
+
+    def __int__(self) -> int:
+        return self.count
+
+    def __index__(self) -> int:
+        return self.count
+
+    def __eq__(self, other) -> bool:
+        if isinstance(other, CountResult):
+            return self.count == other.count
+        if isinstance(other, (int, np.integer)):
+            return self.count == int(other)
+        return NotImplemented
+
+    def __repr__(self) -> str:
+        return (f"CountResult(count={self.count}, "
+                f"algorithm={self.algorithm!r}, "
+                f"prep_seconds={self.prep_seconds:.4f}, "
+                f"exec_seconds={self.exec_seconds:.4f})")
+
+
+class CounterSession:
+    """Shared machinery of a counting session: one graph, one
+    ``CountOptions``, one device, one lazily built plan.
+
+    Args:
+      g: the input ``Graph``.
+      options: a ``CountOptions``; None builds one from ``**overrides``.
+      device: where the plan lives and the kernels run. None means the
+        CUDA device; without a card that raises ``RuntimeError`` (pass
+        ``device="cpu"``).
+      **overrides: ``CountOptions`` field overrides.
+    """
+
+    def __init__(self, g: Graph, options: Optional[CountOptions] = None,
+                 *, device: Union[None, str, torch.device] = None, **overrides):
+        if options is None:
+            options = CountOptions(**overrides)
+        elif overrides:
+            options = options.replace(**overrides)
+        if not isinstance(options, CountOptions):
+            raise TypeError(
+                f"options must be a CountOptions, got {type(options).__name__}"
+            )
+        self.device = resolve_device(device)
+        self.graph = g
+        self.options = options
+        self.algorithm = self._resolve_algorithm()
+        self._plan = None
+
+    def _resolve_algorithm(self) -> str:
+        if self.options.algorithm != "auto":
+            return self.options.algorithm
+        return registry.choose_algorithm(self.graph)
+
+    @property
+    def plan(self):
+        """The session's plan, built on first access via the registry."""
+        if self._plan is None:
+            planner = registry.get_algorithm(self.algorithm)
+            self._plan = planner(self.graph, self.options, device=self.device)
+        return self._plan
+
+    def count(self) -> CountResult:
+        """Count triangles (a device replay after the first call)."""
+        plan = self.plan
+        t0 = time.perf_counter()
+        c = plan.count()
+        exec_seconds = time.perf_counter() - t0
+        meta = dict(plan.meta)
+        return CountResult(
+            count=c,
+            algorithm=self.algorithm,
+            options=self.options,
+            bucket_strategies=meta.get("bucket_strategies"),
+            prep_seconds=float(plan.prep_seconds),
+            exec_seconds=exec_seconds,
+            plan=plan,
+            meta=meta,
+        )
+
+    def count_with_stats(self) -> Tuple[int, Dict[str, Any]]:
+        """``(count, stats)``: the count and the plan's meta, with the
+        resolved lane under ``"algorithm"``."""
+        res = self.count()
+        stats = dict(res.meta)
+        stats["algorithm"] = res.algorithm
+        return res.count, stats
+
+    @staticmethod
+    def cache_stats() -> Dict[str, int]:
+        """Process-wide launch-configuration cache statistics."""
+        return executable_cache_info()
+
+
+class TriangleCounter(CounterSession):
+    """A static counting session (see ``CounterSession``), with the
+    per-vertex analysis accessors routed through the cached plan."""
+
+    def __init__(self, g: Graph, options: Optional[CountOptions] = None,
+                 *, device: Union[None, str, torch.device] = None, **overrides):
+        super().__init__(g, options, device=device, **overrides)
+        self._vertex_counts: Optional[np.ndarray] = None
+
+    def count_many(self, graphs, *, batch_size: int = 8):
+        """Not ported yet: batched counting (ROADMAP.md Queue 1 item 10)."""
+        raise NotImplementedError(
+            "count_many / iter_counts (batched counting) are not ported yet; "
+            "see ROADMAP.md Queue 1 item 10")
+
+    iter_counts = count_many
+
+    def edge_support(self):
+        """Not ported yet: the edge lane (ROADMAP.md Queue 1 item 8)."""
+        raise NotImplementedError(
+            "edge_support / k_truss (the edge lane) are not ported yet; "
+            "see ROADMAP.md Queue 1 item 8")
+
+    def k_truss(self, k: int, *, max_iters: Optional[int] = None):
+        """Not ported yet: the edge lane (ROADMAP.md Queue 1 item 8)."""
+        return self.edge_support()
+
+    def triangles_per_vertex(self) -> np.ndarray:
+        """(n,) int64 per-vertex triangle counts.
+
+        Replays the session plan's buckets when it carries forward
+        endpoints (the filtered variant); the full variant falls back to a
+        filtered sidecar plan over the same widths on the same device. The
+        result is memoized on the session.
+        """
+        if self._vertex_counts is None:
+            try:
+                t = self.plan.triangles_per_vertex()
+            except NotImplementedError:
+                t = _vertex_counts_sidecar(self.graph, self.options, self.device)
+            self._vertex_counts = t
+        return self._vertex_counts.copy()
+
+    def clustering_coefficients(self) -> np.ndarray:
+        """cc[v] = 2·t(v) / (d(v)·(d(v)−1)); 0 where degree < 2."""
+        t = self.triangles_per_vertex().astype(np.float64)
+        d = self.graph.degrees.astype(np.float64)
+        denom = d * (d - 1.0)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            return np.where(denom > 0, 2.0 * t / denom, 0.0)
+
+    def transitivity(self) -> float:
+        """3 · #triangles / #wedges (= Σ t(v) / #wedges)."""
+        t = int(self.triangles_per_vertex().sum())
+        d = self.graph.degrees.astype(np.int64)
+        wedges = int((d * (d - 1) // 2).sum())
+        return float(t) / wedges if wedges else 0.0
+
+    def __repr__(self) -> str:
+        return (f"TriangleCounter(graph={self.graph.name!r}, "
+                f"algorithm={self.algorithm!r}, device={str(self.device)!r}, "
+                f"planned={self._plan is not None})")
+
+
+def _vertex_counts_sidecar(g: Graph, options: CountOptions,
+                           device: torch.device) -> np.ndarray:
+    """Per-vertex counts for plans without forward endpoints (the full
+    variant): a filtered plan over the same widths."""
+    plan = plan_triangle_count(g, "intersection", variant="filtered",
+                               widths=options.widths, device=device)
+    return plan.triangles_per_vertex()

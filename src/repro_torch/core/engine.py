@@ -1,0 +1,512 @@
+"""Plan/execute engine for exact triangle counting (intersection lane).
+
+The port of the intersection half of ``repro.core.engine``. Planning runs
+the prep stage once — orientation, degree-class bucketing and padded
+neighbour gathers on the session's device — and binds each bucket to a
+cached launch configuration; ``count()`` then replays the resident buckets
+through the set-intersection kernels only:
+
+    plan = plan_triangle_count(g, "intersection", device="cuda")
+    plan.count()   # one kernel launch per bucket, one host sync
+    plan.count()   # the same buffers again; no prep runs
+
+Each bucket's strategy (broadcast / probe / bitmap) comes from the
+documented cost model in ``repro_torch.kernels.intersect.ops`` (or the
+per-plan override), is part of the cache key, and is surfaced as
+``meta["bucket_strategies"]``.
+
+Per-bucket counts are summed in int64 on the device. (The reference sums
+each bucket's int32 counts in int32, so a bucket total past 2³¹ wraps
+there; every graph the tests and checks use stays far below that.)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import threading
+import time
+from collections import OrderedDict
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.graphs.formats import Graph
+from repro_torch.graphs.device import DEFAULT_SHAPE_POLICY, ShapePolicy, resolve_device
+from repro_torch.core import prep
+from repro_torch.core.options import BACKENDS, DEFAULT_WIDTHS
+from repro_torch.core.prep import DeviceBucket
+from repro_torch.core.registry import register_algorithm
+from repro_torch.kernels.intersect.ops import (
+    STRATEGIES,
+    intersect_counts,
+    intersect_matches,
+    resolve_mask_strategy,
+    resolve_strategy,
+)
+
+__all__ = [
+    "IntersectLaunch",
+    "TrianglePlan",
+    "VertexLaunch",
+    "cache_info",
+    "clear_caches",
+    "executable_cache_info",
+    "get_executable",
+    "plan_triangle_count",
+    "set_cache_limit",
+]
+
+
+# ---------------------------------------------------------------------------
+# Launch-configuration cache, shared across plans
+# ---------------------------------------------------------------------------
+
+class _BoundedLRU:
+    """Thread-safe, size-bounded LRU of bound launch configurations.
+
+    ``get_or_build`` is the single get-or-build gate: a hit moves the key to
+    the MRU end; a miss claims the key under the lock, releases it, builds,
+    then inserts and evicts from the LRU end. Racing requests for the same
+    key wait on the claimant's event and pick up the one built entry
+    (counted as hits). Eviction only drops the cache reference: live plans
+    hold their entries directly.
+    """
+
+    def __init__(self, maxsize: int):
+        if maxsize < 1:
+            raise ValueError(f"cache maxsize must be >= 1, got {maxsize}")
+        self._data: "OrderedDict[tuple, Callable]" = OrderedDict()
+        self._lock = threading.RLock()
+        self._pending: Dict[tuple, threading.Event] = {}
+        self.maxsize = int(maxsize)
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def get_or_build(self, key: tuple, builder: Callable[[], Callable]):
+        while True:
+            with self._lock:
+                fn = self._data.get(key)
+                if fn is not None:
+                    self._data.move_to_end(key)
+                    self.hits += 1
+                    return fn
+                ev = self._pending.get(key)
+                if ev is None:
+                    self._pending[key] = threading.Event()
+                    self.misses += 1
+                    break
+            ev.wait()  # someone else is building this key; re-check
+        try:
+            fn = builder()
+        except BaseException:
+            with self._lock:
+                self._pending.pop(key).set()
+            raise
+        with self._lock:
+            self._data[key] = fn
+            self._data.move_to_end(key)
+            self._evict_locked()
+            self._pending.pop(key).set()
+        return fn
+
+    def _evict_locked(self) -> None:
+        while len(self._data) > self.maxsize:
+            self._data.popitem(last=False)
+            self.evictions += 1
+
+    def set_maxsize(self, maxsize: int) -> int:
+        if maxsize < 1:
+            raise ValueError(f"cache maxsize must be >= 1, got {maxsize}")
+        with self._lock:
+            old = self.maxsize
+            self.maxsize = int(maxsize)
+            self._evict_locked()
+            return old
+
+    def clear(self) -> None:
+        with self._lock:
+            self._data.clear()
+            self.hits = 0
+            self.misses = 0
+            self.evictions = 0
+
+    def info(self, include_keys: bool = False) -> dict:
+        with self._lock:
+            d = dict(size=len(self._data), hits=self.hits,
+                     misses=self.misses, maxsize=self.maxsize,
+                     evictions=self.evictions)
+            if include_keys:
+                d["keys"] = tuple(self._data.keys())
+            return d
+
+    def __contains__(self, key: tuple) -> bool:
+        with self._lock:
+            return key in self._data
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._data)
+
+
+_EXECUTABLE_CACHE = _BoundedLRU(512)
+
+# u elements the per-vertex stage handles per row chunk (bounds its
+# (rows, W) mask and int64 index transients on the largest buckets)
+_VERTEX_CHUNK_ELEMS = 1 << 22
+
+
+@dataclasses.dataclass(frozen=True)
+class IntersectLaunch:
+    """One bucket shape's bound launch configuration: the resolved strategy,
+    backend and bitmap capacity. Calling it on a (u, v) pair runs the
+    strategy's kernel and returns the bucket total as an int64 scalar
+    tensor on the bucket's device."""
+
+    strategy: str
+    backend: str
+    bitmap_bits: Optional[int]
+
+    def __call__(self, u_lists: torch.Tensor, v_lists: torch.Tensor) -> torch.Tensor:
+        counts = intersect_counts(u_lists, v_lists, strategy=self.strategy,
+                                  backend=self.backend,
+                                  bitmap_bits=self.bitmap_bits)
+        return counts.sum(dtype=torch.int64)
+
+
+@dataclasses.dataclass(frozen=True)
+class VertexLaunch:
+    """Per-vertex triangle counts for one filtered bucket.
+
+    ``intersect_matches`` marks which u-list entries occur in both forward
+    lists; each match (e, j) is one triangle (src[e], dst[e], u[e, j]),
+    credited to its three vertices by index adds. The mask strategy is the
+    width rule (``resolve_mask_strategy(width, None)``), as the reference's
+    traced vertex stage resolves it. Padding never matches, so the clamp on
+    the scatter ids is safe.
+    """
+
+    n: int
+    width: int
+
+    def __call__(self, u_lists, v_lists, src, dst) -> torch.Tensor:
+        strategy, bits = resolve_mask_strategy(self.width, None)
+        t = torch.zeros(self.n, dtype=torch.int64, device=u_lists.device)
+        step = max(1, _VERTEX_CHUNK_ELEMS // max(self.width, 1))
+        for s in range(0, int(u_lists.shape[0]), step):
+            uc = u_lists[s:s + step]
+            matched = intersect_matches(uc, v_lists[s:s + step],
+                                        strategy=strategy, bitmap_bits=bits)
+            per_edge = matched.sum(dim=1)
+            t.index_add_(0, src[s:s + step].long(), per_edge)
+            t.index_add_(0, dst[s:s + step].long(), per_edge)
+            t += torch.bincount(uc[matched].long().clamp_(0, self.n - 1),
+                                minlength=self.n)
+        return t
+
+
+def get_executable(algorithm: str, backend: str, shape_key: tuple, *,
+                   strategy: Optional[str] = None,
+                   bitmap_bits: Optional[int] = None) -> Callable:
+    """Fetch (or build) the cached launch configuration for one work unit.
+
+    Args:
+      algorithm: "intersection" (a bucket's count) or "vertex" (a filtered
+        bucket's per-vertex counts; ``shape_key`` is ``(E, W, n)``).
+      backend: "kernel" | "ref".
+      shape_key: the work unit's array shape.
+      strategy: the resolved set-intersection strategy ("intersection").
+      bitmap_bits: the bitmap capacity when strategy="bitmap".
+
+    Returns:
+      The entry cached under ``(algorithm, strategy, backend, bitmap_bits,
+      shape_key)``; plans over same-shaped buckets share it.
+    """
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+    if algorithm == "intersection":
+        if strategy not in STRATEGIES:
+            raise ValueError(f"unresolved strategy {strategy!r}; "
+                             f"expected one of {STRATEGIES}")
+        builder = functools.partial(IntersectLaunch, strategy, backend, bitmap_bits)
+    elif algorithm == "vertex":
+        builder = functools.partial(VertexLaunch, int(shape_key[2]), int(shape_key[1]))
+    else:
+        raise ValueError(f"unknown algorithm {algorithm!r}")
+    key = (algorithm, strategy, backend, bitmap_bits, tuple(shape_key))
+    return _EXECUTABLE_CACHE.get_or_build(key, builder)
+
+
+def executable_cache_info() -> dict:
+    """``{'size', 'hits', 'misses', 'maxsize', 'evictions'}``."""
+    return _EXECUTABLE_CACHE.info()
+
+
+def cache_info() -> dict:
+    """``executable_cache_info()`` plus the live ``keys`` tuple (MRU last)."""
+    return _EXECUTABLE_CACHE.info(include_keys=True)
+
+
+def clear_caches() -> None:
+    """Drop every cached entry and zero the hit/miss/eviction counters."""
+    _EXECUTABLE_CACHE.clear()
+
+
+def set_cache_limit(maxsize: int) -> int:
+    """Re-bound the process-wide cache; returns the old bound. Shrinking
+    evicts LRU entries at once; live plans keep their entries."""
+    return _EXECUTABLE_CACHE.set_maxsize(maxsize)
+
+
+# ---------------------------------------------------------------------------
+# TrianglePlan — the device-resident, replayable count
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _Stage:
+    executable: Callable
+    args: Tuple[torch.Tensor, ...]  # device-resident (u_lists, v_lists)
+    shape_key: tuple
+    strategy: Optional[str] = None
+    bitmap_bits: Optional[int] = None
+    # (src, dst) per row — filtered stages only, for the per-vertex path
+    vertex_args: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+    def run(self) -> torch.Tensor:
+        """One bucket: the kernel launch plus its int64 reduction."""
+        return self.executable(*self.args)
+
+
+@dataclasses.dataclass
+class TrianglePlan:
+    """A prepared triangle count: device buffers + bound launches.
+
+    ``count()`` replays the device stage only. Build via
+    ``plan_triangle_count``.
+    """
+
+    algorithm: str
+    backend: str
+    device: torch.device
+    stages: List[_Stage]
+    divisor: int  # 6 for the full variant (each triangle found ×6)
+    meta: Dict[str, Any]
+    prep_seconds: float
+    executions: int = 0
+
+    def count(self) -> int:
+        """Exact triangle count: every bucket's kernel, summed on the
+        device in int64, with one host sync.
+
+        Raises:
+          RuntimeError: the full variant's total is not a multiple of 6
+            (a broken kernel or layout).
+        """
+        total = torch.zeros((), dtype=torch.int64, device=self.device)
+        for st in self.stages:
+            total += st.run()
+        total = int(total)
+        if total % self.divisor:
+            raise RuntimeError(
+                f"total {total} is not a multiple of divisor {self.divisor}")
+        self.executions += 1
+        return total // self.divisor
+
+    def count_with_stats(self) -> Tuple[int, dict]:
+        """Count once and return ``(count, meta)``; meta carries the plan's
+        statistics, including ``bucket_strategies`` (one ``(width,
+        strategy)`` pair per bucket)."""
+        return self.count(), dict(self.meta)
+
+    def triangles_per_vertex(self) -> np.ndarray:
+        """Per-vertex triangle counts, replayed through the plan's resident
+        buckets.
+
+        Returns:
+          (n,) int64 numpy array, t[v] = number of triangles containing v.
+
+        Raises:
+          NotImplementedError: the full variant, whose rows carry no
+            forward endpoints to credit matches to.
+        """
+        if self.divisor != 1 or any(st.vertex_args is None for st in self.stages):
+            raise NotImplementedError(
+                f"per-vertex counts need filtered-intersection stages; "
+                f"algorithm={self.algorithm!r} divisor={self.divisor} does "
+                f"not carry them"
+            )
+        n = int(self.meta["n"])
+        total = torch.zeros(n, dtype=torch.int64, device=self.device)
+        for st in self.stages:
+            e, w = st.shape_key
+            fn = get_executable("vertex", self.backend, (e, w, n))
+            total += fn(*st.args, *st.vertex_args)
+        return total.cpu().numpy()
+
+    def synchronize(self) -> "TrianglePlan":
+        """Wait for the device (useful before timing counts)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
+    @property
+    def num_stages(self) -> int:
+        return len(self.stages)
+
+    @property
+    def shape_keys(self) -> List[tuple]:
+        return [st.shape_key for st in self.stages]
+
+
+def _resolve_bucket_strategy(width: int, id_range: int, strategy: str,
+                             bitmap_bits: Optional[int]):
+    """Resolve one bucket's (strategy, bitmap_bits), honouring a forced
+    ``bitmap_bits`` override (which must cover the id range)."""
+    strat, bits = resolve_strategy(width, id_range, strategy=strategy)
+    if bitmap_bits is not None and strat == "bitmap":
+        if bitmap_bits < id_range:
+            raise ValueError(
+                f"bitmap_bits={bitmap_bits} cannot represent id range "
+                f"{id_range} (n + 2 sentinel ids); ids past the capacity "
+                f"would silently never match"
+            )
+        bits = int(bitmap_bits)
+    return strat, bits
+
+
+def _buckets_for_plan(g: Graph, variant: str, widths: Sequence[int],
+                      prep_backend: str, policy: Optional[ShapePolicy],
+                      device: torch.device) -> List[DeviceBucket]:
+    """Run the prep stage on the requested backend; either way the result
+    is ``DeviceBucket``s on ``device`` (the host path uploads its arrays)."""
+    if prep_backend == "device":
+        return prep.prepare_intersection_buckets_device(
+            g, variant=variant, widths=widths, policy=policy, device=device,
+        )
+    host = prep.prepare_intersection_buckets_host(g, variant=variant,
+                                                  widths=widths)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
+
+    return [
+        DeviceBucket(width=b["width"], edges=int(b["u_lists"].shape[0]),
+                     u_lists=up(b["u_lists"]), v_lists=up(b["v_lists"]),
+                     src=up(b["src"]), dst=up(b["dst"]))
+        for b in host
+    ]
+
+
+def _plan_intersection(g: Graph, variant: str, backend: str,
+                       widths: Sequence[int], strategy: str,
+                       bitmap_bits: Optional[int], prep_backend: str,
+                       shape_policy: Optional[ShapePolicy],
+                       device: torch.device) -> Tuple[List[_Stage], int, dict]:
+    buckets = _buckets_for_plan(g, variant, widths, prep_backend,
+                                shape_policy, device)
+    # real ids [0, n) plus the in-row sentinels n (u) and n + 1 (v); whole
+    # padding rows (-1/-2) are negative and never match in any core
+    id_range = g.n + 2
+    stages = []
+    for b in buckets:
+        strat, bits = _resolve_bucket_strategy(b.width, id_range, strategy,
+                                               bitmap_bits)
+        fn = get_executable("intersection", backend, b.shape,
+                            strategy=strat, bitmap_bits=bits)
+        stages.append(_Stage(
+            executable=fn,
+            args=(b.u_lists, b.v_lists),
+            shape_key=b.shape,
+            strategy=strat,
+            bitmap_bits=bits,
+            vertex_args=(b.src, b.dst) if variant == "filtered" else None,
+        ))
+    policy = shape_policy if shape_policy is not None else DEFAULT_SHAPE_POLICY
+    meta = dict(
+        variant=variant,
+        widths=tuple(widths),
+        strategy=strategy,
+        prep_backend=prep_backend,
+        shape_policy=policy.key() if prep_backend == "device" else None,
+        bucket_shapes=[s.shape_key for s in stages],
+        bucket_strategies=[(s.shape_key[1], s.strategy) for s in stages],
+        bucket_edges=[b.edges for b in buckets],
+        edges=int(sum(b.edges for b in buckets)),
+    )
+    return stages, (6 if variant == "full" else 1), meta
+
+
+def plan_triangle_count(
+    g: Graph,
+    algorithm: str = "intersection",
+    *,
+    backend: str = "kernel",
+    variant: str = "filtered",
+    widths: Sequence[int] = DEFAULT_WIDTHS,
+    strategy: str = "auto",
+    bitmap_bits: Optional[int] = None,
+    prep_backend: str = "device",
+    shape_policy: Optional[ShapePolicy] = None,
+    max_device_bytes: Optional[int] = None,
+    device: Union[None, str, torch.device] = None,
+) -> TrianglePlan:
+    """Run the prep stage once and return a device-resident ``TrianglePlan``.
+
+    Args:
+      g: the input ``Graph`` (undirected simple CSR).
+      algorithm: "intersection" (the only lane the port has so far).
+      backend: "kernel" | "ref" per-bucket execution path.
+      variant: "filtered" (forward algorithm) or "full" (every directed
+        edge, each triangle found 6×).
+      widths: degree-class bucket widths.
+      strategy: "auto" (the ``choose_strategy`` cost model per bucket) or a
+        forced "broadcast" | "probe" | "bitmap".
+      bitmap_bits: optional forced capacity for bitmap buckets (must cover
+        ``n + 2``).
+      prep_backend: "device" (torch prep) or "host" (the numpy path).
+      shape_policy: the ``ShapePolicy``; None means ``DEFAULT_SHAPE_POLICY``.
+      max_device_bytes: must be None: tiled streaming is not ported yet.
+      device: where the buckets live and the kernels run; None means the
+        CUDA device (see ``resolve_device``).
+
+    Raises:
+      ValueError: unknown algorithm or backend.
+      NotImplementedError: ``max_device_bytes`` is set.
+      RuntimeError: ``device`` is None or CUDA and no card is present.
+    """
+    if algorithm != "intersection":
+        raise ValueError(f"unknown algorithm {algorithm!r}; the port plans "
+                         f"('intersection',)")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+    if max_device_bytes is not None:
+        raise NotImplementedError(
+            "max_device_bytes (tiled streaming of buckets over a device "
+            "budget) is not ported yet; see ROADMAP.md Queue 1 item 10"
+        )
+    device = resolve_device(device)
+    t0 = time.perf_counter()
+    stages, divisor, meta = _plan_intersection(
+        g, variant, backend, widths, strategy, bitmap_bits, prep_backend,
+        shape_policy, device,
+    )
+    meta["graph"] = g.name
+    meta["n"], meta["m"] = g.n, g.m_undirected
+    meta["device"] = str(device)
+    plan = TrianglePlan(algorithm=algorithm, backend=backend, device=device,
+                        stages=stages, divisor=divisor, meta=meta,
+                        prep_seconds=0.0)
+    plan.synchronize()
+    plan.prep_seconds = time.perf_counter() - t0
+    return plan
+
+
+def _intersection_planner(g: Graph, options, *, device):
+    """Registry planner: CountOptions → intersection-lane TrianglePlan."""
+    return plan_triangle_count(g, "intersection", device=device,
+                               **options.plan_kwargs("intersection"))
+
+
+register_algorithm("intersection", _intersection_planner)

@@ -1,0 +1,165 @@
+"""Typed options for the triangle-counting front door.
+
+``CountOptions`` is the port of ``repro.core.options.CountOptions`` with the
+fields the intersection lane reads: one frozen, validated, hashable
+dataclass. Equal options give equal ``key()``s, and the engine's launch-
+configuration cache keys derive from the fields.
+
+Backends: ``"kernel"`` (default) runs each bucket's Hopper kernel on a CUDA
+device and its plain torch version on a CPU device; ``"ref"`` runs the
+broadcast-compare oracle. Pallas' interpret mode has no counterpart here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+from repro_torch.graphs.device import DEFAULT_SHAPE_POLICY, ShapePolicy
+from repro_torch.kernels.intersect.ops import (
+    BACKENDS,
+    BITMAP_MAX_BITS,
+    STRATEGIES,
+)
+
+__all__ = ["BACKENDS", "CountOptions", "DEFAULT_WIDTHS", "PREP_BACKENDS",
+           "VARIANTS"]
+
+DEFAULT_WIDTHS: Tuple[int, ...] = (8, 32, 128, 512)
+
+VARIANTS = ("filtered", "full")
+PREP_BACKENDS = ("device", "host")
+
+
+@dataclasses.dataclass(frozen=True)
+class CountOptions:
+    """Every knob of a triangle count, validated at construction.
+
+    Attributes:
+      algorithm: "auto" (``repro_torch.core.registry.choose_algorithm``) or
+        a registered lane name ("intersection").
+      variant: "filtered" (forward algorithm, each triangle once) or "full"
+        (every directed edge, found 6×).
+      backend: "kernel" | "ref" per-bucket execution path.
+      strategy: per-bucket set-intersection core: "auto" (the documented
+        cost model) or forced "broadcast" | "probe" | "bitmap".
+      widths: ascending degree-class bucket widths.
+      bitmap_bits: optional forced bitmap capacity (multiple of 32) for
+        bitmap buckets; None sizes it from the id range.
+      prep_backend: "device" (default: torch prep on the session's device)
+        or "host" (the numpy parity path, uploaded afterwards).
+      shape_policy: the ``ShapePolicy`` rounding prep extents; None means
+        ``DEFAULT_SHAPE_POLICY``.
+      max_device_bytes: per-bucket device-bytes budget for streamed
+        (tiled) execution. Validated here; the port has no tiled stages
+        yet, so planning with a value raises ``NotImplementedError``.
+    """
+
+    algorithm: str = "auto"
+    variant: str = "filtered"
+    backend: str = "kernel"
+    strategy: str = "auto"
+    widths: Tuple[int, ...] = DEFAULT_WIDTHS
+    bitmap_bits: Optional[int] = None
+    prep_backend: str = "device"
+    shape_policy: Optional[ShapePolicy] = None
+    max_device_bytes: Optional[int] = None
+
+    def __post_init__(self):
+        try:
+            widths = tuple(int(w) for w in self.widths)
+        except TypeError:
+            raise ValueError(f"widths must be an iterable of ints, "
+                             f"got {self.widths!r}") from None
+        object.__setattr__(self, "widths", widths)
+
+        if self.algorithm != "auto":
+            from repro_torch.core.registry import available_algorithms
+            names = available_algorithms()
+            if self.algorithm not in names:
+                raise ValueError(
+                    f"unknown algorithm {self.algorithm!r}; expected 'auto' "
+                    f"or one of {names}"
+                )
+        if self.variant not in VARIANTS:
+            raise ValueError(
+                f"unknown variant {self.variant!r}; expected one of {VARIANTS}"
+            )
+        if self.backend not in BACKENDS:
+            raise ValueError(
+                f"unknown backend {self.backend!r}; expected one of {BACKENDS}"
+            )
+        if self.strategy != "auto" and self.strategy not in STRATEGIES:
+            raise ValueError(
+                f"unknown strategy {self.strategy!r}; expected 'auto' or one "
+                f"of {STRATEGIES}"
+            )
+        if not widths or any(w <= 0 for w in widths) or \
+                any(a >= b for a, b in zip(widths, widths[1:])):
+            raise ValueError(
+                f"widths must be non-empty, positive, strictly ascending; "
+                f"got {widths}"
+            )
+        if self.bitmap_bits is not None:
+            b = self.bitmap_bits
+            if not isinstance(b, int) or isinstance(b, bool) or b <= 0 \
+                    or b % 32 or b > BITMAP_MAX_BITS:
+                raise ValueError(
+                    f"bitmap_bits must be a positive multiple of 32 ≤ "
+                    f"{BITMAP_MAX_BITS}, got {b!r}"
+                )
+        if self.prep_backend not in PREP_BACKENDS:
+            raise ValueError(
+                f"unknown prep_backend {self.prep_backend!r}; expected one "
+                f"of {PREP_BACKENDS}"
+            )
+        if self.shape_policy is not None and \
+                not isinstance(self.shape_policy, ShapePolicy):
+            raise ValueError(
+                f"shape_policy must be None or a ShapePolicy, "
+                f"got {self.shape_policy!r}"
+            )
+        if self.max_device_bytes is not None:
+            b = self.max_device_bytes
+            if not isinstance(b, int) or isinstance(b, bool) or b < 1:
+                raise ValueError(
+                    f"max_device_bytes must be None or a positive int, "
+                    f"got {b!r}"
+                )
+
+    @property
+    def resolved_shape_policy(self) -> ShapePolicy:
+        """The concrete ``ShapePolicy`` (``None`` ⇒ ``DEFAULT_SHAPE_POLICY``)."""
+        return self.shape_policy if self.shape_policy is not None \
+            else DEFAULT_SHAPE_POLICY
+
+    def key(self) -> tuple:
+        """Normalized hashable identity, with ``shape_policy=None``
+        resolved, so options differing only in explicit-vs-default values
+        hash alike."""
+        return (
+            self.algorithm, self.variant, self.backend, self.strategy,
+            self.widths, self.bitmap_bits, self.prep_backend,
+            self.resolved_shape_policy.key(), self.max_device_bytes,
+        )
+
+    def replace(self, **changes) -> "CountOptions":
+        """A copy with ``changes`` applied (re-validated)."""
+        return dataclasses.replace(self, **changes)
+
+    def plan_kwargs(self, lane: str) -> dict:
+        """The ``plan_triangle_count`` kwargs this lane consumes.
+
+        Raises:
+          ValueError: a lane the port does not have.
+        """
+        if lane == "intersection":
+            return dict(variant=self.variant, backend=self.backend,
+                        widths=self.widths, strategy=self.strategy,
+                        bitmap_bits=self.bitmap_bits,
+                        prep_backend=self.prep_backend,
+                        shape_policy=self.shape_policy,
+                        max_device_bytes=self.max_device_bytes)
+        raise ValueError(
+            f"unknown engine lane {lane!r}; expected one of ('intersection',)"
+        )

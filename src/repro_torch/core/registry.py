@@ -1,0 +1,112 @@
+"""Algorithm registry + the cross-lane ``algorithm="auto"`` chooser.
+
+The port of ``repro.core.registry``. Each lane registers a planner —
+``planner(g, options, *, device) -> plan`` where the plan exposes
+``count()``, ``meta`` and ``prep_seconds`` — and the facade
+(``repro_torch.core.api.TriangleCounter``) looks lanes up by name.
+
+Only ``"intersection"`` is registered in the port so far. The chooser is
+the reference's heuristic unchanged, so ``auto`` on a mesh-like or small
+dense graph names a lane the port lacks and raises the reference's
+"unregistered lane" ``ValueError``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+__all__ = [
+    "available_algorithms",
+    "choose_algorithm",
+    "get_algorithm",
+    "register_algorithm",
+]
+
+_REGISTRY: Dict[str, Callable] = {}
+
+
+def register_algorithm(name: str, planner: Callable, *,
+                       overwrite: bool = False) -> None:
+    """Register a lane under ``name``.
+
+    Args:
+      name: lane name ``CountOptions(algorithm=...)`` selects.
+      planner: ``planner(g, options, *, device)`` returning a plan.
+      overwrite: allow replacing an existing registration.
+    """
+    if not name or not isinstance(name, str):
+        raise ValueError(f"algorithm name must be a non-empty str, got {name!r}")
+    if not callable(planner):
+        raise ValueError(f"planner for {name!r} must be callable")
+    if not overwrite and name in _REGISTRY and _REGISTRY[name] is not planner:
+        raise ValueError(f"algorithm {name!r} is already registered; "
+                         f"pass overwrite=True to replace it")
+    _REGISTRY[name] = planner
+
+
+def _ensure_builtin() -> None:
+    """Import the builtin lane modules so their registrations have run."""
+    import repro_torch.core.engine  # noqa: F401  (registers "intersection")
+
+
+def get_algorithm(name: str) -> Callable:
+    """The registered planner for ``name``; ValueError lists what exists."""
+    _ensure_builtin()
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown algorithm {name!r}; registered: {available_algorithms()}"
+        ) from None
+
+
+def available_algorithms() -> tuple:
+    """Sorted names of every registered lane."""
+    _ensure_builtin()
+    return tuple(sorted(_REGISTRY))
+
+
+# The reference's thresholds: mesh-like graphs sit at max degree ≤ 10 with
+# skew (max/avg degree) ≤ ~2, scale-free R-MAT graphs at skew ≥ 12, and only
+# dense complete-graph fixtures reach density ≥ 0.25.
+MESH_MAX_DEGREE = 12
+MESH_MAX_SKEW = 3.0
+DENSE_MIN_DENSITY = 0.25
+DENSE_MAX_N = 512
+
+
+def _default_chooser(g) -> str:
+    """Pick a lane from graph shape (the reference's documented rules):
+
+    1. **matrix** when the graph is small and dense (density ≥ 0.25,
+       n ≤ 512);
+    2. **subgraph** when it is mesh-like (max degree ≤ 12 and skew ≤ 3);
+    3. **intersection** otherwise — the paper's overall winner (Fig. 5).
+    """
+    n, m, dmax = g.n, g.m_undirected, g.max_degree
+    if n < 3 or m == 0:
+        return "intersection"
+    avg_deg = 2.0 * m / n
+    density = 2.0 * m / (n * (n - 1)) if n > 1 else 0.0
+    skew = dmax / max(avg_deg, 1e-9)
+    if density >= DENSE_MIN_DENSITY and n <= DENSE_MAX_N:
+        return "matrix"
+    if dmax <= MESH_MAX_DEGREE and skew <= MESH_MAX_SKEW:
+        return "subgraph"
+    return "intersection"
+
+
+def choose_algorithm(g) -> str:
+    """Resolve ``algorithm="auto"`` for graph ``g``.
+
+    Raises:
+      ValueError: the chooser named a lane that is not registered.
+    """
+    lane = _default_chooser(g)
+    _ensure_builtin()
+    if lane not in _REGISTRY:
+        raise ValueError(
+            f"auto chooser returned unregistered lane {lane!r}; "
+            f"registered: {available_algorithms()}"
+        )
+    return lane

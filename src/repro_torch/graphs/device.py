@@ -1,0 +1,466 @@
+"""Device-resident graph containers and prep primitives (torch).
+
+The port of ``repro.graphs.device`` for the intersection lane: CSR build by
+sorting, degree-rank forward orientation, padded neighbour gathers and the
+degree-class bucket layout, as torch ops on an explicit ``torch.device``.
+
+``ShapePolicy`` rounds every data-dependent extent (edge-array lengths,
+per-bucket edge counts) up to a power of two, padding with the repo-wide
+whole-row sentinels (``-1`` for u rows, ``-2`` for v rows), so bucket shapes
+equal the reference's and same-policy graphs share cached launch
+configurations.
+
+Sentinel conventions (see ``repro_torch.kernels.intersect.ops``): in-row
+padding uses ``n`` (u side) / ``n + 1`` (v side); whole padding rows use
+``-1`` / ``-2``; padded ``col_idx`` slots use ``n``.
+
+Every sort here is stable (``stable=True``): the bucket layout depends on
+kept edges staying in CSR order, as the reference's ``jnp.argsort`` keeps
+them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.graphs.formats import Graph
+
+__all__ = [
+    "DEFAULT_SHAPE_POLICY",
+    "DeviceCSR",
+    "DeviceGraph",
+    "EDGE_KEY_MODES",
+    "GraphTooLargeError",
+    "ShapePolicy",
+    "fits_int32_pair_keys",
+    "fits_int64_pair_keys",
+    "next_pow2",
+    "resolve_device",
+    "resolve_edge_key_mode",
+]
+
+#: Valid values for every ``key_mode`` parameter.
+EDGE_KEY_MODES: Tuple[str, ...] = ("auto", "int32", "wide")
+
+
+def resolve_device(device: Union[None, str, torch.device] = None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks
+    for another.
+
+    Raises:
+      RuntimeError: ``device`` is None or names CUDA and no CUDA device is
+        available.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; the port runs on the GPU by "
+            "default — pass device='cpu' to run its plain torch paths"
+        )
+    return dev
+
+
+class GraphTooLargeError(ValueError):
+    """The graph exceeds a lane's packed-edge-key capacity.
+
+    Raised from :func:`resolve_edge_key_mode` when ``key_mode="int32"`` is
+    forced past ``fits_int32_pair_keys`` (n ≤ 46339), or when n is so large
+    that even int64 keys would overflow (n ≳ 3e9)."""
+
+
+def next_pow2(x: int) -> int:
+    """Smallest power of two ≥ ``x`` (and ≥ 1)."""
+    x = int(x)
+    return 1 if x <= 1 else 1 << (x - 1).bit_length()
+
+
+def fits_int32_pair_keys(n: int) -> bool:
+    """Whether ``(n + 1)²`` fits the int32 range (n ≤ 46339)."""
+    return (n + 1) ** 2 <= np.iinfo(np.int32).max
+
+
+def fits_int64_pair_keys(n: int) -> bool:
+    """Whether ``(n + 1)²`` fits the int64 range (n ≲ 3e9)."""
+    return (n + 1) ** 2 <= np.iinfo(np.int64).max
+
+
+def resolve_edge_key_mode(n: int, key_mode: str = "auto", *,
+                          lane: str = "edge") -> str:
+    """The capacity checkpoint: resolve a requested key mode for a graph.
+
+    Torch has int64 natively, so the port builds its packed keys in int64
+    in every mode; the checkpoint keeps the reference's contract so that a
+    forced ``"int32"`` past the bound still raises.
+
+    Returns:
+      "int32" or "wide".
+
+    Raises:
+      ValueError: unknown ``key_mode``.
+      GraphTooLargeError: ``key_mode="int32"`` past ``fits_int32_pair_keys``,
+        or n past ``fits_int64_pair_keys`` in any mode.
+    """
+    if key_mode not in EDGE_KEY_MODES:
+        raise ValueError(
+            f"key_mode must be one of {EDGE_KEY_MODES}, got {key_mode!r}"
+        )
+    if not fits_int64_pair_keys(n):
+        raise GraphTooLargeError(
+            f"the {lane} lane packs vertex pairs into (n+1)-radix keys and "
+            f"(n+1)^2 overflows even int64 for n={n}; no key mode supports "
+            f"this graph (the matrix / hash / bfs lanes use no packed keys "
+            f"and remain available)"
+        )
+    if fits_int32_pair_keys(n):
+        return "wide" if key_mode == "wide" else "int32"
+    if key_mode == "int32":
+        raise GraphTooLargeError(
+            f"the {lane} lane was forced to key_mode='int32' but "
+            f"(n+1)^2 > int32 max for n={n} (the int32 fast path needs "
+            f"n <= 46339); use key_mode='auto' or 'wide' for this graph, "
+            f"or the matrix / hash / bfs lanes, which use no packed keys"
+        )
+    return "wide"
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapePolicy:
+    """How data-dependent extents are rounded into static shape classes.
+
+    Attributes:
+      edge_rounding: "pow2" (default) rounds every edge extent up to the
+        next power of two; "exact" keeps true extents (the parity-testing
+        configuration).
+      min_edges: floor on any rounded extent.
+    """
+
+    edge_rounding: str = "pow2"
+    min_edges: int = 8
+
+    def __post_init__(self):
+        if self.edge_rounding not in ("pow2", "exact"):
+            raise ValueError(
+                f"edge_rounding must be 'pow2' or 'exact', "
+                f"got {self.edge_rounding!r}"
+            )
+        if not isinstance(self.min_edges, int) or isinstance(self.min_edges, bool) \
+                or self.min_edges < 1:
+            raise ValueError(
+                f"min_edges must be a positive int, got {self.min_edges!r}"
+            )
+
+    def round_edges(self, count: int) -> int:
+        """The static extent an array of ``count`` edge rows is padded to."""
+        count = int(count)
+        if self.edge_rounding == "exact":
+            return max(count, 1)
+        return max(self.min_edges, next_pow2(count))
+
+    def key(self) -> tuple:
+        """Hashable identity used in options/cache keys."""
+        return (self.edge_rounding, self.min_edges)
+
+
+DEFAULT_SHAPE_POLICY = ShapePolicy()
+
+
+# ---------------------------------------------------------------------------
+# Prep primitives — int32 tensors in and out, int64 only for indexing/keys
+# ---------------------------------------------------------------------------
+
+def _edge_sources(row_ptr: torch.Tensor, *, n: int, m_pad: int) -> torch.Tensor:
+    """src[i] = CSR row owning slot i (the device analogue of np.repeat)."""
+    slots = torch.arange(m_pad, dtype=torch.int32, device=row_ptr.device)
+    src = torch.searchsorted(row_ptr, slots, right=True, out_int32=True) - 1
+    return src.clamp_(0, max(n - 1, 0))
+
+
+def _csr_from_edges(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
+                    *, n: int, m_pad: int):
+    """Sort-based CSR build from a (possibly unsorted, masked) edge list.
+
+    Assumes the valid (src, dst) pairs are deduplicated directed edges;
+    invalid slots sort to the end. Returns (row_ptr, col_idx, m) with
+    ``col_idx`` padded with the sentinel ``n`` and ``m`` the valid count.
+    """
+    key = src.long() * (n + 1) + dst.long()
+    key.masked_fill_(~valid, torch.iinfo(torch.int64).max)
+    order = torch.argsort(key, stable=True)
+    skey = key[order]
+    m = int(valid.sum())
+    pos = torch.arange(m_pad, device=src.device)
+    col = torch.where(pos < m, dst[order], n).to(torch.int32)
+    row_starts = torch.arange(n + 1, dtype=torch.int64, device=src.device) * (n + 1)
+    row_ptr = torch.searchsorted(skey, row_starts, out_int32=True)
+    return row_ptr, col, m
+
+
+def _orient_forward_dev(row_ptr: torch.Tensor, col_idx: torch.Tensor, m: int,
+                        *, n: int, m_pad: int, mf_pad: int):
+    """Degree-rank forward orientation, compacted to static shape.
+
+    Keeps u→v iff rank(u) < rank(v) with rank = (degree, id). The kept
+    edges occupy the leading slots in CSR order; ``kvalid`` marks them.
+    Returns (fwd_src, fwd_dst, kvalid, fwd_row_ptr, fwd_deg).
+    """
+    dev = row_ptr.device
+    src = _edge_sources(row_ptr, n=n, m_pad=m_pad)
+    dst = col_idx
+    valid = torch.arange(m_pad, device=dev) < m
+    deg = torch.diff(row_ptr)
+    du = deg[src.long()]
+    dv = deg[dst.long().clamp(0, max(n - 1, 0))]
+    keep = valid & ((du < dv) | ((du == dv) & (src < dst)))
+    # stable: kept edges first, CSR order intact
+    order = torch.argsort((~keep).to(torch.uint8), stable=True)
+    take = order[:mf_pad]
+    kvalid = keep[take]
+    fsrc = torch.where(kvalid, src[take], 0).to(torch.int32)
+    fdst = torch.where(kvalid, dst[take], 0).to(torch.int32)
+    fdeg = torch.zeros(max(n, 1), dtype=torch.int32, device=dev)
+    fdeg.index_add_(0, fsrc.long(), kvalid.to(torch.int32))
+    fdeg = fdeg[:n]
+    frow_ptr = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    frow_ptr[1:] = torch.cumsum(fdeg, 0)
+    return fsrc, fdst, kvalid, frow_ptr, fdeg
+
+
+def _padded_neighbors_dev(src: torch.Tensor, dst: torch.Tensor,
+                          valid: torch.Tensor, row_ptr: torch.Tensor,
+                          *, n: int, width: int) -> torch.Tensor:
+    """(n, width) neighbour matrix padded with the in-row sentinel ``n``.
+
+    Edge slot i lands at column ``i - row_ptr[src[i]]`` (edges are in CSR
+    order, so each row's slots are contiguous). Slots that are invalid or
+    past ``width`` are masked out before the scatter: an out-of-range index
+    is a device fault on CUDA, not a dropped write.
+    """
+    src_l = src.long()
+    pos = torch.arange(src.shape[0], device=src.device) - row_ptr[src_l]
+    keep = valid & (pos < width)
+    out = torch.full((n, width), n, dtype=torch.int32, device=src.device)
+    out[src_l[keep], pos[keep]] = dst[keep].to(torch.int32)
+    return out
+
+
+def _bucket_sort_dev(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
+                     deg: torch.Tensor, bounds: torch.Tensor,
+                     *, n: int, num_bounds: int):
+    """Stable-sort edges into degree-class buckets.
+
+    Bucket of an edge = first bound ≥ max(deg[src], deg[dst]); invalid
+    slots sort into a trailing overflow class. Returns (sorted_src,
+    sorted_dst, counts, starts) with counts/starts per real bucket.
+    """
+    lim = max(n - 1, 0)
+    w = torch.maximum(deg[src.long().clamp(0, lim)],
+                      deg[dst.long().clamp(0, lim)])
+    b = torch.searchsorted(bounds, w.to(bounds.dtype), out_int32=True)
+    b = torch.where(valid, b, num_bounds)
+    order = torch.argsort(b, stable=True)  # CSR order kept within a bucket
+    counts = torch.bincount(b, minlength=num_bounds + 1)[:num_bounds]
+    starts = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])[:num_bounds]
+    return src[order], dst[order], counts, starts
+
+
+def _gather_bucket_dev(sorted_src: torch.Tensor, sorted_dst: torch.Tensor,
+                       start: int, count: int, nbrs: torch.Tensor,
+                       *, n: int, e_pad: int, width: int):
+    """Materialize one bucket's padded (e_pad, width) neighbour-list pair.
+
+    Rows past ``count`` are whole-row padding: u = -1, v = -2. Within real
+    rows u keeps the in-row sentinel ``n`` and v's is rewritten to
+    ``n + 1``. Returns (u_lists, v_lists, src, dst) as int32; padding rows
+    carry src = dst = 0 (their match counts are zero). Built in place, so
+    the largest transient is one (e_pad, width) bool mask.
+    """
+    dev = sorted_src.device
+    sb = torch.zeros(e_pad, dtype=torch.int32, device=dev)
+    db = torch.zeros(e_pad, dtype=torch.int32, device=dev)
+    sb[:count] = sorted_src[start:start + count]
+    db[:count] = sorted_dst[start:start + count]
+    cols = nbrs[:, :width]
+    u = cols.index_select(0, sb.long())
+    u[count:] = -1
+    v = cols.index_select(0, db.long())
+    v.masked_fill_(v == n, n + 1)
+    v[count:] = -2
+    return u, v, sb, db
+
+
+# ---------------------------------------------------------------------------
+# Containers
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class DeviceCSR:
+    """Device-resident CSR arrays (undirected-symmetric or oriented).
+
+    ``col_idx`` is padded to a policy-rounded length with the sentinel
+    ``n``; ``m`` is the true directed edge count.
+    """
+
+    n: int
+    m: int
+    row_ptr: torch.Tensor  # (n+1,) int32
+    col_idx: torch.Tensor  # (m_pad,) int32, padded with n
+
+    @property
+    def m_pad(self) -> int:
+        return int(self.col_idx.shape[0])
+
+    @property
+    def degrees(self) -> torch.Tensor:
+        return torch.diff(self.row_ptr)
+
+    @property
+    def device(self) -> torch.device:
+        return self.row_ptr.device
+
+    @classmethod
+    def from_graph(cls, g: Graph, policy: ShapePolicy = DEFAULT_SHAPE_POLICY,
+                   *, device: Union[str, torch.device]) -> "DeviceCSR":
+        """Upload a host ``Graph``, padding ``col_idx`` to the policy extent."""
+        m_pad = policy.round_edges(g.m_directed)
+        col = np.full(m_pad, g.n, dtype=np.int32)
+        col[:g.m_directed] = g.col_idx
+        return cls(n=g.n, m=g.m_directed,
+                   row_ptr=torch.as_tensor(g.row_ptr, dtype=torch.int32).to(device),
+                   col_idx=torch.from_numpy(col).to(device))
+
+    @classmethod
+    def from_edges(cls, src, dst, n: int, *, valid=None,
+                   policy: ShapePolicy = DEFAULT_SHAPE_POLICY,
+                   key_mode: str = "auto",
+                   device: Union[str, torch.device]) -> "DeviceCSR":
+        """Sort-based CSR build from deduplicated directed edges.
+
+        Args:
+          src, dst: equal-length integer arrays or tensors of directed
+            edges; need not be sorted.
+          n: vertex count.
+          valid: optional bool mask of live slots.
+          policy: extent-rounding policy for the arrays.
+          key_mode: checked by ``resolve_edge_key_mode`` (keys are int64 in
+            every mode).
+          device: where the arrays live.
+
+        Raises:
+          GraphTooLargeError: see :func:`resolve_edge_key_mode`.
+        """
+        resolve_edge_key_mode(n, key_mode, lane="csr-build")
+        src = torch.as_tensor(src).to(device=device, dtype=torch.int32)
+        dst = torch.as_tensor(dst).to(device=device, dtype=torch.int32)
+        e = int(src.shape[0])
+        valid = torch.ones(e, dtype=torch.bool, device=src.device) \
+            if valid is None else torch.as_tensor(valid).to(src.device, torch.bool)
+        m_pad = policy.round_edges(e)
+        pad = m_pad - e
+        if pad:
+            src = torch.cat([src, src.new_zeros(pad)])
+            dst = torch.cat([dst, dst.new_zeros(pad)])
+            valid = torch.cat([valid, valid.new_zeros(pad)])
+        row_ptr, col, m = _csr_from_edges(src, dst, valid, n=n, m_pad=m_pad)
+        return cls(n=int(n), m=m, row_ptr=row_ptr, col_idx=col)
+
+
+@dataclasses.dataclass
+class ForwardEdges:
+    """The degree-rank-oriented edge set of a ``DeviceGraph``."""
+
+    src: torch.Tensor      # (mf_pad,) int32, kept edges first
+    dst: torch.Tensor      # (mf_pad,) int32
+    kvalid: torch.Tensor   # (mf_pad,) bool
+    row_ptr: torch.Tensor  # (n+1,) int32
+    degrees: torch.Tensor  # (n,) int32 forward out-degrees
+    m: int                 # kept edge count (= m_directed // 2)
+
+
+class DeviceGraph:
+    """A graph resident on a device, with cached prep structure.
+
+    Wraps a ``DeviceCSR`` and a ``ShapePolicy``; the forward orientation and
+    padded neighbour matrices are computed lazily and cached on the
+    instance.
+    """
+
+    def __init__(self, csr: DeviceCSR, policy: ShapePolicy = DEFAULT_SHAPE_POLICY,
+                 name: str = "graph"):
+        self.csr = csr
+        self.policy = policy
+        self.name = name
+        self._fwd: Optional[ForwardEdges] = None
+        self._nbrs: Dict[Tuple[int, bool], torch.Tensor] = {}
+
+    @property
+    def n(self) -> int:
+        return self.csr.n
+
+    @property
+    def m(self) -> int:
+        """True directed edge count."""
+        return self.csr.m
+
+    @property
+    def m_undirected(self) -> int:
+        return self.csr.m // 2
+
+    @property
+    def device(self) -> torch.device:
+        return self.csr.device
+
+    def edge_sources(self) -> torch.Tensor:
+        """(m_pad,) CSR row of every directed edge slot."""
+        return _edge_sources(self.csr.row_ptr, n=self.n, m_pad=self.csr.m_pad)
+
+    def edge_valid(self) -> torch.Tensor:
+        """(m_pad,) mask of live (non-padding) edge slots."""
+        return torch.arange(self.csr.m_pad, device=self.device) < self.m
+
+    @classmethod
+    def from_graph(cls, g: Graph, policy: ShapePolicy = DEFAULT_SHAPE_POLICY,
+                   *, device: Union[str, torch.device]) -> "DeviceGraph":
+        return cls(DeviceCSR.from_graph(g, policy, device=device),
+                   policy=policy, name=g.name)
+
+    def forward(self) -> ForwardEdges:
+        """Degree-rank forward orientation (rank = (degree, id)), cached."""
+        if self._fwd is None:
+            mf_pad = max(1, self.csr.m_pad // 2)
+            fsrc, fdst, kvalid, frow_ptr, fdeg = _orient_forward_dev(
+                self.csr.row_ptr, self.csr.col_idx, self.m,
+                n=self.n, m_pad=self.csr.m_pad, mf_pad=mf_pad,
+            )
+            self._fwd = ForwardEdges(fsrc, fdst, kvalid, frow_ptr, fdeg,
+                                     m=self.m // 2)
+        return self._fwd
+
+    def padded_neighbors(self, width: int, *, oriented: bool) -> torch.Tensor:
+        """(n, width) neighbour matrix (in-row sentinel ``n``), cached.
+
+        ``oriented=True`` gathers the forward (N⁺) lists; ``False`` the full
+        undirected adjacency rows.
+        """
+        key = (int(width), bool(oriented))
+        if key not in self._nbrs:
+            if oriented:
+                fwd = self.forward()
+                self._nbrs[key] = _padded_neighbors_dev(
+                    fwd.src, fwd.dst, fwd.kvalid, fwd.row_ptr,
+                    n=self.n, width=int(width),
+                )
+            else:
+                self._nbrs[key] = _padded_neighbors_dev(
+                    self.edge_sources(), self.csr.col_idx, self.edge_valid(),
+                    self.csr.row_ptr, n=self.n, width=int(width),
+                )
+        return self._nbrs[key]
+
+    def __repr__(self) -> str:
+        return (f"DeviceGraph(name={self.name!r}, n={self.n}, "
+                f"m_undirected={self.m_undirected}, policy={self.policy}, "
+                f"device={self.device})")

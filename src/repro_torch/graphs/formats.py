@@ -1,0 +1,185 @@
+"""Host-side graph containers and format conversions (numpy).
+
+The port's own copy of the host layer of ``repro.graphs.formats``: CSR
+construction, forward (degree-rank) orientation, padded neighbour matrices
+and degree-class bucketing. These stay numpy on the host; the device prep
+that the counting lanes use lives in ``repro_torch.graphs.device``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+
+__all__ = [
+    "Graph",
+    "bucket_edges_by_degree",
+    "csr_to_padded_neighbors",
+    "edges_to_csr",
+    "graph_from_arrays",
+    "orient_forward",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class Graph:
+    """Undirected simple graph in CSR form.
+
+    ``col_idx`` stores both directions of every undirected edge,
+    deduplicated, self-loop free, sorted per row.
+    """
+
+    n: int
+    row_ptr: np.ndarray  # (n+1,) int32
+    col_idx: np.ndarray  # (m,) int32, m = #directed edges
+    name: str = "graph"
+
+    @property
+    def m_directed(self) -> int:
+        return int(self.col_idx.shape[0])
+
+    @property
+    def m_undirected(self) -> int:
+        return int(self.col_idx.shape[0]) // 2
+
+    @property
+    def degrees(self) -> np.ndarray:
+        return np.diff(self.row_ptr).astype(np.int32)
+
+    @property
+    def max_degree(self) -> int:
+        return int(self.degrees.max(initial=0))
+
+    def neighbors(self, v: int) -> np.ndarray:
+        return self.col_idx[self.row_ptr[v] : self.row_ptr[v + 1]]
+
+    def edge_endpoints(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(src, dst) of every directed CSR slot — src repeats each row id
+        by its degree."""
+        src = np.repeat(np.arange(self.n, dtype=np.int32), self.degrees)
+        return src, self.col_idx
+
+    def to_scipy(self):
+        import scipy.sparse as sp
+
+        data = np.ones_like(self.col_idx, dtype=np.int64)
+        return sp.csr_matrix(
+            (data, self.col_idx, self.row_ptr), shape=(self.n, self.n)
+        )
+
+
+def graph_from_arrays(n: int, row_ptr, col_idx, name: str = "graph") -> Graph:
+    """A ``Graph`` from CSR arrays another package produced.
+
+    Takes the fields of any CSR container (for example the reference
+    package's ``Graph``) as plain arrays, so that both packages count the
+    same graph. The arrays are copied to int32 and checked for shape.
+
+    Raises:
+      ValueError: ``row_ptr`` is not of length ``n + 1``, does not start at
+        0, or does not end at ``len(col_idx)``.
+    """
+    n = int(n)
+    row_ptr = np.array(row_ptr, dtype=np.int32).ravel()
+    col_idx = np.array(col_idx, dtype=np.int32).ravel()
+    if row_ptr.shape[0] != n + 1 or row_ptr[0] != 0 \
+            or row_ptr[-1] != col_idx.shape[0]:
+        raise ValueError(
+            f"row_ptr must have n+1={n + 1} entries from 0 to "
+            f"len(col_idx)={col_idx.shape[0]}, got {row_ptr.shape[0]} "
+            f"entries ending at {int(row_ptr[-1]) if row_ptr.size else None}"
+        )
+    return Graph(n=n, row_ptr=row_ptr, col_idx=col_idx, name=name)
+
+
+def edges_to_csr(
+    src: np.ndarray,
+    dst: np.ndarray,
+    n: Optional[int] = None,
+    name: str = "graph",
+) -> Graph:
+    """Build a simple undirected CSR graph from a (possibly dirty) edge list.
+
+    Symmetrizes, removes self loops, deduplicates parallel edges, and sorts
+    each adjacency list by neighbour id.
+    """
+    src = np.asarray(src, dtype=np.int64).ravel()
+    dst = np.asarray(dst, dtype=np.int64).ravel()
+    if n is None:
+        n = int(max(src.max(initial=-1), dst.max(initial=-1))) + 1
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    u = np.concatenate([src, dst])
+    v = np.concatenate([dst, src])
+    key = np.unique(u * n + v)  # unique sorts, so rows come out sorted
+    u = (key // n).astype(np.int32)
+    v = (key % n).astype(np.int32)
+    counts = np.bincount(u, minlength=n)
+    row_ptr = np.zeros(n + 1, dtype=np.int32)
+    np.cumsum(counts, out=row_ptr[1:])
+    return Graph(n=int(n), row_ptr=row_ptr, col_idx=v, name=name)
+
+
+def orient_forward(g: Graph) -> Graph:
+    """Forward DAG orientation: keep u→v iff rank(u) < rank(v), rank =
+    (degree, id). Rows of the result are the N⁺ lists, sorted by id."""
+    d = g.degrees
+    src, dst = g.edge_endpoints()
+    du, dv = d[src], d[dst]
+    keep = (du < dv) | ((du == dv) & (src < dst))
+    src, dst = src[keep], dst[keep]
+    counts = np.bincount(src, minlength=g.n)
+    row_ptr = np.zeros(g.n + 1, dtype=np.int32)
+    np.cumsum(counts, out=row_ptr[1:])
+    return Graph(n=g.n, row_ptr=row_ptr, col_idx=dst.astype(np.int32),
+                 name=g.name + "+fwd")
+
+
+def csr_to_padded_neighbors(
+    g: Graph, pad_to: Optional[int] = None, fill: Optional[int] = None
+) -> np.ndarray:
+    """(n, pad_to) neighbour matrix padded with ``fill`` (default ``n``, an
+    id that never matches a real neighbour). Rows wider than ``pad_to`` are
+    truncated; bucketed callers only index rows that fit."""
+    width = int(pad_to if pad_to is not None else max(1, g.max_degree))
+    fill_v = g.n if fill is None else fill
+    out = np.full((g.n, width), fill_v, dtype=np.int32)
+    d = g.degrees
+    if g.m_directed:
+        cols = np.arange(g.m_directed) - np.repeat(g.row_ptr[:-1], d)
+        rows = np.repeat(np.arange(g.n), d)
+        keep = cols < width
+        out[rows[keep], cols[keep]] = g.col_idx[keep]
+    return out
+
+
+def bucket_edges_by_degree(
+    src: np.ndarray,
+    dst: np.ndarray,
+    out_degree: np.ndarray,
+    widths: Sequence[int] = (8, 32, 128, 512),
+) -> list:
+    """Group edges by the max out-degree of their endpoints into buckets of
+    static width (the paper's TwoSmall/TwoLarge grouping).
+
+    Returns a list of dicts ``{width, src, dst}``, one per non-empty
+    bucket; edges wider than ``widths[-1]`` land in a final bucket of width
+    next pow2 ≥ the true max.
+    """
+    w = np.maximum(out_degree[src], out_degree[dst])
+    buckets = []
+    prev = 0
+    bounds = list(widths)
+    maxw = int(w.max(initial=0))
+    if maxw > bounds[-1]:
+        bounds.append(1 << int(np.ceil(np.log2(max(maxw, 1)))))
+    for width in bounds:
+        sel = (w > prev) & (w <= width)
+        if sel.any():
+            buckets.append(
+                dict(width=int(width), src=src[sel].copy(), dst=dst[sel].copy())
+            )
+        prev = width
+    return buckets

@@ -1,0 +1,92 @@
+"""ctypes binding of ``csrc/intersect.cu`` and the launch counters.
+
+Each kernel wrapper (``intersect.py``, ``probe.py``, ``bitmap.py``) checks
+its inputs here, allocates the ``(E,)`` int32 output with ``torch.empty``,
+launches on PyTorch's current stream, raises if the launch reported a CUDA
+error, and adds one to its entry of ``LAUNCHES``. Launches happen nowhere
+else, so the counters show which kernels a run went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+__all__ = ["LAUNCHES", "check_lists", "launch_counts", "reset_launch_counts"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "tc_broadcast_counts": (_P, _P, _P, _I, _I, _P),
+    "tc_probe_counts": (_P, _P, _P, _I, _I, _P),
+    "tc_bitmap_counts": (_P, _P, _P, _I, _I, _I, _P),
+}
+_FUNCTIONS = {"broadcast": "tc_broadcast_counts", "probe": "tc_probe_counts",
+              "bitmap": "tc_bitmap_counts"}
+
+#: Kernel launches per strategy since the last ``reset_launch_counts()``.
+LAUNCHES: Dict[str, int] = {k: 0 for k in _FUNCTIONS}
+
+_INT_MAX = 2 ** 31 - 1
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def check_lists(u: torch.Tensor, v: torch.Tensor) -> Tuple[int, int]:
+    """Validate a (u, v) pair for the kernels and return (E, W).
+
+    Raises:
+      ValueError: not 2-D int32 tensors of one shape on one device, not
+        contiguous, or an extent past int32.
+    """
+    if not (isinstance(u, torch.Tensor) and isinstance(v, torch.Tensor)):
+        raise ValueError("u_lists and v_lists must be torch tensors")
+    if u.dim() != 2 or u.shape != v.shape:
+        raise ValueError(f"u_lists and v_lists must be (E, W) of one shape, "
+                         f"got {tuple(u.shape)} and {tuple(v.shape)}")
+    if u.dtype != torch.int32 or v.dtype != torch.int32:
+        raise ValueError(f"u_lists and v_lists must be int32, "
+                         f"got {u.dtype} and {v.dtype}")
+    if u.device != v.device:
+        raise ValueError(f"u_lists on {u.device} but v_lists on {v.device}")
+    if not (u.is_contiguous() and v.is_contiguous()):
+        raise ValueError("u_lists and v_lists must be contiguous")
+    e, w = int(u.shape[0]), int(u.shape[1])
+    if e > _INT_MAX or w > _INT_MAX:
+        raise ValueError(f"(E, W) = ({e}, {w}) exceeds the kernels' int32 extents")
+    return e, w
+
+
+def launch_counts(strategy: str, u: torch.Tensor, v: torch.Tensor,
+                  *extra: int) -> torch.Tensor:
+    """Launch the ``strategy`` kernel on CUDA tensors; (E,) int32 counts.
+
+    ``extra`` holds the kernel's int arguments after W (``num_bits`` for
+    the bitmap kernel). An empty input launches nothing and counts nothing.
+
+    Raises:
+      ValueError: see ``check_lists``, or tensors not on a CUDA device.
+      RuntimeError: the build failed or the launch reported a CUDA error.
+    """
+    e, w = check_lists(u, v)
+    if u.device.type != "cuda":
+        raise ValueError(f"the {strategy} kernel takes CUDA tensors, got {u.device}")
+    out = torch.empty(e, dtype=torch.int32, device=u.device)
+    if e == 0 or w == 0:
+        return out.zero_()
+    lib = _build.load_library("intersect", _SIGNATURES)
+    fn = getattr(lib, _FUNCTIONS[strategy])
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(u.data_ptr(), v.data_ptr(), out.data_ptr(), e, w, *extra, stream)
+    if err != 0:
+        raise RuntimeError(f"{_FUNCTIONS[strategy]} launch failed with CUDA "
+                           f"error {err} at (E, W) = ({e}, {w})")
+    LAUNCHES[strategy] += 1
+    return out

@@ -1,0 +1,103 @@
+"""The port's CUDA kernels against their plain torch versions, on the card.
+
+Marked ``cuda``: each test decides at run time whether a CUDA device is
+present and skips with a reason if not, so this file collects the same
+tests everywhere. Run on a machine with an H100 (or any sm_90a card):
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import TriangleCounter, triangle_count_scipy
+from repro_torch.graphs import load_dataset, rmat_graph
+from repro_torch.kernels.intersect import (
+    LAUNCHES,
+    intersect_counts_bitmap,
+    intersect_counts_bitmap_kernel,
+    intersect_counts_broadcast,
+    intersect_counts_kernel,
+    intersect_counts_probe,
+    intersect_counts_probe_kernel,
+    intersect_counts_ref,
+    reset_launch_counts,
+)
+
+pytestmark = pytest.mark.cuda
+
+SHAPES = [(1, 8), (255, 8), (257, 32), (1000, 100), (4097, 128), (333, 512),
+          (129, 1000), (77, 1024), (64, 1500), (9, 8200)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def lists(e: int, w: int, seed: int):
+    """Sorted unique ids below n = 3·w + 50 with sentinels n / n + 1 and a
+    few whole padding rows (-1 / -2)."""
+    rng = np.random.default_rng(seed)
+    n = 3 * w + 50
+
+    def side(fill):
+        rows = np.sort(rng.random((e, n)).argsort(axis=1)[:, :w], axis=1)
+        rows = rows.astype(np.int32)
+        deg = rng.integers(0, w + 1, size=e)
+        rows[np.arange(w)[None, :] >= deg[:, None]] = fill
+        return rows
+
+    u, v = side(n), side(n + 1)
+    pad = e // 10
+    if pad:
+        u[-pad:], v[-pad:] = -1, -2
+    return u, v
+
+
+@pytest.mark.parametrize("e,w", SHAPES)
+def test_kernels_equal_plain_versions(cuda, e, w):
+    u_np, v_np = lists(e, w, seed=e + w)
+    u, v = torch.from_numpy(u_np).to(cuda), torch.from_numpy(v_np).to(cuda)
+    pairs = [
+        (intersect_counts_kernel(u, v), intersect_counts_broadcast(u, v)),
+        (intersect_counts_probe_kernel(u, v), intersect_counts_probe(u, v)),
+    ]
+    for bits in (32, (3 * w + 52 + 31) // 32 * 32, 65536):  # low, id range, cap
+        pairs.append((intersect_counts_bitmap_kernel(u, v, num_bits=bits),
+                      intersect_counts_bitmap(u, v, num_bits=bits)))
+    torch.cuda.synchronize()
+    for k, p in pairs:
+        assert k.dtype == torch.int32 and k.device.type == "cuda"
+        assert torch.equal(k, p)
+    assert torch.equal(pairs[0][0], intersect_counts_ref(u.cpu(), v.cpu()).to(cuda))
+
+
+def test_launch_counters_and_input_checks(cuda):
+    u, v = (torch.from_numpy(a).to(cuda) for a in lists(100, 16, seed=1))
+    reset_launch_counts()
+    intersect_counts_kernel(u, v)
+    intersect_counts_probe_kernel(u, v)
+    intersect_counts_bitmap_kernel(u, v, num_bits=128)
+    intersect_counts_kernel(u[:0], v[:0])  # empty: no launch
+    assert LAUNCHES == {"broadcast": 1, "probe": 1, "bitmap": 1}
+    with pytest.raises(ValueError, match="int32"):
+        intersect_counts_kernel(u.long(), v.long())
+    with pytest.raises(ValueError, match="but v_lists on"):
+        intersect_counts_probe_kernel(u, v.cpu())
+
+
+@pytest.mark.parametrize("strategy", ["auto", "broadcast", "probe", "bitmap"])
+def test_counter_on_card_matches_scipy(cuda, strategy):
+    for g in (load_dataset("tiny-rmat"), rmat_graph(10, 8, seed=3)):
+        reset_launch_counts()
+        tc = TriangleCounter(g, algorithm="intersection", strategy=strategy)
+        assert tc.count() == triangle_count_scipy(g)
+        assert sum(LAUNCHES.values()) == tc.plan.num_stages
+        np.testing.assert_array_equal(
+            tc.triangles_per_vertex(),
+            TriangleCounter(g, algorithm="intersection", device="cpu")
+            .triangles_per_vertex())
