@@ -6,23 +6,38 @@
 Run from the root of a checkout on a machine with an NVIDIA Hopper card,
 ``nvcc`` and PyTorch built for CUDA. It imports ``repro_torch`` from ``src/``
 (never JAX, never ``repro``), builds the CUDA kernels from
-``src/repro_torch/csrc`` into ``build/repro_torch/``, and runs, in order:
+``src/repro_torch/csrc`` into ``build/repro_torch/`` (one ``nvcc`` per
+source, all started together), and runs, in order:
 
 1. environment: the card (and its power limit), torch/CUDA/nvcc versions
    and the kernels' build time;
-2. the main path: ``TriangleCounter(rmat_graph(18, 16, seed=1))`` with
-   default options (auto → intersection, buckets on the card), checked
-   against the forward-DAG scipy oracle and 82,629,122, with the broadcast
-   and probe kernels' launch counters read around it; per-vertex counts
-   must sum to 3 × count;
+2. the main path (intersection lane): ``TriangleCounter(rmat_graph(18, 16,
+   seed=1))`` with default options (auto → intersection, buckets on the
+   card), checked against the forward-DAG scipy oracle and 82,629,122, with
+   the broadcast and probe kernels' launch counters read around it;
+   per-vertex counts must sum to 3 × count;
 3. each strategy forced in turn on every non-tiny Table-1 analogue of
    ``graphs/datasets.py``, counts against ``triangle_count_scipy`` and
    per-vertex counts against the filtered auto run; the bitmap kernel's
    counter is read around this phase, its main path;
+3b. the matrix lane: ``TriangleCounter(load_dataset("orkut-like"),
+   algorithm="matrix")`` (90,025 tile triples of B = 128 resident on the
+   card) against the oracle and 13,038,569, with the masked-SpGEMM
+   kernel's counter read around it; ``complete_graph(512)`` through auto
+   (→ matrix, 22,238,720, past 2²⁴); matrix forced on coauthors-like and
+   road-like (B = 32) against scipy;
+3c. the subgraph lane: ``TriangleCounter(grid_graph(3000, diagonals=True,
+   spur_fraction=0.35, seed=3))`` with default options (auto → subgraph; a
+   road_central-sized mesh, n = 12,150,000) against the oracle and
+   17,988,002 = 2·2999², the peel against a numpy 2-core fixed point,
+   per-vertex counts summing to 3 × count, with the broadcast kernel's
+   counter read around it; subgraph forced on every non-tiny analogue
+   against scipy and the intersection lane's per-vertex counts;
 4. each kernel against its plain torch version on the card, exactly, at
-   the bucket shapes its path gave it and on ragged shapes; the kernel's
-   time (CUDA events, L2 flushed before each launch), the plain version's
-   time, and the bytes bound;
+   the shapes its path gave it and on ragged shapes; the kernel's time
+   (CUDA events, L2 flushed before each launch), the plain version's time,
+   the bound and, for the masked SpGEMM, one library call's time as a
+   yardstick;
 5. a ``{"kernels": [...]}`` line, the card's name and power limit from
    nvidia-smi, and a last line ``{"ok": true, "device": {...}}``.
 
@@ -33,18 +48,27 @@ line. Without a CUDA device, or outside a checkout, it exits 2 at once.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 EXPECTED_SCALE18 = 82_629_122
+EXPECTED_ORKUT = 13_038_569
+EXPECTED_K512 = math.comb(512, 3)  # 22,238,720
+GRID_SIDE = 3000
+EXPECTED_GRID = 2 * (GRID_SIDE - 1) ** 2  # two triangles per unit square
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 ALU_OPS_PER_S = 67e12      # H100 SXM non-tensor 32-bit rate, NVIDIA data sheet
+# H100 SXM dense bf16 tensor-core rate, NVIDIA data sheet: 0/1 tiles are
+# exact in bf16, so the masked SpGEMM's least time counts its operations there
+TENSOR_OPS_PER_S = 989e12
 KERNELS = {
     "broadcast": dict(
         name="intersect_broadcast", plain="intersect_counts_broadcast",
@@ -62,7 +86,8 @@ T_START = time.perf_counter()
 
 
 def phase(title: str) -> None:
-    print(f"== [{time.perf_counter() - T_START:7.1f} s] {title}", flush=True)
+    print(f"== [{time.perf_counter() - T_START:7.1f} s, "
+          f"{time.strftime('%H:%M:%S')}] {title}", flush=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -85,6 +110,60 @@ def bound_ms(e: int, w: int) -> tuple:
     t_bytes = (2 * e * w * 4 + 4 * e) / HBM_BYTES_PER_S * 1e3
     t_ops = (2 * e * w) / ALU_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def spgemm_bound_ms(t: int, b: int) -> tuple:
+    """Least time for T masked B×B tile products: read the three (T, B, B)
+    float32 stacks once and write the (T,) partials, against 2·T·B³
+    operations at the bf16 tensor-core rate (0/1 values are exact there).
+    Returns (ms, "bytes" | "operations")."""
+    t_bytes = (3 * t * b * b * 4 + 4 * t) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * t * b ** 3 / TENSOR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def spgemm_library(torch, l, u, a):
+    """The yardstick: one PyTorch expression computing the same function
+    (fp32 ``bmm``, TF32 off). The port never calls it."""
+    return (torch.bmm(l, u) * a).sum((1, 2))
+
+
+def random_tiles(np, rng, t: int, b: int):
+    """Three (T, B, B) float32 0/1 stacks, each tile at a density drawn
+    from 0.02–0.5."""
+    out = []
+    for _ in range(3):
+        dens = rng.uniform(0.02, 0.5, size=(t, 1, 1)).astype(np.float32)
+        out.append((rng.random((t, b, b), dtype=np.float32) < dens)
+                   .astype(np.float32))
+    return out
+
+
+def two_core_numpy(np, g):
+    """The 2-core of ``g`` as a numpy fixed point, independent of the
+    port's peel: drop vertices with fewer than two live neighbours until
+    nothing changes. Returns (alive, rounds)."""
+    src = np.repeat(np.arange(g.n), np.diff(g.row_ptr))
+    dst = g.col_idx
+    alive = np.ones(g.n, dtype=bool)
+    rounds = 0
+    while True:
+        rounds += 1
+        live = alive[src] & alive[dst]
+        deg = np.bincount(src[live], minlength=g.n)
+        new = alive & (deg >= 2)
+        if (new == alive).all():
+            return alive, rounds
+        alive = new
+
+
+def peak_memory(torch, held: int) -> str:
+    """The peak since the last reset, and the part of it that the earlier
+    phases' plans held before this one started."""
+    peak = torch.cuda.max_memory_allocated()
+    return (f"max_memory_allocated {peak / 2**30:.2f} GiB, of which "
+            f"{held / 2**30:.2f} GiB held by earlier phases: this lane's "
+            f"peak {(peak - held) / 2**30:.2f} GiB")
 
 
 def time_ms(torch, fn, reps: int, flush) -> float:
@@ -137,13 +216,19 @@ def main() -> int:
 
     from repro_torch.core import (TriangleCounter, triangle_count_forward_scipy,
                                   triangle_count_scipy)
-    from repro_torch.graphs import available_datasets, load_dataset, rmat_graph
+    from repro_torch.graphs import (available_datasets, complete_graph,
+                                    grid_graph, load_dataset, rmat_graph)
     from repro_torch.kernels import _build
     from repro_torch.kernels.intersect import (
         LAUNCHES, intersect_counts_bitmap, intersect_counts_bitmap_kernel,
         intersect_counts_broadcast, intersect_counts_kernel,
         intersect_counts_probe, intersect_counts_probe_kernel,
         reset_launch_counts)
+    from repro_torch.kernels.masked_spgemm import LAUNCHES as MS_LAUNCHES
+    from repro_torch.kernels.masked_spgemm import (masked_spgemm_chunked,
+                                                   masked_spgemm_kernel)
+    from repro_torch.kernels.masked_spgemm import \
+        reset_launch_counts as reset_ms_launch_counts
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -159,11 +244,15 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
     print(f"nvcc: {nvcc.splitlines()[-1]}")
     t0 = time.perf_counter()
-    lib = _build.build("intersect")
-    print(f"build: {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "Used" in line or "spill" in line or "Compiling entry" in line:
-            print(f"  ptxas: {line.strip()}")
+    sources = ("intersect", "masked_spgemm")
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
+        libs = list(pool.map(_build.build, sources))
+    print(f"build: {[str(lib.relative_to(ROOT)) for lib in libs]} in "
+          f"{time.perf_counter() - t0:.2f} s (in parallel)")
+    for lib in libs:
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "Used" in line or "spill" in line or "Compiling entry" in line:
+                print(f"  ptxas: {line.strip()}")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
 
     # -- phase 2: the main path -------------------------------------------
@@ -211,13 +300,13 @@ def main() -> int:
     phase("phase 3: strategies forced on the Table-1 analogues")
     reset_launch_counts()
     bitmap_stages = []
-    for name in available_datasets():
-        if name.startswith("tiny-"):
-            continue
+    analogues = [x for x in available_datasets() if not x.startswith("tiny-")]
+    truths, inter_tpv = {}, {}
+    for name in analogues:
         d = load_dataset(name)
-        truth = triangle_count_scipy(d)
+        truth = truths[name] = triangle_count_scipy(d)
         base = TriangleCounter(d, algorithm="intersection")
-        base_tpv = base.triangles_per_vertex()
+        base_tpv = inter_tpv[name] = base.triangles_per_vertex()
         line = [f"{name}: n={d.n} m={d.m_undirected} scipy={truth} "
                 f"auto={base.count().bucket_strategies}"]
         for strategy in ("broadcast", "probe", "bitmap"):
@@ -236,6 +325,122 @@ def main() -> int:
     check(all(v > 0 for v in forced_launches.values()),
           "every kernel launched by the forced runs")
 
+    # -- phase 3b: the matrix lane ------------------------------------------
+    phase("phase 3b: matrix lane, TriangleCounter(orkut-like, algorithm='matrix')")
+    t0 = time.perf_counter()
+    g = load_dataset("orkut-like")
+    oracle = triangle_count_forward_scipy(g)
+    print(f"graph: n={g.n} m={g.m_undirected} max_degree={g.max_degree}; "
+          f"host generation + forward scipy oracle {time.perf_counter() - t0:.2f} s")
+    check(oracle == EXPECTED_ORKUT, f"forward scipy oracle = {oracle}")
+    held = torch.cuda.memory_allocated()  # earlier phases' plans
+    torch.cuda.reset_peak_memory_stats()
+    reset_ms_launch_counts()
+    tc = TriangleCounter(g, algorithm="matrix")
+    first = tc.count()
+    warm = [tc.count() for _ in range(5)]
+    matrix_launches = MS_LAUNCHES["masked_spgemm"]
+    m = first.meta
+    stack_gib = 3 * m["num_triples"] * m["block"] ** 2 * 4 / 2**30
+    print(f"block={m['block']} num_triples={m['num_triples']} tiles "
+          f"L/U/A={m['l_tiles']}/{m['u_tiles']}/{m['a_tiles']} grid={m['grid']} "
+          f"resident stacks {stack_gib:.2f} GiB")
+    print(f"host schedule {m['schedule_seconds']:.3f} s; host-to-device copy "
+          f"of the unique tiles + device gather {m['upload_seconds']:.3f} s; "
+          f"prep_seconds={first.prep_seconds:.3f}; first count() "
+          f"{first.exec_seconds:.4f} s; warm count() seconds "
+          f"{[round(r.exec_seconds, 6) for r in warm]} (median "
+          f"{statistics.median(r.exec_seconds for r in warm):.6f}); "
+          f"{peak_memory(torch, held)}")
+    print(f"masked_spgemm launches over {1 + len(warm)} count(): {matrix_launches}")
+    check(first.algorithm == "matrix", "algorithm = matrix")
+    check(m["num_triples"] == 90025 and m["block"] == 128,
+          f"num_triples = {m['num_triples']}, block = {m['block']}")
+    check(all(r.count == EXPECTED_ORKUT for r in [first] + warm),
+          f"count() = {first.count} every time, = oracle")
+    check(matrix_launches == 1 + len(warm),
+          "one masked_spgemm launch per count()")
+    spgemm_paths = [("orkut-like", tc.plan.stages[0].args)]
+    del tc
+    k512 = complete_graph(512)
+    res = TriangleCounter(k512).count()
+    check(res.algorithm == "matrix" and res.count == EXPECTED_K512
+          and res.count == triangle_count_scipy(k512),
+          f"complete_graph(512): auto → {res.algorithm}, count {res.count} "
+          f"(> 2^24, num_triples {res.meta['num_triples']})")
+    for name in ("coauthors-like", "road-like"):
+        s = TriangleCounter(load_dataset(name), algorithm="matrix")
+        c = s.count()
+        check(c.count == truths[name],
+              f"{name} matrix count {c.count} = scipy (block {c.meta['block']}, "
+              f"num_triples {c.meta['num_triples']}, warm count "
+              f"{s.count().exec_seconds * 1e3:.3f} ms)")
+        if name == "road-like":
+            check(c.meta["block"] == 32, "road-like takes B = 32")
+            spgemm_paths.append((name, s.plan.stages[0].args))
+
+    # -- phase 3c: the subgraph lane ----------------------------------------
+    phase(f"phase 3c: subgraph lane, TriangleCounter(grid_graph({GRID_SIDE}, "
+          f"diagonals=True, spur_fraction=0.35, seed=3))")
+    t0 = time.perf_counter()
+    g = grid_graph(GRID_SIDE, diagonals=True, spur_fraction=0.35, seed=3)
+    t_gen = time.perf_counter() - t0
+    oracle = triangle_count_forward_scipy(g)
+    t_oracle = time.perf_counter() - t0 - t_gen
+    alive_np, np_rounds = two_core_numpy(np, g)
+    avg_deg = 2 * g.m_undirected / g.n
+    print(f"graph: n={g.n} m={g.m_undirected} max_degree={g.max_degree} "
+          f"skew={g.max_degree / avg_deg:.2f}; host generation {t_gen:.2f} s, "
+          f"forward scipy oracle {t_oracle:.2f} s, numpy 2-core "
+          f"{time.perf_counter() - t0 - t_gen - t_oracle:.2f} s "
+          f"({np_rounds} rounds)")
+    check(oracle == EXPECTED_GRID, f"forward scipy oracle = {oracle} = 2·2999²")
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    tc = TriangleCounter(g)
+    first = tc.count()
+    warm = [tc.count() for _ in range(5)]
+    subgraph_launches = dict(LAUNCHES)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    tpv = tc.triangles_per_vertex()
+    tpv_s = time.perf_counter() - t0
+    m = first.meta
+    print(f"algorithm={first.algorithm} vertices_pruned={m['vertices_pruned']} "
+          f"peel_rounds={m['peel_rounds']} edges_after={m['edges_after']} "
+          f"buckets={m['bucket_shapes']} strategies={first.bucket_strategies} "
+          f"edges/bucket={m['bucket_edges']}")
+    print(f"prep_seconds={first.prep_seconds:.4f} first count() "
+          f"{first.exec_seconds:.4f} s; warm count() seconds "
+          f"{[round(r.exec_seconds, 6) for r in warm]} (median "
+          f"{statistics.median(r.exec_seconds for r in warm):.6f}); "
+          f"triangles_per_vertex {tpv_s:.3f} s; {peak_memory(torch, held)}")
+    print(f"launches over {1 + len(warm)} count(): {subgraph_launches}; "
+          f"over triangles_per_vertex(): {dict(LAUNCHES)}")
+    check(first.algorithm == "subgraph", "auto resolved to subgraph")
+    check(all(r.count == EXPECTED_GRID for r in [first] + warm),
+          f"count() = {first.count} every time, = oracle")
+    check(m["vertices_pruned"] == int((~alive_np).sum())
+          and m["peel_rounds"] == np_rounds,
+          f"peel = numpy 2-core ({m['vertices_pruned']} pruned, "
+          f"{np_rounds} rounds)")
+    check(subgraph_launches["broadcast"] > 0,
+          "broadcast kernel launched by count()")
+    check(int(tpv.sum()) == 3 * first.count and tpv.shape == (g.n,),
+          f"triangles_per_vertex().sum() = {int(tpv.sum())} = 3 × count")
+    check(first.meta["num_embeddings"] == 6 * first.count,
+          "num_embeddings = 6 × count")
+    subgraph_stages = tc.plan.stages
+    del tc, tpv, g, alive_np
+    for name in analogues:
+        s = TriangleCounter(load_dataset(name), algorithm="subgraph")
+        c = s.count()
+        check(c.count == truths[name]
+              and bool((s.triangles_per_vertex() == inter_tpv[name]).all()),
+              f"{name} subgraph count {c.count} = scipy, per-vertex = "
+              f"intersection lane ({c.meta['vertices_pruned']} pruned)")
+
     # -- phase 4: kernels against their plain versions ----------------------
     phase("phase 4: kernels against plain torch versions")
     wrappers = {
@@ -248,8 +453,34 @@ def main() -> int:
         "probe": [st for st in main_stages if st.strategy == "probe"],
         "bitmap": bitmap_stages,
     }
+    def intersect_case(strategy, st):
+        """Hold one path stage's kernel against its plain version, exactly,
+        and time both; returns the shape's record."""
+        kern, plain = wrappers[strategy]
+        u, v = st.args
+        kw = dict(num_bits=st.bitmap_bits) if strategy == "bitmap" else {}
+        k_out = kern(u, v, **kw)
+        p_out = plain(u, v, **kw)
+        torch.cuda.synchronize()
+        err = int((k_out.long() - p_out.long()).abs().max()) if u.shape[0] else 0
+        check(err == 0, f"{strategy} kernel == plain at {tuple(u.shape)} "
+                        f"{kw or ''}")
+        k_ms = time_ms(torch, lambda: kern(u, v, **kw), 7, flush)
+        p_ms = time_ms(torch, lambda: plain(u, v, **kw), 3, flush)
+        b_ms, b_by = bound_ms(*u.shape)
+        shape = dict(shape=list(u.shape), ms=k_ms, plain_ms=p_ms,
+                     bound_ms=b_ms, bound_by=b_by, max_abs_err=err, **kw)
+        if strategy == "probe":
+            shape["yardstick_ms"] = time_ms(torch, lambda: torch.searchsorted(
+                v, u, out_int32=True), 3, flush)
+        print(f"  {strategy} {tuple(u.shape)} {kw or ''}: kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
+              + (f", torch.searchsorted {shape['yardstick_ms']:.4f} ms"
+                 if strategy == "probe" else ""), flush=True)
+        return shape
+
     report = []
-    for strategy, (kern, plain) in wrappers.items():
+    for strategy in wrappers:
         entry = dict(name=KERNELS[strategy]["name"], route="cuda",
                      source="src/repro_torch/csrc/intersect.cu",
                      replaces=KERNELS[strategy]["replaces"],
@@ -261,41 +492,30 @@ def main() -> int:
                      tolerance=0, max_abs_err=0, ms=0.0, plain_ms=0.0,
                      bound_ms=0.0,
                      bound_by=None, library_ms=None, shapes=[])
-        yard = 0.0
         for st in paths[strategy]:
-            u, v = st.args
-            kw = dict(num_bits=st.bitmap_bits) if strategy == "bitmap" else {}
-            k_out = kern(u, v, **kw)
-            p_out = plain(u, v, **kw)
-            torch.cuda.synchronize()
-            err = int((k_out.long() - p_out.long()).abs().max()) if u.shape[0] else 0
-            check(err == 0, f"{strategy} kernel == plain at {tuple(u.shape)} "
-                            f"{kw or ''}")
-            k_ms = time_ms(torch, lambda: kern(u, v, **kw), 7, flush)
-            p_ms = time_ms(torch, lambda: plain(u, v, **kw), 3, flush)
-            b_ms, b_by = bound_ms(*u.shape)
-            shape = dict(shape=list(u.shape), ms=k_ms, plain_ms=p_ms,
-                         bound_ms=b_ms, bound_by=b_by, **kw)
-            if strategy == "probe":
-                y_ms = time_ms(torch, lambda: torch.searchsorted(
-                    v, u, out_int32=True), 3, flush)
-                shape["yardstick_ms"] = y_ms
-                yard += y_ms
+            shape = intersect_case(strategy, st)
             entry["shapes"].append(shape)
-            entry["ms"] += k_ms
-            entry["plain_ms"] += p_ms
-            entry["bound_ms"] += b_ms
-            entry["max_abs_err"] = max(entry["max_abs_err"], err)
-            print(f"  {strategy} {tuple(u.shape)} {kw or ''}: kernel {k_ms:.4f} ms, "
-                  f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
-                  + (f", torch.searchsorted {shape['yardstick_ms']:.4f} ms"
-                     if strategy == "probe" else ""), flush=True)
+            entry["ms"] += shape["ms"]
+            entry["plain_ms"] += shape["plain_ms"]
+            entry["bound_ms"] += shape["bound_ms"]
+            entry["max_abs_err"] = max(entry["max_abs_err"], shape["max_abs_err"])
+        check(bool(entry["shapes"]), f"{strategy} kernel has shapes on its path")
         # the largest shape's bound names the kernel's
         entry["bound_by"] = max(entry["shapes"], key=lambda x: x["bound_ms"])["bound_by"]
         if strategy == "probe":
             entry["yardstick"] = "torch.searchsorted(v, u, out_int32=True) " \
                                  "(positions only, not the same function)"
-            entry["yardstick_ms"] = yard
+            entry["yardstick_ms"] = sum(x["yardstick_ms"] for x in entry["shapes"])
+        # the subgraph lane's buckets on the road_central-sized grid, kept
+        # apart from the scale-18 totals above
+        sub = [intersect_case(strategy, st) for st in subgraph_stages
+               if st.strategy == strategy]
+        if sub:
+            entry["subgraph_path"] = dict(
+                path=f"grid_graph({GRID_SIDE}) subgraph count()",
+                launches=subgraph_launches[strategy], shapes=sub)
+            entry["max_abs_err"] = max([entry["max_abs_err"]]
+                                       + [x["max_abs_err"] for x in sub])
         report.append(entry)
 
     rng = np.random.default_rng(0)
@@ -316,6 +536,61 @@ def main() -> int:
             torch.cuda.synchronize()
             check(err == 0, f"ragged {strategy} ({e}, {w}) {kw or ''} "
                             f"kernel == plain")
+
+    # K4, the masked block-SpGEMM: at the matrix lane's stacks, then ragged
+    torch.backends.cuda.matmul.allow_tf32 = False  # the yardstick in full fp32
+
+    def spgemm_case(label, l, u, a):
+        """Hold K4 against its plain version, exactly, and time it, the
+        plain version and the library yardstick; returns the record."""
+        t, b = int(l.shape[0]), int(l.shape[1])
+        k_out = masked_spgemm_kernel(l, u, a)
+        p_out = masked_spgemm_chunked(l, u, a)
+        y_out = spgemm_library(torch, l, u, a)
+        torch.cuda.synchronize()
+        err = float((k_out - p_out).abs().max()) if t else 0.0
+        y_err = float((k_out - y_out).abs().max()) if t else 0.0
+        check(err == 0, f"masked_spgemm kernel == plain at ({t}, {b}, {b}) "
+                        f"{label}")
+        k_ms = time_ms(torch, lambda: masked_spgemm_kernel(l, u, a), 7, flush)
+        p_ms = time_ms(torch, lambda: masked_spgemm_chunked(l, u, a), 3, flush)
+        y_ms = time_ms(torch, lambda: spgemm_library(torch, l, u, a), 3, flush)
+        b_ms, b_by = spgemm_bound_ms(t, b)
+        print(f"  masked_spgemm ({t}, {b}, {b}) {label}: kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library "
+              f"{y_ms:.4f} ms (|kernel - library| max {y_err})", flush=True)
+        return dict(shape=[t, b, b], label=label, ms=k_ms, plain_ms=p_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=y_ms,
+                    max_abs_err=err, library_max_abs_err=y_err)
+
+    entry = dict(name="masked_spgemm", route="cuda",
+                 source="src/repro_torch/csrc/masked_spgemm.cu",
+                 replaces="src/repro/kernels/masked_spgemm/masked_spgemm.py:35",
+                 plain="masked_spgemm_chunked",
+                 path="orkut-like matrix count(); road-like forced matrix",
+                 launches=matrix_launches, tolerance=0, max_abs_err=0.0,
+                 ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by=None,
+                 library_ms=0.0,
+                 library="(torch.bmm(L, U) * A).sum((1, 2)), float32, TF32 "
+                         "off (a yardstick; the port never calls it)",
+                 shapes=[], ragged=[])
+    for label, (l, u, a) in spgemm_paths:
+        rec = spgemm_case(label, l, u, a)
+        entry["shapes"].append(rec)
+        for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            entry[k] += rec[k]
+        entry["max_abs_err"] = max(entry["max_abs_err"], rec["max_abs_err"])
+    entry["bound_by"] = max(entry["shapes"], key=lambda x: x["bound_ms"])["bound_by"]
+    del spgemm_paths, l, u, a
+    rng = np.random.default_rng(12)
+    for t in (1, 7, 1000):
+        for b in (1, 8, 33, 48, 100, 128, 256):
+            l, u, a = (torch.from_numpy(x).to(dev)
+                       for x in random_tiles(np, rng, t, b))
+            rec = spgemm_case("ragged", l, u, a)
+            entry["ragged"].append(rec)
+            entry["max_abs_err"] = max(entry["max_abs_err"], rec["max_abs_err"])
+    report.append(entry)
     for entry in report:
         entry.update(max_abs_diff=entry["max_abs_err"], kernel_ms=entry["ms"])
 

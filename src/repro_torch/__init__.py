@@ -1,9 +1,11 @@
 """PyTorch/CUDA port of the triangle-counting system in ``repro``.
 
-The intersection lane runs end to end: numpy ``Graph`` → device prep in
-torch → per-bucket set intersection through hand-written CUDA kernels for
-Hopper (``csrc/intersect.cu``, built with ``nvcc`` at first use) →
-``TriangleCounter(g).count()``. Entry points run on the CUDA device unless
+The paper's three formulations run end to end: numpy ``Graph`` → device
+prep in torch → hand-written CUDA kernels for Hopper, built with ``nvcc``
+at first use → ``TriangleCounter(g).count()``. The intersection lane (and
+the subgraph lane, after its 2-core peel) counts per-bucket set
+intersections (``csrc/intersect.cu``); the matrix lane runs a fused masked
+block-SpGEMM over a tile schedule (``csrc/masked_spgemm.cu``). Entry points run on the CUDA device unless
 they are given ``device="cpu"``, where each kernel's plain torch version
 runs instead. The package imports neither JAX nor ``repro``.
 """

@@ -1,4 +1,5 @@
-"""Triangle counting: options, registry, plan/execute engine, front door."""
+"""Triangle counting: options, registry, plan/execute engine, the three
+lanes (intersection, subgraph, matrix), front door."""
 
 from repro_torch.core.options import CountOptions, DEFAULT_WIDTHS
 from repro_torch.core.registry import (
@@ -16,6 +17,12 @@ from repro_torch.core.engine import (
     set_cache_limit,
 )
 from repro_torch.core.api import CountResult, CounterSession, TriangleCounter
+from repro_torch.core.prep import (
+    build_tile_schedule,
+    choose_block,
+    peel_to_two_core,
+)
+from repro_torch.core.tc_subgraph import subgraph_match_triangle
 from repro_torch.core.oracle import (
     triangle_count_brute,
     triangle_count_forward_cpu,
@@ -32,15 +39,19 @@ __all__ = [
     "TriangleCounter",
     "TrianglePlan",
     "available_algorithms",
+    "build_tile_schedule",
     "cache_info",
+    "choose_block",
     "choose_algorithm",
     "clear_caches",
     "executable_cache_info",
     "get_algorithm",
+    "peel_to_two_core",
     "plan_triangle_count",
     "prep",
     "register_algorithm",
     "set_cache_limit",
+    "subgraph_match_triangle",
     "triangle_count_brute",
     "triangle_count_forward_cpu",
     "triangle_count_forward_scipy",

@@ -1,6 +1,7 @@
 """One front door for triangle counting: ``TriangleCounter`` + ``CountResult``.
 
-The port of ``repro.core.api`` for the intersection lane:
+The port of ``repro.core.api`` for the intersection, subgraph and matrix
+lanes:
 
     from repro_torch.core import TriangleCounter
 
@@ -129,6 +130,8 @@ class CounterSession:
         c = plan.count()
         exec_seconds = time.perf_counter() - t0
         meta = dict(plan.meta)
+        if self.algorithm == "subgraph":
+            meta["num_embeddings"] = 6 * c  # all |Aut(K3)| automorphisms
         return CountResult(
             count=c,
             algorithm=self.algorithm,

@@ -1,13 +1,20 @@
-"""Plan/execute engine for exact triangle counting (intersection lane).
+"""Plan/execute engine for exact triangle counting.
 
-The port of the intersection half of ``repro.core.engine``. Planning runs
-the prep stage once — orientation, degree-class bucketing and padded
-neighbour gathers on the session's device — and binds each bucket to a
-cached launch configuration; ``count()`` then replays the resident buckets
-through the set-intersection kernels only:
+The port of ``repro.core.engine`` for the paper's three formulations:
+
+* ``"intersection"`` — per-edge set intersection over degree-class buckets;
+* ``"subgraph"`` — a 2-core peel (FILTER), the induced graph
+  (RECONSTRUCT), then the intersection join on the survivors;
+* ``"matrix"`` — the fused masked block-SpGEMM over a heavy-first tile
+  schedule.
+
+Planning runs the prep stage once on the session's device and binds each
+work unit (a bucket, or the tile-triple stacks) to a cached launch
+configuration; ``count()`` then replays the resident buffers through the
+kernels only:
 
     plan = plan_triangle_count(g, "intersection", device="cuda")
-    plan.count()   # one kernel launch per bucket, one host sync
+    plan.count()   # one kernel launch per stage, one host sync
     plan.count()   # the same buffers again; no prep runs
 
 Each bucket's strategy (broadcast / probe / bitmap) comes from the
@@ -15,9 +22,11 @@ documented cost model in ``repro_torch.kernels.intersect.ops`` (or the
 per-plan override), is part of the cache key, and is surfaced as
 ``meta["bucket_strategies"]``.
 
-Per-bucket counts are summed in int64 on the device. (The reference sums
-each bucket's int32 counts in int32, so a bucket total past 2³¹ wraps
-there; every graph the tests and checks use stays far below that.)
+Every stage's counts are summed in int64 on the device. (The reference
+sums each bucket's int32 counts in int32, so a bucket total past 2³¹ wraps
+there, and it adds the matrix lane's float32 partials in float32, which can
+round once a count passes 2²⁴; every partial is an exact integer, so the
+port's int64 sum is exact.)
 """
 
 from __future__ import annotations
@@ -32,8 +41,13 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.graphs.formats import Graph
-from repro_torch.graphs.device import DEFAULT_SHAPE_POLICY, ShapePolicy, resolve_device
+from repro_torch.graphs.formats import Graph, induced_subgraph
+from repro_torch.graphs.device import (
+    DEFAULT_SHAPE_POLICY,
+    DeviceGraph,
+    ShapePolicy,
+    resolve_device,
+)
 from repro_torch.core import prep
 from repro_torch.core.options import BACKENDS, DEFAULT_WIDTHS
 from repro_torch.core.prep import DeviceBucket
@@ -45,9 +59,12 @@ from repro_torch.kernels.intersect.ops import (
     resolve_mask_strategy,
     resolve_strategy,
 )
+from repro_torch.kernels.masked_spgemm.ops import masked_spgemm_counts
 
 __all__ = [
+    "ALGORITHMS",
     "IntersectLaunch",
+    "MatrixLaunch",
     "TrianglePlan",
     "VertexLaunch",
     "cache_info",
@@ -153,6 +170,9 @@ class _BoundedLRU:
 
 _EXECUTABLE_CACHE = _BoundedLRU(512)
 
+#: The lanes ``plan_triangle_count`` plans.
+ALGORITHMS = ("intersection", "matrix", "subgraph")
+
 # u elements the per-vertex stage handles per row chunk (bounds its
 # (rows, W) mask and int64 index transients on the largest buckets)
 _VERTEX_CHUNK_ELEMS = 1 << 22
@@ -174,6 +194,22 @@ class IntersectLaunch:
                                   backend=self.backend,
                                   bitmap_bits=self.bitmap_bits)
         return counts.sum(dtype=torch.int64)
+
+
+@dataclasses.dataclass(frozen=True)
+class MatrixLaunch:
+    """The matrix lane's bound launch configuration. Calling it on the
+    resident (L, U, A) stacks runs the masked block-SpGEMM and returns the
+    total as an int64 scalar tensor on the stacks' device: every float32
+    partial is an exact integer ≤ B³, so the int64 sum is exact past 2²⁴."""
+
+    backend: str
+
+    def __call__(self, l_tiles: torch.Tensor, u_tiles: torch.Tensor,
+                 a_tiles: torch.Tensor) -> torch.Tensor:
+        partials = masked_spgemm_counts(l_tiles, u_tiles, a_tiles,
+                                        backend=self.backend)
+        return partials.to(torch.int64).sum()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,8 +249,10 @@ def get_executable(algorithm: str, backend: str, shape_key: tuple, *,
     """Fetch (or build) the cached launch configuration for one work unit.
 
     Args:
-      algorithm: "intersection" (a bucket's count) or "vertex" (a filtered
-        bucket's per-vertex counts; ``shape_key`` is ``(E, W, n)``).
+      algorithm: "intersection" (a bucket's count; the subgraph lane's
+        buckets use it too), "matrix" (the tile-triple stacks, ``shape_key``
+        ``(T, B, B)``) or "vertex" (a filtered bucket's per-vertex counts;
+        ``shape_key`` is ``(E, W, n)``).
       backend: "kernel" | "ref".
       shape_key: the work unit's array shape.
       strategy: the resolved set-intersection strategy ("intersection").
@@ -231,6 +269,8 @@ def get_executable(algorithm: str, backend: str, shape_key: tuple, *,
             raise ValueError(f"unresolved strategy {strategy!r}; "
                              f"expected one of {STRATEGIES}")
         builder = functools.partial(IntersectLaunch, strategy, backend, bitmap_bits)
+    elif algorithm == "matrix":
+        builder = functools.partial(MatrixLaunch, backend)
     elif algorithm == "vertex":
         builder = functools.partial(VertexLaunch, int(shape_key[2]), int(shape_key[1]))
     else:
@@ -267,7 +307,7 @@ def set_cache_limit(maxsize: int) -> int:
 @dataclasses.dataclass
 class _Stage:
     executable: Callable
-    args: Tuple[torch.Tensor, ...]  # device-resident (u_lists, v_lists)
+    args: Tuple[torch.Tensor, ...]  # device-resident (u, v) or (l, u, a)
     shape_key: tuple
     strategy: Optional[str] = None
     bitmap_bits: Optional[int] = None
@@ -275,7 +315,7 @@ class _Stage:
     vertex_args: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     def run(self) -> torch.Tensor:
-        """One bucket: the kernel launch plus its int64 reduction."""
+        """One stage: the kernel launch plus its int64 reduction."""
         return self.executable(*self.args)
 
 
@@ -291,13 +331,13 @@ class TrianglePlan:
     backend: str
     device: torch.device
     stages: List[_Stage]
-    divisor: int  # 6 for the full variant (each triangle found ×6)
+    divisor: int  # 6 for the full intersection variant (each triangle ×6)
     meta: Dict[str, Any]
     prep_seconds: float
     executions: int = 0
 
     def count(self) -> int:
-        """Exact triangle count: every bucket's kernel, summed on the
+        """Exact triangle count: every stage's kernel, summed on the
         device in int64, with one host sync.
 
         Raises:
@@ -316,34 +356,55 @@ class TrianglePlan:
 
     def count_with_stats(self) -> Tuple[int, dict]:
         """Count once and return ``(count, meta)``; meta carries the plan's
-        statistics, including ``bucket_strategies`` (one ``(width,
-        strategy)`` pair per bucket)."""
-        return self.count(), dict(self.meta)
+        statistics — prune fractions, tile schedule sizes, bucket shapes
+        and, on the intersection/subgraph lanes, ``bucket_strategies`` (one
+        ``(width, strategy)`` pair per bucket). The subgraph lane adds
+        ``num_embeddings`` = 6 × count (the join's ordered embeddings)."""
+        c = self.count()
+        stats = dict(self.meta)
+        if self.algorithm == "subgraph":
+            stats["num_embeddings"] = 6 * c
+        return c, stats
 
     def triangles_per_vertex(self) -> np.ndarray:
         """Per-vertex triangle counts, replayed through the plan's resident
         buckets.
 
+        The subgraph lane's stages count on the induced graph: the device
+        prep keeps the original ids; the host prep renumbers, and the counts
+        scatter back through ``meta["vertex_map"]`` (peeled vertices are in
+        no triangle).
+
         Returns:
           (n,) int64 numpy array, t[v] = number of triangles containing v.
 
         Raises:
-          NotImplementedError: the full variant, whose rows carry no
-            forward endpoints to credit matches to.
+          NotImplementedError: the matrix lane or the full intersection
+            variant, whose stages carry no forward endpoints to credit
+            matches to (``TriangleCounter`` then answers from a filtered
+            sidecar plan).
         """
-        if self.divisor != 1 or any(st.vertex_args is None for st in self.stages):
+        if self.algorithm not in ("intersection", "subgraph") \
+                or self.divisor != 1 \
+                or any(st.vertex_args is None for st in self.stages):
             raise NotImplementedError(
                 f"per-vertex counts need filtered-intersection stages; "
                 f"algorithm={self.algorithm!r} divisor={self.divisor} does "
                 f"not carry them"
             )
-        n = int(self.meta["n"])
-        total = torch.zeros(n, dtype=torch.int64, device=self.device)
+        n_local = int(self.meta.get("vertex_n", self.meta["n"]))
+        total = torch.zeros(n_local, dtype=torch.int64, device=self.device)
         for st in self.stages:
             e, w = st.shape_key
-            fn = get_executable("vertex", self.backend, (e, w, n))
+            fn = get_executable("vertex", self.backend, (e, w, n_local))
             total += fn(*st.args, *st.vertex_args)
-        return total.cpu().numpy()
+        total = total.cpu().numpy()
+        vertex_map = self.meta.get("vertex_map")
+        if vertex_map is not None:  # host-prep subgraph: pruned ids -> original
+            out = np.zeros(int(self.meta["n"]), dtype=np.int64)
+            out[vertex_map] = total
+            return out
+        return total
 
     def synchronize(self) -> "TrianglePlan":
         """Wait for the device (useful before timing counts)."""
@@ -438,6 +499,79 @@ def _plan_intersection(g: Graph, variant: str, backend: str,
     return stages, (6 if variant == "full" else 1), meta
 
 
+def _plan_matrix(g: Graph, block, permute: bool, backend: str,
+                 device: torch.device) -> Tuple[List[_Stage], int, dict]:
+    """The matrix lane: the host tile schedule, then one stage holding the
+    three resident (T, B, B) float32 stacks (gathered on the device from
+    the unique tiles). T = 0 gives no stage, so the count is 0."""
+    if block == "auto":
+        block = prep.choose_block(g)
+    t0 = time.perf_counter()
+    sched = prep.tile_schedule(g, block=block, permute=permute)
+    t1 = time.perf_counter()
+    stages = []
+    if sched.num_triples:
+        args = sched.to_device(device)
+        shape_key = tuple(args[0].shape)
+        stages.append(_Stage(
+            executable=get_executable("matrix", backend, shape_key),
+            args=args, shape_key=shape_key))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    meta = dict(permute=permute, schedule_seconds=t1 - t0,
+                upload_seconds=time.perf_counter() - t1, **sched.stats)
+    return stages, 1, meta
+
+
+def _plan_subgraph(g: Graph, backend: str, widths: Sequence[int],
+                   strategy: str, bitmap_bits: Optional[int],
+                   prep_backend: str, shape_policy: Optional[ShapePolicy],
+                   device: torch.device) -> Tuple[List[_Stage], int, dict]:
+    """The subgraph lane: FILTER (2-core peel to its fixed point),
+    RECONSTRUCT (the induced graph) and the forward-filtered intersection
+    JOIN on the survivors, which counts each triangle once."""
+    if prep_backend == "device":
+        # the induced graph keeps the original ids (dead vertices just lose
+        # their rows), so stage counts scatter straight into id space
+        policy = shape_policy if shape_policy is not None \
+            else DEFAULT_SHAPE_POLICY
+        dg = DeviceGraph.from_graph(g, policy, device=device)
+        alive, rounds = prep.peel_to_two_core_device(dg)
+        sub_dg = prep.induced_device_graph(dg, alive)
+        alive_count = int(alive.sum())
+        stages, _, inner = _plan_intersection(
+            sub_dg, "filtered", backend, widths, strategy, bitmap_bits,
+            "device", policy, device)
+        meta = dict(
+            vertices_pruned=int(g.n - alive_count),
+            prune_fraction=float(1.0 - alive_count / max(g.n, 1)),
+            edges_after=sub_dg.m_undirected,
+            edges_before=g.m_undirected,
+            vertex_n=g.n,
+            peel_rounds=rounds,
+            **inner,
+        )
+        return stages, 1, meta
+
+    alive = prep.peel_to_two_core(g)
+    sub, old_ids = induced_subgraph(g, alive)
+    stages, _, inner = _plan_intersection(
+        sub, "filtered", backend, widths, strategy, bitmap_bits, "host",
+        None, device)
+    meta = dict(
+        vertices_pruned=int(g.n - alive.sum()),
+        prune_fraction=float(1.0 - alive.sum() / max(g.n, 1)),
+        edges_after=sub.m_undirected,
+        edges_before=g.m_undirected,
+        # stage counts are on the renumbered graph's ids; per-vertex counts
+        # scatter back through old_ids
+        vertex_n=sub.n,
+        vertex_map=np.asarray(old_ids),
+        **inner,
+    )
+    return stages, 1, meta
+
+
 def plan_triangle_count(
     g: Graph,
     algorithm: str = "intersection",
@@ -446,6 +580,8 @@ def plan_triangle_count(
     variant: str = "filtered",
     widths: Sequence[int] = DEFAULT_WIDTHS,
     strategy: str = "auto",
+    block: Union[int, str] = "auto",
+    permute: bool = True,
     bitmap_bits: Optional[int] = None,
     prep_backend: str = "device",
     shape_policy: Optional[ShapePolicy] = None,
@@ -456,16 +592,20 @@ def plan_triangle_count(
 
     Args:
       g: the input ``Graph`` (undirected simple CSR).
-      algorithm: "intersection" (the only lane the port has so far).
-      backend: "kernel" | "ref" per-bucket execution path.
-      variant: "filtered" (forward algorithm) or "full" (every directed
-        edge, each triangle found 6×).
-      widths: degree-class bucket widths.
-      strategy: "auto" (the ``choose_strategy`` cost model per bucket) or a
-        forced "broadcast" | "probe" | "bitmap".
+      algorithm: "intersection" | "subgraph" | "matrix" (``ALGORITHMS``).
+      backend: "kernel" | "ref" per-stage execution path.
+      variant: intersection lane only — "filtered" (forward algorithm) or
+        "full" (every directed edge, each triangle found 6×).
+      widths: degree-class bucket widths (intersection/subgraph lanes).
+      strategy: intersection/subgraph lanes — "auto" (the
+        ``choose_strategy`` cost model per bucket) or a forced
+        "broadcast" | "probe" | "bitmap".
+      block: matrix lane tile edge B, or "auto" (``prep.choose_block``).
+      permute: matrix lane degree-order permutation toggle.
       bitmap_bits: optional forced capacity for bitmap buckets (must cover
         ``n + 2``).
-      prep_backend: "device" (torch prep) or "host" (the numpy path).
+      prep_backend: intersection/subgraph lanes — "device" (torch prep) or
+        "host" (the numpy path).
       shape_policy: the ``ShapePolicy``; None means ``DEFAULT_SHAPE_POLICY``.
       max_device_bytes: must be None: tiled streaming is not ported yet.
       device: where the buckets live and the kernels run; None means the
@@ -476,22 +616,32 @@ def plan_triangle_count(
       NotImplementedError: ``max_device_bytes`` is set.
       RuntimeError: ``device`` is None or CUDA and no card is present.
     """
-    if algorithm != "intersection":
-        raise ValueError(f"unknown algorithm {algorithm!r}; the port plans "
-                         f"('intersection',)")
+    if algorithm not in ALGORITHMS:
+        raise ValueError(f"unknown algorithm {algorithm!r}; expected one of "
+                         f"{ALGORITHMS}")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
     if max_device_bytes is not None:
         raise NotImplementedError(
-            "max_device_bytes (tiled streaming of buckets over a device "
-            "budget) is not ported yet; see ROADMAP.md Queue 1 item 10"
+            "max_device_bytes (tiled streaming of buckets or tile stacks "
+            "over a device budget) is not ported yet; see ROADMAP.md "
+            "Queue 1 item 10"
         )
     device = resolve_device(device)
     t0 = time.perf_counter()
-    stages, divisor, meta = _plan_intersection(
-        g, variant, backend, widths, strategy, bitmap_bits, prep_backend,
-        shape_policy, device,
-    )
+    if algorithm == "intersection":
+        stages, divisor, meta = _plan_intersection(
+            g, variant, backend, widths, strategy, bitmap_bits, prep_backend,
+            shape_policy, device,
+        )
+    elif algorithm == "matrix":
+        stages, divisor, meta = _plan_matrix(g, block, permute, backend,
+                                             device)
+    else:
+        stages, divisor, meta = _plan_subgraph(
+            g, backend, widths, strategy, bitmap_bits, prep_backend,
+            shape_policy, device,
+        )
     meta["graph"] = g.name
     meta["n"], meta["m"] = g.n, g.m_undirected
     meta["device"] = str(device)

@@ -1,19 +1,20 @@
 """Typed options for the triangle-counting front door.
 
 ``CountOptions`` is the port of ``repro.core.options.CountOptions`` with the
-fields the intersection lane reads: one frozen, validated, hashable
-dataclass. Equal options give equal ``key()``s, and the engine's launch-
-configuration cache keys derive from the fields.
+fields the intersection, subgraph and matrix lanes read: one frozen,
+validated, hashable dataclass. Equal options give equal ``key()``s, and the
+engine's launch-configuration cache keys derive from the fields.
 
-Backends: ``"kernel"`` (default) runs each bucket's Hopper kernel on a CUDA
+Backends: ``"kernel"`` (default) runs each stage's Hopper kernel on a CUDA
 device and its plain torch version on a CPU device; ``"ref"`` runs the
-broadcast-compare oracle. Pallas' interpret mode has no counterpart here.
+lane's oracle (the broadcast compare, or the one-shot einsum of the matrix
+lane). Pallas' interpret mode has no counterpart here.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 from repro_torch.graphs.device import DEFAULT_SHAPE_POLICY, ShapePolicy
 from repro_torch.kernels.intersect.ops import (
@@ -37,13 +38,15 @@ class CountOptions:
 
     Attributes:
       algorithm: "auto" (``repro_torch.core.registry.choose_algorithm``) or
-        a registered lane name ("intersection").
+        a registered lane name ("intersection" | "matrix" | "subgraph").
       variant: "filtered" (forward algorithm, each triangle once) or "full"
         (every directed edge, found 6×).
       backend: "kernel" | "ref" per-bucket execution path.
       strategy: per-bucket set-intersection core: "auto" (the documented
         cost model) or forced "broadcast" | "probe" | "bitmap".
       widths: ascending degree-class bucket widths.
+      block: matrix lane tile edge B, or "auto" (``prep.choose_block``).
+      permute: matrix lane degree-order permutation toggle.
       bitmap_bits: optional forced bitmap capacity (multiple of 32) for
         bitmap buckets; None sizes it from the id range.
       prep_backend: "device" (default: torch prep on the session's device)
@@ -60,6 +63,8 @@ class CountOptions:
     backend: str = "kernel"
     strategy: str = "auto"
     widths: Tuple[int, ...] = DEFAULT_WIDTHS
+    block: Union[int, str] = "auto"
+    permute: bool = True
     bitmap_bits: Optional[int] = None
     prep_backend: str = "device"
     shape_policy: Optional[ShapePolicy] = None
@@ -100,6 +105,14 @@ class CountOptions:
                 f"widths must be non-empty, positive, strictly ascending; "
                 f"got {widths}"
             )
+        if self.block != "auto":
+            if not isinstance(self.block, int) or isinstance(self.block, bool) \
+                    or self.block <= 0:
+                raise ValueError(
+                    f"block must be a positive int or 'auto', got {self.block!r}"
+                )
+        if not isinstance(self.permute, bool):
+            raise ValueError(f"permute must be a bool, got {self.permute!r}")
         if self.bitmap_bits is not None:
             b = self.bitmap_bits
             if not isinstance(b, int) or isinstance(b, bool) or b <= 0 \
@@ -139,7 +152,8 @@ class CountOptions:
         hash alike."""
         return (
             self.algorithm, self.variant, self.backend, self.strategy,
-            self.widths, self.bitmap_bits, self.prep_backend,
+            self.widths, self.block, self.permute, self.bitmap_bits,
+            self.prep_backend,
             self.resolved_shape_policy.key(), self.max_device_bytes,
         )
 
@@ -149,6 +163,10 @@ class CountOptions:
 
     def plan_kwargs(self, lane: str) -> dict:
         """The ``plan_triangle_count`` kwargs this lane consumes.
+
+        Lanes ignore knobs that do not apply to them (the matrix lane has
+        no ``widths``, the intersection lane no ``block``), so one options
+        object can drive ``algorithm="auto"`` across all lanes.
 
         Raises:
           ValueError: a lane the port does not have.
@@ -160,6 +178,17 @@ class CountOptions:
                         prep_backend=self.prep_backend,
                         shape_policy=self.shape_policy,
                         max_device_bytes=self.max_device_bytes)
+        if lane == "subgraph":
+            return dict(backend=self.backend, widths=self.widths,
+                        strategy=self.strategy, bitmap_bits=self.bitmap_bits,
+                        prep_backend=self.prep_backend,
+                        shape_policy=self.shape_policy,
+                        max_device_bytes=self.max_device_bytes)
+        if lane == "matrix":
+            return dict(backend=self.backend, block=self.block,
+                        permute=self.permute,
+                        max_device_bytes=self.max_device_bytes)
         raise ValueError(
-            f"unknown engine lane {lane!r}; expected one of ('intersection',)"
+            f"unknown engine lane {lane!r}; expected one of "
+            f"('intersection', 'matrix', 'subgraph')"
         )

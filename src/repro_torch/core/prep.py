@@ -1,43 +1,65 @@
-"""Intersection-lane prep: device-resident (torch) with its numpy twin.
+"""Prep stages of the counting lanes: device-resident (torch) with numpy
+twins.
 
-The port of the intersection half of ``repro.core.prep``:
+The port of ``repro.core.prep``:
 
 * ``prepare_intersection_buckets_device`` — orientation + bucket layout +
   padded gathers on a torch device, returning ``DeviceBucket``s;
 * ``prepare_intersection_buckets_host`` — the numpy path, kept as the
-  parity reference and for ``prep_backend="host"``.
+  parity reference and for ``prep_backend="host"``;
+* ``peel_to_two_core_device`` / ``induced_device_graph`` — the subgraph
+  lane's FILTER (2-core peel) and RECONSTRUCT on the device, keeping the
+  original vertex ids; ``peel_to_two_core`` is the host API;
+* ``choose_block`` / ``tile_schedule`` / ``build_tile_schedule`` — the
+  matrix lane's host stage: degree permutation, BSR tiling and the
+  heavy-first (L, U, A) tile-triple schedule.
 
-The only device→host traffic during prep is a handful of scalars (the max
-degree and the per-bucket counts) needed to pick static shapes.
+The only device→host traffic during device prep is a handful of scalars
+(the max degree, the per-bucket counts, one "changed" flag per peel round,
+the survivor edge count) needed to pick static shapes.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.graphs.formats import (
     Graph,
+    apply_permutation,
     bucket_edges_by_degree,
     csr_to_padded_neighbors,
+    degree_order_permutation,
     orient_forward,
+    to_block_sparse,
 )
 from repro_torch.graphs.device import (
     DEFAULT_SHAPE_POLICY,
+    DeviceCSR,
     DeviceGraph,
     ShapePolicy,
     _bucket_sort_dev,
     _gather_bucket_dev,
+    _induced_compact_dev,
+    _two_core_peel_dev,
     next_pow2,
 )
 from repro_torch.core.options import DEFAULT_WIDTHS
 
 __all__ = [
     "DeviceBucket",
+    "TileSchedule",
+    "build_tile_schedule",
+    "choose_block",
+    "induced_device_graph",
+    "peel_to_two_core",
+    "peel_to_two_core_device",
     "prepare_intersection_buckets_device",
     "prepare_intersection_buckets_host",
+    "tile_schedule",
 ]
 
 
@@ -129,7 +151,10 @@ def prepare_intersection_buckets_device(
     )
     counts_h = counts.tolist()  # one small sync for the static extents
     starts_h = starts.tolist()
-    nbrs = dg.padded_neighbors(bounds[-1], oriented=(variant == "filtered"))
+    # the (n, W) neighbour matrix only as wide as the widest non-empty
+    # bucket: at n = 12M and W = 512 it would be 25 GB for buckets of width 8
+    top = max((w for w, c in zip(bounds, counts_h) if c), default=bounds[0])
+    nbrs = dg.padded_neighbors(top, oriented=(variant == "filtered"))
 
     out = []
     for i, w in enumerate(bounds):
@@ -174,3 +199,212 @@ def prepare_intersection_buckets_host(
         out.append(dict(u_lists=u_lists, v_lists=v_lists,
                         src=b["src"], dst=b["dst"], width=w))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Subgraph lane: FILTER (2-core peel) + RECONSTRUCT
+# ---------------------------------------------------------------------------
+
+def peel_to_two_core_device(dg: DeviceGraph) -> Tuple[torch.Tensor, int]:
+    """Device 2-core peel (the subgraph lane's FILTER taken to its fixed
+    point).
+
+    Returns:
+      ((n,) bool alive mask on the graph's device, peel rounds run).
+    """
+    if dg.m == 0:
+        return torch.zeros(dg.n, dtype=torch.bool, device=dg.device), 0
+    return _two_core_peel_dev(
+        dg.edge_sources(), dg.csr.col_idx, dg.edge_valid(),
+        torch.ones(dg.n, dtype=torch.bool, device=dg.device), n=dg.n,
+    )
+
+
+def induced_device_graph(dg: DeviceGraph, alive: torch.Tensor) -> DeviceGraph:
+    """RECONSTRUCT on the device: keep the edges with both endpoints alive.
+
+    Vertex ids are preserved (dead vertices keep their ids but lose their
+    rows), so per-vertex scatters downstream stay in original-id space. One
+    scalar sync (the survivor edge count) picks the policy-rounded extent of
+    the compacted arrays.
+    """
+    if dg.m == 0:
+        csr = DeviceCSR(
+            n=dg.n, m=0,
+            row_ptr=torch.zeros(dg.n + 1, dtype=torch.int32, device=dg.device),
+            col_idx=torch.full((dg.policy.round_edges(0),), dg.n,
+                               dtype=torch.int32, device=dg.device))
+        return DeviceGraph(csr, policy=dg.policy, name=dg.name + "+sub")
+    row_ptr_sub, col, kept_dev = _induced_compact_dev(
+        dg.csr.row_ptr, dg.csr.col_idx, alive, dg.m,
+        n=dg.n, m_pad=dg.csr.m_pad,
+    )
+    kept = int(kept_dev)
+    csr = DeviceCSR(n=dg.n, m=kept, row_ptr=row_ptr_sub,
+                    col_idx=col[:dg.policy.round_edges(kept)])
+    return DeviceGraph(csr, policy=dg.policy, name=dg.name + "+sub")
+
+
+def peel_to_two_core(g: Graph, labels: Optional[np.ndarray] = None,
+                     query_label: Optional[int] = None) -> np.ndarray:
+    """Candidate filter + iterated degree filter, to its fixed point (host
+    API).
+
+    Args:
+      g: undirected simple ``Graph``.
+      labels: optional (n,) vertex labels for labeled subgraph queries.
+      query_label: with ``labels``, prune vertices whose label cannot match
+        before the degree peel.
+
+    Returns:
+      (n,) bool numpy mask of the vertices surviving the 2-core peel (every
+      triangle vertex has ≥ 2 alive neighbours, so counting on the induced
+      subgraph is exact).
+    """
+    init = np.ones(g.n, dtype=bool)
+    if labels is not None and query_label is not None:
+        init &= np.asarray(labels) == query_label
+    if g.m_directed == 0:
+        return np.zeros(g.n, dtype=bool)
+    src, dst = g.edge_endpoints()
+    return _two_core_peel(torch.from_numpy(src), torch.from_numpy(dst),
+                          torch.from_numpy(init), n=g.n).numpy()
+
+
+def _two_core_peel(src: torch.Tensor, dst: torch.Tensor,
+                   init_alive: torch.Tensor, *, n: int) -> torch.Tensor:
+    """Unmasked fixed-point peel over a concrete edge list (host callers)."""
+    valid = torch.ones(src.shape[0], dtype=torch.bool, device=src.device)
+    return _two_core_peel_dev(src, dst, valid, init_alive, n=n)[0]
+
+
+# ---------------------------------------------------------------------------
+# Matrix lane: the host tile schedule
+# ---------------------------------------------------------------------------
+
+def choose_block(g: Graph) -> int:
+    """Adaptive tile size: degree-permuted scale-free graphs fill the
+    bottom-right tiles, so they get 128; mesh-like graphs (low, uniform
+    degree) never fill tiles and get 32."""
+    avg_deg = 2.0 * g.m_undirected / max(g.n, 1)
+    return 128 if avg_deg >= 8.0 else 32
+
+
+@dataclasses.dataclass
+class TileSchedule:
+    """The matrix lane's triple schedule, before the gather.
+
+    ``l_blocks`` / ``u_blocks`` are the unique nonzero (·, B, B) float32
+    tiles of the strict lower and strict upper parts (the A mask tiles are
+    the strict-upper tiles, so ``u_blocks`` serves both). Triple t, in
+    heavy-first order, is ``(l_blocks[l_index[t]], u_blocks[u_index[t]],
+    u_blocks[a_index[t]])``.
+    """
+
+    l_blocks: np.ndarray
+    u_blocks: np.ndarray
+    l_index: np.ndarray  # (T,) int64
+    u_index: np.ndarray  # (T,) int64
+    a_index: np.ndarray  # (T,) int64
+    stats: dict
+
+    @property
+    def num_triples(self) -> int:
+        return int(self.l_index.shape[0])
+
+    def gather(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The three (T, B, B) float32 stacks, gathered once on the host."""
+        return (self.l_blocks[self.l_index], self.u_blocks[self.u_index],
+                self.u_blocks[self.a_index])
+
+    def to_device(self, device: Union[str, torch.device]
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The three (T, B, B) float32 stacks on ``device``: the unique
+        tiles are uploaded once and gathered there, so the host never holds
+        the stacks."""
+        l_dev = torch.from_numpy(self.l_blocks).to(device)
+        u_dev = torch.from_numpy(self.u_blocks).to(device)
+
+        def idx(a):
+            return torch.from_numpy(a).to(device)
+
+        return (l_dev.index_select(0, idx(self.l_index)),
+                u_dev.index_select(0, idx(self.u_index)),
+                u_dev.index_select(0, idx(self.a_index)))
+
+
+def tile_schedule(g: Graph, block: int = 128,
+                  permute: bool = True) -> TileSchedule:
+    """The matrix lane's host stage: degree permutation, BSR tiling and
+    the heavy-first (L, U, A) tile-triple schedule.
+
+    For every strict-upper tile A[I, J] and every K present in both block
+    row I of L and block column J of U, one triple (A[I, J], L[I, K],
+    U[K, J]). The triple loop is the reference's, unchanged: it walks the
+    A tiles in order and takes ``lk.keys() & uk.keys()``, whose set order
+    fixes the triples' order before the stable heavy-first sort, so the
+    stacks come out bit-equal to the reference's. The sort key is
+    ``nnz(L)·nnz(U)`` in float32, as the reference computes it (products
+    pass 2²⁴, so float32 rounding decides ties).
+    """
+    if permute:
+        g = apply_permutation(g, degree_order_permutation(g))
+    l_bsr = to_block_sparse(g, block=block, part="lower")
+    u_bsr = to_block_sparse(g, block=block, part="upper")
+    a_bsr = u_bsr  # the mask: the strict upper part
+
+    l_rows: dict = {}
+    for t in range(l_bsr.num_blocks):
+        l_rows.setdefault(int(l_bsr.block_row[t]), []).append(
+            (int(l_bsr.block_col[t]), t))
+    u_cols: dict = {}
+    for t in range(u_bsr.num_blocks):
+        u_cols.setdefault(int(u_bsr.block_col[t]), []).append(
+            (int(u_bsr.block_row[t]), t))
+
+    trip_l, trip_u, trip_a = [], [], []
+    for t in range(a_bsr.num_blocks):
+        bi, bj = int(a_bsr.block_row[t]), int(a_bsr.block_col[t])
+        lk = dict(l_rows.get(bi, ()))
+        uk = dict(u_cols.get(bj, ()))
+        for k in lk.keys() & uk.keys():
+            trip_a.append(t)
+            trip_l.append(lk[k])
+            trip_u.append(uk[k])
+
+    n_trip = len(trip_a)
+    stats = dict(
+        num_triples=n_trip,
+        a_tiles=a_bsr.num_blocks,
+        l_tiles=l_bsr.num_blocks,
+        u_tiles=u_bsr.num_blocks,
+        grid=a_bsr.grid,
+        block=block,
+        tile_flops=2 * n_trip * block**3,
+    )
+    trip_l = np.asarray(trip_l, dtype=np.int64)
+    trip_u = np.asarray(trip_u, dtype=np.int64)
+    trip_a = np.asarray(trip_a, dtype=np.int64)
+    if n_trip:
+        nnz_l = l_bsr.blocks.sum(axis=(1, 2))  # float32, exact (≤ B²)
+        nnz_u = u_bsr.blocks.sum(axis=(1, 2))
+        work = nnz_l[trip_l] * nnz_u[trip_u]
+        order = np.argsort(-work, kind="stable")
+        trip_l, trip_u, trip_a = trip_l[order], trip_u[order], trip_a[order]
+    return TileSchedule(l_blocks=l_bsr.blocks, u_blocks=u_bsr.blocks,
+                        l_index=trip_l, u_index=trip_u, a_index=trip_a,
+                        stats=stats)
+
+
+def build_tile_schedule(
+    g: Graph, block: int = 128, permute: bool = True
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, dict]:
+    """The reference's host API: ``tile_schedule`` gathered on the host.
+
+    Returns:
+      (l_tiles, u_tiles, a_tiles, stats): three (T, B, B) float32 stacks
+      in heavy-first order, bit-equal to the reference's, plus the stats
+      dict (num_triples, tile counts, grid, block, tile_flops).
+    """
+    sched = tile_schedule(g, block=block, permute=permute)
+    return (*sched.gather(), sched.stats)

@@ -5,10 +5,10 @@ The port of ``repro.core.registry``. Each lane registers a planner —
 ``count()``, ``meta`` and ``prep_seconds`` — and the facade
 (``repro_torch.core.api.TriangleCounter``) looks lanes up by name.
 
-Only ``"intersection"`` is registered in the port so far. The chooser is
-the reference's heuristic unchanged, so ``auto`` on a mesh-like or small
-dense graph names a lane the port lacks and raises the reference's
-"unregistered lane" ``ValueError``.
+The builtin lanes are the paper's three formulations: ``"intersection"``
+(``core.engine``), ``"subgraph"`` (``core.tc_subgraph``) and ``"matrix"``
+(``core.tc_matrix``). The chooser is the reference's heuristic unchanged,
+so ``auto`` resolves on every graph.
 """
 
 from __future__ import annotations
@@ -47,6 +47,8 @@ def register_algorithm(name: str, planner: Callable, *,
 def _ensure_builtin() -> None:
     """Import the builtin lane modules so their registrations have run."""
     import repro_torch.core.engine  # noqa: F401  (registers "intersection")
+    import repro_torch.core.tc_matrix  # noqa: F401  (registers "matrix")
+    import repro_torch.core.tc_subgraph  # noqa: F401  (registers "subgraph")
 
 
 def get_algorithm(name: str) -> Callable:

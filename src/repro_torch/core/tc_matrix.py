@@ -1,0 +1,36 @@
+"""Matrix-multiplication triangle counting as a fused masked block-SpGEMM.
+
+Algorithm 3 of the paper (Azad/Buluç/Gilbert): permute A by increasing
+degree, split A = L + U (strict lower/upper), count = Σ A ∘ (L·U) over the
+strict upper part. The host builds a tile schedule instead of a sparse
+product (``repro_torch.core.prep.tile_schedule``):
+
+* the permuted A is tiled into dense B×B blocks; only nonzero tiles exist;
+* for every strict-upper tile A[I, J] and every K present in both block
+  row I of L and block column J of U, one triple (A[I, J], L[I, K],
+  U[K, J]) — the paper's "avoid multiplications where A is known to be
+  zero", lifted to tiles;
+* the fused kernel (K4, ``repro_torch.kernels.masked_spgemm``) computes
+  ``sum(A_IJ ∘ (L_IK @ U_KJ))`` per triple and never writes L·U out.
+
+This module registers the ``"matrix"`` lane; the front door is
+``TriangleCounter(g, CountOptions(algorithm="matrix", ...))``.
+"""
+
+from __future__ import annotations
+
+from repro_torch.graphs.formats import Graph
+from repro_torch.core.engine import plan_triangle_count
+from repro_torch.core.prep import build_tile_schedule, choose_block
+from repro_torch.core.registry import register_algorithm
+
+__all__ = ["build_tile_schedule", "choose_block"]
+
+
+def _planner(g: Graph, options, *, device):
+    """Registry planner: CountOptions → matrix-lane TrianglePlan."""
+    return plan_triangle_count(g, "matrix", device=device,
+                               **options.plan_kwargs("matrix"))
+
+
+register_algorithm("matrix", _planner)

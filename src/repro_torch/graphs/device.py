@@ -292,6 +292,60 @@ def _gather_bucket_dev(sorted_src: torch.Tensor, sorted_dst: torch.Tensor,
     return u, v, sb, db
 
 
+def _two_core_peel_dev(src: torch.Tensor, dst: torch.Tensor,
+                       valid: torch.Tensor, init_alive: torch.Tensor,
+                       *, n: int) -> Tuple[torch.Tensor, int]:
+    """Fixed-point 2-core peel over a masked static edge list.
+
+    Each round counts every vertex's live edges (``valid`` and both ends
+    alive) with one ``index_add_`` and drops the vertices left with fewer
+    than two; the loop ends when a round changes nothing, one host sync a
+    round. Endpoints are clamped before every gather and scatter (padding
+    ``col_idx`` slots hold ``n``); such slots are masked by ``valid``.
+    Returns (alive, rounds).
+    """
+    lim = max(n - 1, 0)
+    src_c = src.long().clamp(0, lim)
+    dst_c = dst.long().clamp(0, lim)
+    alive = init_alive.clone()
+    rounds = 0
+    while True:
+        rounds += 1
+        live = valid & alive[src_c] & alive[dst_c]
+        deg = torch.zeros(n, dtype=torch.int32, device=src.device)
+        deg.index_add_(0, src_c, live.to(torch.int32))
+        new_alive = alive & (deg >= 2)
+        if torch.equal(new_alive, alive):
+            return alive, rounds
+        alive = new_alive
+
+
+def _induced_compact_dev(row_ptr: torch.Tensor, col_idx: torch.Tensor,
+                         alive: torch.Tensor, m: int, *, n: int, m_pad: int):
+    """Compact the directed edges with both endpoints alive (CSR order kept).
+
+    Vertex ids are not renumbered: dead vertices end with empty rows, so
+    per-vertex scatters downstream stay in original-id space. The stable
+    sort on an integer key keeps the kept edges in CSR order, as the
+    reference's ``jnp.argsort(~keep)`` does. Returns (row_ptr_sub, col_sub,
+    kept) with ``col_sub`` padded with ``n`` and ``kept`` a 0-d tensor.
+    """
+    dev = row_ptr.device
+    src = _edge_sources(row_ptr, n=n, m_pad=m_pad)
+    valid = torch.arange(m_pad, device=dev) < m
+    lim = max(n - 1, 0)
+    keep = valid & alive[src.long()] & alive[col_idx.long().clamp(0, lim)]
+    order = torch.sort((~keep).to(torch.uint8), stable=True).indices
+    kval = keep[order]
+    col = torch.where(kval, col_idx[order], n).to(torch.int32)
+    ksrc = torch.where(kval, src[order], 0).long()
+    deg = torch.zeros(max(n, 1), dtype=torch.int32, device=dev)
+    deg.index_add_(0, ksrc, kval.to(torch.int32))
+    row_ptr_sub = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    row_ptr_sub[1:] = torch.cumsum(deg[:n], 0)
+    return row_ptr_sub, col, keep.sum()
+
+
 # ---------------------------------------------------------------------------
 # Containers
 # ---------------------------------------------------------------------------

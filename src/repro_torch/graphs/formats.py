@@ -1,9 +1,11 @@
 """Host-side graph containers and format conversions (numpy).
 
 The port's own copy of the host layer of ``repro.graphs.formats``: CSR
-construction, forward (degree-rank) orientation, padded neighbour matrices
-and degree-class bucketing. These stay numpy on the host; the device prep
-that the counting lanes use lives in ``repro_torch.graphs.device``.
+construction, forward (degree-rank) orientation, padded neighbour matrices,
+degree-class bucketing, the degree-order permutation, induced subgraphs and
+the block-sparse (BSR) tiling of the matrix lane. These stay numpy on the
+host; the device prep that the counting lanes use lives in
+``repro_torch.graphs.device``.
 """
 
 from __future__ import annotations
@@ -14,12 +16,17 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 
 __all__ = [
+    "BlockSparse",
     "Graph",
+    "apply_permutation",
     "bucket_edges_by_degree",
     "csr_to_padded_neighbors",
+    "degree_order_permutation",
     "edges_to_csr",
     "graph_from_arrays",
+    "induced_subgraph",
     "orient_forward",
+    "to_block_sparse",
 ]
 
 
@@ -68,6 +75,38 @@ class Graph:
         return sp.csr_matrix(
             (data, self.col_idx, self.row_ptr), shape=(self.n, self.n)
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSparse:
+    """Block-sparse matrix with dense B×B tiles (BSR-like, tile list form).
+
+    ``blocks[t]`` is the dense content of tile t, located at block
+    coordinates ``(block_row[t], block_col[t])``. Tiles are sorted by
+    (row, col).
+    """
+
+    n: int  # logical matrix dim (padded to a multiple of block)
+    block: int  # tile edge length
+    block_row: np.ndarray  # (T,) int32
+    block_col: np.ndarray  # (T,) int32
+    blocks: np.ndarray  # (T, block, block) float32
+
+    @property
+    def num_blocks(self) -> int:
+        return int(self.block_row.shape[0])
+
+    @property
+    def grid(self) -> int:
+        return self.n // self.block
+
+    def to_dense(self) -> np.ndarray:
+        out = np.zeros((self.n, self.n), dtype=self.blocks.dtype)
+        b = self.block
+        for i in range(self.num_blocks):
+            r, c = int(self.block_row[i]) * b, int(self.block_col[i]) * b
+            out[r:r + b, c:c + b] = self.blocks[i]
+        return out
 
 
 def graph_from_arrays(n: int, row_ptr, col_idx, name: str = "graph") -> Graph:
@@ -183,3 +222,73 @@ def bucket_edges_by_degree(
             )
         prev = width
     return buckets
+
+
+def degree_order_permutation(g: Graph) -> np.ndarray:
+    """perm[new_id] = old_id sorted by (degree, old_id) increasing (the
+    matrix lane's step 1: heavy rows go to the bottom-right)."""
+    return np.lexsort((np.arange(g.n), g.degrees)).astype(np.int32)
+
+
+def apply_permutation(g: Graph, perm: np.ndarray) -> Graph:
+    """Relabel ``g`` so that new vertex i is old vertex ``perm[i]``."""
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(g.n, dtype=np.int32)
+    src, dst = g.edge_endpoints()
+    return edges_to_csr(inv[src], inv[dst], n=g.n, name=g.name)
+
+
+def induced_subgraph(g: Graph, vertex_mask: np.ndarray) -> Tuple[Graph, np.ndarray]:
+    """Induced subgraph on ``vertex_mask`` (bool, length n), renumbered.
+
+    Returns:
+      (graph, old_ids) with ``old_ids[new] = old``.
+    """
+    old_ids = np.nonzero(vertex_mask)[0].astype(np.int32)
+    remap = np.full(g.n, -1, dtype=np.int64)
+    remap[old_ids] = np.arange(old_ids.shape[0])
+    src, dst = g.edge_endpoints()
+    keep = vertex_mask[src] & vertex_mask[dst]
+    sub = edges_to_csr(remap[src[keep]], remap[dst[keep]],
+                       n=int(old_ids.shape[0]), name=g.name + "+sub")
+    return sub, old_ids
+
+
+def to_block_sparse(g: Graph, block: int = 128, part: str = "full",
+                    dtype=np.float32) -> BlockSparse:
+    """Tile the adjacency matrix into dense B×B blocks, keeping only the
+    nonzero tiles.
+
+    Args:
+      g: undirected simple ``Graph``.
+      block: tile edge length B.
+      part: "full" (A), "lower" (strict L) or "upper" (strict U).
+      dtype: the tiles' dtype (0/1 values).
+
+    Raises:
+      ValueError: unknown ``part``.
+    """
+    if part not in ("full", "lower", "upper"):
+        raise ValueError(f"unknown part {part!r}; expected 'full', 'lower' "
+                         f"or 'upper'")
+    src = np.repeat(np.arange(g.n, dtype=np.int64), g.degrees)
+    dst = g.col_idx.astype(np.int64)
+    if part == "lower":
+        keep = dst < src
+        src, dst = src[keep], dst[keep]
+    elif part == "upper":
+        keep = dst > src
+        src, dst = src[keep], dst[keep]
+    n_pad = ((g.n + block - 1) // block) * block
+    grid = n_pad // block
+    key = (src // block) * grid + dst // block
+    order = np.argsort(key, kind="stable")
+    src, dst, key = src[order], dst[order], key[order]
+    uniq = np.unique(key)
+    t = uniq.shape[0]
+    blocks = np.zeros((t, block, block), dtype=dtype)
+    blocks[np.searchsorted(uniq, key), src % block, dst % block] = 1
+    return BlockSparse(n=int(n_pad), block=block,
+                       block_row=(uniq // grid).astype(np.int32),
+                       block_col=(uniq % grid).astype(np.int32),
+                       blocks=blocks)

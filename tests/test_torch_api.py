@@ -21,6 +21,7 @@ import torch
 from torch_reference import ref  # noqa: F401
 
 import repro_torch
+from repro_torch.core import registry
 from repro_torch.core import (
     CountOptions,
     TriangleCounter,
@@ -93,14 +94,20 @@ def test_auto_resolves_like_reference(ref):
 
 
 @pytest.mark.parametrize("name", ["tiny-grid", "clique12"])
-def test_auto_on_other_lanes_raises_unregistered(ref, name):
+def test_auto_on_other_lanes_raises_unregistered(ref, name, monkeypatch):
     g = GRAPHS[name]()
     lane = ref.registry.choose_algorithm(_ref_graph(ref, g))
     assert lane in ("subgraph", "matrix")
+    # both lanes are registered: auto resolves as the reference does
+    tc = TriangleCounter(g, device=CPU)
+    assert tc.algorithm == lane and tc.count() == triangle_count_scipy(g)
+    # a chosen lane that is not registered still raises the reference's error
+    monkeypatch.delitem(registry._REGISTRY, lane)
+    rest = tuple(sorted({"intersection", "matrix", "subgraph"} - {lane}))
     with pytest.raises(ValueError) as err:
         TriangleCounter(g, device=CPU)
     assert str(err.value) == (f"auto chooser returned unregistered lane "
-                              f"{lane!r}; registered: ('intersection',)")
+                              f"{lane!r}; registered: {rest}")
 
 
 def test_default_device_is_the_card():
@@ -136,13 +143,15 @@ def test_options_validate_like_reference(ref):
            dict(widths=(32, 8)), dict(widths=()), dict(bitmap_bits=33),
            dict(bitmap_bits=1 << 17), dict(prep_backend="gpu"),
            dict(shape_policy="pow2"), dict(max_device_bytes=0),
-           dict(algorithm="nope"), dict(widths=5)]
+           dict(algorithm="nope"), dict(widths=5), dict(block=0),
+           dict(block="big"), dict(block=True), dict(permute=1)]
     for kw in bad:
         with pytest.raises(ValueError):
             CountOptions(**kw)
     # messages are the reference's wherever both packages take the field
     for kw in (dict(variant="x"), dict(strategy="merge"), dict(widths=(32, 8)),
-               dict(bitmap_bits=33), dict(max_device_bytes=0)):
+               dict(bitmap_bits=33), dict(max_device_bytes=0), dict(block=0),
+               dict(permute=1)):
         with pytest.raises(ValueError) as pe:
             CountOptions(**kw)
         with pytest.raises(ValueError) as re_:
@@ -152,10 +161,15 @@ def test_options_validate_like_reference(ref):
     assert a == CountOptions() and hash(a) == hash(CountOptions())
     assert a.key() == CountOptions(shape_policy=a.resolved_shape_policy).key()
     assert a.replace(strategy="probe").key() != a.key()
+    assert a.replace(block=32).key() != a.key()
+    assert a.replace(permute=False).key() != a.key()
     assert a.plan_kwargs("intersection")["widths"] == (8, 32, 128, 512)
+    for lane in ("matrix", "subgraph"):  # the reference's keys, less interpret
+        want = set(ref.options.CountOptions().plan_kwargs(lane)) - {"interpret"}
+        assert set(a.plan_kwargs(lane)) == want
     with pytest.raises(ValueError, match="unknown engine lane"):
-        a.plan_kwargs("matrix")
-    assert available_algorithms() == ("intersection",)
+        a.plan_kwargs("hash")
+    assert available_algorithms() == ("intersection", "matrix", "subgraph")
 
 
 def test_unported_surfaces_raise_not_implemented():
@@ -202,7 +216,8 @@ def test_bitmap_bits_override():
 def test_import_without_jax_or_reference():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None; "
             "import repro_torch, repro_torch.core, repro_torch.graphs, "
-            "repro_torch.kernels.intersect, repro_torch.kernels._build; "
+            "repro_torch.kernels.intersect, repro_torch.kernels.masked_spgemm, "
+            "repro_torch.kernels._build; "
             "g = repro_torch.graphs.rmat_graph(6, 6, seed=2); "
             "print(repro_torch.TriangleCounter(g, device='cpu').count().count)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

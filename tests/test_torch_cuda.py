@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain torch versions, on the card.
+"""The port's CUDA kernels against their plain torch versions, on the card,
+and the three lanes on the card against scipy.
 
 Marked ``cuda``: each test decides at run time whether a CUDA device is
 present and skips with a reason if not, so this file collects the same
@@ -7,12 +8,14 @@ tests everywhere. Run on a machine with an H100 (or any sm_90a card):
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import TriangleCounter, triangle_count_scipy
-from repro_torch.graphs import load_dataset, rmat_graph
+from repro_torch.graphs import complete_graph, load_dataset, rmat_graph
 from repro_torch.kernels.intersect import (
     LAUNCHES,
     intersect_counts_bitmap,
@@ -24,6 +27,7 @@ from repro_torch.kernels.intersect import (
     intersect_counts_ref,
     reset_launch_counts,
 )
+from repro_torch.kernels import masked_spgemm as ms
 
 pytestmark = pytest.mark.cuda
 
@@ -101,3 +105,71 @@ def test_counter_on_card_matches_scipy(cuda, strategy):
             tc.triangles_per_vertex(),
             TriangleCounter(g, algorithm="intersection", device="cpu")
             .triangles_per_vertex())
+
+
+def tiles(t: int, b: int, seed: int):
+    """Random 0/1 (T, B, B) float32 L, U, A stacks, density 0.02–0.5."""
+    rng = np.random.default_rng(seed)
+    return [(rng.random((t, b, b)) < rng.uniform(0.02, 0.5, size=(t, 1, 1)))
+            .astype(np.float32) for _ in range(3)]
+
+
+@pytest.mark.parametrize("b", [1, 8, 16, 33, 48, 100, 128, 129, 256])
+@pytest.mark.parametrize("t", [1, 7, 300])
+def test_masked_spgemm_kernel_equals_plain_version(cuda, t, b):
+    l, u, a = (torch.from_numpy(x).to(cuda) for x in tiles(t, b, seed=t * 1000 + b))
+    ms.reset_launch_counts()
+    got = ms.masked_spgemm_kernel(l, u, a)
+    want = ms.masked_spgemm_chunked(l, u, a)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.device.type == "cuda"
+    assert torch.equal(got, want)  # tolerance 0: exact integer partials
+    assert torch.equal(got.cpu(), ms.masked_spgemm_ref(l.cpu(), u.cpu(), a.cpu()))
+    assert ms.LAUNCHES == {"masked_spgemm": 1}
+
+
+def test_masked_spgemm_kernel_checks_inputs(cuda):
+    l, u, a = (torch.from_numpy(x).to(cuda) for x in tiles(3, 8, seed=1))
+    ms.reset_launch_counts()
+    assert ms.masked_spgemm_kernel(l[:0], u[:0], a[:0]).shape == (0,)
+    assert ms.LAUNCHES == {"masked_spgemm": 0}  # T = 0 launches nothing
+    with pytest.raises(ValueError, match="float32"):
+        ms.masked_spgemm_kernel(l.half(), u.half(), a.half())
+    with pytest.raises(ValueError, match="different devices"):
+        ms.masked_spgemm_kernel(l, u.cpu(), a)
+    big = torch.zeros(1, 257, 257, device=cuda)
+    with pytest.raises(ValueError, match="MAX_BLOCK"):
+        ms.masked_spgemm_kernel(big, big, big)
+
+
+@pytest.mark.parametrize("block", ["auto", 16, 32, 128, 200])
+def test_matrix_lane_on_card_matches_scipy(cuda, block):
+    for g in (load_dataset("tiny-rmat"), load_dataset("tiny-grid"),
+              rmat_graph(10, 8, seed=3)):
+        ms.reset_launch_counts()
+        tc = TriangleCounter(g, algorithm="matrix", block=block)
+        assert tc.count() == triangle_count_scipy(g)
+        assert ms.LAUNCHES["masked_spgemm"] == tc.plan.num_stages
+        np.testing.assert_array_equal(  # through the filtered sidecar
+            tc.triangles_per_vertex(),
+            TriangleCounter(g, algorithm="intersection", device="cpu")
+            .triangles_per_vertex())
+    res = TriangleCounter(complete_graph(512)).count()  # past 2^24
+    assert res.algorithm == "matrix" and res.count == math.comb(512, 3)
+
+
+@pytest.mark.parametrize("prep_backend", ["device", "host"])
+def test_subgraph_lane_on_card_matches_scipy(cuda, prep_backend):
+    for g in (load_dataset("tiny-grid"), load_dataset("road-like"),
+              rmat_graph(10, 8, seed=3)):
+        reset_launch_counts()
+        tc = TriangleCounter(g, algorithm="subgraph", prep_backend=prep_backend)
+        res = tc.count()
+        assert res.count == triangle_count_scipy(g)
+        assert sum(LAUNCHES.values()) == tc.plan.num_stages
+        cpu = TriangleCounter(g, algorithm="subgraph", device="cpu",
+                              prep_backend=prep_backend)
+        assert res.meta["vertices_pruned"] == cpu.count().meta["vertices_pruned"]
+        np.testing.assert_array_equal(tc.triangles_per_vertex(),
+                                      cpu.triangles_per_vertex())
+    assert TriangleCounter(load_dataset("road-like")).algorithm == "subgraph"

@@ -38,6 +38,11 @@ _MODULES = {
     "bitmap": "repro.kernels.intersect.bitmap",
     "probe": "repro.kernels.intersect.probe",
     "intersect": "repro.kernels.intersect.intersect",
+    "msops": "repro.kernels.masked_spgemm.ops",
+    "msref": "repro.kernels.masked_spgemm.ref",
+    "mskernel": "repro.kernels.masked_spgemm.masked_spgemm",
+    "tc_matrix": "repro.core.tc_matrix",
+    "tc_subgraph": "repro.core.tc_subgraph",
 }
 
 
@@ -48,7 +53,8 @@ def _is_reference(name: str) -> bool:
 @pytest.fixture(scope="module")
 def ref():
     """Namespace of reference modules (``ref.generators``, ``ref.prep``,
-    ``ref.ops``, ...), imported under the enable_x64 shim."""
+    ``ref.ops``, ``ref.msops``, ``ref.tc_subgraph``, ...), imported under
+    the enable_x64 shim."""
     import jax
     import jax.experimental
 
