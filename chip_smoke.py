@@ -34,12 +34,36 @@ source, all started together), and runs, in order:
    counter read around it; subgraph forced on every non-tiny analogue
    against scipy and the intersection lane's per-vertex counts;
 4. each kernel against its plain torch version on the card, exactly, at
-   the shapes its path gave it and on ragged shapes; the kernel's time
-   (CUDA events, L2 flushed before each launch), the plain version's time,
-   the bound and, for the masked SpGEMM, one library call's time as a
-   yardstick;
+   the shapes its path gave it and on ragged shapes (K2 also at W = 2048
+   and 8192, the bfs lane's widths); the kernel's time (CUDA events, L2
+   flushed before each launch), the plain version's time, the bound and,
+   for the masked SpGEMM, one library call's time as a yardstick. Then
+   every plan of phases 2–3c is released, so the new lanes below run on an
+   empty card and print their own peaks;
+3d. the hash lane: ``TriangleCounter(rmat_graph(17, 16, seed=1),
+   algorithm="hash")`` (a (131072, 512, 64) int32 hash table, 16 GiB)
+   against the forward-DAG scipy oracle and 36,128,651, with the hash-probe
+   kernel's counter read around it (4 launches per ``count()``);
+   per-vertex counts (through the filtered sidecar) summing to 3 × count;
+   hash forced on every non-tiny analogue against scipy, two of them with
+   ``prep_backend="host"``;
+3e. the bfs lane: the phase-3c grid again with ``algorithm="bfs"`` (about
+   3,000 BFS rounds) against 17,988,002 and phase 3c's per-vertex counts,
+   with the intersection kernels' counters read around it and each of its
+   stages held against its plain version, exactly, and timed as in phase 4;
+   bfs forced on every non-tiny analogue, one at a time, against scipy and
+   the intersection lane's per-vertex counts (orkut-like and soclj-like
+   give K2 a (262144, 8192) bucket of 17 GiB, held against its plain
+   version and timed there);
+4b. the hash-probe kernel against its plain version, exactly, at the four
+   shapes of the scale-17 path (with its table) and on 64 ragged shapes,
+   with its time, the plain version's time and the bound;
 5. a ``{"kernels": [...]}`` line, the card's name and power limit from
    nvidia-smi, and a last line ``{"ok": true, "device": {...}}``.
+
+The phases run in the order 1, 2, 3, 3b, 3c, 4, 3d, 3e, 4b, 5: phase 4
+needs the earlier lanes' plans (about 40 GiB), so the new lanes wait until
+it has released them.
 
 Any failed check raises, so the script exits non-zero and prints no last
 line. Without a CUDA device, or outside a checkout, it exits 2 at once.
@@ -47,6 +71,7 @@ line. Without a CUDA device, or outside a checkout, it exits 2 at once.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -60,9 +85,11 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 EXPECTED_SCALE18 = 82_629_122
+EXPECTED_SCALE17 = 36_128_651
 EXPECTED_ORKUT = 13_038_569
 EXPECTED_K512 = math.comb(512, 3)  # 22,238,720
 GRID_SIDE = 3000
+HASH_HOST_PREP = ("coauthors-like", "citpatents-like")  # also host-prepped
 EXPECTED_GRID = 2 * (GRID_SIDE - 1) ** 2  # two triangles per unit square
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 ALU_OPS_PER_S = 67e12      # H100 SXM non-tensor 32-bit rate, NVIDIA data sheet
@@ -120,6 +147,58 @@ def spgemm_bound_ms(t: int, b: int) -> tuple:
     t_bytes = (3 * t * b * b * 4 + 4 * t) / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * t * b ** 3 / TENSOR_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def hash_bound_ms(torch, w_lists, src, table, edges: int) -> dict:
+    """Least time for one hash-probe bucket: read the candidates and the
+    anchors once and write the counts; read once each D-slot chain that a
+    missing valid probe (0 ≤ w < n) of the real rows names (a miss has to
+    read every slot) and at least one slot of each chain that only hits
+    name; against one compare per slot of each valid probe at the card's
+    32-bit rate. Whole (B·D) anchor rows are no bound: the kernel reads
+    only the probed chains."""
+    n, b, d = table.shape
+    e, w = w_lists.shape
+    slots = table.view(n * b, d)
+    chains, hits = [], []
+    step = max(1, (1 << 24) // max(1, w * d))
+    for s in range(0, edges, step):  # one chunk's (C, W, D) slot gather
+        cand = w_lists[s:min(s + step, edges)]
+        valid = (cand >= 0) & (cand < n)
+        chain = src[s:s + cand.shape[0], None].long() * b \
+            + (cand & (b - 1)).long()
+        hit = (slots[chain.clamp(0, n * b - 1)] == cand[:, :, None]).any(-1)
+        chains.append(chain[valid])
+        hits.append(hit[valid])
+    chains = torch.cat(chains) if chains else src.new_zeros(0).long()
+    hits = torch.cat(hits) if hits else src.new_zeros(0).bool()
+    probed = int(torch.unique(chains).numel())
+    missed = int(torch.unique(chains[~hits]).numel())
+    probes = int(chains.numel())
+    base = e * w * 4 + 8 * e
+    t_bytes = (base + missed * d * 4 + (probed - missed) * 4) \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = probes * d / ALU_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                chains=probed, missed_chains=missed, valid_probes=probes)
+
+
+def hash_ragged(np, rng, e: int, w: int, n: int):
+    """A hash-probe case: (n, w) sorted unique neighbour rows below n with
+    in-row padding n (for ``build_hash_table``), (E,) anchors in [0, n),
+    and (E, W) candidate rows drawn from the same rows (so many probes
+    hit) with sentinel n + 1 and a tenth of the rows whole padding (-2)."""
+    nbrs = np.full((n, w), n, dtype=np.int32)
+    deg = rng.integers(0, w + 1, size=n)
+    keys = rng.random((n, n)).argsort(axis=1)[:, :w]
+    for r in range(n):
+        nbrs[r, :deg[r]] = np.sort(keys[r, :deg[r]])
+    src = rng.integers(0, n, size=e).astype(np.int32)
+    cand = nbrs[rng.integers(0, n, size=e)].copy()
+    cand[cand == n] = n + 1
+    cand[e - e // 10:] = -2
+    return nbrs, src, cand
 
 
 def spgemm_library(torch, l, u, a):
@@ -224,6 +303,12 @@ def main() -> int:
         intersect_counts_broadcast, intersect_counts_kernel,
         intersect_counts_probe, intersect_counts_probe_kernel,
         reset_launch_counts)
+    from repro_torch.kernels.hash_tc import LAUNCHES as HASH_LAUNCHES
+    from repro_torch.kernels.hash_tc import (build_hash_table,
+                                             hash_probe_counts_chunked,
+                                             hash_probe_kernel)
+    from repro_torch.kernels.hash_tc import \
+        reset_launch_counts as reset_hash_launch_counts
     from repro_torch.kernels.masked_spgemm import LAUNCHES as MS_LAUNCHES
     from repro_torch.kernels.masked_spgemm import (masked_spgemm_chunked,
                                                    masked_spgemm_kernel)
@@ -244,7 +329,7 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
     print(f"nvcc: {nvcc.splitlines()[-1]}")
     t0 = time.perf_counter()
-    sources = ("intersect", "masked_spgemm")
+    sources = ("intersect", "masked_spgemm", "hash_probe")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
         libs = list(pool.map(_build.build, sources))
     print(f"build: {[str(lib.relative_to(ROOT)) for lib in libs]} in "
@@ -432,6 +517,7 @@ def main() -> int:
     check(first.meta["num_embeddings"] == 6 * first.count,
           "num_embeddings = 6 × count")
     subgraph_stages = tc.plan.stages
+    grid, grid_tpv = g, tpv  # phase 3e counts the same graph again
     del tc, tpv, g, alive_np
     for name in analogues:
         s = TriangleCounter(load_dataset(name), algorithm="subgraph")
@@ -522,7 +608,8 @@ def main() -> int:
     ragged = [(1, 8, 50, 0), (255, 8, 64, 3), (257, 32, 300, 17),
               (1000, 100, 700, 1), (4097, 128, 2000, 97), (999, 257, 1500, 0),
               (333, 512, 4000, 33), (129, 1000, 5000, 5), (77, 1024, 9000, 7),
-              (64, 1500, 6000, 2), (9, 8200, 20000, 1)]
+              (64, 1500, 6000, 2), (9, 8200, 20000, 1),
+              (300, 2048, 20000, 7), (64, 8192, 40000, 3)]
     for e, w, id_hi, pad in ragged:
         u_np, v_np = ragged_lists(np, rng, e, w, id_hi, pad)
         u = torch.from_numpy(u_np).to(dev)
@@ -590,6 +677,227 @@ def main() -> int:
             rec = spgemm_case("ragged", l, u, a)
             entry["ragged"].append(rec)
             entry["max_abs_err"] = max(entry["max_abs_err"], rec["max_abs_err"])
+    report.append(entry)
+
+    # release every plan of phases 2-3c: the new lanes run on an empty card
+    del (main_stages, bitmap_stages, subgraph_stages, paths, first, warm, s,
+         c, res, base, st, l, u, a, v)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"released the earlier lanes' plans: memory_allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    # -- phase 3d: the hash lane ----------------------------------------------
+    phase("phase 3d: hash lane, TriangleCounter(rmat_graph(17, 16, seed=1), "
+          "algorithm='hash')")
+    t0 = time.perf_counter()
+    g = rmat_graph(17, 16, seed=1)
+    oracle = triangle_count_forward_scipy(g)
+    print(f"graph: n={g.n} m={g.m_undirected} max_degree={g.max_degree}; "
+          f"host generation + forward scipy oracle {time.perf_counter() - t0:.2f} s")
+    check(oracle == EXPECTED_SCALE17, f"forward scipy oracle = {oracle}")
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_hash_launch_counts()
+    tc = TriangleCounter(g, algorithm="hash")
+    first = tc.count()
+    warm = [tc.count() for _ in range(5)]
+    hash_launches = HASH_LAUNCHES["hash_probe"]
+    m = first.meta
+    table = tc.plan.stages[0].args[2]
+    print(f"table {tuple(table.shape)} ({table.numel() * 4 / 2**30:.2f} GiB), "
+          f"table_width={m['table_width']} hash_num_buckets="
+          f"{m['hash_num_buckets']} hash_depth={m['hash_depth']} "
+          f"buckets={m['bucket_shapes']} edges/bucket={m['bucket_edges']}")
+    print(f"prep_seconds={first.prep_seconds:.4f} (device prep, table depth "
+          f"sync and build) first count() {first.exec_seconds:.4f} s; warm "
+          f"count() seconds {[round(r.exec_seconds, 6) for r in warm]} "
+          f"(median {statistics.median(r.exec_seconds for r in warm):.6f}); "
+          f"{peak_memory(torch, held)}")
+    print(f"hash_probe launches over {1 + len(warm)} count(): {hash_launches}")
+    check(all(r.count == EXPECTED_SCALE17 for r in [first] + warm),
+          f"count() = {first.count} every time, = oracle")
+    check(tuple(table.shape) == (131072, 512, 64),
+          f"table shape {tuple(table.shape)} = (131072, 512, 64)")
+    check([sk[:2] for sk in m["bucket_shapes"]]
+          == [(16384, 8), (131072, 32), (1048576, 128), (2097152, 512)],
+          f"bucket shapes {[sk[:2] for sk in m['bucket_shapes']]}")
+    check(hash_launches == 4 * (1 + len(warm)),
+          "4 hash_probe launches per count()")
+    hash_stages, hash_bucket_edges = tc.plan.stages, m["bucket_edges"]
+    t0 = time.perf_counter()
+    tpv = tc.triangles_per_vertex()
+    check(int(tpv.sum()) == 3 * first.count and tpv.shape == (g.n,),
+          f"triangles_per_vertex().sum() = {int(tpv.sum())} = 3 × count "
+          f"(filtered sidecar, {time.perf_counter() - t0:.3f} s)")
+    del tc, tpv, first, warm, table
+    for name in analogues:
+        for prep_backend in ("device", "host") if name in HASH_HOST_PREP \
+                else ("device",):
+            s = TriangleCounter(load_dataset(name), algorithm="hash",
+                                prep_backend=prep_backend)
+            c = s.count()
+            check(c.count == truths[name],
+                  f"{name} hash ({prep_backend} prep) count {c.count} = scipy "
+                  f"(table ({c.meta.get('table_width')} → B "
+                  f"{c.meta.get('hash_num_buckets')}, D "
+                  f"{c.meta.get('hash_depth')}), warm count "
+                  f"{s.count().exec_seconds * 1e3:.3f} ms)")
+    del s, c
+
+    # -- phase 3e: the bfs lane -----------------------------------------------
+    phase(f"phase 3e: bfs lane, TriangleCounter(grid_graph({GRID_SIDE}, ...), "
+          f"algorithm='bfs')")
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    tc = TriangleCounter(grid, algorithm="bfs")
+    first = tc.count()
+    warm = [tc.count() for _ in range(5)]
+    bfs_launches = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    tpv = tc.triangles_per_vertex()
+    tpv_s = time.perf_counter() - t0
+    m = first.meta
+    print(f"levels_max={m['levels_max']} bfs_rounds={m['bfs_rounds']} "
+          f"bfs_sources={m['bfs_sources']} buckets={m['bucket_shapes']} "
+          f"strategies={first.bucket_strategies} "
+          f"edges/bucket={m['bucket_edges']}")
+    print(f"prep_seconds={first.prep_seconds:.4f} first count() "
+          f"{first.exec_seconds:.4f} s; warm count() seconds "
+          f"{[round(r.exec_seconds, 6) for r in warm]} (median "
+          f"{statistics.median(r.exec_seconds for r in warm):.6f}); "
+          f"triangles_per_vertex {tpv_s:.3f} s; {peak_memory(torch, held)}")
+    print(f"launches over {1 + len(warm)} count(): {bfs_launches}")
+    check(all(r.count == EXPECTED_GRID for r in [first] + warm),
+          f"count() = {first.count} every time, = 2·2999²")
+    check(sum(bfs_launches.values()) == len(m["bucket_shapes"]) * (1 + len(warm)),
+          "one intersection launch per bucket per count()")
+    check(int(tpv.sum()) == 3 * first.count
+          and bool((tpv == grid_tpv).all()),
+          f"triangles_per_vertex().sum() = {int(tpv.sum())} = 3 × count, "
+          f"= the subgraph lane's per-vertex counts")
+    entries = {s: next(x for x in report if x["name"] == KERNELS[s]["name"])
+               for s in KERNELS}
+    for strategy, entry in entries.items():
+        shapes = [intersect_case(strategy, st) for st in tc.plan.stages
+                  if st.strategy == strategy]
+        if shapes:
+            entry["bfs_path"] = dict(
+                path=f"grid_graph({GRID_SIDE}) bfs count()",
+                launches=bfs_launches[strategy], shapes=shapes)
+            entry["max_abs_err"] = max([entry["max_abs_err"]]
+                                       + [x["max_abs_err"] for x in shapes])
+    check(all(st.strategy in entries and "bfs_path" in entries[st.strategy]
+              for st in tc.plan.stages),
+          "every bfs grid stage held against its plain version")
+    del tc, tpv, first, warm, grid, grid_tpv
+    bfs_wide = []
+    for name in analogues:
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        s = TriangleCounter(load_dataset(name), algorithm="bfs")
+        c = s.count()
+        m = c.meta
+        check(c.count == truths[name]
+              and bool((s.triangles_per_vertex() == inter_tpv[name]).all()),
+              f"{name} bfs count {c.count} = scipy, per-vertex = intersection "
+              f"lane (levels_max {m['levels_max']}, {m['bfs_rounds']} rounds, "
+              f"buckets {m['bucket_shapes']}, strategies "
+              f"{c.bucket_strategies}, prep {c.prep_seconds:.3f} s, warm "
+              f"count {s.count().exec_seconds * 1e3:.3f} ms, "
+              f"{peak_memory(torch, held)})")
+        for st in s.plan.stages:
+            if st.shape_key[1] >= 8192 and st.strategy == "probe":
+                u_, v_ = st.args
+                k_out = intersect_counts_probe_kernel(u_, v_)
+                p_out = intersect_counts_probe(u_, v_)
+                torch.cuda.synchronize()
+                err = int((k_out.long() - p_out.long()).abs().max())
+                check(err == 0, f"{name} bfs probe kernel == plain at "
+                                f"{tuple(u_.shape)} "
+                                f"({2 * u_.numel() * 4 / 2**30:.2f} GiB)")
+                k_ms = time_ms(torch, lambda: intersect_counts_probe_kernel(
+                    u_, v_), 5, flush)
+                b_ms, b_by = bound_ms(*u_.shape)
+                print(f"  probe {tuple(u_.shape)} ({name} bfs): kernel "
+                      f"{k_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+                bfs_wide.append(dict(graph=name, shape=list(u_.shape), ms=k_ms,
+                                     bound_ms=b_ms, bound_by=b_by,
+                                     max_abs_err=err))
+                del u_, v_, k_out, p_out
+        del s, c
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(bool(bfs_wide), "the bfs lane gave K2 a W ≥ 8192 bucket")
+    entries["probe"]["bfs_analogues"] = dict(
+        path="bfs forced on the Table-1 analogues", shapes=bfs_wide)
+
+    # -- phase 4b: the hash-probe kernel against its plain version ------------
+    phase("phase 4b: hash-probe kernel against its plain torch version")
+
+    def hash_case(label, w_lists, src, table, edges):
+        """Hold K5 against its plain version, exactly, and time both;
+        returns the shape's record."""
+        k_out = hash_probe_kernel(w_lists, src, table)
+        p_out = hash_probe_counts_chunked(w_lists, src, table)
+        torch.cuda.synchronize()
+        err = int((k_out.long() - p_out.long()).abs().max()) \
+            if w_lists.shape[0] else 0
+        check(err == 0, f"hash_probe kernel == plain at "
+                        f"{tuple(w_lists.shape)} table {tuple(table.shape)} "
+                        f"{label}")
+        k_ms = time_ms(torch, lambda: hash_probe_kernel(w_lists, src, table),
+                       7, flush)
+        p_ms = time_ms(torch, lambda: hash_probe_counts_chunked(
+            w_lists, src, table), 3, flush)
+        bound = hash_bound_ms(torch, w_lists, src, table, edges)
+        print(f"  hash_probe {tuple(w_lists.shape)} table "
+              f"{tuple(table.shape)} {label}: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}; {bound['valid_probes']} valid probes "
+              f"in {bound['chains']} distinct chains, "
+              f"{bound['missed_chains']} with a miss)", flush=True)
+        return dict(shape=list(w_lists.shape), table=list(table.shape),
+                    label=label, ms=k_ms, plain_ms=p_ms, max_abs_err=err,
+                    **bound)
+
+    entry = dict(name="hash_probe", route="cuda",
+                 source="src/repro_torch/csrc/hash_probe.cu",
+                 replaces="src/repro/kernels/hash_tc/probe.py:91",
+                 plain="hash_probe_counts_chunked",
+                 path="scale-17 R-MAT hash count()",
+                 launches=hash_launches, tolerance=0, max_abs_err=0,
+                 ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by=None,
+                 library_ms=None, shapes=[], ragged=[])
+    for st, edges in zip(hash_stages, hash_bucket_edges):
+        rec = hash_case("scale-17 path", *st.args, edges)
+        entry["shapes"].append(rec)
+        for k in ("ms", "plain_ms", "bound_ms"):
+            entry[k] += rec[k]
+        entry["max_abs_err"] = max(entry["max_abs_err"], rec["max_abs_err"])
+    entry["bound_by"] = max(entry["shapes"], key=lambda x: x["bound_ms"])["bound_by"]
+    del hash_stages, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(13)
+    for e in (1, 7, 1000, 4097):
+        for w in (1, 8, 33, 512):
+            n = max(2 * w, 64)
+            nbrs, src_np, cand = hash_ragged(np, rng, e, w, n)
+            nbrs_t = torch.from_numpy(nbrs).to(dev)
+            w_t = torch.from_numpy(cand).to(dev)
+            s_t = torch.from_numpy(src_np).to(dev)
+            for nb, d in ((8, 1), (8, 2), (32, 8), (512, 64)):
+                table = build_hash_table(nbrs_t, num_buckets=nb, depth=d)
+                k_out = hash_probe_kernel(w_t, s_t, table)
+                p_out = hash_probe_counts_chunked(w_t, s_t, table)
+                torch.cuda.synchronize()
+                err = int((k_out.long() - p_out.long()).abs().max())
+                check(err == 0, f"ragged hash_probe ({e}, {w}) table "
+                                f"({n}, {nb}, {d}) kernel == plain")
+                entry["ragged"].append(dict(shape=[e, w], table=[n, nb, d],
+                                            max_abs_err=err))
     report.append(entry)
     for entry in report:
         entry.update(max_abs_diff=entry["max_abs_err"], kernel_ms=entry["ms"])

@@ -1,13 +1,16 @@
 """PyTorch/CUDA port of the triangle-counting system in ``repro``.
 
-The paper's three formulations run end to end: numpy ``Graph`` → device
-prep in torch → hand-written CUDA kernels for Hopper, built with ``nvcc``
-at first use → ``TriangleCounter(g).count()``. The intersection lane (and
-the subgraph lane, after its 2-core peel) counts per-bucket set
+The paper's three formulations and two further lanes run end to end:
+numpy ``Graph`` → device prep in torch → hand-written CUDA kernels for
+Hopper, built with ``nvcc`` at first use → ``TriangleCounter(g).count()``.
+The intersection lane (and the subgraph lane after its 2-core peel, and
+the bfs lane after its level orientation) counts per-bucket set
 intersections (``csrc/intersect.cu``); the matrix lane runs a fused masked
-block-SpGEMM over a tile schedule (``csrc/masked_spgemm.cu``). Entry points run on the CUDA device unless
-they are given ``device="cpu"``, where each kernel's plain torch version
-runs instead. The package imports neither JAX nor ``repro``.
+block-SpGEMM over a tile schedule (``csrc/masked_spgemm.cu``); the hash
+lane probes a per-vertex hash table (``csrc/hash_probe.cu``). Entry points
+run on the CUDA device unless they are given ``device="cpu"``, where each
+kernel's plain torch version runs instead. The package imports neither
+JAX nor ``repro``.
 """
 
 from repro_torch.core import CountOptions, CountResult, TriangleCounter

@@ -1,5 +1,5 @@
-"""Triangle counting: options, registry, plan/execute engine, the three
-lanes (intersection, subgraph, matrix), front door."""
+"""Triangle counting: options, registry, plan/execute engine, the five
+lanes (intersection, subgraph, matrix, hash, bfs), front door."""
 
 from repro_torch.core.options import CountOptions, DEFAULT_WIDTHS
 from repro_torch.core.registry import (
@@ -13,6 +13,8 @@ from repro_torch.core.engine import (
     cache_info,
     clear_caches,
     executable_cache_info,
+    plan_bfs_count,
+    plan_hash_count,
     plan_triangle_count,
     set_cache_limit,
 )
@@ -47,6 +49,8 @@ __all__ = [
     "executable_cache_info",
     "get_algorithm",
     "peel_to_two_core",
+    "plan_bfs_count",
+    "plan_hash_count",
     "plan_triangle_count",
     "prep",
     "register_algorithm",

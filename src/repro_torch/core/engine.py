@@ -1,12 +1,17 @@
 """Plan/execute engine for exact triangle counting.
 
-The port of ``repro.core.engine`` for the paper's three formulations:
+The port of ``repro.core.engine`` for the paper's three formulations and
+the two lanes built on the same buckets:
 
 * ``"intersection"`` — per-edge set intersection over degree-class buckets;
 * ``"subgraph"`` — a 2-core peel (FILTER), the induced graph
   (RECONSTRUCT), then the intersection join on the survivors;
 * ``"matrix"`` — the fused masked block-SpGEMM over a heavy-first tile
-  schedule.
+  schedule;
+* ``"hash"`` — the TRUST-style lane: the filtered buckets' candidate rows
+  probed against a per-vertex (n, B, D) hash table;
+* ``"bfs"`` — BFS levels order the vertices by (level, id), and the
+  level-oriented buckets run through the intersection launches.
 
 Planning runs the prep stage once on the session's device and binds each
 work unit (a bucket, or the tile-triple stacks) to a cached launch
@@ -23,8 +28,8 @@ per-plan override), is part of the cache key, and is surfaced as
 ``meta["bucket_strategies"]``.
 
 Every stage's counts are summed in int64 on the device. (The reference
-sums each bucket's int32 counts in int32, so a bucket total past 2³¹ wraps
-there, and it adds the matrix lane's float32 partials in float32, which can
+sums each bucket's int32 counts in int32, hash buckets too, so a bucket
+total past 2³¹ wraps there, and it adds the matrix lane's float32 partials in float32, which can
 round once a count passes 2²⁴; every partial is an exact integer, so the
 port's int64 sum is exact.)
 """
@@ -41,11 +46,17 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.graphs.formats import Graph, induced_subgraph
+from repro_torch.graphs.formats import (
+    Graph,
+    csr_to_padded_neighbors,
+    induced_subgraph,
+    orient_forward,
+)
 from repro_torch.graphs.device import (
     DEFAULT_SHAPE_POLICY,
     DeviceGraph,
     ShapePolicy,
+    next_pow2,
     resolve_device,
 )
 from repro_torch.core import prep
@@ -59,10 +70,17 @@ from repro_torch.kernels.intersect.ops import (
     resolve_mask_strategy,
     resolve_strategy,
 )
+from repro_torch.kernels.hash_tc.ops import (
+    build_hash_table,
+    hash_num_buckets,
+    hash_probe_counts,
+    hash_table_depth,
+)
 from repro_torch.kernels.masked_spgemm.ops import masked_spgemm_counts
 
 __all__ = [
     "ALGORITHMS",
+    "HashLaunch",
     "IntersectLaunch",
     "MatrixLaunch",
     "TrianglePlan",
@@ -71,6 +89,8 @@ __all__ = [
     "clear_caches",
     "executable_cache_info",
     "get_executable",
+    "plan_bfs_count",
+    "plan_hash_count",
     "plan_triangle_count",
     "set_cache_limit",
 ]
@@ -171,7 +191,7 @@ class _BoundedLRU:
 _EXECUTABLE_CACHE = _BoundedLRU(512)
 
 #: The lanes ``plan_triangle_count`` plans.
-ALGORITHMS = ("intersection", "matrix", "subgraph")
+ALGORITHMS = ("intersection", "matrix", "subgraph", "hash", "bfs")
 
 # u elements the per-vertex stage handles per row chunk (bounds its
 # (rows, W) mask and int64 index transients on the largest buckets)
@@ -213,6 +233,21 @@ class MatrixLaunch:
 
 
 @dataclasses.dataclass(frozen=True)
+class HashLaunch:
+    """The hash lane's bound launch configuration. Calling it on a bucket's
+    (v_lists, src) and the plan-wide (n, B, D) table runs the hash probe
+    and returns the bucket total as an int64 scalar tensor on the bucket's
+    device (the reference sums it in int32, R5)."""
+
+    backend: str
+
+    def __call__(self, w_lists: torch.Tensor, src: torch.Tensor,
+                 table: torch.Tensor) -> torch.Tensor:
+        counts = hash_probe_counts(w_lists, src, table, backend=self.backend)
+        return counts.sum(dtype=torch.int64)
+
+
+@dataclasses.dataclass(frozen=True)
 class VertexLaunch:
     """Per-vertex triangle counts for one filtered bucket.
 
@@ -249,9 +284,11 @@ def get_executable(algorithm: str, backend: str, shape_key: tuple, *,
     """Fetch (or build) the cached launch configuration for one work unit.
 
     Args:
-      algorithm: "intersection" (a bucket's count; the subgraph lane's
-        buckets use it too), "matrix" (the tile-triple stacks, ``shape_key``
-        ``(T, B, B)``) or "vertex" (a filtered bucket's per-vertex counts;
+      algorithm: "intersection" (a bucket's count; the subgraph and bfs
+        lanes' buckets use it too), "matrix" (the tile-triple stacks,
+        ``shape_key`` ``(T, B, B)``), "hash" (a bucket's hash probe,
+        ``shape_key`` ``(E, W, B, D)``: the table's shape class rides in
+        the key) or "vertex" (a filtered bucket's per-vertex counts;
         ``shape_key`` is ``(E, W, n)``).
       backend: "kernel" | "ref".
       shape_key: the work unit's array shape.
@@ -271,6 +308,8 @@ def get_executable(algorithm: str, backend: str, shape_key: tuple, *,
         builder = functools.partial(IntersectLaunch, strategy, backend, bitmap_bits)
     elif algorithm == "matrix":
         builder = functools.partial(MatrixLaunch, backend)
+    elif algorithm == "hash":
+        builder = functools.partial(HashLaunch, backend)
     elif algorithm == "vertex":
         builder = functools.partial(VertexLaunch, int(shape_key[2]), int(shape_key[1]))
     else:
@@ -307,7 +346,7 @@ def set_cache_limit(maxsize: int) -> int:
 @dataclasses.dataclass
 class _Stage:
     executable: Callable
-    args: Tuple[torch.Tensor, ...]  # device-resident (u, v) or (l, u, a)
+    args: Tuple[torch.Tensor, ...]  # resident (u, v), (l, u, a) or (v, src, table)
     shape_key: tuple
     strategy: Optional[str] = None
     bitmap_bits: Optional[int] = None
@@ -357,7 +396,7 @@ class TrianglePlan:
     def count_with_stats(self) -> Tuple[int, dict]:
         """Count once and return ``(count, meta)``; meta carries the plan's
         statistics — prune fractions, tile schedule sizes, bucket shapes
-        and, on the intersection/subgraph lanes, ``bucket_strategies`` (one
+        and, on the intersection/subgraph/bfs lanes, ``bucket_strategies`` (one
         ``(width, strategy)`` pair per bucket). The subgraph lane adds
         ``num_embeddings`` = 6 × count (the join's ordered embeddings)."""
         c = self.count()
@@ -373,18 +412,19 @@ class TrianglePlan:
         The subgraph lane's stages count on the induced graph: the device
         prep keeps the original ids; the host prep renumbers, and the counts
         scatter back through ``meta["vertex_map"]`` (peeled vertices are in
-        no triangle).
+        no triangle). The bfs lane's level-oriented stages carry the same
+        (src, dst) layout as the filtered intersection lane's.
 
         Returns:
           (n,) int64 numpy array, t[v] = number of triangles containing v.
 
         Raises:
-          NotImplementedError: the matrix lane or the full intersection
-            variant, whose stages carry no forward endpoints to credit
-            matches to (``TriangleCounter`` then answers from a filtered
-            sidecar plan).
+          NotImplementedError: the matrix and hash lanes or the full
+            intersection variant, whose stages carry no forward endpoints
+            to credit matches to (``TriangleCounter`` then answers from a
+            filtered sidecar plan).
         """
-        if self.algorithm not in ("intersection", "subgraph") \
+        if self.algorithm not in ("intersection", "subgraph", "bfs") \
                 or self.divisor != 1 \
                 or any(st.vertex_args is None for st in self.stages):
             raise NotImplementedError(
@@ -467,23 +507,9 @@ def _plan_intersection(g: Graph, variant: str, backend: str,
                        device: torch.device) -> Tuple[List[_Stage], int, dict]:
     buckets = _buckets_for_plan(g, variant, widths, prep_backend,
                                 shape_policy, device)
-    # real ids [0, n) plus the in-row sentinels n (u) and n + 1 (v); whole
-    # padding rows (-1/-2) are negative and never match in any core
-    id_range = g.n + 2
-    stages = []
-    for b in buckets:
-        strat, bits = _resolve_bucket_strategy(b.width, id_range, strategy,
-                                               bitmap_bits)
-        fn = get_executable("intersection", backend, b.shape,
-                            strategy=strat, bitmap_bits=bits)
-        stages.append(_Stage(
-            executable=fn,
-            args=(b.u_lists, b.v_lists),
-            shape_key=b.shape,
-            strategy=strat,
-            bitmap_bits=bits,
-            vertex_args=(b.src, b.dst) if variant == "filtered" else None,
-        ))
+    stages, bucket_meta = _bucket_stages(buckets, g.n, backend, strategy,
+                                         bitmap_bits,
+                                         per_vertex=(variant == "filtered"))
     policy = shape_policy if shape_policy is not None else DEFAULT_SHAPE_POLICY
     meta = dict(
         variant=variant,
@@ -491,12 +517,40 @@ def _plan_intersection(g: Graph, variant: str, backend: str,
         strategy=strategy,
         prep_backend=prep_backend,
         shape_policy=policy.key() if prep_backend == "device" else None,
+        **bucket_meta,
+    )
+    return stages, (6 if variant == "full" else 1), meta
+
+
+def _bucket_stages(buckets: List[DeviceBucket], n: int, backend: str,
+                   strategy: str, bitmap_bits: Optional[int], *,
+                   per_vertex: bool) -> Tuple[List[_Stage], dict]:
+    """Bind each bucket to its cached intersection launch, with the
+    strategy resolved per bucket; ``per_vertex`` keeps the forward
+    endpoints for the per-vertex stage. Returns the stages and their
+    bucket meta (shapes, strategies, edges)."""
+    # real ids [0, n) plus the in-row sentinels n (u) and n + 1 (v); whole
+    # padding rows (-1/-2) are negative and never match in any core
+    id_range = n + 2
+    stages = []
+    for b in buckets:
+        strat, bits = _resolve_bucket_strategy(b.width, id_range, strategy,
+                                               bitmap_bits)
+        stages.append(_Stage(
+            executable=get_executable("intersection", backend, b.shape,
+                                      strategy=strat, bitmap_bits=bits),
+            args=(b.u_lists, b.v_lists),
+            shape_key=b.shape,
+            strategy=strat,
+            bitmap_bits=bits,
+            vertex_args=(b.src, b.dst) if per_vertex else None,
+        ))
+    return stages, dict(
         bucket_shapes=[s.shape_key for s in stages],
         bucket_strategies=[(s.shape_key[1], s.strategy) for s in stages],
         bucket_edges=[b.edges for b in buckets],
         edges=int(sum(b.edges for b in buckets)),
     )
-    return stages, (6 if variant == "full" else 1), meta
 
 
 def _plan_matrix(g: Graph, block, permute: bool, backend: str,
@@ -572,6 +626,109 @@ def _plan_subgraph(g: Graph, backend: str, widths: Sequence[int],
     return stages, 1, meta
 
 
+def _plan_hash(g: Graph, backend: str, widths: Sequence[int],
+               prep_backend: str, shape_policy: Optional[ShapePolicy],
+               device: torch.device) -> Tuple[List[_Stage], int, dict]:
+    """The TRUST-style vertex-centric hash lane (arXiv:2103.08053).
+
+    Prep reuses the filtered degree-class buckets (the candidate rows are
+    the intersection lane's ``v_lists`` = N⁺(dst)), plus one plan-wide
+    structure: an (n, B, D) per-vertex hash table over the oriented rows
+    (``repro_torch.kernels.hash_tc``). Each stage probes its bucket's
+    candidates against ``table[src]``, so every forward edge (u, v) adds
+    |N⁺(v) ∩ N⁺(u)| and every triangle is counted once. One scalar sync
+    measures the longest chain; B and D are powers of two, so the table
+    shape is a function of the graph's shape class.
+
+    The stages bind ``(v_lists, src, table)`` only: the buckets' u rows
+    are dropped before the table is built. The device prep's
+    ``DeviceGraph`` serves the table's padded rows too (the reference
+    builds a second one; the arrays are equal).
+    """
+    policy = shape_policy if shape_policy is not None else DEFAULT_SHAPE_POLICY
+    dg = DeviceGraph.from_graph(g, policy, device=device) \
+        if prep_backend == "device" else None
+    buckets = _buckets_for_plan(dg if dg is not None else g, "filtered",
+                                widths, prep_backend, shape_policy, device)
+    rows = [(b.width, b.edges, b.v_lists, b.src) for b in buckets]
+    del buckets  # frees the u rows, which no hash stage reads
+    meta = dict(
+        variant="filtered",
+        widths=tuple(widths),
+        prep_backend=prep_backend,
+        shape_policy=policy.key() if prep_backend == "device" else None,
+    )
+    stages: List[_Stage] = []
+    if rows:
+        table_width = max(w for w, *_ in rows)
+        num_buckets = hash_num_buckets(table_width)
+        if dg is not None:
+            nbrs = dg.padded_neighbors(table_width, oriented=True)
+        else:
+            nbrs = torch.from_numpy(csr_to_padded_neighbors(
+                orient_forward(g), pad_to=table_width)).to(device)
+        # one scalar sync: the longest chain, rounded to a pow2 class
+        depth = next_pow2(max(1, hash_table_depth(nbrs, num_buckets)))
+        table = build_hash_table(nbrs, num_buckets=num_buckets, depth=depth)
+        del nbrs, dg
+        for width, _, v_lists, src in rows:
+            shape_key = (int(v_lists.shape[0]), width, num_buckets, depth)
+            stages.append(_Stage(
+                executable=get_executable("hash", backend, shape_key),
+                args=(v_lists, src, table),
+                shape_key=shape_key,
+            ))
+        meta.update(hash_num_buckets=num_buckets, hash_depth=depth,
+                    table_width=table_width)
+    meta.update(
+        bucket_shapes=[s.shape_key for s in stages],
+        bucket_edges=[e for _, e, _, _ in rows],
+        edges=int(sum(e for _, e, _, _ in rows)),
+    )
+    return stages, 1, meta
+
+
+def _plan_bfs(g: Graph, backend: str, widths: Sequence[int], strategy: str,
+              bitmap_bits: Optional[int], shape_policy: Optional[ShapePolicy],
+              device: torch.device) -> Tuple[List[_Stage], int, dict]:
+    """The BFS-based lane (Fast BFS-Based Triangle Counting,
+    arXiv:1909.02127).
+
+    BFS levels (``graphs.device._bfs_levels_dev``, one host sync a round)
+    replace the degree rank: every edge is oriented toward its larger
+    ``(level, id)`` endpoint, a total order, so each triangle closes once
+    at its rank-minimum wedge. The count is the forward wedge closure
+    |N_f(u) ∩ N_f(v)| over level-oriented degree-class buckets (the edges
+    in CSR order, as the reference's ``bucket_edges_by_degree`` takes
+    them), so the stages bind the shared intersection launches; only the
+    oriented rows differ. The orientation, the buckets and their padded
+    rows are built on the device: hub out-degrees are not bounded by this
+    order, and the wide buckets' host gather is what the device saves.
+    """
+    policy = shape_policy if shape_policy is not None else DEFAULT_SHAPE_POLICY
+    meta = dict(
+        variant="bfs-forward",
+        widths=tuple(widths),
+        strategy=strategy,
+        shape_policy=policy.key(),
+    )
+    if g.n == 0 or g.m_undirected == 0:
+        meta.update(bucket_shapes=[], bucket_strategies=[], bucket_edges=[],
+                    edges=0, levels_max=0, bfs_sources=int(g.n), bfs_rounds=0)
+        return [], 1, meta
+    dg = DeviceGraph.from_graph(g, policy, device=device)
+    buckets, lvl, rounds = prep.prepare_bfs_buckets_device(dg, widths=widths)
+    stages, bucket_meta = _bucket_stages(buckets, g.n, backend, strategy,
+                                         bitmap_bits, per_vertex=True)
+    meta.update(
+        **bucket_meta,
+        levels_max=int(lvl.max()),
+        bfs_sources=int((lvl == 0).sum()),
+        bfs_rounds=rounds,
+    )
+    return stages, 1, meta
+
+
 def plan_triangle_count(
     g: Graph,
     algorithm: str = "intersection",
@@ -592,20 +749,23 @@ def plan_triangle_count(
 
     Args:
       g: the input ``Graph`` (undirected simple CSR).
-      algorithm: "intersection" | "subgraph" | "matrix" (``ALGORITHMS``).
+      algorithm: "intersection" | "subgraph" | "matrix" | "hash" (the
+        TRUST-style per-vertex hash lane) | "bfs" (level-ordered wedge
+        closure); ``ALGORITHMS``.
       backend: "kernel" | "ref" per-stage execution path.
       variant: intersection lane only — "filtered" (forward algorithm) or
         "full" (every directed edge, each triangle found 6×).
-      widths: degree-class bucket widths (intersection/subgraph lanes).
-      strategy: intersection/subgraph lanes — "auto" (the
+      widths: degree-class bucket widths (all lanes but matrix).
+      strategy: intersection/subgraph/bfs lanes — "auto" (the
         ``choose_strategy`` cost model per bucket) or a forced
         "broadcast" | "probe" | "bitmap".
       block: matrix lane tile edge B, or "auto" (``prep.choose_block``).
       permute: matrix lane degree-order permutation toggle.
       bitmap_bits: optional forced capacity for bitmap buckets (must cover
         ``n + 2``).
-      prep_backend: intersection/subgraph lanes — "device" (torch prep) or
-        "host" (the numpy path).
+      prep_backend: intersection/subgraph/hash lanes — "device" (torch
+        prep) or "host" (the numpy path); the bfs lane always preps on the
+        device.
       shape_policy: the ``ShapePolicy``; None means ``DEFAULT_SHAPE_POLICY``.
       max_device_bytes: must be None: tiled streaming is not ported yet.
       device: where the buckets live and the kernels run; None means the
@@ -637,11 +797,17 @@ def plan_triangle_count(
     elif algorithm == "matrix":
         stages, divisor, meta = _plan_matrix(g, block, permute, backend,
                                              device)
-    else:
+    elif algorithm == "subgraph":
         stages, divisor, meta = _plan_subgraph(
             g, backend, widths, strategy, bitmap_bits, prep_backend,
             shape_policy, device,
         )
+    elif algorithm == "hash":
+        stages, divisor, meta = _plan_hash(g, backend, widths, prep_backend,
+                                           shape_policy, device)
+    else:
+        stages, divisor, meta = _plan_bfs(g, backend, widths, strategy,
+                                          bitmap_bits, shape_policy, device)
     meta["graph"] = g.name
     meta["n"], meta["m"] = g.n, g.m_undirected
     meta["device"] = str(device)
@@ -653,10 +819,66 @@ def plan_triangle_count(
     return plan
 
 
+def plan_hash_count(
+    g: Graph,
+    *,
+    backend: str = "kernel",
+    widths: Sequence[int] = DEFAULT_WIDTHS,
+    prep_backend: str = "device",
+    shape_policy: Optional[ShapePolicy] = None,
+    device: Union[None, str, torch.device] = None,
+) -> TrianglePlan:
+    """Plan the TRUST-style hash lane (see ``_plan_hash``).
+
+    Args mirror ``plan_triangle_count``'s shared subset; the lane has no
+    ``strategy`` knob — its count core is the hash probe (K5), not the
+    sorted merge. Returns a ``TrianglePlan`` with ``algorithm="hash"``.
+    """
+    return plan_triangle_count(
+        g, "hash", backend=backend, widths=widths, prep_backend=prep_backend,
+        shape_policy=shape_policy, device=device,
+    )
+
+
+def plan_bfs_count(
+    g: Graph,
+    *,
+    backend: str = "kernel",
+    widths: Sequence[int] = DEFAULT_WIDTHS,
+    strategy: str = "auto",
+    bitmap_bits: Optional[int] = None,
+    shape_policy: Optional[ShapePolicy] = None,
+    device: Union[None, str, torch.device] = None,
+) -> TrianglePlan:
+    """Plan the BFS-based lane (see ``_plan_bfs``).
+
+    Args mirror ``plan_triangle_count``'s shared subset; ``strategy`` /
+    ``bitmap_bits`` select the per-bucket intersection core exactly as on
+    the intersection lane (the launches are shared). Returns a
+    ``TrianglePlan`` with ``algorithm="bfs"``.
+    """
+    return plan_triangle_count(
+        g, "bfs", backend=backend, widths=widths, strategy=strategy,
+        bitmap_bits=bitmap_bits, shape_policy=shape_policy, device=device,
+    )
+
+
 def _intersection_planner(g: Graph, options, *, device):
     """Registry planner: CountOptions → intersection-lane TrianglePlan."""
     return plan_triangle_count(g, "intersection", device=device,
                                **options.plan_kwargs("intersection"))
 
 
+def _hash_planner(g: Graph, options, *, device):
+    """Registry planner: CountOptions → hash-lane TrianglePlan."""
+    return plan_hash_count(g, device=device, **options.plan_kwargs("hash"))
+
+
+def _bfs_planner(g: Graph, options, *, device):
+    """Registry planner: CountOptions → bfs-lane TrianglePlan."""
+    return plan_bfs_count(g, device=device, **options.plan_kwargs("bfs"))
+
+
 register_algorithm("intersection", _intersection_planner)
+register_algorithm("hash", _hash_planner)
+register_algorithm("bfs", _bfs_planner)

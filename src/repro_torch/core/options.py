@@ -1,14 +1,15 @@
 """Typed options for the triangle-counting front door.
 
 ``CountOptions`` is the port of ``repro.core.options.CountOptions`` with the
-fields the intersection, subgraph and matrix lanes read: one frozen,
+fields the intersection, subgraph, matrix, hash and bfs lanes read: one frozen,
 validated, hashable dataclass. Equal options give equal ``key()``s, and the
 engine's launch-configuration cache keys derive from the fields.
 
 Backends: ``"kernel"`` (default) runs each stage's Hopper kernel on a CUDA
 device and its plain torch version on a CPU device; ``"ref"`` runs the
-lane's oracle (the broadcast compare, or the one-shot einsum of the matrix
-lane). Pallas' interpret mode has no counterpart here.
+lane's oracle (the broadcast compare, the one-shot einsum of the matrix
+lane, or the hash lane's structure-blind compare). Pallas' interpret mode
+has no counterpart here.
 """
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ class CountOptions:
 
     Attributes:
       algorithm: "auto" (``repro_torch.core.registry.choose_algorithm``) or
-        a registered lane name ("intersection" | "matrix" | "subgraph").
+        a registered lane name ("intersection" | "matrix" | "subgraph" |
+        "hash" | "bfs").
       variant: "filtered" (forward algorithm, each triangle once) or "full"
         (every directed edge, found 6×).
       backend: "kernel" | "ref" per-bucket execution path.
@@ -50,7 +52,8 @@ class CountOptions:
       bitmap_bits: optional forced bitmap capacity (multiple of 32) for
         bitmap buckets; None sizes it from the id range.
       prep_backend: "device" (default: torch prep on the session's device)
-        or "host" (the numpy parity path, uploaded afterwards).
+        or "host" (the numpy parity path, uploaded afterwards); the bfs
+        lane always preps on the device.
       shape_policy: the ``ShapePolicy`` rounding prep extents; None means
         ``DEFAULT_SHAPE_POLICY``.
       max_device_bytes: per-bucket device-bytes budget for streamed
@@ -165,7 +168,8 @@ class CountOptions:
         """The ``plan_triangle_count`` kwargs this lane consumes.
 
         Lanes ignore knobs that do not apply to them (the matrix lane has
-        no ``widths``, the intersection lane no ``block``), so one options
+        no ``widths``, the intersection lane no ``block``, the hash and bfs
+        lanes no ``max_device_bytes``, as in the reference), so one options
         object can drive ``algorithm="auto"`` across all lanes.
 
         Raises:
@@ -188,7 +192,15 @@ class CountOptions:
             return dict(backend=self.backend, block=self.block,
                         permute=self.permute,
                         max_device_bytes=self.max_device_bytes)
+        if lane == "hash":
+            return dict(backend=self.backend, widths=self.widths,
+                        prep_backend=self.prep_backend,
+                        shape_policy=self.shape_policy)
+        if lane == "bfs":
+            return dict(backend=self.backend, widths=self.widths,
+                        strategy=self.strategy, bitmap_bits=self.bitmap_bits,
+                        shape_policy=self.shape_policy)
         raise ValueError(
             f"unknown engine lane {lane!r}; expected one of "
-            f"('intersection', 'matrix', 'subgraph')"
+            f"('bfs', 'hash', 'intersection', 'matrix', 'subgraph')"
         )

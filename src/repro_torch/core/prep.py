@@ -7,6 +7,8 @@ The port of ``repro.core.prep``:
   padded gathers on a torch device, returning ``DeviceBucket``s;
 * ``prepare_intersection_buckets_host`` — the numpy path, kept as the
   parity reference and for ``prep_backend="host"``;
+* ``prepare_bfs_buckets_device`` — the bfs lane's BFS levels, (level, id)
+  orientation and buckets, on the device;
 * ``peel_to_two_core_device`` / ``induced_device_graph`` — the subgraph
   lane's FILTER (2-core peel) and RECONSTRUCT on the device, keeping the
   original vertex ids; ``peel_to_two_core`` is the host API;
@@ -15,8 +17,8 @@ The port of ``repro.core.prep``:
   heavy-first (L, U, A) tile-triple schedule.
 
 The only device→host traffic during device prep is a handful of scalars
-(the max degree, the per-bucket counts, one "changed" flag per peel round,
-the survivor edge count) needed to pick static shapes.
+(the max degree, the per-bucket counts, one "changed" flag per peel or BFS
+round, the survivor edge count) needed to pick static shapes.
 """
 
 from __future__ import annotations
@@ -41,9 +43,11 @@ from repro_torch.graphs.device import (
     DeviceCSR,
     DeviceGraph,
     ShapePolicy,
+    _bfs_levels_dev,
     _bucket_sort_dev,
     _gather_bucket_dev,
     _induced_compact_dev,
+    _padded_neighbors_dev,
     _two_core_peel_dev,
     next_pow2,
 )
@@ -57,6 +61,7 @@ __all__ = [
     "induced_device_graph",
     "peel_to_two_core",
     "peel_to_two_core_device",
+    "prepare_bfs_buckets_device",
     "prepare_intersection_buckets_device",
     "prepare_intersection_buckets_host",
     "tile_schedule",
@@ -129,17 +134,50 @@ def prepare_intersection_buckets_device(
             raise ValueError("a host Graph needs device= to be uploaded to")
         dg = DeviceGraph.from_graph(g, policy or DEFAULT_SHAPE_POLICY,
                                     device=device)
-    n = dg.n
     if dg.m == 0:
         return []
-
     if variant == "filtered":
         fwd = dg.forward()
         src, dst, valid, deg = fwd.src, fwd.dst, fwd.kvalid, fwd.degrees
     else:
         src, dst, valid = dg.edge_sources(), dg.csr.col_idx, dg.edge_valid()
         deg = dg.csr.degrees
+    return _gather_buckets(
+        dg, src, dst, valid, deg, widths,
+        lambda w: dg.padded_neighbors(w, oriented=(variant == "filtered")))
 
+
+def prepare_bfs_buckets_device(dg: DeviceGraph, *,
+                               widths: Sequence[int] = DEFAULT_WIDTHS
+                               ) -> Tuple[List[DeviceBucket], torch.Tensor, int]:
+    """The bfs lane's prep on the device: BFS levels, the (level, id)
+    orientation, and the degree-class buckets of the oriented edges in CSR
+    order, with the intersection lane's layout and sentinels.
+
+    Returns:
+      (buckets, (n,) int32 levels, BFS rounds run). An edgeless graph
+      gives no buckets and zero rounds.
+    """
+    if dg.m == 0:
+        return [], torch.zeros(dg.n, dtype=torch.int32, device=dg.device), 0
+    lvl, rounds = _bfs_levels_dev(dg.edge_sources(), dg.csr.col_idx,
+                                  dg.edge_valid(), n=dg.n)
+    fwd = dg.level_oriented(lvl)
+    buckets = _gather_buckets(
+        dg, fwd.src, fwd.dst, fwd.kvalid, fwd.degrees, widths,
+        lambda w: _padded_neighbors_dev(fwd.src, fwd.dst, fwd.kvalid,
+                                        fwd.row_ptr, n=dg.n, width=w))
+    return buckets, lvl, rounds
+
+
+def _gather_buckets(dg: DeviceGraph, src: torch.Tensor, dst: torch.Tensor,
+                    valid: torch.Tensor, deg: torch.Tensor,
+                    widths: Sequence[int], neighbors) -> List[DeviceBucket]:
+    """Sort oriented edge slots into degree-class buckets (by the larger
+    endpoint degree, CSR order kept within a bucket) and gather each
+    bucket's padded (u, v) rows from ``neighbors(width)``, the (n, width)
+    neighbour matrix of the same orientation."""
+    n = dg.n
     dmax = int(deg.max())  # one scalar sync picks the top-bucket width
     bounds = [int(w) for w in widths]
     if dmax > bounds[-1]:
@@ -154,7 +192,7 @@ def prepare_intersection_buckets_device(
     # the (n, W) neighbour matrix only as wide as the widest non-empty
     # bucket: at n = 12M and W = 512 it would be 25 GB for buckets of width 8
     top = max((w for w, c in zip(bounds, counts_h) if c), default=bounds[0])
-    nbrs = dg.padded_neighbors(top, oriented=(variant == "filtered"))
+    nbrs = neighbors(top)
 
     out = []
     for i, w in enumerate(bounds):

@@ -1,8 +1,9 @@
 """Device-resident graph containers and prep primitives (torch).
 
-The port of ``repro.graphs.device`` for the intersection lane: CSR build by
-sorting, degree-rank forward orientation, padded neighbour gathers and the
-degree-class bucket layout, as torch ops on an explicit ``torch.device``.
+The port of ``repro.graphs.device``: CSR build by sorting, degree-rank
+forward orientation, padded neighbour gathers, the degree-class bucket
+layout, the 2-core peel and the BFS levels of the bfs lane (with its
+level orientation), as torch ops on an explicit ``torch.device``.
 
 ``ShapePolicy`` rounds every data-dependent extent (edge-array lengths,
 per-bucket edge counts) up to a power of two, padding with the repo-wide
@@ -36,6 +37,7 @@ __all__ = [
     "EDGE_KEY_MODES",
     "GraphTooLargeError",
     "ShapePolicy",
+    "bfs_levels",
     "fits_int32_pair_keys",
     "fits_int64_pair_keys",
     "next_pow2",
@@ -199,22 +201,23 @@ def _csr_from_edges(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
     return row_ptr, col, m
 
 
-def _orient_forward_dev(row_ptr: torch.Tensor, col_idx: torch.Tensor, m: int,
-                        *, n: int, m_pad: int, mf_pad: int):
-    """Degree-rank forward orientation, compacted to static shape.
+def _orient_by_rank_dev(row_ptr: torch.Tensor, col_idx: torch.Tensor, m: int,
+                        rank: torch.Tensor, *, n: int, m_pad: int, mf_pad: int):
+    """Forward orientation by ``(rank, id)``, compacted to static shape.
 
-    Keeps u→v iff rank(u) < rank(v) with rank = (degree, id). The kept
-    edges occupy the leading slots in CSR order; ``kvalid`` marks them.
-    Returns (fwd_src, fwd_dst, kvalid, fwd_row_ptr, fwd_deg).
+    Keeps u→v iff (rank(u), u) < (rank(v), v), so each undirected edge is
+    kept in exactly one direction: ``rank`` is the degree for the forward
+    lanes and the BFS level for the bfs lane. The kept edges occupy the
+    leading slots in CSR order; ``kvalid`` marks them. Returns (fwd_src,
+    fwd_dst, kvalid, fwd_row_ptr, fwd_deg).
     """
     dev = row_ptr.device
     src = _edge_sources(row_ptr, n=n, m_pad=m_pad)
     dst = col_idx
     valid = torch.arange(m_pad, device=dev) < m
-    deg = torch.diff(row_ptr)
-    du = deg[src.long()]
-    dv = deg[dst.long().clamp(0, max(n - 1, 0))]
-    keep = valid & ((du < dv) | ((du == dv) & (src < dst)))
+    ru = rank[src.long()]
+    rv = rank[dst.long().clamp(0, max(n - 1, 0))]
+    keep = valid & ((ru < rv) | ((ru == rv) & (src < dst)))
     # stable: kept edges first, CSR order intact
     order = torch.argsort((~keep).to(torch.uint8), stable=True)
     take = order[:mf_pad]
@@ -318,6 +321,53 @@ def _two_core_peel_dev(src: torch.Tensor, dst: torch.Tensor,
         if torch.equal(new_alive, alive):
             return alive, rounds
         alive = new_alive
+
+
+def _bfs_levels_dev(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
+                    *, n: int) -> Tuple[torch.Tensor, int]:
+    """Multi-source BFS levels over a masked static directed edge list.
+
+    Sources are the id-local minima — vertices with no smaller-id
+    neighbour — so every connected component holds one (its minimum-id
+    vertex) and isolated vertices are their own sources; every vertex ends
+    at a finite level. Levels relax as a frontier fixed point,
+    ``lvl[v] = min(lvl[v], 1 + min over in-edges of lvl[u])``: one masked
+    ``scatter_reduce_(..., "amin")`` over clamped ids a round, and the loop
+    ends when a round changes nothing, one host sync a round. Returns
+    ((n,) int32 levels, rounds run).
+    """
+    dev = src.device
+    if n == 0:
+        return torch.zeros(0, dtype=torch.int32, device=dev), 0
+    lim = n - 1
+    src_c = src.long().clamp(0, lim)
+    dst_c = dst.long().clamp(0, lim)
+    inf = n  # BFS levels are hop counts < n
+    smaller = torch.zeros(n, dtype=torch.int32, device=dev)
+    smaller.index_add_(0, dst_c, (valid & (src < dst)).to(torch.int32))
+    lvl = torch.where(smaller > 0, inf, 0).to(torch.int32)
+    rounds = 0
+    while True:
+        rounds += 1
+        through = torch.where(valid, lvl[src_c] + 1, inf)
+        cand = torch.full((n,), inf, dtype=torch.int32, device=dev)
+        cand.scatter_reduce_(0, dst_c, through, "amin")
+        new = torch.minimum(lvl, cand)
+        if torch.equal(new, lvl):
+            return lvl, rounds
+        lvl = new
+
+
+def bfs_levels(dg: "DeviceGraph") -> torch.Tensor:
+    """(n,) int32 BFS levels of a ``DeviceGraph`` (see ``_bfs_levels_dev``).
+
+    The bfs counting lane orders vertices by ``(level, id)`` — a total
+    order, so orienting every edge toward its larger-rank endpoint yields a
+    DAG in which each triangle has exactly one wedge vertex (its
+    rank-minimum) and is closed exactly once.
+    """
+    return _bfs_levels_dev(dg.edge_sources(), dg.csr.col_idx, dg.edge_valid(),
+                           n=dg.n)[0]
 
 
 def _induced_compact_dev(row_ptr: torch.Tensor, col_idx: torch.Tensor,
@@ -485,13 +535,23 @@ class DeviceGraph:
         """Degree-rank forward orientation (rank = (degree, id)), cached."""
         if self._fwd is None:
             mf_pad = max(1, self.csr.m_pad // 2)
-            fsrc, fdst, kvalid, frow_ptr, fdeg = _orient_forward_dev(
+            fsrc, fdst, kvalid, frow_ptr, fdeg = _orient_by_rank_dev(
                 self.csr.row_ptr, self.csr.col_idx, self.m,
-                n=self.n, m_pad=self.csr.m_pad, mf_pad=mf_pad,
+                torch.diff(self.csr.row_ptr), n=self.n, m_pad=self.csr.m_pad, mf_pad=mf_pad,
             )
             self._fwd = ForwardEdges(fsrc, fdst, kvalid, frow_ptr, fdeg,
                                      m=self.m // 2)
         return self._fwd
+
+    def level_oriented(self, lvl: torch.Tensor) -> ForwardEdges:
+        """The edges oriented by ``(lvl, id)`` (the bfs lane's order), in
+        the layout of ``forward()``; not cached."""
+        mf_pad = max(1, self.csr.m_pad // 2)
+        fsrc, fdst, kvalid, frow_ptr, fdeg = _orient_by_rank_dev(
+            self.csr.row_ptr, self.csr.col_idx, self.m, lvl,
+            n=self.n, m_pad=self.csr.m_pad, mf_pad=mf_pad,
+        )
+        return ForwardEdges(fsrc, fdst, kvalid, frow_ptr, fdeg, m=self.m // 2)
 
     def padded_neighbors(self, width: int, *, oriented: bool) -> torch.Tensor:
         """(n, width) neighbour matrix (in-row sentinel ``n``), cached.

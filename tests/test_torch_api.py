@@ -22,6 +22,7 @@ from torch_reference import ref  # noqa: F401
 
 import repro_torch
 from repro_torch.core import registry
+from repro_torch.core.engine import ALGORITHMS
 from repro_torch.core import (
     CountOptions,
     TriangleCounter,
@@ -103,7 +104,7 @@ def test_auto_on_other_lanes_raises_unregistered(ref, name, monkeypatch):
     assert tc.algorithm == lane and tc.count() == triangle_count_scipy(g)
     # a chosen lane that is not registered still raises the reference's error
     monkeypatch.delitem(registry._REGISTRY, lane)
-    rest = tuple(sorted({"intersection", "matrix", "subgraph"} - {lane}))
+    rest = tuple(sorted(set(ALGORITHMS) - {lane}))
     with pytest.raises(ValueError) as err:
         TriangleCounter(g, device=CPU)
     assert str(err.value) == (f"auto chooser returned unregistered lane "
@@ -164,12 +165,13 @@ def test_options_validate_like_reference(ref):
     assert a.replace(block=32).key() != a.key()
     assert a.replace(permute=False).key() != a.key()
     assert a.plan_kwargs("intersection")["widths"] == (8, 32, 128, 512)
-    for lane in ("matrix", "subgraph"):  # the reference's keys, less interpret
+    for lane in ("matrix", "subgraph", "hash", "bfs"):  # the reference's keys, less interpret
         want = set(ref.options.CountOptions().plan_kwargs(lane)) - {"interpret"}
         assert set(a.plan_kwargs(lane)) == want
     with pytest.raises(ValueError, match="unknown engine lane"):
-        a.plan_kwargs("hash")
-    assert available_algorithms() == ("intersection", "matrix", "subgraph")
+        a.plan_kwargs("edge")
+    assert available_algorithms() == ("bfs", "hash", "intersection", "matrix",
+                                      "subgraph")
 
 
 def test_unported_surfaces_raise_not_implemented():
@@ -217,7 +219,7 @@ def test_import_without_jax_or_reference():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None; "
             "import repro_torch, repro_torch.core, repro_torch.graphs, "
             "repro_torch.kernels.intersect, repro_torch.kernels.masked_spgemm, "
-            "repro_torch.kernels._build; "
+            "repro_torch.kernels.hash_tc, repro_torch.kernels._build; "
             "g = repro_torch.graphs.rmat_graph(6, 6, seed=2); "
             "print(repro_torch.TriangleCounter(g, device='cpu').count().count)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -1,11 +1,11 @@
 """The port's CUDA kernels against their plain torch versions, on the card,
-and the three lanes on the card against scipy.
+and the five lanes on the card against scipy.
 
 Marked ``cuda``: each test decides at run time whether a CUDA device is
 present and skips with a reason if not, so this file collects the same
 tests everywhere. Run on a machine with an H100 (or any sm_90a card):
 
-    python -m pytest -m cuda tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
 
 import math
@@ -27,6 +27,7 @@ from repro_torch.kernels.intersect import (
     intersect_counts_ref,
     reset_launch_counts,
 )
+from repro_torch.kernels import hash_tc as ht
 from repro_torch.kernels import masked_spgemm as ms
 
 pytestmark = pytest.mark.cuda
@@ -173,3 +174,77 @@ def test_subgraph_lane_on_card_matches_scipy(cuda, prep_backend):
         np.testing.assert_array_equal(tc.triangles_per_vertex(),
                                       cpu.triangles_per_vertex())
     assert TriangleCounter(load_dataset("road-like")).algorithm == "subgraph"
+
+
+def hash_case(e: int, w: int, seed: int):
+    """Sorted unique (n, w) neighbour rows below n = max(2w, 64) (in-row
+    padding n), (E,) anchors, and (E, W) candidates drawn from those rows
+    (sentinel n + 1, a tenth of the rows whole padding -2)."""
+    rng = np.random.default_rng(seed)
+    n = max(2 * w, 64)
+    nbrs = np.full((n, w), n, dtype=np.int32)
+    keys = rng.random((n, n)).argsort(axis=1)[:, :w]
+    for r, d in enumerate(rng.integers(0, w + 1, size=n)):
+        nbrs[r, :d] = np.sort(keys[r, :d])
+    src = rng.integers(0, n, size=e).astype(np.int32)
+    cand = nbrs[rng.integers(0, n, size=e)].copy()
+    cand[cand == n] = n + 1
+    cand[e - e // 10:] = -2
+    return nbrs, src, cand
+
+
+@pytest.mark.parametrize("bd", [(8, 1), (8, 2), (32, 8), (512, 64)])
+@pytest.mark.parametrize("w", [1, 8, 33, 512])
+@pytest.mark.parametrize("e", [1, 7, 1000, 4097])
+def test_hash_probe_kernel_equals_plain_version(cuda, e, w, bd):
+    nbrs, src, cand = hash_case(e, w, seed=e * 1000 + w)
+    table = ht.build_hash_table(torch.from_numpy(nbrs).to(cuda),
+                                num_buckets=bd[0], depth=bd[1])
+    w_t, s_t = torch.from_numpy(cand).to(cuda), torch.from_numpy(src).to(cuda)
+    ht.reset_launch_counts()
+    got = ht.hash_probe_kernel(w_t, s_t, table)
+    want = ht.hash_probe_counts_chunked(w_t, s_t, table)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.device.type == "cuda"
+    assert torch.equal(got, want)  # tolerance 0: integer counts
+    assert ht.LAUNCHES == {"hash_probe": 1}
+    # the structure-blind oracle holds an (E, B·D, W) compare: small cases
+    if bd[1] >= ht.hash_table_depth(torch.from_numpy(nbrs), bd[0]) \
+            and e * w * bd[0] * bd[1] <= 1 << 24:
+        assert torch.equal(got.cpu(), ht.hash_probe_counts_ref(
+            w_t.cpu(), s_t.cpu(), table.cpu()))
+
+
+def test_hash_probe_kernel_checks_inputs(cuda):
+    nbrs, src, cand = hash_case(50, 8, seed=1)
+    table = ht.build_hash_table(torch.from_numpy(nbrs).to(cuda),
+                                num_buckets=8, depth=4)
+    w_t, s_t = torch.from_numpy(cand).to(cuda), torch.from_numpy(src).to(cuda)
+    ht.reset_launch_counts()
+    assert ht.hash_probe_kernel(w_t[:0], s_t[:0], table).shape == (0,)
+    assert ht.LAUNCHES == {"hash_probe": 0}  # E = 0 launches nothing
+    with pytest.raises(ValueError, match="int32"):
+        ht.hash_probe_kernel(w_t.long(), s_t, table)
+    with pytest.raises(ValueError, match="one device"):
+        ht.hash_probe_kernel(w_t, s_t.cpu(), table)
+    with pytest.raises(ValueError, match="power of two"):
+        ht.hash_probe_kernel(w_t, s_t, table[:, :6].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        ht.hash_probe_kernel(w_t[:, ::2], s_t, table)
+
+
+@pytest.mark.parametrize("algorithm", ["hash", "bfs"])
+def test_hash_and_bfs_lanes_on_card_match_scipy(cuda, algorithm):
+    for g in (load_dataset("tiny-rmat"), load_dataset("tiny-grid"),
+              rmat_graph(10, 8, seed=3)):
+        reset_launch_counts()
+        ht.reset_launch_counts()
+        tc = TriangleCounter(g, algorithm=algorithm)
+        assert tc.count() == triangle_count_scipy(g)
+        launches = ht.LAUNCHES["hash_probe"] if algorithm == "hash" \
+            else sum(LAUNCHES.values())
+        assert launches == tc.plan.num_stages
+        cpu = TriangleCounter(g, algorithm=algorithm, device="cpu")
+        assert cpu.count().meta["bucket_shapes"] == tc.plan.meta["bucket_shapes"]
+        np.testing.assert_array_equal(tc.triangles_per_vertex(),
+                                      cpu.triangles_per_vertex())

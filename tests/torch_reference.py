@@ -43,6 +43,10 @@ _MODULES = {
     "mskernel": "repro.kernels.masked_spgemm.masked_spgemm",
     "tc_matrix": "repro.core.tc_matrix",
     "tc_subgraph": "repro.core.tc_subgraph",
+    "hashops": "repro.kernels.hash_tc.ops",
+    "hashbuild": "repro.kernels.hash_tc.build",
+    "hashprobe": "repro.kernels.hash_tc.probe",
+    "hashref": "repro.kernels.hash_tc.ref",
 }
 
 
@@ -53,7 +57,8 @@ def _is_reference(name: str) -> bool:
 @pytest.fixture(scope="module")
 def ref():
     """Namespace of reference modules (``ref.generators``, ``ref.prep``,
-    ``ref.ops``, ``ref.msops``, ``ref.tc_subgraph``, ...), imported under
+    ``ref.ops``, ``ref.msops``, ``ref.hashops``, ``ref.tc_subgraph``, ...),
+    imported under
     the enable_x64 shim."""
     import jax
     import jax.experimental
