@@ -58,12 +58,35 @@ source, all started together), and runs, in order:
 4b. the hash-probe kernel against its plain version, exactly, at the four
    shapes of the scale-17 path (with its table) and on 64 ragged shapes,
    with its time, the plain version's time and the bound;
+3f. serving: gemma2-2b at its published width and depth (26 layers, bf16
+   weights drawn from seed 0), batch 2, a 6144-token prompt (past the
+   4096 window of the local layers) and 16 greedy tokens through
+   ``greedy_generate``, with the flash kernel's counter read around it
+   (26 launches, one a layer); prefill seconds, decode ms per token and
+   tokens per second (medians of 3 after a warm-up) and the own peak; the
+   same prefill and decode rerun with the chunked plain attention,
+   teacher-forced on the kernel path's tokens: the last-position logits of
+   the prefill and of every decode step held within a stated tolerance,
+   and the greedy tokens equal wherever the plain path's top-2 margin
+   exceeds 10× the largest logit difference; beside it the plain path
+   against itself with 512-key chunks (the bf16 model's rounding floor);
+   ``torch.profiler`` over one prefill and one decode step (device time by
+   kernel, idle share); and the prefill again with fp32 weights, the
+   kernel's logits and KV caches held against the plain path's to 1e-3;
+4c. the flash kernel against its plain version at the serving path's two
+   layer shapes (2, 6144, 8/4, 256) bf16 with cap 50 (window 4096 and
+   global) and at the qwen1.5-4b and minicpm-2b head shapes, ragged
+   (1, 1000, 20/20, 128) and (1, 777, 36/36, 64) fp32, each within its
+   stated tolerance, timed beside its bound and the plain version's time;
+   and, as a labelled yardstick, the kernel without a softcap beside
+   ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``;
 5. a ``{"kernels": [...]}`` line, the card's name and power limit from
    nvidia-smi, and a last line ``{"ok": true, "device": {...}}``.
 
-The phases run in the order 1, 2, 3, 3b, 3c, 4, 3d, 3e, 4b, 5: phase 4
-needs the earlier lanes' plans (about 40 GiB), so the new lanes wait until
-it has released them.
+The phases run in the order 1, 2, 3, 3b, 3c, 4, 3d, 3e, 4b, 3f, 4c, 5:
+phase 4 needs the earlier lanes' plans (about 40 GiB), so the new lanes
+wait until it has released them, and the serving slice runs once every
+graph plan is gone.
 
 Any failed check raises, so the script exits non-zero and prints no last
 line. Without a CUDA device, or outside a checkout, it exits 2 at once.
@@ -71,6 +94,7 @@ line. Without a CUDA device, or outside a checkout, it exits 2 at once.
 
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import math
@@ -96,6 +120,19 @@ ALU_OPS_PER_S = 67e12      # H100 SXM non-tensor 32-bit rate, NVIDIA data sheet
 # H100 SXM dense bf16 tensor-core rate, NVIDIA data sheet: 0/1 tiles are
 # exact in bf16, so the masked SpGEMM's least time counts its operations there
 TENSOR_OPS_PER_S = 989e12
+ALU_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores, data sheet
+SERVE_ARCH = "gemma2-2b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 2, 6144, 16
+SERVE_MAX_LEN = SERVE_PROMPT + SERVE_STEPS + 1  # as examples/serve_lm.py
+# the kernel path's last-position logits against the plain path's: both
+# run the same bf16 model and differ only where an attention output rounds
+# to the neighbouring bf16 value; 0.25 is under 1 % of the final softcap
+# (logits lie in (-30, 30))
+SERVE_LOGIT_TOL = 0.25
+# the same prefill with fp32 weights: 26 layers of fp32 sums in another
+# order, logits and caches of order 1
+SERVE_FP32_TOL = 1e-3
+MARGIN_FACTOR = 10.0
 KERNELS = {
     "broadcast": dict(
         name="intersect_broadcast", plain="intersect_counts_broadcast",
@@ -201,6 +238,48 @@ def hash_ragged(np, rng, e: int, w: int, n: int):
     return nbrs, src, cand
 
 
+def flash_pairs(np, s: int, t: int, causal: bool, window) -> int:
+    """Unmasked (query, key) pairs of one (batch, q head): query i keeps
+    keys j with (not causal or j <= i) and i - j < window."""
+    i = np.arange(s, dtype=np.int64)
+    lo = np.zeros_like(i) if window is None else np.maximum(0, i - window + 1)
+    hi = np.minimum(t - 1, i) if causal else np.full_like(i, t - 1)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def flash_bound_ms(np, q, k, causal: bool, window) -> dict:
+    """Least time for one attention call: read q, k, v once and write the
+    output, against 4·hd flops per unmasked pair per q head at the input
+    type's peak (bf16 / fp16: the dense tensor-core rate; fp32: the CUDA
+    cores' rate). Also the fp32 CUDA-core figure, which this kernel's
+    arithmetic runs at."""
+    b, s, hq, hd = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    pairs = flash_pairs(np, s, t, causal, window)
+    flops = 4 * hd * pairs * b * hq
+    rate = ALU_FLOPS_PER_S if q.dtype.itemsize == 4 else TENSOR_OPS_PER_S
+    t_ops = flops / rate * 1e3
+    t_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
+        / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                fp32_alu_ms=flops / ALU_FLOPS_PER_S * 1e3, pairs=pairs,
+                flops=flops)
+
+
+def flash_error(torch, k_out, p_out):
+    """K6 against its plain version: both compute in fp32 and round once to
+    the output dtype, so fp32 outputs agree to 1e-4 (sums in another
+    order, values of order 1) and bf16 / fp16 outputs to one rounding step
+    (2⁻⁷ / 2⁻¹⁰ of the larger magnitude) plus 1e-4. Returns (ok, max |Δ|)."""
+    k32, p32 = k_out.float(), p_out.float()
+    diff = (k32 - p32).abs()
+    step = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7,
+            torch.float16: 2.0 ** -10}[k_out.dtype]
+    bound = step * torch.maximum(k32.abs(), p32.abs()) + 1e-4
+    return bool((diff <= bound).all()), float(diff.max())
+
+
 def spgemm_library(torch, l, u, a):
     """The yardstick: one PyTorch expression computing the same function
     (fp32 ``bmm``, TF32 off). The port never calls it."""
@@ -280,6 +359,351 @@ def ragged_lists(np, rng, e: int, w: int, id_hi: int, pad_rows: int):
     return u, v
 
 
+def serve_phase(torch, np, dev, get_config, get_model, greedy_generate, fa):
+    """Phase 3f: gemma2-2b served at full width through K6; returns what
+    phase 4c reports beside the kernel's times."""
+    phase(f"phase 3f: serving {SERVE_ARCH} at full width, batch "
+          f"{SERVE_BATCH}, prompt {SERVE_PROMPT}, {SERVE_STEPS} greedy tokens")
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "TF32 off for fp32 matmuls (the fp32 unembedding)")
+    cfg = get_config(SERVE_ARCH)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = get_model(cfg, device=dev, dtype=torch.bfloat16)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    local_layers = sum(w == cfg.sliding_window for w in model.windows)
+    extra = 2 * cfg.d_model * cfg.num_layers if cfg.post_norms else 0
+    print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"heads {cfg.num_heads}/{cfg.kv_heads} x {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, windows "
+          f"{sorted(set(model.windows))}; weights drawn in "
+          f"{time.perf_counter() - t0:.2f} s; {n_params:,} parameters "
+          f"against ModelConfig.param_count() {cfg.param_count():,} "
+          f"(+{extra:,} for the post-norm scales, which it leaves out)")
+    check(n_params == cfg.param_count() + extra
+          + (cfg.padded_vocab - cfg.vocab) * cfg.d_model,
+          "parameter count = param_count() + post-norm scales")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, device=dev)
+    batch = {"tokens": prompts}
+    kw = dict(steps=SERVE_STEPS, max_len=SERVE_MAX_LEN)
+
+    # the main path: one greedy_generate with K6's counter read around it
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks = greedy_generate(model, cfg, batch, **kw)
+    toks_host = toks.cpu()
+    first_s = time.perf_counter() - t0
+    launches = fa.LAUNCHES["flash_attention"]
+    print(f"first greedy_generate {first_s:.3f} s; flash_attention launches "
+          f"{launches}; tokens (first sequence) {toks_host[0].tolist()}; the "
+          f"prompts' last tokens {prompts[:, -1].tolist()}")
+    check(launches == cfg.num_layers,
+          f"{launches} flash_attention launches = one a layer of one prefill")
+    check(tuple(toks.shape) == (SERVE_BATCH, SERVE_STEPS)
+          and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
+          f"tokens {tuple(toks.shape)} in [0, vocab)")
+
+    def timed(fn, reps=3):
+        fn()  # warm-up
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return out
+
+    def prefill_only():
+        logits, _ = model.prefill(batch, SERVE_MAX_LEN)
+        del logits
+
+    logits, cache = model.prefill(batch, SERVE_MAX_LEN)
+    del logits
+    tok0 = toks[:, :1]
+
+    def decode_only():
+        cache["pos"] = SERVE_PROMPT
+        tok = tok0
+        for _ in range(SERVE_STEPS):
+            lg, _ = model.decode_step(cache, tok)
+            tok = torch.argmax(lg[:, -1:], dim=-1)
+
+    def one_decode_step():
+        cache["pos"] = SERVE_PROMPT
+        model.decode_step(cache, tok0)
+
+    prefill_s = timed(prefill_only)
+    decode_s = timed(decode_only)
+    generate_s = timed(lambda: greedy_generate(model, cfg, batch, **kw))
+    pre, dec, gen_s = (statistics.median(x) for x in
+                       (prefill_s, decode_s, generate_s))
+    ms_per_token = dec / SERVE_STEPS * 1e3
+    print(f"prefill seconds {[round(x, 4) for x in prefill_s]} (median "
+          f"{pre:.4f}; {SERVE_BATCH * SERVE_PROMPT / pre:.0f} prompt tokens/s)")
+    print(f"decode ms per token {[round(x / SERVE_STEPS * 1e3, 3) for x in decode_s]} "
+          f"(median {ms_per_token:.3f}; {SERVE_BATCH / (dec / SERVE_STEPS):.1f} "
+          f"generated tokens/s over the batch while decoding)")
+    print(f"greedy_generate seconds {[round(x, 4) for x in generate_s]} "
+          f"(median {gen_s:.4f}; {SERVE_BATCH * SERVE_STEPS / gen_s:.2f} "
+          f"generated tokens/s end to end, prefill included)")
+    print(f"memory: weights {n_params * 2 / 1e9:.2f} GB, KV cache "
+          f"{2 * cfg.num_layers * SERVE_BATCH * SERVE_MAX_LEN * cfg.kv_heads * cfg.head_dim * 2 / 1e9:.2f} GB, "
+          f"prefill logits {SERVE_BATCH * SERVE_PROMPT * cfg.padded_vocab * 4 / 1e9:.2f} GB; "
+          f"{peak_memory(torch, held)}")
+
+    def forced(backend):
+        """Last-position logits of the prefill and of every decode step,
+        teacher-forced on the kernel path's tokens: (B, steps + 1, V)."""
+        model.attn_backend = backend
+        logits, cache = model.prefill(batch, SERVE_MAX_LEN)
+        rows = [logits[:, -1].clone()]
+        del logits
+        for i in range(SERVE_STEPS):
+            lg, cache = model.decode_step(cache, toks[:, i:i + 1])
+            rows.append(lg[:, -1])
+        model.attn_backend = "kernel"
+        return torch.stack(rows, dim=1)
+
+    prof = {"prefill": device_profile(torch, prefill_only),
+            "decode step": device_profile(torch, one_decode_step)}
+    for what, rec in prof.items():
+        if rec["kernels"] == 0:
+            print(f"profile of one {what}: the profiler recorded no device "
+                  f"time (idle share not measured)")
+            continue
+        top = sorted(rec["by_name"].items(), key=lambda kv: -kv[1])[:5]
+        print(f"profile of one {what} (torch.profiler, its own overhead "
+              f"included in the wall time): wall {rec['wall_s'] * 1e3:.3f} ms, "
+              f"device busy {rec['busy_s'] * 1e3:.3f} ms over {rec['kernels']} "
+              f"kernels and copies, idle share {rec['idle_share']:.3f}; top: "
+              + "; ".join(f"{n[:60]} {t * 1e3:.3f} ms" for n, t in top))
+    fa.reset_launch_counts()
+    k_rows = forced("kernel")
+    check(fa.LAUNCHES["flash_attention"] == cfg.num_layers,
+          "teacher-forced kernel run: one launch a layer")
+    check(torch.equal(torch.argmax(k_rows[:, :SERVE_STEPS], dim=-1), toks),
+          "the kernel path's teacher-forced argmaxes are its greedy tokens")
+    fa.reset_launch_counts()
+    p_rows = forced("chunked")
+    check(fa.LAUNCHES["flash_attention"] == 0,
+          "the plain run launches no flash_attention")
+    check(bool(torch.isfinite(k_rows).all() and torch.isfinite(p_rows).all()),
+          "logits finite on both paths")
+    diff = (k_rows - p_rows).abs()
+    max_diff = float(diff.max())
+    top2 = torch.topk(p_rows[:, :SERVE_STEPS], 2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    covered = margin > MARGIN_FACTOR * max_diff
+    p_toks = torch.argmax(p_rows[:, :SERVE_STEPS], dim=-1)
+    agree = (p_toks == toks)
+    print(f"kernel vs plain attention, last-position logits over "
+          f"{SERVE_STEPS + 1} positions x {SERVE_BATCH}: max |Δ| "
+          f"{max_diff:.6f} (per position {[round(float(x), 5) for x in diff.amax(dim=(0, 2))]}); "
+          f"logit range [{float(p_rows.min()):.3f}, {float(p_rows.max()):.3f}]")
+    print(f"top-2 margins of the plain path: min {float(margin.min()):.5f}, "
+          f"median {float(margin.median()):.5f}; {int(covered.sum())} of "
+          f"{covered.numel()} positions covered by margin > "
+          f"{MARGIN_FACTOR:g} × max |Δ|; tokens equal at {int(agree.sum())} "
+          f"of {agree.numel()}")
+    check(max_diff <= SERVE_LOGIT_TOL,
+          f"kernel and plain logits within {SERVE_LOGIT_TOL} (max |Δ| "
+          f"{max_diff:.6f})")
+    check(bool(agree[covered].all()),
+          f"greedy tokens equal at all {int(covered.sum())} covered positions")
+
+    # the bf16 model's own rounding floor: the plain path against itself
+    # with the keys cut into 512-key chunks instead of 1024
+    from repro_torch.models import layers as L
+    chunk_1024 = L.attention
+    L.attention = functools.partial(chunk_1024, chunk=512)
+    try:
+        floor = float((forced("chunked") - p_rows).abs().max())
+    finally:
+        L.attention = chunk_1024
+    print(f"the plain path against itself with 512-key chunks: max |Δ| "
+          f"{floor:.6f} (the bf16 model's rounding floor, beside the kernel's "
+          f"{max_diff:.6f})")
+    del model, cache, k_rows, p_rows, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same prefill with fp32 weights: kernel and plain attention compute
+    # the same function, so only the order of fp32 sums separates them
+    model = get_model(cfg, device=dev, dtype=torch.float32)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    fa.reset_launch_counts()
+    runs = []
+    for backend in ("kernel", "chunked"):
+        model.attn_backend = backend
+        logits, cache = model.prefill(batch, SERVE_MAX_LEN)
+        runs.append((logits[:, -1].clone(), cache["k"], cache["v"]))
+        del logits, cache
+    fp32_diff = max(float((a - b).abs().max()) for a, b in zip(*runs))
+    print(f"fp32 weights, kernel vs plain attention: max |Δ| {fp32_diff:.3e} "
+          f"over the last-position logits and the "
+          f"{tuple(runs[0][1].shape)} k and v caches")
+    check(fa.LAUNCHES["flash_attention"] == cfg.num_layers,
+          "fp32 prefill: one flash_attention launch a layer")
+    check(fp32_diff <= SERVE_FP32_TOL,
+          f"fp32 kernel and plain prefill within {SERVE_FP32_TOL}")
+    del model, runs, prompts, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    k6_dev = sum(t for n, t in prof["prefill"]["by_name"].items()
+                 if "flash_fwd_kernel" in n)
+    return dict(launches=launches, prefill_s=pre, decode_ms_per_token=ms_per_token,
+                generate_s=gen_s, logits_max_abs_diff=max_diff,
+                prefill_device_busy_s=prof["prefill"]["busy_s"],
+                prefill_k6_device_s=k6_dev, bf16_floor_max_abs_diff=floor,
+                fp32_max_abs_diff=fp32_diff,
+                prefill_idle_share=prof["prefill"]["idle_share"],
+                decode_step_device_busy_s=prof["decode step"]["busy_s"],
+                decode_step_device_ops=prof["decode step"]["kernels"],
+                decode_step_idle_share=prof["decode step"]["idle_share"],
+                covered=int(covered.sum()), positions=covered.numel(),
+                windows={cfg.sliding_window: local_layers,
+                         None: cfg.num_layers - local_layers})
+
+
+def device_profile(torch, fn) -> dict:
+    """Run ``fn`` once under ``torch.profiler`` and read the device's
+    activity: kernels and copies, their summed time, by name, and the idle
+    share of the host-clock wall time (the profiler's own host overhead
+    included, so the share is an upper bound)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name, n = {}, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n += 1
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e6
+    busy = sum(by_name.values())
+    return dict(wall_s=wall, busy_s=busy, kernels=n, by_name=by_name,
+                idle_share=(1.0 - busy / wall) if n else None)
+
+
+def flash_phase(torch, np, dev, fa, flush, serve) -> dict:
+    """Phase 4c: K6 against its plain version, timed beside its bound."""
+    phase("phase 4c: flash-attention kernel against its plain torch version")
+    import torch.nn.functional as F
+
+    def case(label, b, s, hq, hkv, hd, dtype, window, cap, per_prefill):
+        gen = torch.Generator(device=dev).manual_seed(s + hq + hd)
+        q = torch.randn(b, s, hq, hd, generator=gen, device=dev).to(dtype)
+        k = torch.randn(b, s, hkv, hd, generator=gen, device=dev).to(dtype)
+        v = torch.randn(b, s, hkv, hd, generator=gen, device=dev).to(dtype)
+        kw = dict(causal=True, window=window, cap=cap)
+        k_out = fa.flash_attention_kernel(q, k, v, **kw)
+        p_out = fa.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        ok, err = flash_error(torch, k_out, p_out)
+        check(ok, f"flash_attention kernel == plain within tolerance at "
+                  f"{label} (max |Δ| {err})")
+        del k_out, p_out
+        k_ms = time_ms(torch, lambda: fa.flash_attention_kernel(q, k, v, **kw),
+                       5, flush)
+        p_ms = time_ms(torch, lambda: fa.flash_attention_ref(q, k, v, **kw),
+                       3, flush)
+        bound = flash_bound_ms(np, q, k, True, window)
+        print(f"  flash_attention {label}: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}; {bound['flops'] / 1e12:.4f} TFLOP over "
+              f"{bound['pairs']:,} pairs a head; fp32 CUDA-core figure "
+              f"{bound['fp32_alu_ms']:.4f} ms)", flush=True)
+        rec = dict(label=label, shape=[b, s, hq, hkv, hd],
+                   dtype=str(dtype).replace("torch.", ""), window=window,
+                   cap=cap, ms=k_ms, plain_ms=p_ms, max_abs_err=err,
+                   launches_per_prefill=per_prefill, **bound)
+        return rec, (q, k, v)
+
+    b, s = SERVE_BATCH, SERVE_PROMPT
+    windows = serve["windows"]
+    local, _ = case(f"gemma2-2b local layer ({b}, {s}, 8/4, 256) bf16, "
+                    f"window 4096, cap 50", b, s, 8, 4, 256, torch.bfloat16,
+                    4096, 50.0, windows.get(4096, 0))
+    glob, (q, k, v) = case(f"gemma2-2b global layer ({b}, {s}, 8/4, 256) "
+                           f"bf16, cap 50", b, s, 8, 4, 256, torch.bfloat16,
+                           None, 50.0, windows.get(None, 0))
+    path = [local, glob]
+    check(local["launches_per_prefill"] + glob["launches_per_prefill"]
+          == serve["launches"],
+          f"the two layer shapes cover the path's {serve['launches']} launches")
+    ragged = [case("qwen1.5-4b heads (1, 1000, 20/20, 128) fp32", 1, 1000, 20,
+                   20, 128, torch.float32, None, None, 0)[0],
+              case("minicpm-2b heads (1, 777, 36/36, 64) fp32", 1, 777, 36, 36,
+                   64, torch.float32, None, None, 0)[0]]
+
+    # the yardstick: no PyTorch call computes the softcapped function, so
+    # K6 without a softcap is timed beside SDPA on the global layer's inputs
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    nocap = fa.flash_attention_kernel(q, k, v)
+    lib = sdpa()
+    torch.cuda.synchronize()
+    y_diff = float((nocap.float() - lib.float()).abs().max())
+    del nocap, lib
+    y_k = time_ms(torch, lambda: fa.flash_attention_kernel(q, k, v), 5, flush)
+    y_l = time_ms(torch, sdpa, 5, flush)
+    print(f"  yardstick (not the same function: no softcap): kernel with "
+          f"cap=None {y_k:.4f} ms, torch scaled_dot_product_attention("
+          f"is_causal=True, enable_gqa=True) {y_l:.4f} ms, max |Δ| {y_diff}")
+    del q, k, v
+
+    def per_prefill(key):
+        return sum(r[key] * r["launches_per_prefill"] for r in path)
+
+    k6_prefill_ms = per_prefill("ms")
+    print(f"K6 per prefill: {k6_prefill_ms:.3f} ms over "
+          f"{serve['launches']} launches, {k6_prefill_ms / 1e3 / serve['prefill_s'] * 100:.1f} % "
+          f"of the {serve['prefill_s']:.4f} s prefill; bound "
+          f"{per_prefill('bound_ms'):.3f} ms (fp32 CUDA-core figure "
+          f"{per_prefill('fp32_alu_ms'):.3f} ms); plain version "
+          f"{per_prefill('plain_ms'):.3f} ms")
+    if serve["prefill_device_busy_s"]:
+        print(f"K6 in the profiled prefill: {serve['prefill_k6_device_s'] * 1e3:.3f} "
+              f"ms of {serve['prefill_device_busy_s'] * 1e3:.3f} ms device time "
+              f"({serve['prefill_k6_device_s'] / serve['prefill_device_busy_s'] * 100:.1f} %)")
+    return dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:29",
+        plain="flash_attention_ref",
+        path=f"{SERVE_ARCH} greedy_generate: batch {SERVE_BATCH}, prompt "
+             f"{SERVE_PROMPT}, {SERVE_STEPS} tokens (one prefill)",
+        launches=serve["launches"],
+        tolerance="fp32 1e-4; bf16 2^-7 x |value| + 1e-4",
+        max_abs_err=max(r["max_abs_err"] for r in path + ragged),
+        ms=k6_prefill_ms, plain_ms=per_prefill("plain_ms"),
+        bound_ms=per_prefill("bound_ms"),
+        bound_by=max(path, key=lambda r: r["bound_ms"])["bound_by"],
+        fp32_alu_ms=per_prefill("fp32_alu_ms"), library_ms=None,
+        yardstick="torch.nn.functional.scaled_dot_product_attention("
+                  "is_causal=True, enable_gqa=True) on the global layer's "
+                  "inputs against the kernel with cap=None (no softcap: not "
+                  "the same function)",
+        yardstick_ms=y_l, yardstick_kernel_ms=y_k,
+        yardstick_max_abs_diff=y_diff,
+        prefill_share=k6_prefill_ms / 1e3 / serve["prefill_s"],
+        serving=serve, shapes=path, ragged=ragged)
+
+
 def main() -> int:
     import torch
 
@@ -314,6 +738,9 @@ def main() -> int:
                                                    masked_spgemm_kernel)
     from repro_torch.kernels.masked_spgemm import \
         reset_launch_counts as reset_ms_launch_counts
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.train.serve_step import greedy_generate
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -329,7 +756,7 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
     print(f"nvcc: {nvcc.splitlines()[-1]}")
     t0 = time.perf_counter()
-    sources = ("intersect", "masked_spgemm", "hash_probe")
+    sources = ("intersect", "masked_spgemm", "hash_probe", "flash_attention")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
         libs = list(pool.map(_build.build, sources))
     print(f"build: {[str(lib.relative_to(ROOT)) for lib in libs]} in "
@@ -899,6 +1326,13 @@ def main() -> int:
                 entry["ragged"].append(dict(shape=[e, w], table=[n, nb, d],
                                             max_abs_err=err))
     report.append(entry)
+    del entry, nbrs_t, w_t, s_t, table, k_out, p_out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    serve = serve_phase(torch, np, dev, get_config, get_model, greedy_generate,
+                        fa)
+    report.append(flash_phase(torch, np, dev, fa, flush, serve))
     for entry in report:
         entry.update(max_abs_diff=entry["max_abs_err"], kernel_ms=entry["ms"])
 

@@ -1,0 +1,157 @@
+"""Forward flash attention for the serving path's prefill (K6 of the port).
+
+The port of ``repro.kernels.flash_attention.flash_attention``.
+``flash_attention_kernel`` launches the CUDA kernel ``flash_fwd_kernel``
+(``csrc/flash_attention.cu``), which replaces the TPU kernel
+``_flash_kernel`` / ``flash_attention_pallas``: q (B, S, Hq, hd) against
+k, v (B, T, Hkv, hd), grouped-query heads (q head h reads kv head h // G),
+fp32 arithmetic, a causal and/or window mask with the kernel's rule
+``(q_pos - k_pos) < window``, an optional tanh softcap, output in q's
+dtype. Its plain version is ``flash_attention_ref`` (``ref.py``), which a
+CPU tensor takes.
+
+Where the Pallas kernel asserts that S and T divide its tiles, the CUDA
+kernel takes any S and T. Head dims 64, 128 and 256 (the dense configs'
+widths) are compiled; any other raises ``ValueError`` on either device.
+
+The wrapper checks its inputs, allocates the output with ``torch.empty``,
+launches on PyTorch's current stream, raises if the launch reported a CUDA
+error, and adds one to ``LAUNCHES["flash_attention"]``. Launches happen
+nowhere else, so the counter shows whether a run went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+__all__ = [
+    "HEAD_DIMS",
+    "LAUNCHES",
+    "check_flash_inputs",
+    "flash_attention_kernel",
+    "reset_launch_counts",
+]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {"flash_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                       _I, _I, _I, _F, _I, _F, _P)}
+
+#: Kernel launches since the last ``reset_launch_counts()``.
+LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+
+#: Head dims the CUDA kernel is compiled for.
+HEAD_DIMS = (64, 128, 256)
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_NO_WINDOW = 1 << 30
+_INT_MAX = 2 ** 31 - 1
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def check_flash_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       window: Optional[int]) -> None:
+    """Validate a (q, k, v, window) set for the kernel and its plain version.
+
+    Raises:
+      ValueError: q not (B, S, Hq, hd) or k, v not (B, T, Hkv, hd) with
+        Hkv dividing Hq; T = 0; dtypes that differ or are not fp32, bf16 or
+        fp16; tensors on different devices; hd not in ``HEAD_DIMS``; a
+        window below 1; S, T or S·G past int32, or B·Hkv past 65535.
+    """
+    if not all(isinstance(x, torch.Tensor) for x in (q, k, v)):
+        raise ValueError("q, k and v must be torch tensors")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
+            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"need q (B, S, Hq, hd) and k, v (B, T, Hkv, hd), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
+    b, s, hq, hd = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    if hkv < 1 or hq % hkv:
+        raise ValueError(f"Hkv = {hkv} must divide Hq = {hq}")
+    if t < 1:
+        raise ValueError("need at least one key (T >= 1)")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k and v must share one of {list(_DTYPES)}, got "
+                         f"{q.dtype}, {k.dtype} and {v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}: "
+                         f"need one device")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} is not compiled; the kernel takes "
+                         f"{HEAD_DIMS}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or >= 1, got {window}")
+    if max(s, t, s * (hq // hkv)) > _INT_MAX or b * hkv > 65535:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}: S, T and "
+                         f"S·G must fit int32 and B·Hkv the grid (65535)")
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous and 16-byte aligned (the kernel's vector loads)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           *, causal: bool = True,
+                           window: Optional[int] = None,
+                           cap: Optional[float] = None) -> torch.Tensor:
+    """Forward attention: K6 on CUDA tensors, the plain version
+    (``flash_attention_ref``) on CPU tensors.
+
+    Args:
+      q: (B, S, Hq, hd); k, v: (B, T, Hkv, hd), one dtype (fp32, bf16 or
+        fp16), hd in ``HEAD_DIMS``, any S and T >= 1.
+      causal: mask keys after the query.
+      window: keep keys with ``q_pos - k_pos < window`` (None: all).
+      cap: tanh softcap of the scaled logits (None: none).
+
+    Returns:
+      (B, S, Hq, hd) in q's dtype.
+
+    Raises:
+      ValueError: bad inputs (see ``check_flash_inputs``) or a device that is
+        neither CPU nor CUDA.
+      RuntimeError: the kernel did not build or launch.
+    """
+    check_flash_inputs(q, k, v, window)
+    dev = q.device
+    if dev.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   cap=cap)
+    if dev.type != "cuda":
+        raise ValueError(f"the flash_attention kernel takes CUDA tensors, got "
+                         f"{dev}")
+    b, s, hq, hd = (int(x) for x in q.shape)
+    t, hkv = int(k.shape[1]), int(k.shape[2])
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    out = torch.empty_like(q)
+    if b == 0 or s == 0:
+        return out
+    win = _NO_WINDOW if window is None else min(int(window), _NO_WINDOW)
+    lib = _build.load_library("flash_attention", _SIGNATURES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPES[q.dtype], b, s, t, hq, hkv, hd, int(bool(causal)), win,
+            1.0 / math.sqrt(hd), int(cap is not None),
+            0.0 if cap is None else float(cap), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_fwd launch failed with CUDA error "
+                           f"{err} at q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                           f"{q.dtype}")
+    LAUNCHES["flash_attention"] += 1
+    return out

@@ -1,0 +1,52 @@
+"""Serving steps: batched prefill, single-token decode, and a greedy
+generation loop.
+
+The port of ``repro.train.serve_step``. The model holds its weights, so
+these take no ``params``. The reference's ``lax.scan`` over decode steps is
+a Python loop here; the cache's position is a host int and each step's
+token stays on the device, so the loop never syncs the host.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+
+__all__ = ["make_serve_fns", "greedy_generate"]
+
+
+def make_serve_fns(model, cfg: ModelConfig):
+    def prefill(batch: Dict[str, torch.Tensor], max_len: int):
+        return model.prefill(batch, max_len)
+
+    def decode_step(cache, tokens: torch.Tensor):
+        """tokens (B, 1) — returns (logits (B, 1, V), the cache, updated in
+        place)."""
+        return model.decode_step(cache, tokens)
+
+    return prefill, decode_step
+
+
+@torch.no_grad()
+def greedy_generate(model, cfg: ModelConfig, prompt_batch: Dict[str, torch.Tensor],
+                    *, steps: int, max_len: int) -> torch.Tensor:
+    """Prefill the prompt then greedy-decode ``steps`` tokens.
+
+    Returns the (B, steps) tokens fed at each step, as the reference's scan
+    emits them: the first is the argmax of the prefill's last position, and
+    the argmax of the last decode step is dropped.
+    """
+    logits, cache = model.prefill(prompt_batch, max_len)
+    tok = torch.argmax(logits[:, -1:], dim=-1)  # (B, 1)
+    del logits
+    out = []
+    for _ in range(steps):
+        lg, cache = model.decode_step(cache, tok)
+        out.append(tok[:, 0])
+        tok = torch.argmax(lg[:, -1:], dim=-1)
+    if not out:
+        return torch.empty((tok.shape[0], 0), dtype=tok.dtype, device=tok.device)
+    return torch.stack(out, dim=1)  # (B, steps)

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain torch versions, on the card,
-and the five lanes on the card against scipy.
+the five lanes on the card against scipy, and the dense LM's prefill
+through the flash kernel against its plain attention path.
 
 Marked ``cuda``: each test decides at run time whether a CUDA device is
 present and skips with a reason if not, so this file collects the same
@@ -27,6 +28,7 @@ from repro_torch.kernels.intersect import (
     intersect_counts_ref,
     reset_launch_counts,
 )
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import hash_tc as ht
 from repro_torch.kernels import masked_spgemm as ms
 
@@ -248,3 +250,93 @@ def test_hash_and_bfs_lanes_on_card_match_scipy(cuda, algorithm):
         assert cpu.count().meta["bucket_shapes"] == tc.plan.meta["bucket_shapes"]
         np.testing.assert_array_equal(tc.triangles_per_vertex(),
                                       cpu.triangles_per_vertex())
+
+
+# K6: (b, s, t, hq, hkv, hd, dtype, causal, window, cap)
+FLASH_CASES = [
+    (1, 1, 1, 1, 1, 64, torch.float32, True, None, None),
+    (2, 64, 64, 4, 2, 64, torch.float32, True, None, None),
+    (1, 100, 100, 8, 4, 256, torch.bfloat16, True, 33, 50.0),
+    (2, 300, 300, 8, 4, 256, torch.bfloat16, True, 64, 50.0),
+    (1, 1000, 1000, 20, 20, 128, torch.float32, True, None, None),
+    (1, 777, 777, 36, 36, 64, torch.float32, True, None, None),
+    (1, 257, 129, 4, 1, 128, torch.float16, False, None, 30.0),
+    (1, 40, 100, 8, 1, 64, torch.float32, True, 16, None),    # S < T
+    (1, 200, 50, 4, 2, 64, torch.float32, True, 20, None),    # rows with no key
+    (1, 200, 50, 4, 2, 64, torch.float32, False, 10, 50.0),
+    (2, 96, 96, 16, 2, 128, torch.bfloat16, False, None, None),  # G = 8
+    (1, 512, 512, 8, 4, 256, torch.bfloat16, True, 128, 50.0),
+]
+
+
+def flash_within_tolerance(k_out, p_out):
+    """K6 against its plain version: both compute in fp32 and round once to
+    the output dtype, so fp32 outputs agree to 1e-4 (sums in another
+    order, values of order 1) and bf16 / fp16 outputs to one rounding step
+    (2⁻⁷ / 2⁻¹⁰ of the larger magnitude). Returns (ok, max |Δ|)."""
+    k32, p32 = k_out.float(), p_out.float()
+    diff = (k32 - p32).abs()
+    step = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7,
+            torch.float16: 2.0 ** -10}[k_out.dtype]
+    bound = step * torch.maximum(k32.abs(), p32.abs()) + 1e-4
+    return bool((diff <= bound).all()), float(diff.max())
+
+
+@pytest.mark.parametrize("b,s,t,hq,hkv,hd,dtype,causal,window,cap",
+                         FLASH_CASES)
+def test_flash_kernel_equals_plain_version(cuda, b, s, t, hq, hkv, hd, dtype,
+                                           causal, window, cap):
+    gen = torch.Generator(device=cuda).manual_seed(s * 31 + t + hd)
+    q = torch.randn(b, s, hq, hd, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(b, t, hkv, hd, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(b, t, hkv, hd, generator=gen, device=cuda).to(dtype)
+    fa.reset_launch_counts()
+    got = fa.flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                    cap=cap)
+    want = fa.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                  cap=cap)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_attention": 1}
+    assert got.dtype == dtype and got.shape == q.shape
+    ok, err = flash_within_tolerance(got, want)
+    assert ok, err
+
+
+def test_flash_kernel_checks_inputs(cuda):
+    q = torch.zeros(1, 8, 4, 64, device=cuda)
+    k = torch.zeros(1, 8, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_kernel(q[..., :32], k[..., :32], k[..., :32])
+    with pytest.raises(ValueError, match="one device"):
+        fa.flash_attention_kernel(q, k.cpu(), k)
+    # strided inputs are copied, not refused
+    qs = torch.zeros(1, 8, 4, 128, device=cuda)[..., ::2]
+    assert fa.flash_attention_kernel(qs, k, k).shape == (1, 8, 4, 64)
+
+
+def test_prefill_through_flash_kernel_matches_plain_path(cuda):
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import get_reduced_config
+    from repro_torch.models.transformer import TransformerLM
+
+    cfg = get_reduced_config("gemma2-2b").replace(
+        d_model=128, num_heads=4, kv_heads=2, head_dim=64)
+    model = TransformerLM(cfg, device=cuda, dtype=torch.float32)
+    model.init(torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 40), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    fa.reset_launch_counts()
+    lk, ck = model.prefill({"tokens": tokens}, 48)
+    assert fa.LAUNCHES["flash_attention"] == cfg.num_layers
+    model.attn_backend = "chunked"
+    lp, cp = model.prefill({"tokens": tokens}, 48)
+    assert fa.LAUNCHES["flash_attention"] == cfg.num_layers
+    torch.testing.assert_close(lk, lp, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ck["k"], cp["k"], rtol=1e-4, atol=1e-4)
+    pos = torch.arange(8, device=cuda)
+    q = torch.zeros(1, 8, 4, 64, device=cuda)
+    with pytest.raises(NotImplementedError):
+        L.attention(q, q[:, :, :2], q[:, :, :2], q_pos=pos, k_pos=pos,
+                    prefix_len=3)
+    with pytest.raises(NotImplementedError):
+        L.attention(q, q[:, :, :2], q[:, :, :2], q_pos=pos, k_pos=pos - 1)

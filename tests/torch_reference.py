@@ -9,13 +9,21 @@ the suite collects exactly as it would without this file. At teardown the
 fixture removes the shim and every ``repro`` module it imported, so later
 tests in the same process see the reference as they would have.
 
-Use it by importing the fixture into a test module::
+The ``lmref`` fixture does the same for the language-model scaffolding
+(models, configs, serve step, flash attention). On JAX releases that
+dropped ``pallas.load``, the reference's Pallas flash kernel fails while
+it traces; ``lmref`` also sets ``pl.load = lambda ref, idx: ref[idx]`` for
+the module's tests and removes it at teardown.
+
+Use them by importing the fixture into a test module::
 
     from torch_reference import ref  # noqa: F401
+    from torch_reference import lmref  # noqa: F401
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import sys
 import types
@@ -50,16 +58,26 @@ _MODULES = {
 }
 
 
+_LM_MODULES = {
+    "config": "repro.models.config",
+    "registry": "repro.models.registry",
+    "layers": "repro.models.layers",
+    "transformer": "repro.models.transformer",
+    "serve_step": "repro.train.serve_step",
+    "flash": "repro.kernels.flash_attention.flash_attention",
+    "flashref": "repro.kernels.flash_attention.ref",
+    "flashops": "repro.kernels.flash_attention.ops",
+}
+
+
 def _is_reference(name: str) -> bool:
     return name == "repro" or name.startswith("repro.")
 
 
-@pytest.fixture(scope="module")
-def ref():
-    """Namespace of reference modules (``ref.generators``, ``ref.prep``,
-    ``ref.ops``, ``ref.msops``, ``ref.hashops``, ``ref.tc_subgraph``, ...),
-    imported under
-    the enable_x64 shim."""
+@contextlib.contextmanager
+def _reference(modules, *, pallas_load: bool = False):
+    """Apply the shims, import ``modules`` and yield them as a namespace;
+    afterwards remove the shims and every ``repro`` module imported."""
     import jax
     import jax.experimental
 
@@ -67,12 +85,21 @@ def ref():
     added_shim = not hasattr(jax.experimental, "enable_x64")
     if added_shim:
         jax.experimental.enable_x64 = jax.enable_x64
+    added_load = False
+    if pallas_load:
+        from jax.experimental import pallas as pl
+
+        added_load = not hasattr(pl, "load")
+        if added_load:
+            pl.load = lambda ref, idx: ref[idx]
     try:
         yield types.SimpleNamespace(
-            **{k: importlib.import_module(v) for k, v in _MODULES.items()})
+            **{k: importlib.import_module(v) for k, v in modules.items()})
     finally:
         if added_shim:
             del jax.experimental.enable_x64
+        if added_load:
+            del pl.load
         for name in sorted(set(sys.modules) - before, reverse=True):
             if not _is_reference(name):
                 continue
@@ -81,3 +108,24 @@ def ref():
             if parent in sys.modules and getattr(sys.modules[parent], child,
                                                  None) is mod:
                 delattr(sys.modules[parent], child)
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """Namespace of reference modules (``ref.generators``, ``ref.prep``,
+    ``ref.ops``, ``ref.msops``, ``ref.hashops``, ``ref.tc_subgraph``, ...),
+    imported under
+    the enable_x64 shim."""
+    with _reference(_MODULES) as ns:
+        yield ns
+
+
+@pytest.fixture(scope="module")
+def lmref():
+    """Namespace of the reference's LM modules (``lmref.config``,
+    ``lmref.registry``, ``lmref.layers``, ``lmref.transformer``,
+    ``lmref.serve_step``, ``lmref.flash``, ``lmref.flashref``,
+    ``lmref.flashops``), imported under the enable_x64 and ``pl.load``
+    shims."""
+    with _reference(_LM_MODULES, pallas_load=True) as ns:
+        yield ns
