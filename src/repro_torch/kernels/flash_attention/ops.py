@@ -1,22 +1,18 @@
-"""Dispatch for attention: the flash kernel, the chunked online softmax, or
-the materialised oracle.
+"""Dispatch for attention: the flash kernel or the materialised oracle.
 
 The port of ``repro.kernels.flash_attention.ops``:
 
-    backend    core                                   notes
-    --------   ------------------------------------   ------------------------
-    "kernel"   ``flash_attention_kernel``             K6 on CUDA tensors; its
-                                                      plain version
-                                                      (``flash_attention_ref``)
-                                                      on CPU ones
-    "chunked"  ``repro_torch.models.layers.attention`` the reference's jnp
-               with ``backend="chunked"``             backend: chunked-KV
-                                                      online softmax
-    "ref"      ``flash_attention_ref``                materialised oracle
+    backend    core                        notes
+    --------   -------------------------   ---------------------------------
+    "kernel"   ``flash_attention_kernel``  K6 on CUDA tensors; its plain
+                                           version (``flash_attention_ref``)
+                                           on CPU ones
+    "ref"      ``flash_attention_ref``     materialised oracle
 
 A CUDA tensor never falls back: a failed build or launch raises. The
-reference's ``"pallas"`` backend is ``"kernel"`` here, and its ``"jnp"``
-backend ``"chunked"``.
+reference's ``"pallas"`` backend is ``"kernel"`` here. Its ``"jnp"``
+backend, the chunked online softmax, is ``repro_torch.models.layers.attention``
+with ``backend="chunked"``, which this module does not import.
 """
 
 from __future__ import annotations
@@ -32,7 +28,7 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 __all__ = ["BACKENDS", "flash_attention"]
 
-BACKENDS = ("kernel", "chunked", "ref")
+BACKENDS = ("kernel", "ref")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -50,15 +46,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if backend == "kernel":
         return flash_attention_kernel(q, k, v, causal=causal, window=window,
                                       cap=cap)
-    if backend == "chunked":
-        from repro_torch.models.layers import NO_WINDOW, attention
-
-        s, t = q.shape[1], k.shape[1]
-        return attention(q, k, v, q_pos=torch.arange(s, device=q.device),
-                         k_pos=torch.arange(t, device=q.device),
-                         causal=causal,
-                         window=NO_WINDOW if window is None else window,
-                         cap=cap, backend="chunked")
     if backend == "ref":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    cap=cap)

@@ -10,7 +10,7 @@ Attention has two paths. The plain one is the reference's chunked-KV
 online-softmax scan (``backend="chunked"``), which CPU tensors always take.
 On a CUDA tensor, ``attention`` runs the prefill case — no prefix, query
 and key positions ``arange(S)`` — through the flash kernel K6
-(``repro_torch.kernels.flash_attention``), the counterpart of the Pallas
+(``repro_torch.kernels.flash_attention.ops``), the counterpart of the Pallas
 kernel that the reference names as its drop-in MXU version. Any other case
 on a CUDA tensor (a bidirectional prefix, padded key positions, a
 non-causal finite window) raises ``NotImplementedError``; it never quietly
@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.kernels.flash_attention import flash_attention_kernel
+from repro_torch.kernels.flash_attention.ops import flash_attention
 
 __all__ = [
     "ATTENTION_BACKENDS",
@@ -225,8 +225,8 @@ def attention(
     k: torch.Tensor,  # (B, T, Hkv, hd)
     v: torch.Tensor,  # (B, T, Hkv, hd)
     *,
-    q_pos: torch.Tensor,  # (S,)
-    k_pos: torch.Tensor,  # (T,)
+    q_pos: Optional[torch.Tensor] = None,  # (S,); None: arange(S)
+    k_pos: Optional[torch.Tensor] = None,  # (T,); None: arange(T)
     window: int = NO_WINDOW,
     causal: bool = True,
     prefix_len: int = 0,
@@ -240,10 +240,11 @@ def attention(
     online-softmax scan: the KV axis in ``chunk``-sized tiles with a
     running (max, sumexp, out) accumulator, never the S×T logit matrix.
     ``backend="kernel"`` on a CUDA tensor runs K6; it needs
-    ``prefix_len == 0``, ``q_pos`` and ``k_pos`` equal to ``arange(S)``
-    (checked with one device-to-host read each) and, when not causal, no
-    finite window (the kernel keeps ``q_pos - k_pos < window``, this
-    function ``|q_pos - k_pos| < window``).
+    ``prefix_len == 0``, ``S == T``, positions ``arange(S)`` and, when not
+    causal, no finite window (the kernel keeps ``q_pos - k_pos < window``,
+    this function ``|q_pos - k_pos| < window``). Positions left as ``None``
+    are ``arange`` by contract, which costs no device read; given ones are
+    checked with one device-to-host read each.
 
     Raises:
       NotImplementedError: ``backend="kernel"`` on a CUDA tensor in any
@@ -255,22 +256,27 @@ def attention(
     if backend not in ATTENTION_BACKENDS:
         raise ValueError(f"unknown attention backend {backend!r}; expected "
                          f"one of {ATTENTION_BACKENDS}")
+    s, t = q.shape[1], k.shape[1]
     if backend == "chunked" or q.device.type == "cpu":
+        if q_pos is None:
+            q_pos = torch.arange(s, device=q.device)
+        if k_pos is None:
+            k_pos = torch.arange(t, device=q.device)
         return _attention_chunked(q, k, v, q_pos=q_pos, k_pos=k_pos,
                                   window=window, causal=causal,
                                   prefix_len=prefix_len, cap=cap, chunk=chunk)
-    s, t = q.shape[1], k.shape[1]
     if prefix_len or (not causal and window < NO_WINDOW) or s != t \
-            or not _is_arange(q_pos, s) or not _is_arange(k_pos, t):
+            or (q_pos is not None and not _is_arange(q_pos, s)) \
+            or (k_pos is not None and not _is_arange(k_pos, t)):
         raise NotImplementedError(
             f"attention on {q.device} runs the flash kernel only for a "
             f"prefill: prefix_len == 0 (got {prefix_len}), q_pos == k_pos == "
             f"arange(S), and a causal mask or no window (causal={causal}, "
             f"window={window}); bidirectional prefixes and padded keys are "
             f"{_LATER}")
-    return flash_attention_kernel(
+    return flash_attention(
         q, k, v, causal=causal, window=None if window >= NO_WINDOW else window,
-        cap=cap)
+        cap=cap, backend="kernel")
 
 
 def decode_attention(

@@ -172,8 +172,10 @@ class TransformerLM(nn.Module):
             att = L.decode_attention(q, ck, cv, cur_pos=cur_pos, window=window,
                                      cap=cfg.logit_softcap)
         else:
-            att = L.attention(q, k, v, q_pos=q_pos, k_pos=q_pos, window=window,
-                              cap=cfg.logit_softcap, backend=self.attn_backend)
+            # q_pos is arange(S) here (prefill, apply_train): left as None,
+            # the kernel path needs no device read to know it
+            att = L.attention(q, k, v, window=window, cap=cfg.logit_softcap,
+                              backend=self.attn_backend)
         att = L.dense(p["attn"]["wo"], att.reshape(b, s, hq * hd))
         if cfg.post_norms:
             att = L.rmsnorm(p["ln1_post"], att, cfg.norm_eps)

@@ -338,5 +338,12 @@ def test_prefill_through_flash_kernel_matches_plain_path(cuda):
     with pytest.raises(NotImplementedError):
         L.attention(q, q[:, :, :2], q[:, :, :2], q_pos=pos, k_pos=pos,
                     prefix_len=3)
+    # given positions are checked; shifted ones are not the prefill case
+    with pytest.raises(NotImplementedError):
+        L.attention(q, q[:, :, :2], q[:, :, :2], q_pos=pos + 1, k_pos=pos + 1)
+    fa.reset_launch_counts()
+    assert L.attention(q, q[:, :, :2], q[:, :, :2], q_pos=pos,
+                       k_pos=pos).shape == q.shape
+    assert fa.LAUNCHES["flash_attention"] == 1
     with pytest.raises(NotImplementedError):
         L.attention(q, q[:, :, :2], q[:, :, :2], q_pos=pos, k_pos=pos - 1)

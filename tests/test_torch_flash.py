@@ -158,9 +158,16 @@ def test_ops_backends_agree_on_cpu(lmref):
     q, k, v = (torch.from_numpy(x) for x in _qkv(1, 48, 4, 2, 64, seed=3))
     kw = dict(causal=True, window=20, cap=50.0)
     ref = fa.flash_attention(q, k, v, backend="ref", **kw)
-    for backend in ("kernel", "chunked"):
+    assert fa.BACKENDS == ("kernel", "ref")
+    np.testing.assert_allclose(
+        fa.flash_attention(q, k, v, backend="kernel", **kw).numpy(),
+        ref.numpy(), **TOL)
+    # the reference's "jnp" backend is the chunked layers.attention here;
+    # positions left as None are arange
+    for pos in (None, torch.arange(48)):
         np.testing.assert_allclose(
-            fa.flash_attention(q, k, v, backend=backend, **kw).numpy(),
+            port_layers.attention(q, k, v, q_pos=pos, k_pos=pos,
+                                  backend="chunked", **kw).numpy(),
             ref.numpy(), **TOL)
     want = lmref.flashops.flash_attention(
         _jnp(q.numpy()), _jnp(k.numpy()), _jnp(v.numpy()), backend="jnp",
