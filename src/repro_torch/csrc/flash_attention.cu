@@ -7,60 +7,78 @@
 //     L = mask(softcap((q[b, s, h] . k[b, t, h / G]) * scale))
 //
 // for q (B, S, Hq, hd) against k, v (B, T, Hkv, hd), G = Hq / Hkv (q head h
-// reads kv head h / G: contiguous groups), in fp32 whatever the input type
-// (fp32, bf16 or fp16; the output is in q's type). softcap(x) = tanh(x /
-// cap) * cap when cap is given. The mask is the TPU kernel's: key t is valid
-// for query s when (!causal || s - t >= 0) && s - t < window; masked logits
-// are the finite -1e30 and the running max starts at -1e30, as in the TPU
-// kernel, so a tile whose keys are all masked for a row adds p = 1 entries
-// that the first valid key's alpha = exp(-1e30 - m) = 0 wipes exactly, and
-// a row with no valid key at all averages v over all T keys, as the
-// materialised softmax does. Keys past T (the ragged tail of the last tile)
-// take -INFINITY: they never count. The output is acc / max(l, 1e-30).
+// reads kv head h / G: contiguous groups); the output is in q's type.
+// softcap(x) = tanh(x / cap) * cap when cap is given. The mask is the TPU
+// kernel's: key t is valid for query s when (!causal || s - t >= 0) &&
+// s - t < window; masked logits are the finite -1e30 and the running max
+// starts at -1e30, as in the TPU kernel, so a tile whose keys are all masked
+// for a row adds p = 1 entries that the first valid key's alpha =
+// exp(-1e30 - m) = 0 wipes exactly, and a row with no valid key at all
+// averages v over all T keys, as the materialised softmax does. Keys past T
+// (the ragged tail of the last tile) take -INFINITY: they never count. The
+// output is acc / max(l, 1e-30).
 //
 // What bounds it: the operations. At the serving path's shapes (B = 2,
 // S = T = 6144, 8 q heads over 4 kv heads, hd = 256, bf16) a global layer has
 // 2 * 8 * 18.9M unmasked (query, key) pairs at 4 * hd flops each, 0.31
 // TFLOP: 0.31 ms at the bf16 tensor-core rate (989 TFLOP/s), 4.6 ms at the
-// fp32 CUDA-core rate (67 TFLOP/s) this kernel runs at, against 0.05 ms to
-// read q, k, v once and write the output.
+// fp32 CUDA-core rate (67 TFLOP/s), against 0.05 ms to read q, k, v once and
+// write the output.
 //
-// Design (right first; fast is later work: wgmma on bf16 tiles, TMA, bf16
-// P). A block of 128 threads owns 32 rows of one (batch, kv head): row r is
-// the (query, group head) pair r0 + r of the S * G rows, so the G q heads
-// that share a kv head share each K/V tile. Q rows are staged once in shared
-// memory as fp32; K and V stream through shared memory 32 keys at a time,
-// converted to fp32 on the way in (16-byte global loads). Per tile:
-//   1. S = Q K^T: each thread a 4-row x 2-key patch, float4 reads of padded
-//      rows, then scale, softcap and the mask, stored transposed;
-//   2. online softmax: 4 threads a row (max and sum over shuffles), the
-//      running (m, l) in registers, alpha in shared memory;
-//   3. O = O * alpha + P V: each thread hd / 16 rows x 4 columns of the
-//      accumulator in registers (64 floats at hd = 256).
-// Only tiles that hold a valid key for some row of the block are visited:
+// Two kernels, chosen by the input type, with no fallback between them:
+//
+// * bf16 and fp16: flash_fwd_wgmma_kernel, on the tensor cores. A block of
+//   three warpgroups owns 128 (query, head) rows of one (batch, kv head):
+//   row r is the pair (r / G, r % G) of the S * G rows, so the G q heads that
+//   share a kv head share every K/V tile. One producer thread streams K and V
+//   through a 2-stage ring of 64-key tiles by TMA (4-d tensor maps over
+//   (hd, Hkv, T, B), 128-byte swizzle, so a 256-wide head loads as four
+//   64-column slabs; keys past T arrive as zeros), signalled by mbarriers.
+//   Two consumer warpgroups take 64 rows each; each stages its Q rows once
+//   with 16-byte loads into the same swizzled layout (any G, a ragged S), then
+//   per tile: S = Q K^T by wgmma m64n64k16 (fp32 accumulators, 32 registers
+//   a thread); scale, softcap (the precise tanhf), mask and the online
+//   softmax in fp32 registers (a row's four threads combine max over
+//   shuffles; exp2f of (x - m) * log2 e, so the -1e30 sentinel gives
+//   x - m = 0, never -inf - -inf); P rounded once to q's type in registers,
+//   where the S accumulator's layout is the A-register layout of the next
+//   product, so P never touches shared memory; O = O * alpha + P V by wgmma
+//   m64n<hd>k16 with V read as an MN-major B (the transpose bit). The one
+//   rounding beyond the fp32 arithmetic is P to bf16 (fp16), which the TPU
+//   kernel's default-precision dot also makes. Shared memory at hd = 256:
+//   Q 64 KB + K 2 x 32 KB + V 2 x 32 KB = 192 KB, one block an SM; the
+//   consumers raise their register limit to 240 (setmaxnreg) for the
+//   (64, 256) fp32 O accumulator, the producer drops to 24.
+// * fp32: flash_fwd_kernel, on the CUDA cores (fp32 arithmetic throughout).
+//   A block of 128 threads owns 32 rows; Q rows are staged once in shared
+//   memory as fp32; K and V stream through shared memory 32 keys at a time
+//   (16-byte global loads). Per tile: S = Q K^T as 4-row x 2-key register
+//   patches, stored transposed; the online softmax 4 threads a row; O = O *
+//   alpha + P V, hd / 16 rows x 4 columns of the accumulator a thread.
+//   Shared memory 104 KB at hd = 256 (two blocks an SM).
+//
+// Both visit only the tiles that hold a valid key for some row of the block:
 // tiles wholly past the causal diagonal or wholly before the window are
 // skipped, which is exact (see above). A block that holds a row with no
 // valid key visits every tile, so such rows average all T keys. Blocks run
 // heaviest-first (the causal diagonal's last rows first). Any S and T are
-// taken; tail rows and keys are masked. hd is a compile-time 64, 128 or
-// 256. Shared memory: 104 KB at hd = 256 (two blocks an SM), set with
-// cudaFuncSetAttribute.
+// taken; tail rows and keys are masked. hd is a compile-time 64, 128 or 256.
 //
 // The C interface takes raw device pointers, ints, floats and a
-// cudaStream_t passed as void*, and returns cudaGetLastError() after the
-// launch.
+// cudaStream_t passed as void*, and returns a CUDA error code: that of a
+// tensor-map encoding it refused, else cudaGetLastError() after the launch.
 
+#include <cuda.h>  // CUtensorMap (its encoder is looked up through cudart)
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kRows = 32;  // (query, head) rows of a block
-constexpr int kKeys = 32;  // keys of a K/V tile
 constexpr float kMasked = -1e30f;
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
@@ -70,50 +88,46 @@ __device__ __forceinline__ int64_t max64(int64_t a, int64_t b) {
   return a > b ? a : b;
 }
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// The keys [begin, end) that a block of `rows` rows from r0 must visit;
+// begin is a multiple of `keys` (the tile).
+__device__ __forceinline__ void key_range(int64_t r0, int rows, int64_t n_rows,
+                                          int G, int T, int causal, int window,
+                                          int keys, int64_t* begin,
+                                          int64_t* end) {
+  const int64_t s_lo = r0 / G;
+  const int64_t s_hi = min64(n_rows - 1, r0 + rows - 1) / G;
+  int64_t k_begin = max64(0, s_lo - window + 1);
+  int64_t k_end = causal ? min64(T, s_hi + 1) : (int64_t)T;
+  if (s_hi - window + 1 > (int64_t)T - 1) {  // a row with no valid key
+    k_begin = 0;
+    k_end = T;
+  }
+  *begin = (k_begin / keys) * keys;
+  *end = k_end;
 }
-__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <>
-__device__ __forceinline__ __half from_float<__half>(float x) {
-  return __float2half(x);
-}
+// ---------------------------------------------------------------------------
+// fp32: the CUDA-core kernel
+// ---------------------------------------------------------------------------
+namespace fp32 {
 
-// Copy `rows` rows of HD elements (row i at src_row(i)) into fp32 shared
-// memory rows of stride `ld`, zero-filling rows whose source is null. 16-byte
-// loads: 16 / sizeof(T) elements each.
-template <typename T, int HD, typename RowFn>
+constexpr int kThreads = 128;
+constexpr int kRows = 32;  // (query, head) rows of a block
+constexpr int kKeys = 32;  // keys of a K/V tile
+
+// Copy `rows` rows of HD floats (row i at src_row(i)) into shared memory
+// rows of stride `ld`, zero-filling rows whose source is null. 16-byte loads.
+template <int HD, typename RowFn>
 __device__ __forceinline__ void stage_rows(float* dst, int ld, int rows,
                                            RowFn src_row) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = HD / kVec;
+  constexpr int kPerRow = HD / 4;
   for (int i = threadIdx.x; i < rows * kPerRow; i += kThreads) {
     const int r = i / kPerRow;
-    const int c = (i % kPerRow) * kVec;
-    const T* src = src_row(r);
-    float* d = dst + r * ld + c;
-    if (src == nullptr) {
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) d[e] = 0.f;
-    } else {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + c);
-      const T* t = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int e = 0; e < kVec; e += 4)
-        *reinterpret_cast<float4*>(d + e) =
-            make_float4(to_float(t[e]), to_float(t[e + 1]), to_float(t[e + 2]),
-                        to_float(t[e + 3]));
-    }
+    const int c = (i % kPerRow) * 4;
+    const float* src = src_row(r);
+    *reinterpret_cast<float4*>(dst + r * ld + c) =
+        src == nullptr ? make_float4(0.f, 0.f, 0.f, 0.f)
+                       : *reinterpret_cast<const float4*>(src + c);
   }
 }
 
@@ -129,11 +143,11 @@ struct Smem {
   static constexpr size_t kBytes = sizeof(float) * kFloats;
 };
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int S, int T_,
-                 int Hq, int Hkv, int causal, int window, float scale,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out, int S,
+                 int T_, int Hq, int Hkv, int causal, int window, float scale,
                  int has_cap, float cap) {
   using L = Smem<HD>;
   extern __shared__ __align__(16) float smem[];
@@ -161,18 +175,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     return ((int64_t)b * S + s) * Hq * HD + (int64_t)h * HD;
   };
 
-  // keys this block must visit
-  const int64_t s_lo = r0 / G;
-  const int64_t s_hi = min64(n_rows - 1, r0 + kRows - 1) / G;
-  int64_t k_begin = max64(0, s_lo - window + 1);
-  int64_t k_end = causal ? min64(T_, s_hi + 1) : (int64_t)T_;
-  if (s_hi - window + 1 > (int64_t)T_ - 1) {  // a row with no valid key
-    k_begin = 0;
-    k_end = T_;
-  }
-  k_begin = (k_begin / kKeys) * kKeys;
+  int64_t k_begin, k_end;  // keys this block must visit
+  key_range(r0, kRows, n_rows, G, T_, causal, window, kKeys, &k_begin, &k_end);
 
-  stage_rows<T, HD>(Qs, L::kLdQK, kRows, [&](int r) -> const T* {
+  stage_rows<HD>(Qs, L::kLdQK, kRows, [&](int r) -> const float* {
     return r0 + r < n_rows ? q + row_off(r) : nullptr;
   });
 
@@ -194,16 +200,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < RP; ++i)
     acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
-  const T* kb = k + ((int64_t)b * T_ * Hkv + hkv) * HD;
-  const T* vb = v + ((int64_t)b * T_ * Hkv + hkv) * HD;
+  const float* kb = k + ((int64_t)b * T_ * Hkv + hkv) * HD;
+  const float* vb = v + ((int64_t)b * T_ * Hkv + hkv) * HD;
   const int64_t key_stride = (int64_t)Hkv * HD;
 
   for (int64_t kt = k_begin; kt < k_end; kt += kKeys) {
     __syncthreads();  // the previous tile's readers are done
-    stage_rows<T, HD>(Ks, L::kLdQK, kKeys, [&](int j) -> const T* {
+    stage_rows<HD>(Ks, L::kLdQK, kKeys, [&](int j) -> const float* {
       return kt + j < T_ ? kb + (kt + j) * key_stride : nullptr;
     });
-    stage_rows<T, HD>(Vs, HD, kKeys, [&](int j) -> const T* {
+    stage_rows<HD>(Vs, HD, kKeys, [&](int j) -> const float* {
       return kt + j < T_ ? vb + (kt + j) * key_stride : nullptr;
     });
     __syncthreads();
@@ -307,15 +313,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = pr0 + i;
     if (r0 + r >= n_rows) continue;
     const float inv = 1.f / fmaxf(l_s[r], 1e-30f);
-    T* o = out + row_off(r) + 4 * cg;
-    o[0] = from_float<T>(acc[i][0] * inv);
-    o[1] = from_float<T>(acc[i][1] * inv);
-    o[2] = from_float<T>(acc[i][2] * inv);
-    o[3] = from_float<T>(acc[i][3] * inv);
+    *reinterpret_cast<float4*>(out + row_off(r) + 4 * cg) =
+        make_float4(acc[i][0] * inv, acc[i][1] * inv, acc[i][2] * inv,
+                    acc[i][3] * inv);
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int S, int T_, int Hq, int Hkv, int causal, int window, float scale,
            int has_cap, float cap, cudaStream_t stream) {
@@ -323,34 +327,572 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   static bool configured = false;  // once per instance
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   const int64_t n_rows = (int64_t)S * (Hq / Hkv);
   const dim3 grid((unsigned)((n_rows + kRows - 1) / kRows), (unsigned)(B * Hkv));
-  flash_fwd_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, T_, Hq, Hkv, causal,
-      window, scale, has_cap, cap);
+  flash_fwd_kernel<HD><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), S, T_, Hq, Hkv,
+      causal, window, scale, has_cap, cap);
   return (int)cudaGetLastError();
 }
 
+}  // namespace fp32
+
+// ---------------------------------------------------------------------------
+// bf16 / fp16: the tensor-core kernel
+// ---------------------------------------------------------------------------
+namespace hopper {
+
+constexpr int kThreads = 384;  // warpgroup 0 produces, 1 and 2 consume
+constexpr int kRowsWG = 64;    // rows of a consumer warpgroup (wgmma's M)
+constexpr int kRows = 2 * kRowsWG;
+constexpr int kKeys = 64;      // keys of a K/V tile
+constexpr int kStages = 2;
+constexpr int kSlab = 64;      // 16-bit columns of a 128-byte swizzled row
+constexpr int kSlabBytes = 64 * 128;  // a 64-row slab: Q, K and V alike
+constexpr uint32_t kProducerRegs = 24, kConsumerRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD>
+struct Smem {
+  static constexpr int kSlabs = HD / kSlab;
+  static constexpr int kTile = kSlabs * kSlabBytes;  // one K or V tile
+  static constexpr int kQ = 0;                        // [consumer][slab][64][128 B]
+  static constexpr int kK = kQ + 2 * kTile;           // [stage][slab][64][128 B]
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBars = kV + kStages * kTile;  // full_k, full_v, empty
+  static constexpr size_t kBytes = kBars + 3 * kStages * 8 + 1024;  // + align
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One 64-column x 64-key box of a (hd, Hkv, T, B) tensor map into shared
+// memory; its bytes complete the transaction count of the barrier.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int head,
+                                         int key, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(head),
+         "r"(key), "r"(batch), "r"(bar)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor for the 128-byte swizzle: start address,
+// leading and stride byte offsets (16-byte units), layout type 1 (bits 62-63).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of wgmma's registers across
+// the asynchronous instructions (they are written when wait_group returns).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// The wgmma instructions (generated operand lists): d[] is the fp32
+// accumulator, TY the 16-bit input type.
+#define K6_D32 \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+    "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+    "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+    "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+    "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+    "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+    "+f"(d[30]), "+f"(d[31])
+
+#define K6_D64 \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+    "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+    "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+    "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+    "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+    "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+    "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+    "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+    "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), \
+    "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+    "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
+    "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+    "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+#define K6_D128 \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+    "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+    "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+    "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+    "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+    "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+    "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+    "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+    "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), \
+    "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+    "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
+    "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+    "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), \
+    "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), \
+    "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), \
+    "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+    "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), \
+    "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), \
+    "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), \
+    "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), \
+    "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), \
+    "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), \
+    "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), \
+    "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
+    "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), \
+    "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+
+#define K6_QK(TY) \
+    "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+    "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+    "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+    "%24, %25, %26, %27, %28, %29, %30, %31}, " \
+    "%32, %33, p, 1, 1, 0, 0;\n}\n"
+
+#define K6_PV64(TY) \
+    "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+    "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+    "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+    "%24, %25, %26, %27, %28, %29, %30, %31}, " \
+    "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+
+#define K6_PV128(TY) \
+    "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+    "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+    "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+    "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, " \
+    "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+    "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
+    "%60, %61, %62, %63}, " \
+    "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+
+#define K6_PV256(TY) \
+    "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n" \
+    "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " " \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+    "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+    "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, " \
+    "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+    "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
+    "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, " \
+    "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, " \
+    "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+    "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, " \
+    "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, " \
+    "%120, %121, %122, %123, %124, %125, %126, %127}, " \
+    "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+
+// S = Q K^T for one k16 step: A and B from shared memory, both K-major.
 template <typename T>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* out,
-                int B, int S, int T_, int Hq, int Hkv, int causal, int window,
-                float scale, int has_cap, float cap, cudaStream_t s) {
-  switch (hd) {
-    case 64:
-      return launch<T, 64>(q, k, v, out, B, S, T_, Hq, Hkv, causal, window,
-                           scale, has_cap, cap, s);
-    case 128:
-      return launch<T, 128>(q, k, v, out, B, S, T_, Hq, Hkv, causal, window,
-                            scale, has_cap, cap, s);
-    case 256:
-      return launch<T, 256>(q, k, v, out, B, S, T_, Hq, Hkv, causal, window,
-                            scale, has_cap, cap, s);
+__device__ __forceinline__ void mma_qk(float (&d)[32], uint64_t da,
+                                       uint64_t db, uint32_t accumulate) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>)
+    asm volatile(K6_QK("bf16") : K6_D32 : "l"(da), "l"(db), "r"(accumulate));
+  else
+    asm volatile(K6_QK("f16") : K6_D32 : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// O += P V for one k16 step: P (A) from registers, V (B) from shared memory
+// as an MN-major operand (the transpose bit); N = HD.
+#define K6_A "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(one)
+template <typename T, int HD>
+__device__ __forceinline__ void mma_pv(float (&d)[HD / 2],
+                                       const uint32_t (&a)[4], uint64_t db) {
+  const uint32_t one = 1;
+  constexpr bool bf16 = std::is_same_v<T, __nv_bfloat16>;
+  if constexpr (HD == 64 && bf16)
+    asm volatile(K6_PV64("bf16") : K6_D32 : K6_A);
+  else if constexpr (HD == 64)
+    asm volatile(K6_PV64("f16") : K6_D32 : K6_A);
+  else if constexpr (HD == 128 && bf16)
+    asm volatile(K6_PV128("bf16") : K6_D64 : K6_A);
+  else if constexpr (HD == 128)
+    asm volatile(K6_PV128("f16") : K6_D64 : K6_A);
+  else if constexpr (bf16)
+    asm volatile(K6_PV256("bf16") : K6_D128 : K6_A);
+  else
+    asm volatile(K6_PV256("f16") : K6_D128 : K6_A);
+}
+#undef K6_A
+
+// Two fp32 values rounded to one 16-bit pair, the first in the low half.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const T* __restrict__ q, T* __restrict__ out, int S,
+                       int T_, int Hq, int Hkv, int causal, int window,
+                       float scale, int has_cap, float cap) {
+  using L = Smem<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the slabs to it
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t base = smem_addr(smem);
+  const uint32_t full_k = base + L::kBars;  // [stage] at + 8 * stage
+  const uint32_t full_v = full_k + 8 * kStages;
+  const uint32_t empty = full_v + 8 * kStages;
+
+  const int G = Hq / Hkv;
+  const int bh = blockIdx.y;  // b * Hkv + kv head
+  const int b = bh / Hkv;
+  const int hkv = bh % Hkv;
+  const int64_t n_rows = (int64_t)S * G;
+  const int64_t r0 = (int64_t)(gridDim.x - 1 - blockIdx.x) * kRows;  // heavy first
+  int64_t k_begin, k_end;
+  key_range(r0, kRows, n_rows, G, T_, causal, window, kKeys, &k_begin, &k_end);
+  const int n_tiles = (int)((k_end - k_begin + kKeys - 1) / kKeys);
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full_k + 8 * st, 1);
+      mbar_init(full_v + 8 * st, 1);
+      mbar_init(empty + 8 * st, 8);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages;
+        mbar_wait(empty + 8 * st, ((i / kStages) & 1) ^ 1);
+        const int key = (int)(k_begin + (int64_t)i * kKeys);
+        mbar_expect_tx(full_k + 8 * st, L::kTile);
+#pragma unroll
+        for (int c = 0; c < L::kSlabs; ++c)
+          tma_load(base + L::kK + st * L::kTile + c * kSlabBytes, &tm_k,
+                   full_k + 8 * st, c * kSlab, hkv, key, b);
+        mbar_expect_tx(full_v + 8 * st, L::kTile);
+#pragma unroll
+        for (int c = 0; c < L::kSlabs; ++c)
+          tma_load(base + L::kV + st * L::kTile + c * kSlabBytes, &tm_v,
+                   full_v + 8 * st, c * kSlab, hkv, key, b);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup 1 takes rows 0-63 of the block, 2 rows 64-127
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int cw = wg - 1;
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32, lane = t % 32;
+  const int64_t rw0 = r0 + (int64_t)kRowsWG * cw;
+  const uint32_t q_smem = base + L::kQ + cw * L::kTile;
+
+  auto row_off = [&](int64_t gr) -> int64_t {  // q / out offset of a row
+    const int64_t s = gr / G;
+    const int h = hkv * G + (int)(gr % G);
+    return ((int64_t)b * S + s) * Hq * HD + (int64_t)h * HD;
+  };
+
+  // stage this warpgroup's 64 Q rows (zeros past S * G), swizzled as TMA
+  // would: 16-byte chunk j of row r at chunk (j ^ r) % 8 of its slab's row
+  {
+    constexpr int kChunks = HD / 8;
+    for (int i = t; i < kRowsWG * kChunks; i += 128) {
+      const int r = i / kChunks, j = i % kChunks;
+      const int64_t gr = rw0 + r;
+      uint4 val = make_uint4(0, 0, 0, 0);
+      if (gr < n_rows)
+        val = *reinterpret_cast<const uint4*>(q + row_off(gr) + j * 8);
+      *reinterpret_cast<uint4*>(smem + (q_smem - base) + (j / 8) * kSlabBytes +
+                                r * 128 + (((j % 8) ^ (r & 7)) << 4)) = val;
+    }
+    // generic-proxy writes, read next by wgmma through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(cw + 1) : "memory");
+  }
+
+  // a thread's two rows: 16 * warp + lane / 4 and 8 more; their valid keys
+  // [lo, hi] (the mask), their out offsets
+  int lo[2], hi[2];
+  int64_t off[2];
+  bool real[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int64_t gr = rw0 + 16 * warp + lane / 4 + 8 * h;
+    real[h] = gr < n_rows;
+    const int s = real[h] ? (int)(gr / G) : 0;
+    lo[h] = s - (window - 1);  // s - t < window
+    hi[h] = causal ? min(s, T_ - 1) : T_ - 1;
+    off[h] = real[h] ? row_off(gr) : 0;
+  }
+  const float inv_cap = has_cap ? 1.f / cap : 0.f;
+
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};  // l: this thread's part
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % kStages;
+    const uint32_t parity = (i / kStages) & 1;
+    const int kt = (int)(k_begin + (int64_t)i * kKeys);
+    const uint32_t k_smem = base + L::kK + st * L::kTile;
+    const uint32_t v_smem = base + L::kV + st * L::kTile;
+
+    // S = Q K^T: HD / 16 steps of k16, four to a 64-column slab
+    float s_acc[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) s_acc[j] = 0.f;
+    mbar_wait(full_k + 8 * st, parity);
+    fence_regs(s_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks) {
+      const uint32_t step = (ks / 4) * kSlabBytes + (ks % 4) * 32;
+      mma_qk<T>(s_acc, smem_desc(q_smem + step, 16, 1024),
+                smem_desc(k_smem + step, 16, 1024), ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s_acc);
+
+    // scale, softcap and mask: accumulator element j is the thread's row
+    // h = (j / 2) % 2 at key column 8 * (j / 4) + 2 * (lane % 4) + j % 2
+    float m_tile[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int h = (j >> 1) & 1;
+      const int key = kt + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+      float x = s_acc[j] * scale;
+      if (has_cap) x = tanhf(x * inv_cap) * cap;
+      x = (key >= lo[h] && key <= hi[h]) ? x
+          : (key >= T_ ? -INFINITY : kMasked);
+      s_acc[j] = x;
+      m_tile[h] = fmaxf(m_tile[h], x);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_tile[h] = fmaxf(m_tile[h], __shfl_xor_sync(0xffffffffu, m_tile[h], 1));
+      m_tile[h] = fmaxf(m_tile[h], __shfl_xor_sync(0xffffffffu, m_tile[h], 2));
+      const float m_new = fmaxf(m[h], m_tile[h]);
+      alpha[h] = exp2f((m[h] - m_new) * kLog2e);
+      m[h] = m_new;
+      l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int h = (j >> 1) & 1;
+      const float p = exp2f((s_acc[j] - m[h]) * kLog2e);
+      l[h] += p;
+      s_acc[j] = p;
+    }
+    // P in q's type: k16 step ks takes key columns 16 ks .. 16 ks + 15,
+    // which are accumulator elements 8 ks .. 8 ks + 7 in A's register order
+    uint32_t p16[4][4];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        p16[ks][r] = pack2<T>(s_acc[8 * ks + 2 * r], s_acc[8 * ks + 2 * r + 1]);
+#pragma unroll
+    for (int c = 0; c < HD / 8; ++c) {
+      o[4 * c] *= alpha[0];
+      o[4 * c + 1] *= alpha[0];
+      o[4 * c + 2] *= alpha[1];
+      o[4 * c + 3] *= alpha[1];
+    }
+
+    // O += P V: four k16 steps of 16 keys (2048 bytes of each slab); V's
+    // slabs are the N direction (LBO), its 8-key row groups the K (SBO)
+    mbar_wait(full_v + 8 * st, parity);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      mma_pv<T, HD>(o, p16[ks], smem_desc(v_smem + ks * 2048, kSlabBytes, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * st);  // the stage is free
+  }
+
+  // epilogue: l over the row's four threads; acc / max(l, 1e-30), rounded
+  // once to T; element 4 c + 2 h + e is row h, column 8 c + 2 (lane % 4) + e
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    if (!real[h]) continue;
+    const float inv = 1.f / fmaxf(l[h], 1e-30f);
+    T* row = out + off[h] + 2 * (lane & 3);
+#pragma unroll
+    for (int c = 0; c < HD / 8; ++c)
+      *reinterpret_cast<uint32_t*>(row + 8 * c) =
+          pack2<T>(o[4 * c + 2 * h] * inv, o[4 * c + 2 * h + 1] * inv);
+  }
+}
+
+}  // namespace hopper
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime, so the library needs no -lcuda.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// The (hd, Hkv, T, B) tensor map of k or v, read in 64-column x 64-key boxes
+// with the 128-byte swizzle; keys past T read as zeros. The encoder refuses a
+// base that is not 16-byte aligned or a stride that is not a multiple of 16
+// bytes (the wrapper checks both first).
+template <typename T, int HD>
+int kv_tensor_map(CUtensorMap* map, const void* ptr, int B, int T_, int Hkv) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)Hkv, (cuuint64_t)T_,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {HD * sizeof(T), (cuuint64_t)Hkv * HD * sizeof(T),
+                                 (cuuint64_t)T_ * Hkv * HD * sizeof(T)};
+  const cuuint32_t box[4] = {hopper::kSlab, 1, hopper::kKeys, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapDataType ty = std::is_same_v<T, __nv_bfloat16>
+                                     ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  const CUresult r = encode(map, ty, 4, const_cast<void*>(ptr), dims, strides,
+                            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <typename T, int HD>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B,
+                 int S, int T_, int Hq, int Hkv, int causal, int window,
+                 float scale, int has_cap, float cap, cudaStream_t stream) {
+  constexpr size_t bytes = hopper::Smem<HD>::kBytes;
+  static bool configured = false;  // once per instance
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        hopper::flash_fwd_wgmma_kernel<T, HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  CUtensorMap tm_k, tm_v;
+  int err = kv_tensor_map<T, HD>(&tm_k, k, B, T_, Hkv);
+  if (err == 0) err = kv_tensor_map<T, HD>(&tm_v, v, B, T_, Hkv);
+  if (err != 0) return err;
+  const int64_t n_rows = (int64_t)S * (Hq / Hkv);
+  const dim3 grid((unsigned)((n_rows + hopper::kRows - 1) / hopper::kRows),
+                  (unsigned)(B * Hkv));
+  hopper::flash_fwd_wgmma_kernel<T, HD><<<grid, hopper::kThreads, bytes, stream>>>(
+      tm_k, tm_v, static_cast<const T*>(q), static_cast<T*>(out), S, T_, Hq,
+      Hkv, causal, window, scale, has_cap, cap);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch(int dtype, const void* q, const void* k, const void* v, void* out,
+           int B, int S, int T_, int Hq, int Hkv, int causal, int window,
+           float scale, int has_cap, float cap, cudaStream_t s) {
+  switch (dtype) {
+    case 0:
+      return fp32::launch<HD>(q, k, v, out, B, S, T_, Hq, Hkv, causal,
+                              window, scale, has_cap, cap, s);
+    case 1:
+      return launch_wgmma<__nv_bfloat16, HD>(q, k, v, out, B, S, T_, Hq, Hkv,
+                                             causal, window, scale, has_cap,
+                                             cap, s);
+    case 2:
+      return launch_wgmma<__half, HD>(q, k, v, out, B, S, T_, Hq, Hkv, causal,
+                                      window, scale, has_cap, cap, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -367,16 +909,16 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (T <= 0 || Hkv <= 0 || Hq % Hkv != 0 || window < 1 || B * Hkv > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return dispatch_hd<float>(hd, q, k, v, out, B, S, T, Hq, Hkv, causal,
-                                window, scale, has_cap, cap, s);
-    case 1:
-      return dispatch_hd<__nv_bfloat16>(hd, q, k, v, out, B, S, T, Hq, Hkv,
-                                        causal, window, scale, has_cap, cap, s);
-    case 2:
-      return dispatch_hd<__half>(hd, q, k, v, out, B, S, T, Hq, Hkv, causal,
-                                 window, scale, has_cap, cap, s);
+  switch (hd) {
+    case 64:
+      return launch<64>(dtype, q, k, v, out, B, S, T, Hq, Hkv, causal, window,
+                        scale, has_cap, cap, s);
+    case 128:
+      return launch<128>(dtype, q, k, v, out, B, S, T, Hq, Hkv, causal, window,
+                         scale, has_cap, cap, s);
+    case 256:
+      return launch<256>(dtype, q, k, v, out, B, S, T, Hq, Hkv, causal, window,
+                         scale, has_cap, cap, s);
   }
   return (int)cudaErrorInvalidValue;
 }

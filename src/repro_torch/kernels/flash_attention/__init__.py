@@ -9,15 +9,23 @@ from repro_torch.kernels.flash_attention.flash_attention import (
     reset_launch_counts,
 )
 from repro_torch.kernels.flash_attention.ops import BACKENDS, flash_attention
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    ROW_RMS_BOUND,
+    flash_attention_ref,
+    flash_row_rms,
+    flash_within_tolerance,
+)
 
 __all__ = [
     "BACKENDS",
     "HEAD_DIMS",
     "LAUNCHES",
+    "ROW_RMS_BOUND",
     "check_flash_inputs",
     "flash_attention",
     "flash_attention_kernel",
     "flash_attention_ref",
+    "flash_row_rms",
+    "flash_within_tolerance",
     "reset_launch_counts",
 ]

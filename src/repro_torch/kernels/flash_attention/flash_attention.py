@@ -1,17 +1,25 @@
 """Forward flash attention for the serving path's prefill (K6 of the port).
 
 The port of ``repro.kernels.flash_attention.flash_attention``.
-``flash_attention_kernel`` launches the CUDA kernel ``flash_fwd_kernel``
-(``csrc/flash_attention.cu``), which replaces the TPU kernel
+``flash_attention_kernel`` launches a CUDA kernel of
+``csrc/flash_attention.cu``, which replaces the TPU kernel
 ``_flash_kernel`` / ``flash_attention_pallas``: q (B, S, Hq, hd) against
 k, v (B, T, Hkv, hd), grouped-query heads (q head h reads kv head h // G),
-fp32 arithmetic, a causal and/or window mask with the kernel's rule
+a causal and/or window mask with the kernel's rule
 ``(q_pos - k_pos) < window``, an optional tanh softcap, output in q's
 dtype. Its plain version is ``flash_attention_ref`` (``ref.py``), which a
-CPU tensor takes.
+CPU tensor takes. The input type picks the kernel, with no fallback:
+
+- bf16 and fp16: ``flash_fwd_wgmma_kernel`` on Hopper's tensor cores
+  (``wgmma`` on 16-bit tiles that TMA loads, the softmax in fp32
+  registers). The softmax weights are rounded to the input type before
+  they meet v, as the TPU kernel's default-precision dot rounds them, so
+  the output is held to ``flash_within_tolerance``'s 16-bit bound.
+- fp32: ``flash_fwd_kernel`` on the CUDA cores, fp32 arithmetic
+  throughout.
 
 Where the Pallas kernel asserts that S and T divide its tiles, the CUDA
-kernel takes any S and T. Head dims 64, 128 and 256 (the dense configs'
+kernels take any S and T. Head dims 64, 128 and 256 (the dense configs'
 widths) are compiled; any other raises ``ValueError`` on either device.
 
 The wrapper checks its inputs, allocates the output with ``torch.empty``,
@@ -99,7 +107,9 @@ def check_flash_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """Contiguous and 16-byte aligned (the kernel's vector loads)."""
+    """Contiguous and 16-byte aligned (the kernels' vector loads). With hd
+    in ``HEAD_DIMS`` (all >= 64), every stride of a contiguous 16-bit k or
+    v is then a multiple of 128 bytes, past the 16 bytes that TMA needs."""
     x = x.contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
 

@@ -9,16 +9,36 @@ The mask rule is the kernel's: ``(q_pos - k_pos) < window``, applied also
 when ``causal=False``. ``repro_torch.models.layers`` uses
 ``|q_pos - k_pos| < window`` when not causal; the two differ only for a
 non-causal finite window (ROADMAP R10).
+
+``flash_within_tolerance`` is K6's numeric contract against this oracle,
+the one definition that the tests and ``chip_smoke.py`` hold the kernel
+(and the library call it is timed against) to. ``flash_row_rms`` with
+``ROW_RMS_BOUND`` is its per-row companion for 16-bit outputs, tight where
+a row's keys are many and its values small.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["flash_attention_ref"]
+__all__ = ["ROW_RMS_BOUND", "flash_attention_ref", "flash_row_rms",
+           "flash_within_tolerance"]
+
+# one rounding step of the output type, relative: two half steps, one on
+# each side of the comparison
+_OUTPUT_STEP = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7,
+                torch.float16: 2.0 ** -10}
+# the softmax weights p <= 1 rounded to the input type before p·v
+_WEIGHT_STEP = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -8,
+                torch.float16: 2.0 ** -11}
+#: The largest ``flash_row_rms`` a 16-bit output may have: the weights'
+#: rounding (each p off by at most 2⁻⁸ / 2⁻¹¹ of itself, so a row's error
+#: is at most that share of its RMS when its values do not cancel) plus
+#: the output's own rounding (the same share of each element).
+ROW_RMS_BOUND = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
 
 
 def flash_attention_ref(
@@ -54,3 +74,59 @@ def flash_attention_ref(
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bshgt,bthd->bshgd", p, v.float())
     return out.reshape(b, s, hq, hd).to(q.dtype)
+
+
+def flash_within_tolerance(
+    out: torch.Tensor,
+    want: torch.Tensor,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    cap: Optional[float] = None,
+) -> Tuple[bool, float]:
+    """Whether ``out`` (attention of q, k, v) agrees with ``want`` within
+    K6's numeric contract, and the largest |out − want|.
+
+    fp32 inputs: 1e-4 (fp32 sums in another order, values of order 1).
+    bf16 / fp16 inputs, elementwise: one rounding step of the output type
+    (2⁻⁷ / 2⁻¹⁰ of the larger magnitude), plus 2⁻⁸ / 2⁻¹¹ of the p-weighted
+    mean of |v| (``flash_attention_ref`` over |v|), plus 1e-4. The middle
+    term bounds the one rounding beyond fp32 arithmetic that the 16-bit
+    kernel makes: the softmax weights p ≤ 1 rounded to the input type
+    before p·v, which is what the TPU kernel's default-precision dot does
+    too (and what a library call on 16-bit inputs does).
+    """
+    o32, w32 = out.float(), want.float()
+    diff = (o32 - w32).abs()
+    bound = _OUTPUT_STEP[q.dtype] * torch.maximum(o32.abs(), w32.abs()) + 1e-4
+    if _WEIGHT_STEP[q.dtype]:
+        bound = bound + _WEIGHT_STEP[q.dtype] * flash_attention_ref(
+            q, k, v.abs(), causal=causal, window=window, cap=cap).float()
+    return bool((diff <= bound).all()), float(diff.max())
+
+
+def flash_row_rms(
+    out: torch.Tensor,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    cap: Optional[float] = None,
+) -> torch.Tensor:
+    """(B, S, Hq) relative RMS error of each output row against the oracle
+    in fp32: ``RMS(out − want) / RMS(want)`` over hd.
+
+    The elementwise slack of ``flash_within_tolerance`` scales with the
+    mean |v|, which is far above a row's values where many keys share its
+    weight; this measure scales with the row itself. For 16-bit outputs
+    it is held to ``ROW_RMS_BOUND``.
+    """
+    want = flash_attention_ref(q.float(), k.float(), v.float(),
+                               causal=causal, window=window, cap=cap)
+    err = (out.float() - want).pow(2).mean(-1).sqrt()
+    return err / want.pow(2).mean(-1).sqrt().clamp_min(1e-30)

@@ -266,20 +266,15 @@ FLASH_CASES = [
     (1, 200, 50, 4, 2, 64, torch.float32, False, 10, 50.0),
     (2, 96, 96, 16, 2, 128, torch.bfloat16, False, None, None),  # G = 8
     (1, 512, 512, 8, 4, 256, torch.bfloat16, True, 128, 50.0),
+    # the tensor-core kernel at each head dim and 16-bit type: G = 5
+    # (qwen1.5-32b's grouping), ragged S and T
+    (1, 333, 301, 10, 2, 64, torch.bfloat16, True, None, None),
+    (1, 333, 301, 10, 2, 64, torch.float16, True, 77, 50.0),
+    (1, 201, 267, 5, 1, 128, torch.bfloat16, False, None, 30.0),
+    (1, 201, 267, 5, 1, 128, torch.float16, True, 50, None),
+    (2, 150, 97, 10, 2, 256, torch.bfloat16, True, 40, 50.0),
+    (2, 150, 97, 10, 2, 256, torch.float16, False, 20, 50.0),  # rows with no key
 ]
-
-
-def flash_within_tolerance(k_out, p_out):
-    """K6 against its plain version: both compute in fp32 and round once to
-    the output dtype, so fp32 outputs agree to 1e-4 (sums in another
-    order, values of order 1) and bf16 / fp16 outputs to one rounding step
-    (2⁻⁷ / 2⁻¹⁰ of the larger magnitude). Returns (ok, max |Δ|)."""
-    k32, p32 = k_out.float(), p_out.float()
-    diff = (k32 - p32).abs()
-    step = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7,
-            torch.float16: 2.0 ** -10}[k_out.dtype]
-    bound = step * torch.maximum(k32.abs(), p32.abs()) + 1e-4
-    return bool((diff <= bound).all()), float(diff.max())
 
 
 @pytest.mark.parametrize("b,s,t,hq,hkv,hd,dtype,causal,window,cap",
@@ -298,8 +293,15 @@ def test_flash_kernel_equals_plain_version(cuda, b, s, t, hq, hkv, hd, dtype,
     torch.cuda.synchronize()
     assert fa.LAUNCHES == {"flash_attention": 1}
     assert got.dtype == dtype and got.shape == q.shape
-    ok, err = flash_within_tolerance(got, want)
+    # fp32: 1e-4; 16-bit: one output rounding plus the slack of P rounded
+    # to the input type before P·V (K6's numeric contract)
+    ok, err = fa.flash_within_tolerance(got, want, q, k, v, causal=causal,
+                                        window=window, cap=cap)
     assert ok, err
+    if dtype != torch.float32:
+        rows = fa.flash_row_rms(got, q, k, v, causal=causal, window=window,
+                                cap=cap)
+        assert float(rows.max()) <= fa.ROW_RMS_BOUND[dtype], float(rows.max())
 
 
 def test_flash_kernel_checks_inputs(cuda):

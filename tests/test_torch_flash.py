@@ -12,7 +12,19 @@ the plain version and launches nothing, other devices raise.
 Tolerances: fp32 paths agree to 2e-5 (the same fp32 arithmetic, summed in
 another order); against the Pallas kernel 2e-3, as the reference's own
 test; bf16 outputs to one bf16 rounding step (2⁻⁷ relative).
+
+K6's numeric contract for 16-bit inputs (``flash_within_tolerance``): a
+torch emulation of the tensor-core kernel's arithmetic (128-row blocks,
+64-key tiles, the online softmax from the -1e30 sentinel, P rounded to the
+input type before P·V, the exact tile-skip rule) against the reference's
+oracle, the Pallas kernel in interpret mode and the port's plain version,
+within one output rounding plus the bf16 (fp16) weights' slack; and the
+same bound rejecting an emulation that skips the alpha rescale.
 """
+
+import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -223,3 +235,234 @@ def test_non_cpu_requests_raise_without_a_card():
     except RuntimeError:
         with pytest.raises(RuntimeError, match="nvcc"):
             _build.load_library("flash_attention", {})
+
+
+# -- K6's numeric contract for 16-bit inputs ---------------------------------
+
+def _wgmma_tiles():
+    """(rows a block, keys a tile) of ``flash_fwd_wgmma_kernel``, read from
+    its source, so the emulation below follows the kernel's tiling."""
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+           / "csrc" / "flash_attention.cu").read_text()
+    body = src[src.index("namespace hopper {"):]
+
+    def const(name):
+        return re.search(rf"constexpr int {name} = ([^;]+);", body)[1]
+
+    rows_wg, keys = int(const("kRowsWG")), int(const("kKeys"))
+    rows = const("kRows")
+    assert rows == "2 * kRowsWG", rows  # two consumer warpgroups
+    return 2 * rows_wg, keys
+
+
+WGMMA_ROWS, WGMMA_KEYS = _wgmma_tiles()
+
+
+def _round_bits(p, bits):
+    mant, ex = torch.frexp(p)
+    return torch.ldexp(torch.round(mant * 2 ** bits) / 2 ** bits, ex)
+
+
+def _emulate_wgmma_kernel(q, k, v, *, causal=True, window=None, cap=None,
+                          rescale=True, p_bits=None):
+    """The 16-bit kernel's arithmetic (``flash_fwd_wgmma_kernel``) in torch:
+    blocks of ``WGMMA_ROWS`` (query, head) rows of one kv head, each
+    visiting the ``WGMMA_KEYS``-key tiles of its key range (the kernel's
+    skip rule), fp32 logits and online softmax from the -1e30 sentinel
+    (-inf past T), P rounded to the input type before P·V, acc / max(l,
+    1e-30) rounded once. Known faults: ``rescale=False`` drops the alpha
+    rescale of the accumulator; ``p_bits`` rounds P to that many
+    significant bits instead of the input type."""
+    b, s, hq, hd = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    win = 1 << 30 if window is None else window
+    rows_all, keys = WGMMA_ROWS, WGMMA_KEYS
+    n_rows = s * g
+    out = torch.empty(b, s, hq, hd, dtype=q.dtype)
+    for bi in range(b):
+        for h in range(hkv):
+            qr = q[bi, :, h * g:(h + 1) * g].reshape(n_rows, hd).float()
+            kf, vh = k[bi, :, h].float(), v[bi, :, h]
+            flat = torch.empty(n_rows, hd, dtype=q.dtype)
+            for r0 in range(0, n_rows, rows_all):
+                rows = qr[r0:r0 + rows_all]
+                spos = torch.arange(r0, r0 + rows.shape[0]) // g
+                s_lo, s_hi = r0 // g, min(n_rows - 1, r0 + rows_all - 1) // g
+                k_begin = max(0, s_lo - win + 1)
+                k_end = min(t, s_hi + 1) if causal else t
+                if s_hi - win + 1 > t - 1:  # a row with no valid key
+                    k_begin, k_end = 0, t
+                k_begin = k_begin // keys * keys
+                m = torch.full((rows.shape[0],), -1e30)
+                l = torch.zeros(rows.shape[0])
+                acc = torch.zeros(rows.shape[0], hd)
+                for kt in range(k_begin, k_end, keys):
+                    kpos = torch.arange(kt, kt + keys)
+                    n = min(keys, t - kt)  # keys past T: zero rows
+                    kt_rows = torch.zeros(keys, hd)
+                    vt_rows = torch.zeros(keys, hd)
+                    kt_rows[:n], vt_rows[:n] = kf[kt:kt + n], vh[kt:kt + n].float()
+                    x = rows @ kt_rows.T * (1.0 / math.sqrt(hd))
+                    if cap is not None:
+                        x = torch.tanh(x / cap) * cap
+                    qk = spos[:, None] - kpos[None, :]
+                    valid = (qk < win) & ((qk >= 0) if causal else True)
+                    x = torch.where(valid, x, torch.tensor(-1e30))
+                    x = torch.where(kpos[None, :] >= t, -math.inf, x)
+                    m_new = torch.maximum(m, x.amax(1))
+                    alpha = torch.exp(m - m_new)
+                    p = torch.exp(x - m_new[:, None])
+                    l = l * alpha + p.sum(1)
+                    pr = p.to(q.dtype).float() if p_bits is None \
+                        else _round_bits(p, p_bits)
+                    pv = pr @ vt_rows
+                    acc = (acc * alpha[:, None] if rescale else acc) + pv
+                    m = m_new
+                flat[r0:r0 + rows.shape[0]] = acc / l.clamp_min(1e-30)[:, None]
+            out[bi, :, h * g:(h + 1) * g] = flat.reshape(s, g, hd)
+    return out
+
+
+def _torch16(arrays, dtype):
+    return [torch.from_numpy(x).to(dtype) for x in arrays]
+
+
+# (b, s, t, hq, hkv, hd, causal, window, cap)
+EMULATION_SHAPES = [
+    (2, 100, 100, 8, 4, 16, True, 33, 50.0),   # ragged S, G = 2
+    (1, 48, 48, 8, 2, 32, True, None, 30.0),   # G = 4
+    (1, 48, 48, 8, 1, 16, True, 5, None),      # G = 8, three row blocks
+    (2, 40, 40, 4, 2, 16, False, 12, None),    # non-causal window
+    (1, 200, 50, 4, 2, 64, True, 20, None),    # S > T + window: rows with no key
+    (1, 200, 50, 4, 2, 64, False, 10, 50.0),
+    (1, 70, 130, 10, 2, 64, True, None, 50.0),  # G = 5 (qwen1.5-32b), S < T
+    (1, 300, 300, 2, 1, 32, True, 64, 50.0),   # many tiles, skipped by the window
+]
+
+
+@pytest.mark.parametrize("b,s,t,hq,hkv,hd,causal,window,cap",
+                         EMULATION_SHAPES)
+def test_wgmma_arithmetic_within_contract_bf16(lmref, b, s, t, hq, hkv, hd,
+                                               causal, window, cap):
+    import jax.numpy as jnp
+
+    arrays = _qkv(b, s, hq, hkv, hd, seed=s + t + hq, t=t)
+    q, k, v = _torch16(arrays, torch.bfloat16)
+    kw = dict(causal=causal, window=window, cap=cap)
+    got = _emulate_wgmma_kernel(q, k, v, **kw)
+    assert bool(torch.isfinite(got.float()).all())
+    plain = fa.flash_attention_ref(q, k, v, **kw)
+    ok, err = fa.flash_within_tolerance(got, plain, q, k, v, **kw)
+    assert ok, err
+    jq, jk, jv = (jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v))
+    want = torch.from_numpy(np.asarray(lmref.flashref.flash_attention_ref(
+        jq, jk, jv, **kw), np.float32)).bfloat16()
+    ok, err = fa.flash_within_tolerance(got, want, q, k, v, **kw)
+    assert ok, err
+
+
+@pytest.mark.parametrize("b,s,t,hq,hkv,hd,causal,window,cap",
+                         [EMULATION_SHAPES[i] for i in (0, 4, 6)])
+def test_wgmma_arithmetic_within_contract_fp16(b, s, t, hq, hkv, hd, causal,
+                                               window, cap):
+    q, k, v = _torch16(_qkv(b, s, hq, hkv, hd, seed=s * hd, t=t), torch.float16)
+    kw = dict(causal=causal, window=window, cap=cap)
+    got = _emulate_wgmma_kernel(q, k, v, **kw)
+    ok, err = fa.flash_within_tolerance(got, fa.flash_attention_ref(
+        q, k, v, **kw), q, k, v, **kw)
+    assert ok, err
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,hd,causal,window,cap", [
+    (1, 128, 8, 1, 32, True, 32, 50.0),
+    (2, 64, 4, 2, 16, True, None, None),
+    (1, 256, 2, 1, 64, True, None, None),
+])
+def test_wgmma_arithmetic_matches_pallas_interpret(lmref, b, s, hq, hkv, hd,
+                                                   causal, window, cap):
+    import jax.numpy as jnp
+
+    arrays = _qkv(b, s, hq, hkv, hd, seed=11 * s + hd)
+    q, k, v = _torch16(arrays, torch.bfloat16)
+    jq, jk, jv = (jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v))
+    pal = lmref.flash.flash_attention_pallas(
+        jq, jk, jv, causal=causal, window=window, cap=cap, block_q=32,
+        block_k=32, interpret=True)
+    want = torch.from_numpy(np.asarray(pal, np.float32)).bfloat16()
+    kw = dict(causal=causal, window=window, cap=cap)
+    ok, err = fa.flash_within_tolerance(_emulate_wgmma_kernel(q, k, v, **kw),
+                                        want, q, k, v, **kw)
+    assert ok, err
+
+
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.bfloat16, EMULATION_SHAPES[7]),
+    (torch.float16, EMULATION_SHAPES[0]),
+])
+def test_contract_rejects_a_skipped_rescale(dtype, shape):
+    b, s, t, hq, hkv, hd, causal, window, cap = shape
+    q, k, v = _torch16(_qkv(b, s, hq, hkv, hd, seed=5, t=t), dtype)
+    kw = dict(causal=causal, window=window, cap=cap)
+    plain = fa.flash_attention_ref(q, k, v, **kw)
+    assert fa.flash_within_tolerance(_emulate_wgmma_kernel(q, k, v, **kw),
+                                     plain, q, k, v, **kw)[0]
+    ok, err = fa.flash_within_tolerance(
+        _emulate_wgmma_kernel(q, k, v, rescale=False, **kw), plain, q, k, v,
+        **kw)
+    assert not ok and err > 0.05, err
+
+
+@pytest.mark.parametrize("dtype,step", [(torch.float32, 0.0),
+                                        (torch.bfloat16, 2.0 ** -7)])
+def test_contract_bound_per_type(dtype, step):
+    q, k, v = _torch16(_qkv(1, 40, 4, 2, 64, seed=6), dtype)
+    kw = dict(window=16, cap=50.0)
+    want = fa.flash_attention_ref(q, k, v, **kw)
+    w32 = want.float()
+    slack = 0.0 if dtype == torch.float32 else 2.0 ** -8 * \
+        fa.flash_attention_ref(q, k, v.abs(), **kw).float()
+    bound = step * w32.abs() + slack + 1e-4
+    assert fa.flash_within_tolerance(want, want, q, k, v, **kw) == (True, 0.0)
+    assert fa.flash_within_tolerance(w32 + 0.25 * bound, want, q, k, v,
+                                     **kw)[0]
+    assert not fa.flash_within_tolerance(w32 + 2 * bound, want, q, k, v,
+                                         **kw)[0]
+
+
+# (b, s, t, hq, hkv, hd, causal, window, cap): hd >= 64, so that a row's
+# RMS is taken over enough values for its error share to settle
+ROW_SHAPES = [
+    (1, 300, 300, 4, 2, 64, True, None, 50.0),
+    (1, 257, 300, 10, 2, 64, True, 100, None),   # G = 5, S < T
+    (1, 200, 200, 2, 1, 128, True, 64, 50.0),
+    (1, 200, 50, 4, 2, 64, False, 10, 50.0),     # rows with no key
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,s,t,hq,hkv,hd,causal,window,cap", ROW_SHAPES)
+def test_wgmma_arithmetic_within_row_rms_bound(b, s, t, hq, hkv, hd, causal,
+                                               window, cap, dtype):
+    q, k, v = _torch16(_qkv(b, s, hq, hkv, hd, seed=s + hd, t=t), dtype)
+    kw = dict(causal=causal, window=window, cap=cap)
+    rows = fa.flash_row_rms(_emulate_wgmma_kernel(q, k, v, **kw), q, k, v,
+                            **kw)
+    assert rows.shape == (b, s, hq)
+    assert float(rows.max()) <= fa.ROW_RMS_BOUND[dtype], float(rows.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_row_rms_rejects_coarse_weights(dtype):
+    b, s, t, hq, hkv, hd, causal, window, cap = ROW_SHAPES[0]
+    q, k, v = _torch16(_qkv(b, s, hq, hkv, hd, seed=9, t=t), dtype)
+    kw = dict(causal=causal, window=window, cap=cap)
+    rows = fa.flash_row_rms(_emulate_wgmma_kernel(q, k, v, p_bits=4, **kw),
+                            q, k, v, **kw)
+    # P rounded to 2⁻⁴ of itself: most rows, the late ones too, fail
+    assert float(rows[:, s // 2:].median()) > fa.ROW_RMS_BOUND[dtype]
+
+
+def test_emulation_tiles_fit_wgmma():
+    # two consumer warpgroups of wgmma's M = 64 rows; keys in steps of K = 16
+    assert WGMMA_ROWS == 2 * 64 and WGMMA_KEYS % 16 == 0
