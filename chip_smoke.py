@@ -21,11 +21,13 @@ source, all started together), and runs, in order:
    per-vertex counts against the filtered auto run; the bitmap kernel's
    counter is read around this phase, its main path;
 3b. the matrix lane: ``TriangleCounter(load_dataset("orkut-like"),
-   algorithm="matrix")`` (90,025 tile triples of B = 128 resident on the
-   card) against the oracle and 13,038,569, with the masked-SpGEMM
-   kernel's counter read around it; ``complete_graph(512)`` through auto
-   (→ matrix, 22,238,720, past 2²⁴); matrix forced on coauthors-like and
-   road-like (B = 32) against scipy;
+   algorithm="matrix")`` (90,025 tile triples of B = 128: the unique bf16
+   tiles and the triple indices resident on the card, the lane's own peak
+   under 2 GiB) against the oracle and 13,038,569, with both masked-SpGEMM
+   counters read around it (six tensor-core launches, no float32 one);
+   ``complete_graph(512)`` through auto (→ matrix, 22,238,720, past 2²⁴);
+   matrix forced on coauthors-like and road-like (B = 32, whichever route
+   ``WGMMA_BLOCKS`` gives it, its counter read) against scipy;
 3c. the subgraph lane: ``TriangleCounter(grid_graph(3000, diagonals=True,
    spur_fraction=0.35, seed=3))`` with default options (auto → subgraph; a
    road_central-sized mesh, n = 12,150,000) against the oracle and
@@ -37,7 +39,11 @@ source, all started together), and runs, in order:
    the shapes its path gave it and on ragged shapes (K2 also at W = 2048
    and 8192, the bfs lane's widths); the kernel's time (CUDA events, L2
    flushed before each launch), the plain version's time, the bound and,
-   for the masked SpGEMM, one library call's time as a yardstick. Then
+   for the masked SpGEMM, the library call on the same tiles (K4 in both
+   launch orders, and beside it the float32 yardstick on gathered stacks
+   and the float32 CUDA-core kernel on the same triples, and a diagnostic
+   with every index 0; ragged bf16 gathered cases with all-ones and
+   corner tiles; the build's registers, spills and HGMMA count). Then
    every plan of phases 2–3c is released, so the new lanes below run on an
    empty card and print their own peaks;
 3d. the hash lane: ``TriangleCounter(rmat_graph(17, 16, seed=1),
@@ -198,14 +204,31 @@ def bound_ms(e: int, w: int) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def spgemm_bound_ms(t: int, b: int) -> tuple:
-    """Least time for T masked B×B tile products: read the three (T, B, B)
-    float32 stacks once and write the (T,) partials, against 2·T·B³
-    operations at the bf16 tensor-core rate (0/1 values are exact there).
-    Returns (ms, "bytes" | "operations")."""
-    t_bytes = (3 * t * b * b * 4 + 4 * t) / HBM_BYTES_PER_S * 1e3
+def spgemm_bound_ms(t: int, b: int, read_bytes=None) -> tuple:
+    """Least time for T masked B×B tile products: read the inputs once and
+    write the (T,) float32 partials, against 2·T·B³ operations at the bf16
+    tensor-core rate (0/1 values are exact there). The inputs are
+    ``read_bytes`` (the gathered form, ``spgemm_read_bytes``) or else the
+    three (T, B, B) float32 stacks. Returns (ms, "bytes" | "operations")."""
+    if read_bytes is None:
+        read_bytes = 3 * t * b * b * 4
+    t_bytes = (read_bytes + 4 * t) / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * t * b ** 3 / TENSOR_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def spgemm_read_bytes(torch, args) -> int:
+    """What K4's gathered form must read: each distinct tile that the
+    triples name, once, in the type held (U and A counted together when
+    they are one array), the three (T,) int32 indices and the launch
+    order."""
+    l, u, a, li, ui, ai = args[:6]
+    tile = l.shape[1] * l.shape[2] * l.element_size()
+    if a is u:
+        named = torch.unique(li).numel() + torch.unique(torch.cat([ui, ai])).numel()
+    else:
+        named = sum(torch.unique(i).numel() for i in (li, ui, ai))
+    return named * tile + sum(x.numel() * x.element_size() for x in args[3:])
 
 
 def hash_bound_ms(torch, w_lists, src, table, edges: int) -> dict:
@@ -289,24 +312,22 @@ def flash_bound_ms(np, q, k, causal: bool, window) -> dict:
                 flops=flops)
 
 
-def flash_build_facts(lib: Path) -> dict:
-    """What the build says about K6's tensor-core kernel: each 16-bit
-    instance's registers at launch and spills (``-Xptxas=-v``, kept beside
-    the library), and the HGMMA (wgmma) instructions in the library's SASS
-    (``cuobjdump --dump-sass``)."""
+def wgmma_build_facts(lib: Path, entry_re: str, label) -> dict:
+    """What the build says about a tensor-core kernel: the registers at
+    launch and spills of each instance whose mangled name matches
+    ``entry_re`` (``-Xptxas=-v``, kept beside the library), labelled by
+    ``label(match)``, and the HGMMA (wgmma) instructions in the library's
+    SASS (``cuobjdump --dump-sass``)."""
     import re
     from repro_torch.kernels import _build
 
     instances, cur = [], None
     for line in lib.with_suffix(".log").read_text().splitlines():
-        hit = re.search(r"flash_fwd_wgmma_kernelI(13__nv_bfloat16|6__half)"
-                        r"Li(\d+)E", line)
+        hit = re.search(entry_re, line)
         if "Compiling entry" in line:
             cur = None
             if hit:
-                cur = dict(instance=f"flash_fwd_wgmma_kernel<"
-                                    f"{'bf16' if 'bfloat' in hit[1] else 'fp16'}"
-                                    f", {hit[2]}>")
+                cur = dict(instance=label(hit))
                 instances.append(cur)
         elif cur is not None and "spill stores" in line:
             nums = re.findall(r"(\d+) bytes spill (stores|loads)", line)
@@ -320,6 +341,21 @@ def flash_build_facts(lib: Path) -> dict:
                           check=True).stdout
     return dict(instances=instances,
                 hgmma=sum("HGMMA" in line for line in sass.splitlines()))
+
+
+def flash_build_facts(lib: Path) -> dict:
+    """K6's tensor-core instances, one per 16-bit type and head dim."""
+    return wgmma_build_facts(
+        lib, r"flash_fwd_wgmma_kernelI(13__nv_bfloat16|6__half)Li(\d+)E",
+        lambda h: f"flash_fwd_wgmma_kernel<"
+                  f"{'bf16' if 'bfloat' in h[1] else 'fp16'}, {h[2]}>")
+
+
+def spgemm_build_facts(lib: Path) -> dict:
+    """K4's tensor-core instances, one per tile edge in WGMMA_BLOCKS."""
+    return wgmma_build_facts(
+        lib, r"masked_spgemm_wgmma_kernelILi(\d+)E",
+        lambda h: f"masked_spgemm_wgmma_kernel<{h[1]}>")
 
 
 def row_rms_facts(rows, s: int) -> dict:
@@ -386,9 +422,17 @@ def flex_library(torch, flex, create_block_mask, q, k, v, window, cap):
 
 
 def spgemm_library(torch, l, u, a):
-    """The yardstick: one PyTorch expression computing the same function
-    (fp32 ``bmm``, TF32 off). The port never calls it."""
+    """A yardstick on (T, B, B) float32 stacks: one PyTorch expression
+    computing the same function (fp32 ``bmm``, TF32 off). The port never
+    calls it."""
     return (torch.bmm(l, u) * a).sum((1, 2))
+
+
+def spgemm_library_gathered(torch, l, u, a, li, ui, ai):
+    """The library call on K4's own tiles: gather, ``bmm`` in the tiles'
+    type and mask, summed in float32 (a bf16 ``.sum()`` would round every
+    partial above 256). The port never calls it."""
+    return (torch.bmm(l[li], u[ui]) * a[ai]).sum((1, 2), dtype=torch.float32)
 
 
 def random_tiles(np, rng, t: int, b: int):
@@ -400,6 +444,28 @@ def random_tiles(np, rng, t: int, b: int):
         out.append((rng.random((t, b, b), dtype=np.float32) < dens)
                    .astype(np.float32))
     return out
+
+
+def gathered_tiles(torch, np, rng, t: int, b: int, dev):
+    """A ragged case of K4's gathered form: a pool of 16 bf16 0/1 (B, B)
+    tiles (density 0.02–0.5; tile 0 all ones, tiles 1–4 a single 1 at
+    each corner) passed as L, U and A, random (T,) int32 indices into it
+    with repeats, the first five triples (ones, ones, tile k) whose
+    partials are B³ and then B at each corner, and the launch order."""
+    from repro_torch.kernels.masked_spgemm import launch_order
+
+    pool = (rng.random((16, b, b), dtype=np.float32)
+            < rng.uniform(0.02, 0.5, size=(16, 1, 1))).astype(np.float32)
+    pool[0] = 1.0
+    for k, (i, j) in enumerate(((0, 0), (0, b - 1), (b - 1, 0), (b - 1, b - 1))):
+        pool[1 + k] = 0.0
+        pool[1 + k, i, j] = 1.0
+    idx = [rng.integers(0, 16, size=t).astype(np.int32) for _ in range(3)]
+    for k in range(min(t, 5)):
+        idx[0][k], idx[1][k], idx[2][k] = 0, 0, k
+    blocks = torch.from_numpy(pool).to(dev).bfloat16()
+    li, ui, ai = (torch.from_numpy(x).to(dev) for x in idx)
+    return (blocks, blocks, blocks, li, ui, ai, launch_order(li, ai))
 
 
 def two_core_numpy(np, g):
@@ -973,8 +1039,9 @@ def main() -> int:
     from repro_torch.kernels.hash_tc import \
         reset_launch_counts as reset_hash_launch_counts
     from repro_torch.kernels.masked_spgemm import LAUNCHES as MS_LAUNCHES
-    from repro_torch.kernels.masked_spgemm import (masked_spgemm_chunked,
-                                                   masked_spgemm_kernel)
+    from repro_torch.kernels.masked_spgemm import (
+        WGMMA_BLOCKS, masked_spgemm_chunked, masked_spgemm_gathered,
+        masked_spgemm_gathered_chunked, masked_spgemm_kernel)
     from repro_torch.kernels.masked_spgemm import \
         reset_launch_counts as reset_ms_launch_counts
     from repro_torch.kernels import flash_attention as fa
@@ -1090,16 +1157,19 @@ def main() -> int:
     tc = TriangleCounter(g, algorithm="matrix")
     first = tc.count()
     warm = [tc.count() for _ in range(5)]
-    matrix_launches = MS_LAUNCHES["masked_spgemm"]
+    matrix_launches = dict(MS_LAUNCHES)
+    lane_peak = torch.cuda.max_memory_allocated() - held
     m = first.meta
     stack_gib = 3 * m["num_triples"] * m["block"] ** 2 * 4 / 2**30
     print(f"block={m['block']} num_triples={m['num_triples']} tiles "
           f"L/U/A={m['l_tiles']}/{m['u_tiles']}/{m['a_tiles']} grid={m['grid']} "
-          f"resident stacks {stack_gib:.2f} GiB")
+          f"resident unique tiles, indices and launch order "
+          f"{m['tile_bytes'] / 2**30:.4f} GiB ({m['tile_bytes']} bytes; the "
+          f"gathered float32 stacks would be {stack_gib:.2f} GiB)")
     print(f"host schedule {m['schedule_seconds']:.3f} s; host-to-device copy "
-          f"of the unique tiles + device gather {m['upload_seconds']:.3f} s; "
-          f"prep_seconds={first.prep_seconds:.3f}; first count() "
-          f"{first.exec_seconds:.4f} s; warm count() seconds "
+          f"of the unique tiles + bf16 conversion + launch order "
+          f"{m['upload_seconds']:.3f} s; prep_seconds={first.prep_seconds:.3f}; "
+          f"first count() {first.exec_seconds:.4f} s; warm count() seconds "
           f"{[round(r.exec_seconds, 6) for r in warm]} (median "
           f"{statistics.median(r.exec_seconds for r in warm):.6f}); "
           f"{peak_memory(torch, held)}")
@@ -1109,8 +1179,12 @@ def main() -> int:
           f"num_triples = {m['num_triples']}, block = {m['block']}")
     check(all(r.count == EXPECTED_ORKUT for r in [first] + warm),
           f"count() = {first.count} every time, = oracle")
-    check(matrix_launches == 1 + len(warm),
-          "one masked_spgemm launch per count()")
+    check(matrix_launches == {"masked_spgemm_wgmma": 1 + len(warm),
+                              "masked_spgemm": 0},
+          "one tensor-core masked_spgemm_wgmma launch per count(), no "
+          "float32 launch")
+    check(lane_peak < 2 * 2**30,
+          f"the orkut-like lane's own peak {lane_peak / 2**30:.4f} GiB < 2 GiB")
     spgemm_paths = [("orkut-like", tc.plan.stages[0].args)]
     del tc
     k512 = complete_graph(512)
@@ -1120,14 +1194,22 @@ def main() -> int:
           f"complete_graph(512): auto → {res.algorithm}, count {res.count} "
           f"(> 2^24, num_triples {res.meta['num_triples']})")
     for name in ("coauthors-like", "road-like"):
+        reset_ms_launch_counts()
         s = TriangleCounter(load_dataset(name), algorithm="matrix")
         c = s.count()
         check(c.count == truths[name],
               f"{name} matrix count {c.count} = scipy (block {c.meta['block']}, "
               f"num_triples {c.meta['num_triples']}, warm count "
-              f"{s.count().exec_seconds * 1e3:.3f} ms)")
+              f"{s.count().exec_seconds * 1e3:.3f} ms, launches "
+              f"{dict(MS_LAUNCHES)})")
         if name == "road-like":
             check(c.meta["block"] == 32, "road-like takes B = 32")
+            road_launches = dict(MS_LAUNCHES)
+            route = "masked_spgemm_wgmma" if 32 in WGMMA_BLOCKS else "masked_spgemm"
+            check(road_launches[route] == 2 == sum(road_launches.values()),
+                  f"road-like's two count() launched {route} (B = 32 "
+                  f"{'is' if 32 in WGMMA_BLOCKS else 'is not'} in "
+                  f"WGMMA_BLOCKS = {WGMMA_BLOCKS})")
             spgemm_paths.append((name, s.plan.stages[0].args))
 
     # -- phase 3c: the subgraph lane ----------------------------------------
@@ -1290,12 +1372,109 @@ def main() -> int:
             check(err == 0, f"ragged {strategy} ({e}, {w}) {kw or ''} "
                             f"kernel == plain")
 
-    # K4, the masked block-SpGEMM: at the matrix lane's stacks, then ragged
-    torch.backends.cuda.matmul.allow_tf32 = False  # the yardstick in full fp32
+    # K4, the masked block-SpGEMM: at the matrix lane's gathered form, on
+    # ragged gathered bf16 cases, then on ragged float32 stacks
+    torch.backends.cuda.matmul.allow_tf32 = False  # the yardsticks in full fp32
+
+    def gathered_case(label, args, launches=0, full=False):
+        """Hold K4's gathered form against its plain version and the
+        library call on the same tiles, exactly, and time all three (the
+        tensor-core route in both launch orders; the float32 route ignores
+        the order); at a path shape also the float32 yardstick on stacks
+        gathered for it alone and, for bf16 tiles, the float32 CUDA-core
+        kernel on the same triples and the tensor-core kernel with every
+        index 0 (one tile of each, served from L2: what the kernel's own
+        pipeline takes without tile traffic). Returns the record."""
+        l, u, a, li, ui, ai, order = args
+        t, b = int(li.shape[0]), int(l.shape[1])
+        route = ("masked_spgemm_wgmma" if l.dtype == torch.bfloat16
+                 else "masked_spgemm")
+        lidx = [x.long() for x in (li, ui, ai)]
+
+        def kern(o=order):
+            return masked_spgemm_gathered(l, u, a, li, ui, ai, order=o)
+
+        k_out = kern()
+        h_out = kern(None)
+        p_out = masked_spgemm_gathered_chunked(l, u, a, li, ui, ai)
+        y_out = spgemm_library_gathered(torch, l, u, a, *lidx)
+        torch.cuda.synchronize()
+        err = float(torch.maximum((k_out - p_out).abs().max(),
+                                  (h_out - p_out).abs().max())) if t else 0.0
+        y_err = float((k_out - y_out).abs().max()) if t else 0.0
+        what = f"({t}, {b}, {b}) {str(l.dtype)[6:]} {label}"
+        check(err == 0 and y_err == 0,
+              f"{route} == plain == library on the same tiles at {what}, in "
+              f"both launch orders")
+        del k_out, h_out, p_out, y_out
+        wgmma = route == "masked_spgemm_wgmma"
+        sorted_ms = time_ms(torch, kern, 7, flush)
+        heavy_ms = time_ms(torch, lambda: kern(None), 7, flush) if wgmma \
+            else None
+        p_ms = time_ms(torch, lambda: masked_spgemm_gathered_chunked(
+            l, u, a, li, ui, ai), 3, flush)
+        y_ms = time_ms(torch, lambda: spgemm_library_gathered(
+            torch, l, u, a, *lidx), 3, flush)
+        read = spgemm_read_bytes(torch, args)
+        b_ms, b_by = spgemm_bound_ms(t, b, read)
+        rec = dict(shape=[t, b, b], label=label, route=route,
+                   dtype=str(l.dtype)[6:], launches=launches, ms=sorted_ms,
+                   plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                   read_bytes=read, library_ms=y_ms, max_abs_err=err,
+                   library_max_abs_err=y_err)
+        line = f"  {route} {what}: kernel {sorted_ms:.4f} ms"
+        if wgmma:
+            rec.update(sorted_order_ms=sorted_ms, heavy_first_ms=heavy_ms,
+                       tflops=2 * t * b ** 3
+                       / (min(sorted_ms, heavy_ms) * 1e-3) / 1e12)
+            line += (f" in the (a_index, l_index) order, {heavy_ms:.4f} ms "
+                     f"heavy-first ({rec['tflops']:.1f} TFLOP/s at the "
+                     f"faster)")
+        line += (f"; plain {p_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}; "
+                 f"{read / 1e9:.4f} GB named); library on the same tiles "
+                 f"{y_ms:.4f} ms")
+        if full:
+            stacks = [x.index_select(0, i).float() for x, i in
+                      ((l, li), (u, ui), (a, ai))]
+            f_err = float((spgemm_library(torch, *stacks)
+                           - masked_spgemm_gathered_chunked(
+                               l, u, a, li, ui, ai)).abs().max())
+            check(f_err == 0, f"float32 yardstick == plain at {what}")
+            rec["fp32_library_ms"] = time_ms(
+                torch, lambda: spgemm_library(torch, *stacks), 3, flush)
+            del stacks
+            line += (f"; yardstick (torch.bmm(L, U) * A).sum((1, 2)) on "
+                     f"float32 stacks {rec['fp32_library_ms']:.4f} ms")
+            if wgmma:
+                l32, u32 = l.float(), u.float()
+                a32 = u32 if a is u else a.float()
+                c_out = masked_spgemm_gathered(l32, u32, a32, li, ui, ai)
+                c_err = float((c_out - masked_spgemm_gathered_chunked(
+                    l, u, a, li, ui, ai)).abs().max())
+                check(c_err == 0, f"float32 CUDA-core kernel == plain at {what}")
+                rec["cuda_core_ms"] = time_ms(torch, lambda: masked_spgemm_gathered(
+                    l32, u32, a32, li, ui, ai), 5, flush)
+                del l32, u32, a32, c_out
+                line += (f"; the float32 CUDA-core kernel on the same "
+                         f"triples {rec['cuda_core_ms']:.4f} ms")
+                zero = torch.zeros_like(li)
+                z_out = masked_spgemm_gathered(l, u, a, zero, zero, zero)
+                z_want = masked_spgemm_gathered_chunked(
+                    l, u, a, zero[:1], zero[:1], zero[:1])
+                check(bool((z_out == z_want).all()),
+                      f"{route} with every index 0 == plain at {what}")
+                rec["one_tile_ms"] = time_ms(torch, lambda: masked_spgemm_gathered(
+                    l, u, a, zero, zero, zero), 5, flush)
+                del zero, z_out
+                line += (f"; diagnostic, every index 0 (tiles from L2) "
+                         f"{rec['one_tile_ms']:.4f} ms")
+        print(line, flush=True)
+        return rec
 
     def spgemm_case(label, l, u, a):
-        """Hold K4 against its plain version, exactly, and time it, the
-        plain version and the library yardstick; returns the record."""
+        """Hold K4's stacked form (float32, the CUDA-core route) against
+        its plain version, exactly, and time it, the plain version and the
+        float32 library yardstick; returns the record."""
         t, b = int(l.shape[0]), int(l.shape[1])
         k_out = masked_spgemm_kernel(l, u, a)
         p_out = masked_spgemm_chunked(l, u, a)
@@ -1312,42 +1491,100 @@ def main() -> int:
         print(f"  masked_spgemm ({t}, {b}, {b}) {label}: kernel {k_ms:.4f} ms, "
               f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library "
               f"{y_ms:.4f} ms (|kernel - library| max {y_err})", flush=True)
-        return dict(shape=[t, b, b], label=label, ms=k_ms, plain_ms=p_ms,
-                    bound_ms=b_ms, bound_by=b_by, library_ms=y_ms,
-                    max_abs_err=err, library_max_abs_err=y_err)
+        return dict(shape=[t, b, b], label=label, route="masked_spgemm",
+                    dtype="float32", ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=y_ms, max_abs_err=err,
+                    library_max_abs_err=y_err)
 
-    entry = dict(name="masked_spgemm", route="cuda",
-                 source="src/repro_torch/csrc/masked_spgemm.cu",
-                 replaces="src/repro/kernels/masked_spgemm/masked_spgemm.py:35",
-                 plain="masked_spgemm_chunked",
-                 path="orkut-like matrix count(); road-like forced matrix",
-                 launches=matrix_launches, tolerance=0, max_abs_err=0.0,
-                 ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by=None,
-                 library_ms=0.0,
-                 library="(torch.bmm(L, U) * A).sum((1, 2)), float32, TF32 "
-                         "off (a yardstick; the port never calls it)",
-                 shapes=[], ragged=[])
-    for label, (l, u, a) in spgemm_paths:
-        rec = spgemm_case(label, l, u, a)
-        entry["shapes"].append(rec)
-        for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
-            entry[k] += rec[k]
-        entry["max_abs_err"] = max(entry["max_abs_err"], rec["max_abs_err"])
-    entry["bound_by"] = max(entry["shapes"], key=lambda x: x["bound_ms"])["bound_by"]
-    del spgemm_paths, l, u, a
+    path_launches = {"orkut-like": matrix_launches, "road-like": road_launches}
+    shapes = [gathered_case(label, args, sum(path_launches[label].values()),
+                            full=True) for label, args in spgemm_paths]
+    del spgemm_paths
     rng = np.random.default_rng(12)
+    ragged = []
+    for b in WGMMA_BLOCKS:
+        for t in (1, 7, 132 * 3 + 5, 1000, 132 * 40 + 5):
+            rec = gathered_case("ragged", gathered_tiles(torch, np, rng, t, b,
+                                                         dev))
+            check(rec["route"] == "masked_spgemm_wgmma",
+                  f"bf16 B = {b} takes the tensor-core route")
+            ragged.append(rec)
     for t in (1, 7, 1000):
         for b in (1, 8, 33, 48, 100, 128, 256):
             l, u, a = (torch.from_numpy(x).to(dev)
                        for x in random_tiles(np, rng, t, b))
-            rec = spgemm_case("ragged", l, u, a)
-            entry["ragged"].append(rec)
-            entry["max_abs_err"] = max(entry["max_abs_err"], rec["max_abs_err"])
+            ragged.append(spgemm_case("ragged", l, u, a))
+    k4 = shapes[0]
+    check(k4["route"] == "masked_spgemm_wgmma",
+          "the orkut-like path runs the tensor-core route")
+    routes = []
+    for name, kernel in (("masked_spgemm_wgmma", "masked_spgemm_wgmma_kernel<B>"),
+                         ("masked_spgemm", "masked_spgemm_kernel<TM>")):
+        mine = [r for r in shapes if r["route"] == name]
+        routes.append(dict(
+            name=name, kernel=kernel,
+            dtype="bfloat16" if name == "masked_spgemm_wgmma" else "float32",
+            path=", ".join(r["label"] for r in mine) or None,
+            launches=sum(r["launches"] for r in mine),
+            ms=sum(r["ms"] for r in mine) if mine else None,
+            bound_ms=sum(r["bound_ms"] for r in mine) if mine else None,
+            library_ms=sum(r["library_ms"] for r in mine) if mine else None,
+            plain_ms=sum(r["plain_ms"] for r in mine) if mine else None,
+            ragged_cases=sum(r["route"] == name for r in ragged)))
+    build = spgemm_build_facts(_build.build("masked_spgemm"))
+    for inst in build["instances"]:
+        print(f"  build: {inst}")
+    print(f"  build: {build['hgmma']} HGMMA instructions in the library's SASS")
+    check(len(build["instances"]) == len(WGMMA_BLOCKS) and all(
+        i.get("spill_stores") == 0 and i.get("spill_loads") == 0
+        for i in build["instances"]),
+        f"ptxas: the {len(WGMMA_BLOCKS)} tensor-core K4 instance(s) compile "
+        f"without spills")
+    check(build["hgmma"] > 0, f"the library holds {build['hgmma']} HGMMA "
+                              f"(wgmma) instructions: the tensor cores run K4")
+    order = ("sorted" if k4["sorted_order_ms"] <= k4["heavy_first_ms"]
+             else "heavy-first")
+    print(f"K4 at orkut-like: {k4['ms']:.4f} ms in the plan's (a_index, "
+          f"l_index) launch order, {k4['heavy_first_ms']:.4f} ms "
+          f"heavy-first (faster: {order}); bound {k4['bound_ms']:.4f} ms "
+          f"({k4['bound_ms'] / k4['ms'] * 100:.1f} % of it); library on "
+          f"the same bf16 tiles {k4['library_ms']:.4f} ms (the kernel "
+          f"x{k4['ms'] / k4['library_ms']:.3f}); float32 yardstick "
+          f"{k4['fp32_library_ms']:.4f} ms; float32 CUDA-core kernel "
+          f"{k4['cuda_core_ms']:.4f} ms (x{k4['cuda_core_ms'] / k4['ms']:.2f}); "
+          f"every index 0 {k4['one_tile_ms']:.4f} ms")
+    entry = dict(
+        name="masked_spgemm", route="cuda",
+        source="src/repro_torch/csrc/masked_spgemm.cu",
+        replaces="src/repro/kernels/masked_spgemm/masked_spgemm.py:35",
+        plain="masked_spgemm_gathered_chunked",
+        path="orkut-like matrix count() (bf16 tiles: the tensor-core route)",
+        launches=k4["launches"], tolerance=0,
+        max_abs_err=max(r["max_abs_err"] for r in shapes + ragged),
+        ms=k4["ms"], plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
+        bound_by=k4["bound_by"], library_ms=k4["library_ms"],
+        library="(torch.bmm(L[li], U[ui]) * U[ai]).sum((1, 2), "
+                "dtype=torch.float32) on the same bf16 tiles (the same "
+                "function; the port never calls it)",
+        yardstick="(torch.bmm(L, U) * A).sum((1, 2)) on float32 stacks "
+                  "gathered for it alone, TF32 off",
+        yardstick_ms=k4["fp32_library_ms"],
+        cuda_core_ms=k4["cuda_core_ms"], launch_order=order,
+        heavy_first_ms=k4["heavy_first_ms"], one_tile_ms=k4["one_tile_ms"],
+        design="bf16, B = 128: masked_spgemm_wgmma_kernel, a persistent "
+               "grid of one block an SM walking the launch order, 3 "
+               "warpgroups (1 TMA producer thread, 2 consumers of 64 "
+               "rows), a 2-stage ring of L, U and A tiles by TMA (128-byte "
+               "swizzle, 96 KB a stage) and mbarriers, 8 wgmma m64n128k16 "
+               "a triple (U MN-major), the mask read from the staged A "
+               "tile; float32: masked_spgemm_kernel on the CUDA cores, one "
+               "block a triple",
+        build=build, routes=routes, shapes=shapes, ragged=ragged)
     report.append(entry)
 
     # release every plan of phases 2-3c: the new lanes run on an empty card
     del (main_stages, bitmap_stages, subgraph_stages, paths, first, warm, s,
-         c, res, base, st, l, u, a, v)
+         c, res, base, st, l, u, a, v, shapes, ragged, entry)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"released the earlier lanes' plans: memory_allocated "

@@ -14,9 +14,9 @@ the two lanes built on the same buckets:
   level-oriented buckets run through the intersection launches.
 
 Planning runs the prep stage once on the session's device and binds each
-work unit (a bucket, or the tile-triple stacks) to a cached launch
-configuration; ``count()`` then replays the resident buffers through the
-kernels only:
+work unit (a bucket, or the tile triples' unique tiles and indices) to a
+cached launch configuration; ``count()`` then replays the resident buffers
+through the kernels only:
 
     plan = plan_triangle_count(g, "intersection", device="cuda")
     plan.count()   # one kernel launch per stage, one host sync
@@ -76,7 +76,8 @@ from repro_torch.kernels.hash_tc.ops import (
     hash_probe_counts,
     hash_table_depth,
 )
-from repro_torch.kernels.masked_spgemm.ops import masked_spgemm_counts
+from repro_torch.kernels.masked_spgemm import launch_order
+from repro_torch.kernels.masked_spgemm.ops import masked_spgemm_gathered_counts
 
 __all__ = [
     "ALGORITHMS",
@@ -219,16 +220,21 @@ class IntersectLaunch:
 @dataclasses.dataclass(frozen=True)
 class MatrixLaunch:
     """The matrix lane's bound launch configuration. Calling it on the
-    resident (L, U, A) stacks runs the masked block-SpGEMM and returns the
-    total as an int64 scalar tensor on the stacks' device: every float32
-    partial is an exact integer ≤ B³, so the int64 sum is exact past 2²⁴."""
+    resident gathered form (the unique L, U and A tiles, the three (T,)
+    int32 triple indices and the launch order) runs the masked block-SpGEMM
+    and returns the total as an int64 scalar tensor on the tiles' device:
+    every float32 partial is an exact integer ≤ B³, so the int64 sum is
+    exact past 2²⁴."""
 
     backend: str
 
-    def __call__(self, l_tiles: torch.Tensor, u_tiles: torch.Tensor,
-                 a_tiles: torch.Tensor) -> torch.Tensor:
-        partials = masked_spgemm_counts(l_tiles, u_tiles, a_tiles,
-                                        backend=self.backend)
+    def __call__(self, l_blocks: torch.Tensor, u_blocks: torch.Tensor,
+                 a_blocks: torch.Tensor, l_index: torch.Tensor,
+                 u_index: torch.Tensor, a_index: torch.Tensor,
+                 order: Optional[torch.Tensor] = None) -> torch.Tensor:
+        partials = masked_spgemm_gathered_counts(
+            l_blocks, u_blocks, a_blocks, l_index, u_index, a_index,
+            order=order, backend=self.backend)
         return partials.to(torch.int64).sum()
 
 
@@ -285,11 +291,11 @@ def get_executable(algorithm: str, backend: str, shape_key: tuple, *,
 
     Args:
       algorithm: "intersection" (a bucket's count; the subgraph and bfs
-        lanes' buckets use it too), "matrix" (the tile-triple stacks,
-        ``shape_key`` ``(T, B, B)``), "hash" (a bucket's hash probe,
-        ``shape_key`` ``(E, W, B, D)``: the table's shape class rides in
-        the key) or "vertex" (a filtered bucket's per-vertex counts;
-        ``shape_key`` is ``(E, W, n)``).
+        lanes' buckets use it too), "matrix" (the tile triples' unique
+        tiles and indices, ``shape_key`` ``(T, B, B)``), "hash" (a
+        bucket's hash probe, ``shape_key`` ``(E, W, B, D)``: the table's
+        shape class rides in the key) or "vertex" (a filtered bucket's
+        per-vertex counts; ``shape_key`` is ``(E, W, n)``).
       backend: "kernel" | "ref".
       shape_key: the work unit's array shape.
       strategy: the resolved set-intersection strategy ("intersection").
@@ -556,24 +562,32 @@ def _bucket_stages(buckets: List[DeviceBucket], n: int, backend: str,
 def _plan_matrix(g: Graph, block, permute: bool, backend: str,
                  device: torch.device) -> Tuple[List[_Stage], int, dict]:
     """The matrix lane: the host tile schedule, then one stage holding the
-    three resident (T, B, B) float32 stacks (gathered on the device from
-    the unique tiles). T = 0 gives no stage, so the count is 0."""
+    gathered form on the device: the unique tiles (bf16 at a B of K4's
+    tensor-core route, else float32), the (T,) int32 triple indices and the
+    launch order (``launch_order``, made once here). Its shape key is
+    (T, B, B). T = 0 gives no stage, so the count is 0."""
     if block == "auto":
         block = prep.choose_block(g)
     t0 = time.perf_counter()
     sched = prep.tile_schedule(g, block=block, permute=permute)
     t1 = time.perf_counter()
     stages = []
+    tile_bytes = 0
     if sched.num_triples:
-        args = sched.to_device(device)
-        shape_key = tuple(args[0].shape)
+        l_blocks, u_blocks, l_index, u_index, a_index = sched.to_device(device)
+        order = launch_order(l_index, a_index)
+        args = (l_blocks, u_blocks, u_blocks, l_index, u_index, a_index, order)
+        tile_bytes = sum(x.numel() * x.element_size() for x in
+                         (l_blocks, u_blocks, l_index, u_index, a_index, order))
+        shape_key = (sched.num_triples, block, block)
         stages.append(_Stage(
             executable=get_executable("matrix", backend, shape_key),
             args=args, shape_key=shape_key))
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     meta = dict(permute=permute, schedule_seconds=t1 - t0,
-                upload_seconds=time.perf_counter() - t1, **sched.stats)
+                upload_seconds=time.perf_counter() - t1, tile_bytes=tile_bytes,
+                **sched.stats)
     return stages, 1, meta
 
 

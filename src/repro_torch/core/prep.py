@@ -52,6 +52,7 @@ from repro_torch.graphs.device import (
     next_pow2,
 )
 from repro_torch.core.options import DEFAULT_WIDTHS
+from repro_torch.kernels.masked_spgemm.masked_spgemm import WGMMA_BLOCKS
 
 __all__ = [
     "DeviceBucket",
@@ -330,7 +331,7 @@ def choose_block(g: Graph) -> int:
 
 @dataclasses.dataclass
 class TileSchedule:
-    """The matrix lane's triple schedule, before the gather.
+    """The matrix lane's triple schedule: unique tiles and triple indices.
 
     ``l_blocks`` / ``u_blocks`` are the unique nonzero (·, B, B) float32
     tiles of the strict lower and strict upper parts (the A mask tiles are
@@ -351,24 +352,41 @@ class TileSchedule:
         return int(self.l_index.shape[0])
 
     def gather(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """The three (T, B, B) float32 stacks, gathered once on the host."""
+        """The three (T, B, B) float32 stacks, gathered on the host (the
+        reference's form; the matrix lane holds ``to_device``'s instead)."""
         return (self.l_blocks[self.l_index], self.u_blocks[self.u_index],
                 self.u_blocks[self.a_index])
 
     def to_device(self, device: Union[str, torch.device]
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """The three (T, B, B) float32 stacks on ``device``: the unique
-        tiles are uploaded once and gathered there, so the host never holds
-        the stacks."""
-        l_dev = torch.from_numpy(self.l_blocks).to(device)
-        u_dev = torch.from_numpy(self.u_blocks).to(device)
+                  ) -> Tuple[torch.Tensor, ...]:
+        """The gathered form on ``device``: ``(l_blocks, u_blocks, l_index,
+        u_index, a_index)``, the unique tiles and the three (T,) int32
+        triple indices (the A tiles are ``u_blocks``).
 
-        def idx(a):
-            return torch.from_numpy(a).to(device)
+        The tiles are bf16 when B is in ``WGMMA_BLOCKS`` (K4's tensor-core
+        route; 0 and 1 are exact there) and float32 otherwise: the float32
+        host tiles are uploaded and converted once on the card. Every index
+        is checked here, once, against its tile array, because the kernels
+        read through the indices unchecked.
 
-        return (l_dev.index_select(0, idx(self.l_index)),
-                u_dev.index_select(0, idx(self.u_index)),
-                u_dev.index_select(0, idx(self.a_index)))
+        Raises:
+          ValueError: an index outside its tile array.
+        """
+        dtype = (torch.bfloat16 if self.stats["block"] in WGMMA_BLOCKS
+                 else torch.float32)
+        index = []
+        for name, idx, n in (("l_index", self.l_index, len(self.l_blocks)),
+                             ("u_index", self.u_index, len(self.u_blocks)),
+                             ("a_index", self.a_index, len(self.u_blocks))):
+            if idx.size and (int(idx.min()) < 0 or int(idx.max()) >= n):
+                raise ValueError(f"{name} outside [0, {n}): "
+                                 f"[{int(idx.min())}, {int(idx.max())}]")
+            index.append(torch.from_numpy(idx.astype(np.int32)).to(device))
+
+        def tiles(a):
+            return torch.from_numpy(a).to(device).to(dtype)
+
+        return (tiles(self.l_blocks), tiles(self.u_blocks), *index)
 
 
 def tile_schedule(g: Graph, block: int = 128,

@@ -11,7 +11,10 @@ product (``repro_torch.core.prep.tile_schedule``):
   U[K, J]) — the paper's "avoid multiplications where A is known to be
   zero", lifted to tiles;
 * the fused kernel (K4, ``repro_torch.kernels.masked_spgemm``) computes
-  ``sum(A_IJ ∘ (L_IK @ U_KJ))`` per triple and never writes L·U out.
+  ``sum(A_IJ ∘ (L_IK @ U_KJ))`` per triple and never writes L·U out. The
+  card holds only the unique tiles and the triple indices; K4 reads the
+  tiles through the indices (bf16 on the tensor cores at B = 128, float32
+  on the CUDA cores otherwise).
 
 This module registers the ``"matrix"`` lane; the front door is
 ``TriangleCounter(g, CountOptions(algorithm="matrix", ...))``.

@@ -128,14 +128,16 @@ def test_masked_spgemm_kernel_equals_plain_version(cuda, t, b):
     assert got.dtype == torch.float32 and got.device.type == "cuda"
     assert torch.equal(got, want)  # tolerance 0: exact integer partials
     assert torch.equal(got.cpu(), ms.masked_spgemm_ref(l.cpu(), u.cpu(), a.cpu()))
-    assert ms.LAUNCHES == {"masked_spgemm": 1}
+    # float32 stacks take the CUDA-core route
+    assert ms.LAUNCHES == {"masked_spgemm": 1, "masked_spgemm_wgmma": 0}
 
 
 def test_masked_spgemm_kernel_checks_inputs(cuda):
     l, u, a = (torch.from_numpy(x).to(cuda) for x in tiles(3, 8, seed=1))
     ms.reset_launch_counts()
     assert ms.masked_spgemm_kernel(l[:0], u[:0], a[:0]).shape == (0,)
-    assert ms.LAUNCHES == {"masked_spgemm": 0}  # T = 0 launches nothing
+    # T = 0 launches nothing
+    assert ms.LAUNCHES == {"masked_spgemm": 0, "masked_spgemm_wgmma": 0}
     with pytest.raises(ValueError, match="float32"):
         ms.masked_spgemm_kernel(l.half(), u.half(), a.half())
     with pytest.raises(ValueError, match="different devices"):
@@ -145,14 +147,82 @@ def test_masked_spgemm_kernel_checks_inputs(cuda):
         ms.masked_spgemm_kernel(big, big, big)
 
 
+def gathered_case(t: int, b: int, seed: int, dev):
+    """bf16 pools of random 0/1 (n, B, B) tiles (density 0.02–0.5) with an
+    all-ones tile and four single-corner tiles, and (T,) int32 indices into
+    them with repeats: triple 0 is all ones (B³), triples 1-4 mask an
+    all-ones product by one corner each (B apiece)."""
+    rng = np.random.default_rng(seed)
+    pool = (rng.random((9, b, b)) < rng.uniform(0.02, 0.5, size=(9, 1, 1)))
+    pool = pool.astype(np.float32)
+    pool[0] = 1.0
+    for c, (i, j) in enumerate(((0, 0), (0, b - 1), (b - 1, 0), (b - 1, b - 1))):
+        pool[1 + c] = 0.0
+        pool[1 + c, i, j] = 1.0
+    idx = [rng.integers(0, 9, size=t).astype(np.int32) for _ in range(3)]
+    for k in range(min(t, 5)):  # (L, U, A) = (ones, ones, ones / corner k)
+        idx[0][k], idx[1][k], idx[2][k] = 0, 0, k
+    blocks = torch.from_numpy(pool).to(dev).bfloat16()
+    return blocks, [torch.from_numpy(x).to(dev) for x in idx]
+
+
+@pytest.mark.parametrize("b", ms.WGMMA_BLOCKS)
+@pytest.mark.parametrize("t", [1, 7, 300])
+def test_masked_spgemm_wgmma_equals_plain_version(cuda, t, b):
+    blocks, idx = gathered_case(t, b, seed=t + b, dev=cuda)
+    ms.reset_launch_counts()
+    got = ms.masked_spgemm_gathered(blocks, blocks, blocks, *idx)
+    ordered = ms.masked_spgemm_gathered(blocks, blocks, blocks, *idx,
+                                        order=ms.launch_order(idx[0], idx[2]))
+    want = ms.masked_spgemm_gathered_chunked(blocks, blocks, blocks, *idx)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.device.type == "cuda"
+    assert torch.equal(got, want) and torch.equal(ordered, want)  # tolerance 0
+    assert int(got[0]) == b ** 3
+    assert got[1:5].tolist() == [float(b)] * min(t - 1, 4)
+    stacks = [blocks.index_select(0, i).float() for i in idx]
+    library = (torch.bmm(blocks[idx[0].long()], blocks[idx[1].long()])
+               * blocks[idx[2].long()]).sum((1, 2), dtype=torch.float32)
+    assert torch.equal(got, ms.masked_spgemm_ref(*stacks))
+    assert torch.equal(got, library)
+    assert ms.LAUNCHES == {"masked_spgemm": 0, "masked_spgemm_wgmma": 2}
+
+
+def test_masked_spgemm_wgmma_refuses_other_blocks(cuda):
+    blocks, idx = gathered_case(5, 64, seed=1, dev=cuda)
+    ms.reset_launch_counts()
+    with pytest.raises(ValueError, match="WGMMA_BLOCKS"):
+        ms.masked_spgemm_gathered(blocks, blocks, blocks, *idx)
+    # the same tiles in float32 take the CUDA-core route
+    got = ms.masked_spgemm_gathered(*[blocks.float()] * 3, *idx)
+    assert torch.equal(got, ms.masked_spgemm_gathered_chunked(
+        blocks, blocks, blocks, *idx))
+    assert ms.LAUNCHES == {"masked_spgemm": 1, "masked_spgemm_wgmma": 0}
+
+
+def test_matrix_lane_counts_through_the_wgmma_route(cuda):
+    ms.reset_launch_counts()
+    tc = TriangleCounter(complete_graph(512), algorithm="matrix")
+    for _ in range(3):
+        assert tc.count() == math.comb(512, 3)
+    (stage,) = tc.plan.stages
+    assert stage.args[0].dtype == torch.bfloat16
+    assert ms.LAUNCHES == {"masked_spgemm": 0, "masked_spgemm_wgmma": 3}
+
+
 @pytest.mark.parametrize("block", ["auto", 16, 32, 128, 200])
 def test_matrix_lane_on_card_matches_scipy(cuda, block):
     for g in (load_dataset("tiny-rmat"), load_dataset("tiny-grid"),
               rmat_graph(10, 8, seed=3)):
         ms.reset_launch_counts()
         tc = TriangleCounter(g, algorithm="matrix", block=block)
-        assert tc.count() == triangle_count_scipy(g)
-        assert ms.LAUNCHES["masked_spgemm"] == tc.plan.num_stages
+        res = tc.count()
+        assert res == triangle_count_scipy(g)
+        # bf16 tiles at a B of the tensor-core route, float32 otherwise
+        route = ("masked_spgemm_wgmma" if res.meta["block"] in ms.WGMMA_BLOCKS
+                 else "masked_spgemm")
+        assert ms.LAUNCHES[route] == sum(ms.LAUNCHES.values()) \
+            == tc.plan.num_stages
         np.testing.assert_array_equal(  # through the filtered sidecar
             tc.triangles_per_vertex(),
             TriangleCounter(g, algorithm="intersection", device="cpu")

@@ -3,7 +3,8 @@
 The host layer (``to_block_sparse``, ``degree_order_permutation``,
 ``apply_permutation``, ``choose_block``) and the tile schedule
 (``build_tile_schedule``: the three heavy-first (T, B, B) stacks and their
-stats) against ``repro``'s; the plain version of K4 against the reference's
+stats, and the unique tiles and indices the lane holds) against
+``repro``'s; the plain version of K4 against the reference's
 one-shot einsum, its chunked path and the Pallas kernel in interpret mode,
 with tolerance 0 (0/1 tiles: every partial is an exact integer); matrix-lane
 counts against the reference's plan and scipy; ``auto`` on a small dense
@@ -99,10 +100,13 @@ def test_tile_schedule_matches_reference(ref, name, block):
     for a, w in zip(got[:3], want[:3]):
         assert a.dtype == np.float32 and a.shape == w.shape
         np.testing.assert_array_equal(a, np.asarray(w))
-    # the device gather from the unique tiles gives the same stacks
+    # the unique tiles on the device, gathered through the triple indices,
+    # give the same stacks
     sched = port_prep.tile_schedule(g, block=b)
-    for a, w in zip(sched.to_device(CPU), got[:3]):
-        np.testing.assert_array_equal(a.numpy(), w)
+    l_blocks, u_blocks, li, ui, ai = sched.to_device(CPU)
+    for tiles, idx, w in ((l_blocks, li, got[0]), (u_blocks, ui, got[1]),
+                          (u_blocks, ai, got[2])):
+        np.testing.assert_array_equal(tiles[idx.long()].float().numpy(), w)
 
 
 def test_tile_schedule_without_permutation_matches_reference(ref):
@@ -152,7 +156,8 @@ def test_k4_inputs_are_checked():
         masked_spgemm_kernel(l.transpose(1, 2), u, a)
     with pytest.raises(ValueError, match="unknown backend"):
         masked_spgemm_counts(l, u, a, backend="pallas")
-    assert LAUNCHES == {"masked_spgemm": 0}  # CPU tensors never launch
+    # CPU tensors never launch either route
+    assert LAUNCHES == {"masked_spgemm": 0, "masked_spgemm_wgmma": 0}
 
 
 @pytest.mark.parametrize("backend", ["kernel", "ref"])
@@ -208,8 +213,12 @@ def test_matrix_sum_is_exact_past_2_24():
     for p in partials:
         total32 += p
     assert int(total32) != 2 ** 24 + 3
+    # the matrix lane's launch on the gathered form: two unique bf16 tiles
+    # (all ones, a single 1) read through the triple indices
+    blocks = torch.stack([ones[0], unit[0]]).bfloat16()
+    idx = torch.tensor([0] * 8 + [1] * 3, dtype=torch.int32)
     fn = get_executable("matrix", "kernel", tuple(l.shape))
-    total = fn(l, l.clone(), l.clone())
+    total = fn(blocks, blocks, blocks, idx, idx, idx)
     assert total.dtype == torch.int64 and int(total) == 2 ** 24 + 3
     # and end to end: C(512, 3) = 22,238,720 > 2²⁴ through auto → matrix
     g = port_gen.complete_graph(512)
