@@ -34,11 +34,19 @@ source, all started together), and runs, in order:
    17,988,002 = 2·2999², the peel against a numpy 2-core fixed point,
    per-vertex counts summing to 3 × count, with the broadcast kernel's
    counter read around it; subgraph forced on every non-tiny analogue
-   against scipy and the intersection lane's per-vertex counts;
+   against scipy and the intersection lane's per-vertex counts; labeled
+   triangle queries (``subgraph_match_triangle``) on R-MAT scale 12, whose
+   buckets go to K2 with u ids dropped in place, against the CPU's plain
+   path and 6 × scipy, with K2's counter read around them;
 4. each kernel against its plain torch version on the card, exactly, at
    the shapes its path gave it and on ragged shapes (K2 also at W = 2048
-   and 8192, the bfs lane's widths); the kernel's time (CUDA events, L2
-   flushed before each launch), the plain version's time, the bound and,
+   and 8192, the bfs lane's widths, and on the row families of
+   ``tests/probe_rows.py``, each also as a view that starts mid-allocation);
+   the kernel's time (CUDA events, L2
+   flushed before each launch), the plain version's time, the bound (K2:
+   the bytes it must read, with the rows its range test skips, beside the
+   all-bytes bound and the ``torch.searchsorted`` yardstick; also its time
+   on the widest bucket's real rows alone, beside the whole bucket) and,
    for the masked SpGEMM, the library call on the same tiles (K4 in both
    launch orders, and beside it the float32 yardstick on gathered stacks
    and the float32 CUDA-core kernel on the same triples, and a diagnostic
@@ -60,7 +68,8 @@ source, all started together), and runs, in order:
    bfs forced on every non-tiny analogue, one at a time, against scipy and
    the intersection lane's per-vertex counts (orkut-like and soclj-like
    give K2 a (262144, 8192) bucket of 17 GiB, held against its plain
-   version and timed there);
+   version and timed there beside both bounds, the plain version and the
+   yardstick);
 4b. the hash-probe kernel against its plain version, exactly, at the four
    shapes of the scale-17 path (with its table) and on 64 ragged shapes,
    with its time, the plain version's time and the bound;
@@ -188,6 +197,18 @@ def check(ok: bool, what: str) -> None:
     print(f"  ok: {what}", flush=True)
 
 
+def load_probe_rows():
+    """The row families of ``tests/probe_rows.py``, loaded by file path so
+    that ``tests/`` never shadows a module on ``sys.path``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "probe_rows", ROOT / "tests" / "probe_rows.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -202,6 +223,25 @@ def bound_ms(e: int, w: int) -> tuple:
     t_bytes = (2 * e * w * 4 + 4 * e) / HBM_BYTES_PER_S * 1e3
     t_ops = (2 * e * w) / ALU_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def probe_read_bound(torch, u, v) -> dict:
+    """K2's least time on these rows: it must read both rows whole where
+    their id ranges overlap, and only the four row ends (a 32-byte sector
+    each, or both rows if that is less) where ``u[0] > v[W-1]`` or
+    ``u[W-1] < v[0]``, and write the counts; against a merge's 2·W compares
+    a live row at the card's 32-bit rate. Returns the bound and the rows
+    the range test skips."""
+    e, w = u.shape
+    dead = (u[:, 0] > v[:, -1]) | (u[:, -1] < v[:, 0])
+    skipped = int(dead.sum())
+    live = e - skipped
+    read = live * 2 * w * 4 + skipped * min(2 * w * 4, 4 * 32) + 4 * e
+    t_bytes = read / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * live * w / ALU_OPS_PER_S * 1e3
+    ms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return dict(must_read_ms=ms, must_read_by=by, must_read_bytes=read,
+                live_rows=live, skipped_rows=skipped)
 
 
 def spgemm_bound_ms(t: int, b: int, read_bytes=None) -> tuple:
@@ -1022,7 +1062,8 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     import numpy as np
 
-    from repro_torch.core import (TriangleCounter, triangle_count_forward_scipy,
+    from repro_torch.core import (TriangleCounter, subgraph_match_triangle,
+                                  triangle_count_forward_scipy,
                                   triangle_count_scipy)
     from repro_torch.graphs import (available_datasets, complete_graph,
                                     grid_graph, load_dataset, rmat_graph)
@@ -1113,6 +1154,9 @@ def main() -> int:
     check(tpv.shape == (g.n,) and int(tpv.min()) >= 0,
           "per-vertex counts are (n,) and non-negative")
     main_stages = tc.plan.stages
+    # the first ``edges`` rows of each bucket are real, the rest padding
+    stage_edges = {id(st): e for st, e in zip(main_stages,
+                                              first.meta["bucket_edges"])}
 
     # -- phase 3: each strategy forced on the Table-1 analogues -------------
     phase("phase 3: strategies forced on the Table-1 analogues")
@@ -1275,6 +1319,28 @@ def main() -> int:
               f"{name} subgraph count {c.count} = scipy, per-vertex = "
               f"intersection lane ({c.meta['vertices_pruned']} pruned)")
 
+    # labeled triangle queries: their u rows lose the ids without the third
+    # label in place and are sorted again before K2, which merges
+    g = rmat_graph(12, 8, seed=3)
+    labels = np.random.default_rng(7).integers(0, 3, size=g.n)
+    queries = [((0, 1, 2), labels), ((2, 0, 1), labels),
+               ((1, 1, 0), labels), ((0, 0, 0), np.zeros(g.n, np.int64))]
+    cpu = torch.device("cpu")
+    reset_launch_counts()
+    on_card = [subgraph_match_triangle(g, lab, q) for q, lab in queries]
+    query_launches = dict(LAUNCHES)
+    on_cpu = [subgraph_match_triangle(g, lab, q, device=cpu)
+              for q, lab in queries]
+    print(f"labeled queries on rmat_graph(12, 8, seed=3): "
+          f"{[q for q, _ in queries]} -> card {on_card}, cpu {on_cpu}; "
+          f"launches {query_launches}")
+    check(on_card == on_cpu and min(on_card) > 0,
+          "labeled triangle queries on the card = the CPU's plain path")
+    check(on_card[-1] == 6 * triangle_count_scipy(g),
+          "all-one-label query = 6 × scipy")
+    check(query_launches["probe"] > 0, "probe kernel launched by the queries")
+    del g, labels, queries
+
     # -- phase 4: kernels against their plain versions ----------------------
     phase("phase 4: kernels against plain torch versions")
     wrappers = {
@@ -1305,13 +1371,58 @@ def main() -> int:
         shape = dict(shape=list(u.shape), ms=k_ms, plain_ms=p_ms,
                      bound_ms=b_ms, bound_by=b_by, max_abs_err=err, **kw)
         if strategy == "probe":
-            shape["yardstick_ms"] = time_ms(torch, lambda: torch.searchsorted(
-                v, u, out_int32=True), 3, flush)
+            shape.update(probe_extras(u, v, b_ms, b_by))
         print(f"  {strategy} {tuple(u.shape)} {kw or ''}: kernel {k_ms:.4f} ms, "
               f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
-              + (f", torch.searchsorted {shape['yardstick_ms']:.4f} ms"
-                 if strategy == "probe" else ""), flush=True)
+              + (probe_line(shape) if strategy == "probe" else ""), flush=True)
         return shape
+
+    def probe_extras(u, v, b_ms, b_by):
+        """K2 is held against the bytes it must read (``bound_ms``); the
+        all-bytes bound stays beside it, with the searchsorted yardstick."""
+        extra = probe_read_bound(torch, u, v)
+        return dict(bound_ms=extra["must_read_ms"], bound_by=extra["must_read_by"],
+                    all_bytes_bound_ms=b_ms, all_bytes_bound_by=b_by,
+                    must_read_bytes=extra["must_read_bytes"],
+                    live_rows=extra["live_rows"],
+                    skipped_rows=extra["skipped_rows"],
+                    yardstick_ms=time_ms(torch, lambda: torch.searchsorted(
+                        v, u, out_int32=True), 3, flush))
+
+    def probe_line(shape):
+        return (f"; must-read bound {shape['bound_ms']:.4f} ms "
+                f"({shape['live_rows']} rows read, {shape['skipped_rows']} "
+                f"skipped by the range test; K2 at "
+                f"{100 * shape['bound_ms'] / shape['ms']:.1f} % of it), "
+                f"torch.searchsorted {shape['yardstick_ms']:.4f} ms")
+
+    def real_rows_slice(stages):
+        """K2 on the widest path bucket's first ``edges`` rows (its real
+        ones) beside the whole bucket: what its pow2 padding rows still
+        cost after the range test."""
+        st = max(stages, key=lambda x: x.args[0].numel())
+        edges = stage_edges[id(st)]
+        u, v = (x[:edges] for x in st.args)
+        k_out = intersect_counts_probe_kernel(u, v)
+        p_out = intersect_counts_probe(u, v)
+        torch.cuda.synchronize()
+        err = int((k_out.long() - p_out.long()).abs().max())
+        check(err == 0, f"probe kernel == plain on the first {edges} rows of "
+                        f"{tuple(st.args[0].shape)}")
+        k_ms = time_ms(torch, lambda: intersect_counts_probe_kernel(u, v), 7,
+                       flush)
+        whole = time_ms(torch, lambda: intersect_counts_probe_kernel(*st.args),
+                        7, flush)
+        extra = probe_read_bound(torch, u, v)
+        print(f"  probe first {edges} rows of {tuple(st.args[0].shape)}: "
+              f"kernel {k_ms:.4f} ms against {whole:.4f} ms for the whole "
+              f"bucket (its {st.args[0].shape[0] - edges} padding rows cost "
+              f"{whole - k_ms:.4f} ms); must-read bound "
+              f"{extra['must_read_ms']:.4f} ms", flush=True)
+        return dict(shape=list(u.shape), of=list(st.args[0].shape), ms=k_ms,
+                    whole_bucket_ms=whole, padding_rows_ms=whole - k_ms,
+                    bound_ms=extra["must_read_ms"], live_rows=extra["live_rows"],
+                    max_abs_err=err)
 
     report = []
     for strategy in wrappers:
@@ -1340,6 +1451,11 @@ def main() -> int:
             entry["yardstick"] = "torch.searchsorted(v, u, out_int32=True) " \
                                  "(positions only, not the same function)"
             entry["yardstick_ms"] = sum(x["yardstick_ms"] for x in entry["shapes"])
+            entry["bound"] = ("must-read bytes: both rows where the id ranges "
+                              "overlap, the row ends elsewhere")
+            entry["all_bytes_bound_ms"] = sum(x["all_bytes_bound_ms"]
+                                              for x in entry["shapes"])
+            entry["real_rows_slice"] = real_rows_slice(paths["probe"])
         # the subgraph lane's buckets on the road_central-sized grid, kept
         # apart from the scale-18 totals above
         sub = [intersect_case(strategy, st) for st in subgraph_stages
@@ -1371,6 +1487,24 @@ def main() -> int:
             torch.cuda.synchronize()
             check(err == 0, f"ragged {strategy} ({e}, {w}) {kw or ''} "
                             f"kernel == plain")
+    # K2 on its row families (tests/probe_rows.py): duplicates, touching and
+    # disjoint ranges, padding and mixed batches, W from 1 to 20000, E past
+    # one sweep of the persistent grid; each also as a view that starts
+    # mid-allocation (the 4-byte copy route)
+    probe_rows = load_probe_rows()
+    for name, e, w in probe_rows.CARD_CASES:
+        u_np, v_np = probe_rows.tiled(name, e, w, seed=e + w)
+        u = torch.from_numpy(u_np).to(dev)
+        v = torch.from_numpy(v_np).to(dev)
+        want = intersect_counts_probe(u, v)
+        errs = []
+        for a, b in ((u, v), (probe_rows.offset_view(u),
+                            probe_rows.offset_view(v))):
+            errs.append(int((intersect_counts_probe_kernel(a, b).long()
+                             - want.long()).abs().max()))
+        torch.cuda.synchronize()
+        check(max(errs) == 0, f"probe family {name} ({e}, {w}) kernel == "
+                              f"plain, aligned and mid-allocation")
 
     # K4, the masked block-SpGEMM: at the matrix lane's gathered form, on
     # ragged gathered bf16 cases, then on ragged float32 stacks
@@ -1720,15 +1854,20 @@ def main() -> int:
                 check(err == 0, f"{name} bfs probe kernel == plain at "
                                 f"{tuple(u_.shape)} "
                                 f"({2 * u_.numel() * 4 / 2**30:.2f} GiB)")
+                del k_out, p_out
                 k_ms = time_ms(torch, lambda: intersect_counts_probe_kernel(
                     u_, v_), 5, flush)
+                p_ms = time_ms(torch, lambda: intersect_counts_probe(u_, v_),
+                               1, flush)
                 b_ms, b_by = bound_ms(*u_.shape)
+                shape = dict(graph=name, shape=list(u_.shape), ms=k_ms,
+                             plain_ms=p_ms, max_abs_err=err,
+                             **probe_extras(u_, v_, b_ms, b_by))
                 print(f"  probe {tuple(u_.shape)} ({name} bfs): kernel "
-                      f"{k_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
-                bfs_wide.append(dict(graph=name, shape=list(u_.shape), ms=k_ms,
-                                     bound_ms=b_ms, bound_by=b_by,
-                                     max_abs_err=err))
-                del u_, v_, k_out, p_out
+                      f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, all-bytes bound "
+                      f"{b_ms:.4f} ms ({b_by})" + probe_line(shape), flush=True)
+                bfs_wide.append(shape)
+                del u_, v_
         del s, c
         gc.collect()
         torch.cuda.empty_cache()

@@ -102,6 +102,9 @@ def subgraph_match_triangle(
         # non-q2 neighbours become the u sentinel, so they never match
         valid = (u_lists < sub.n) & q2_ok[np.clip(u_lists, 0, sub.n - 1)]
         u_lists[~valid] = sub.n
+        # the probe kernel merges sorted rows: the sentinels move to each
+        # row's tail (n is above every real id), which keeps every count
+        u_lists.sort(axis=1)
         v_lists[v_lists == sub.n] = sub.n + 1
         strat, bits = resolve_strategy(b["width"], sub.n + 2)
         run = get_executable("intersection", backend, tuple(u_lists.shape),

@@ -208,7 +208,8 @@ def intersect_counts(
 
     Args:
       u_lists: (E, W) int32; each row a sorted neighbour list, padded with
-        a sentinel disjoint from v's.
+        a sentinel disjoint from v's (sorted ascending, sentinels included:
+        the probe kernel merges the two rows).
       v_lists: (E, W) int32, same layout, disjoint padding sentinel.
       strategy: "broadcast" | "probe" | "bitmap" | "auto" (``choose_strategy``
         on the data's id range).

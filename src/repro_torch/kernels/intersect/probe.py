@@ -1,12 +1,16 @@
 """Binary-probe set intersection (the ``probe`` strategy).
 
-Scan the u row, binary-search each element in the sorted v row: O(W·log W)
-per row against broadcast's O(W²). K2 of the port:
+Count the u elements whose lower bound in the sorted v row holds an equal
+value (each duplicate in u counted). K2 of the port:
 ``intersect_counts_probe_kernel`` launches the CUDA kernel
-``probe_counts_kernel`` (``csrc/intersect.cu``), which replaces the TPU
+``probe_merge_kernel`` (``csrc/intersect.cu``), which replaces the TPU
 kernel ``_probe_kernel`` / ``intersect_counts_probe_pallas`` of
-``repro/kernels/intersect/probe.py``. ``intersect_counts_probe`` is its
-plain torch version: ``torch.searchsorted`` plus a gather, in row chunks.
+``repro/kernels/intersect/probe.py``. It computes the same function by a
+merge-path walk of both rows (u wins ties, so the v cursor sits at each
+taken u element's lower bound), skips rows whose id ranges cannot meet
+without loading them, and pipelines the rest through shared memory; both
+rows must be sorted ascending. ``intersect_counts_probe`` is its plain
+torch version: ``torch.searchsorted`` plus a gather, in row chunks.
 """
 
 from __future__ import annotations
@@ -53,7 +57,9 @@ def intersect_counts_probe_kernel(u_lists: torch.Tensor,
 
     Args:
       u_lists, v_lists: (E, W) int32, contiguous, rows sorted ascending
-        with disjoint padding sentinels; any E and W.
+        (u as well as v: the kernel merges, and an unsorted u row gets a
+        wrong count) with disjoint padding sentinels; any E and W, any
+        4-byte-aligned start (16-byte-aligned rows take 16-byte copies).
 
     Returns:
       (E,) int32 counts.

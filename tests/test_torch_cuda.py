@@ -15,7 +15,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import TriangleCounter, triangle_count_scipy
+import probe_rows
+
+from repro_torch.core import (TriangleCounter, subgraph_match_triangle,
+                              triangle_count_scipy)
 from repro_torch.graphs import complete_graph, load_dataset, rmat_graph
 from repro_torch.kernels.intersect import (
     LAUNCHES,
@@ -95,6 +98,57 @@ def test_launch_counters_and_input_checks(cuda):
         intersect_counts_kernel(u.long(), v.long())
     with pytest.raises(ValueError, match="but v_lists on"):
         intersect_counts_probe_kernel(u, v.cpu())
+
+
+@pytest.mark.parametrize("case", probe_rows.CARD_CASES,
+                         ids=["{}-{}x{}".format(*c) for c in probe_rows.CARD_CASES])
+def test_probe_kernel_on_row_families(cuda, case):
+    """K2 equals its plain version exactly (tolerance 0) on every family of
+    ``probe_rows``, one launch a call, both on the rows as allocated and on
+    a view that starts mid-allocation (the 4-byte copy route)."""
+    name, e, w = case
+    u_np, v_np = probe_rows.tiled(name, e, w, seed=e + w)
+    u, v = torch.from_numpy(u_np).to(cuda), torch.from_numpy(v_np).to(cuda)
+    want = intersect_counts_probe(u, v)
+    reset_launch_counts()
+    got = intersect_counts_probe_kernel(u, v)
+    torch.cuda.synchronize()
+    assert LAUNCHES["probe"] == 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    uo, vo = probe_rows.offset_view(u), probe_rows.offset_view(v)
+    assert uo.data_ptr() % 16 and uo.is_contiguous()
+    assert torch.equal(intersect_counts_probe_kernel(uo, vo), want)
+    assert LAUNCHES["probe"] == 2
+    if e * w <= 1 << 16:
+        assert torch.equal(want.cpu(), intersect_counts_probe(u.cpu(), v.cpu()))
+
+
+def test_probe_kernel_empty_launches_nothing(cuda):
+    u, v = (torch.from_numpy(a).to(cuda) for a in probe_rows.family("random", 40, 512))
+    reset_launch_counts()
+    out = intersect_counts_probe_kernel(u[:0], v[:0])
+    assert out.shape == (0,) and LAUNCHES["probe"] == 0
+
+
+@pytest.mark.parametrize("query", [(0, 0, 0), (0, 1, 2), (1, 1, 0), (2, 0, 1)])
+def test_labeled_queries_on_card_match_cpu(cuda, query):
+    """``subgraph_match_triangle`` on the card: the R-MAT's width-128 and
+    width-512 buckets are wider than the bitmap (n + 2 > W), so they go to
+    K2 with u rows whose ids without the third label were dropped in place.
+    The card equals the CPU's plain path and the ``ref`` oracle."""
+    g = rmat_graph(10, 8, seed=3)
+    labels = (np.zeros(g.n, np.int64) if query == (0, 0, 0)
+              else np.random.default_rng(7).integers(0, 3, size=g.n))
+    reset_launch_counts()
+    got = subgraph_match_triangle(g, labels, query, device=cuda)
+    assert LAUNCHES["probe"] > 0
+    cpu = torch.device("cpu")
+    assert got > 0
+    assert got == subgraph_match_triangle(g, labels, query, device=cpu)
+    assert got == subgraph_match_triangle(g, labels, query, backend="ref",
+                                          device=cpu)
+    if query == (0, 0, 0):
+        assert got == 6 * triangle_count_scipy(g)
 
 
 @pytest.mark.parametrize("strategy", ["auto", "broadcast", "probe", "bitmap"])

@@ -3,8 +3,9 @@
 Each plain torch version (and each kernel wrapper, which takes its plain
 version on a CPU tensor) must exactly equal the JAX Pallas kernel run with
 ``interpret=True`` and the reference oracles, at W ∈ {8, 32, 64, 128, 512},
-with sentinel rows and an E that is not a multiple of 256; the bitmap core
-also at its id-range boundary. The strategy resolvers must agree with the
+with sentinel rows and an E that is not a multiple of 256; the probe core
+also on K2's row families (``probe_rows``), the bitmap core at its
+id-range boundary. The strategy resolvers must agree with the
 reference on a grid, errors included.
 """
 
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import probe_rows
 from torch_reference import ref  # noqa: F401
 
 from repro_torch.kernels.intersect import (
@@ -65,16 +67,46 @@ def test_broadcast_matches_pallas(ref, w):
         np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("w", WIDTHS)
-def test_probe_matches_pallas(ref, w):
-    u, v = sorted_lists(w)
-    want = pallas(ref, u, v, "probe")
+@pytest.mark.parametrize("case", WIDTHS + [
+    pytest.param(c, id="{}-{}x{}".format(*c)) for c in probe_rows.CPU_CASES])
+def test_probe_matches_pallas(ref, case):
+    """The probe strategy on the shared widths and on K2's row families
+    (``probe_rows``): duplicates, touching and disjoint ranges, padding and
+    mixed batches, W from 1 to 8200, E below and across 32-row batches."""
+    if isinstance(case, int):
+        u, v = sorted_lists(case)
+        want = pallas(ref, u, v, "probe")
+    else:
+        name, e, w = case
+        u, v = probe_rows.family(name, e, w, seed=e + w)
+        want = pallas(ref, u, v, "probe", tile_edges=8)
     np.testing.assert_array_equal(want, ref.kref.intersect_counts_probe_ref(u, v))
     np.testing.assert_array_equal(want, port_ref.intersect_counts_probe_ref(u, v))
     tu, tv = torch.from_numpy(u), torch.from_numpy(v)
     for got in (port_probe.intersect_counts_probe(tu, tv),
                 port_probe.intersect_counts_probe_kernel(tu, tv),
                 port_ops.intersect_counts(tu, tv, strategy="probe")):
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("w", [1, 33, 128, 512, 8200])
+def test_probe_sorted_holes_keep_counts(ref, w):
+    """A labeled triangle query drops u ids in place (the sentinel n takes
+    their slots) and sorts its rows again before the probe strategy, whose
+    kernel merges sorted rows. The Pallas kernel searches each u element on
+    its own, so it counts the rows with holes: the sorted rows must give
+    the same counts, through every port path."""
+    holed, u, v = probe_rows.holes(70 if w < 8192 else 9, w, seed=w)
+    want = pallas(ref, holed, v, "probe", tile_edges=8)
+    np.testing.assert_array_equal(want,
+                                  ref.kref.intersect_counts_probe_ref(holed, v))
+    assert (u[:, 1:] >= u[:, :-1]).all()
+    assert w == 1 or not np.array_equal(u, holed)  # a one-id row stays sorted
+    tu, tv = torch.from_numpy(u), torch.from_numpy(v)
+    for got in (port_probe.intersect_counts_probe(tu, tv),
+                port_probe.intersect_counts_probe_kernel(tu, tv),
+                port_ops.intersect_counts(tu, tv, strategy="probe"),
+                port_probe.intersect_counts_probe(torch.from_numpy(holed), tv)):
         np.testing.assert_array_equal(got.numpy(), want)
 
 
