@@ -55,12 +55,24 @@ source, all started together), and runs, in order:
    every plan of phases 2–3c is released, so the new lanes below run on an
    empty card and print their own peaks;
 3d. the hash lane: ``TriangleCounter(rmat_graph(17, 16, seed=1),
-   algorithm="hash")`` (a (131072, 512, 64) int32 hash table, 16 GiB)
-   against the forward-DAG scipy oracle and 36,128,651, with the hash-probe
-   kernel's counter read around it (4 launches per ``count()``);
-   per-vertex counts (through the filtered sidecar) summing to 3 × count;
-   hash forced on every non-tiny analogue against scipy, two of them with
-   ``prep_backend="host"``;
+   algorithm="hash")`` (a compact table of 67,108,865 chain offsets and
+   1,864,319 ids, 0.28 GB, for the reference's (131072, 512, 64) dense
+   table of 16 GiB) against the forward-DAG scipy oracle and 36,128,651,
+   with the hash-probe kernel's counter read around it (4 launches per
+   ``count()``), no stage argument past 2-d and the lane's own peak below
+   the dense lane's 23.44 GiB; per-vertex counts (through the filtered
+   sidecar) summing to 3 × count; then ``rmat_graph(18, 16, seed=1)``
+   through the hash lane against 82,629,122 (its dense table would be
+   64 GiB); hash forced on every non-tiny analogue against scipy, two of
+   them with ``prep_backend="host"``;
+4b. the hash-probe kernel against its plain version, exactly, at the four
+   shapes of each path (scales 17 and 18), on the case families of
+   ``tests/hash_rows.py`` (each also as views that start mid-allocation;
+   both of the kernel's routes) and through the dense entry point on 64
+   ragged shapes; its time, the plain version's time, the bytes it must
+   read (``hash_read_bound``) beside PR 13's all-bytes bound, the rows
+   whose row end is 0, and the build's registers and spills (none may
+   spill);
 3e. the bfs lane: the phase-3c grid again with ``algorithm="bfs"`` (about
    3,000 BFS rounds) against 17,988,002 and phase 3c's per-vertex counts,
    with the intersection kernels' counters read around it and each of its
@@ -70,9 +82,6 @@ source, all started together), and runs, in order:
    give K2 a (262144, 8192) bucket of 17 GiB, held against its plain
    version and timed there beside both bounds, the plain version and the
    yardstick);
-4b. the hash-probe kernel against its plain version, exactly, at the four
-   shapes of the scale-17 path (with its table) and on 64 ragged shapes,
-   with its time, the plain version's time and the bound;
 3f. serving: gemma2-2b at its published width and depth (26 layers, bf16
    weights drawn from seed 0), batch 2, a 6144-token prompt (past the
    4096 window of the local layers) and 16 greedy tokens through
@@ -112,10 +121,11 @@ source, all started together), and runs, in order:
 5. a ``{"kernels": [...]}`` line, the card's name and power limit from
    nvidia-smi, and a last line ``{"ok": true, "device": {...}}``.
 
-The phases run in the order 1, 2, 3, 3b, 3c, 4, 3d, 3e, 4b, 3f, 4c, 5:
+The phases run in the order 1, 2, 3, 3b, 3c, 4, 3d, 4b, 3e, 3f, 4c, 5:
 phase 4 needs the earlier lanes' plans (about 40 GiB), so the new lanes
-wait until it has released them, and the serving slice runs once every
-graph plan is gone.
+wait until it has released them (phase 4b holds the hash paths' stages
+and releases them before the bfs lane), and the serving slice runs once
+every graph plan is gone.
 
 Any failed check raises, so the script exits non-zero and prints no last
 line. Without a CUDA device, or outside a checkout, it exits 2 at once.
@@ -144,6 +154,10 @@ EXPECTED_ORKUT = 13_038_569
 EXPECTED_K512 = math.comb(512, 3)  # 22,238,720
 GRID_SIDE = 3000
 HASH_HOST_PREP = ("coauthors-like", "citpatents-like")  # also host-prepped
+# the hash lane's own peak at scale 17 with the dense (131072, 512, 64)
+# table (NVIDIA H100 80GB HBM3, 700.00 W, PR 13): the compact lane must stay
+# below it
+PR13_HASH_PEAK_GIB = 23.44
 EXPECTED_GRID = 2 * (GRID_SIDE - 1) ** 2  # two triangles per unit square
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 ALU_OPS_PER_S = 67e12      # H100 SXM non-tensor 32-bit rate, NVIDIA data sheet
@@ -197,13 +211,14 @@ def check(ok: bool, what: str) -> None:
     print(f"  ok: {what}", flush=True)
 
 
-def load_probe_rows():
-    """The row families of ``tests/probe_rows.py``, loaded by file path so
-    that ``tests/`` never shadows a module on ``sys.path``."""
+def load_test_module(name: str):
+    """A case module of ``tests/`` (``probe_rows``: K2's row families;
+    ``hash_rows``: K5's cases), loaded by file path so that ``tests/``
+    never shadows a module on ``sys.path``."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "probe_rows", ROOT / "tests" / "probe_rows.py")
+        name, ROOT / "tests" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -271,39 +286,81 @@ def spgemm_read_bytes(torch, args) -> int:
     return named * tile + sum(x.numel() * x.element_size() for x in args[3:])
 
 
-def hash_bound_ms(torch, w_lists, src, table, edges: int) -> dict:
-    """Least time for one hash-probe bucket: read the candidates and the
-    anchors once and write the counts; read once each D-slot chain that a
-    missing valid probe (0 ≤ w < n) of the real rows names (a miss has to
-    read every slot) and at least one slot of each chain that only hits
-    name; against one compare per slot of each valid probe at the card's
-    32-bit rate. Whole (B·D) anchor rows are no bound: the kernel reads
-    only the probed chains."""
-    n, b, d = table.shape
-    e, w = w_lists.shape
-    slots = table.view(n * b, d)
-    chains, hits = [], []
-    step = max(1, (1 << 24) // max(1, w * d))
-    for s in range(0, edges, step):  # one chunk's (C, W, D) slot gather
-        cand = w_lists[s:min(s + step, edges)]
-        valid = (cand >= 0) & (cand < n)
-        chain = src[s:s + cand.shape[0], None].long() * b \
-            + (cand & (b - 1)).long()
-        hit = (slots[chain.clamp(0, n * b - 1)] == cand[:, :, None]).any(-1)
-        chains.append(chain[valid])
-        hits.append(hit[valid])
-    chains = torch.cat(chains) if chains else src.new_zeros(0).long()
-    hits = torch.cat(hits) if hits else src.new_zeros(0).bool()
-    probed = int(torch.unique(chains).numel())
-    missed = int(torch.unique(chains[~hits]).numel())
-    probes = int(chains.numel())
-    base = e * w * 4 + 8 * e
-    t_bytes = (base + missed * d * 4 + (probed - missed) * 4) \
-        / HBM_BYTES_PER_S * 1e3
-    t_ops = probes * d / ALU_OPS_PER_S * 1e3
+def hash_read_bound(torch, w_lists, src, row_end, compact, depth: int
+                    ) -> dict:
+    """K5's least time on one bucket, and PR 13's all-bytes figure beside it.
+
+    Must read: each row's candidates up to its row end, in the 32-byte
+    sectors they span; each row's anchor and row end (8 B) and count
+    written (4 B); and, once each, the sectors of the offsets and of the
+    ids of the chains that this launch's valid probes name; against the
+    compares a probe needs (up to its first match, else its chain's
+    length) at the card's 32-bit rate.
+
+    All bytes (the bound of the dense kernel, PR 13): the whole (E, W)
+    candidate array, anchors and counts, D slots of each distinct chain
+    that a missing valid probe names and one of each chain that only hits
+    name; against D compares a valid probe."""
+    ptr, vals, b = compact
+    n = compact.n
+    e, w = (int(x) for x in w_lists.shape)
+    dev = w_lists.device
+    ends = row_end.long().clamp(0, w)
+    first = w_lists.data_ptr() % 32 + torch.arange(e, device=dev) * (4 * w)
+    cand_sectors = int(torch.where(
+        ends > 0, (first + 4 * ends + 31) // 32 - first // 32, 0).sum())
+    named, missed = [], []
+    probes = compares = 0
+    pos = torch.arange(w, device=dev)
+    step = max(1, (1 << 24) // max(1, w))
+    for s in range(0, e if w and n else 0, step):
+        cand = w_lists[s:s + step]
+        valid = (cand >= 0) & (cand < n) & (pos < ends[s:s + step, None])
+        chain = (src[s:s + step].long().clamp(0, n - 1)[:, None] * b
+                 + (cand & (b - 1)).long())[valid]
+        x = cand[valid]
+        lo = ptr[chain].long()
+        length = ptr[chain + 1].long() - lo
+        need = length.clone()  # compares: to the first match, else all
+        hit = torch.zeros_like(x, dtype=torch.bool)
+        for k in range(int(length.max()) if chain.numel() else 0):
+            at = (k < length) & ~hit \
+                & (vals[torch.where(k < length, lo + k, 0)] == x)
+            need = torch.where(at, k + 1, need)
+            hit |= at
+        probes += int(chain.numel())
+        compares += int(need.sum())
+        named.append(torch.unique(chain))
+        missed.append(torch.unique(chain[~hit]))
+    named = torch.unique(torch.cat(named)) if named \
+        else src.new_zeros(0).long()
+    missed = int(torch.unique(torch.cat(missed)).numel()) if missed else 0
+    p0 = ptr.data_ptr() % 32
+    off_sectors = int(torch.unique(torch.cat(
+        [(p0 + 4 * named) // 32, (p0 + 4 * named + 4) // 32])).numel())
+    lo, hi = ptr[named].long(), ptr[named + 1].long()
+    v0 = vals.data_ptr() % 32
+    s_lo = (v0 + 4 * lo) // 32
+    span = torch.where(hi > lo, (v0 + 4 * hi - 1) // 32 - s_lo + 1, 0)
+    starts = torch.repeat_interleave(s_lo, span)
+    within = torch.arange(starts.numel(), device=dev) \
+        - torch.repeat_interleave(torch.cumsum(span, 0) - span, span)
+    id_sectors = int(torch.unique(starts + within).numel())
+    read = 32 * (cand_sectors + off_sectors + id_sectors) + 12 * e
+    t_bytes = read / HBM_BYTES_PER_S * 1e3
+    t_ops = compares / ALU_OPS_PER_S * 1e3
+    probed = int(named.numel())
+    all_bytes = (e * w * 4 + 8 * e + missed * depth * 4
+                 + (probed - missed) * 4) / HBM_BYTES_PER_S * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                chains=probed, missed_chains=missed, valid_probes=probes)
+                must_read_bytes=read, candidate_sectors=cand_sectors,
+                offset_sectors=off_sectors, id_sectors=id_sectors,
+                compares=compares, valid_probes=probes, chains=probed,
+                missed_chains=missed,
+                all_bytes_bound_ms=max(all_bytes, probes * depth
+                                       / ALU_OPS_PER_S * 1e3),
+                rows_skipped=int((ends == 0).sum()))
 
 
 def hash_ragged(np, rng, e: int, w: int, n: int):
@@ -352,14 +409,11 @@ def flash_bound_ms(np, q, k, causal: bool, window) -> dict:
                 flops=flops)
 
 
-def wgmma_build_facts(lib: Path, entry_re: str, label) -> dict:
-    """What the build says about a tensor-core kernel: the registers at
-    launch and spills of each instance whose mangled name matches
-    ``entry_re`` (``-Xptxas=-v``, kept beside the library), labelled by
-    ``label(match)``, and the HGMMA (wgmma) instructions in the library's
-    SASS (``cuobjdump --dump-sass``)."""
+def kernel_build_facts(lib: Path, entry_re: str, label) -> list:
+    """The registers at launch and spills of each kernel instance whose
+    mangled name matches ``entry_re`` (``-Xptxas=-v``, kept beside the
+    library), labelled by ``label(match)``."""
     import re
-    from repro_torch.kernels import _build
 
     instances, cur = [], None
     for line in lib.with_suffix(".log").read_text().splitlines():
@@ -375,6 +429,16 @@ def wgmma_build_facts(lib: Path, entry_re: str, label) -> dict:
         elif cur is not None and "Used" in line:
             cur["registers_at_launch"] = int(
                 re.search(r"Used (\d+) registers", line)[1])
+    return instances
+
+
+def wgmma_build_facts(lib: Path, entry_re: str, label) -> dict:
+    """What the build says about a tensor-core kernel: its instances'
+    registers and spills (``kernel_build_facts``) and the HGMMA (wgmma)
+    instructions in the library's SASS (``cuobjdump --dump-sass``)."""
+    from repro_torch.kernels import _build
+
+    instances = kernel_build_facts(lib, entry_re, label)
     cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib)],
                           capture_output=True, text=True, timeout=300,
@@ -568,6 +632,248 @@ def ragged_lists(np, rng, e: int, w: int, id_hi: int, pad_rows: int):
         u[-pad_rows:] = -1
         v[-pad_rows:] = -2
     return u, v
+
+
+def hash_phase(torch, np, dev, flush, analogues, truths) -> dict:
+    """Phases 3d and 4b: the hash lane at scales 17 and 18 (and on the
+    analogues), then K5 against its plain version at both paths' shapes,
+    on the families of ``tests/hash_rows.py`` and through the dense entry
+    point. Returns K5's entry of the ``kernels`` line."""
+    from repro_torch.core import TriangleCounter, triangle_count_forward_scipy
+    from repro_torch.graphs import load_dataset, rmat_graph
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.hash_tc import LAUNCHES as HASH_LAUNCHES
+    from repro_torch.kernels.hash_tc import (CompactHashTable,
+                                             build_hash_table,
+                                             hash_probe_compact_chunked,
+                                             hash_probe_compact_kernel,
+                                             hash_probe_counts_chunked,
+                                             hash_probe_kernel)
+    from repro_torch.kernels.hash_tc import \
+        reset_launch_counts as reset_hash_launch_counts
+
+    # -- phase 3d: the hash lane ----------------------------------------------
+    def hash_lane(g, expected: int, label: str) -> dict:
+        """Count ``g`` through the hash lane six times with K5's counter
+        zeroed just before; check the count, the compact table and the
+        lane's shapes; return what phase 4b holds and times."""
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_hash_launch_counts()
+        tc = TriangleCounter(g, algorithm="hash")
+        first = tc.count()
+        warm = [tc.count() for _ in range(5)]
+        launches = HASH_LAUNCHES["hash_probe"]
+        m = first.meta
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        ptr, vals = tc.plan.stages[0].args[3:5]
+        dense = g.n * m["hash_num_buckets"] * m["hash_depth"] * 4
+        print(f"{label}: compact table chain_ptr {tuple(ptr.shape)}, "
+              f"chain_vals {tuple(vals.shape)}, table_bytes "
+              f"{m['table_bytes']} ({m['table_bytes'] / 2**30:.4f} GiB; the "
+              f"dense (n, B, D) would be {dense / 2**30:.2f} GiB), "
+              f"table_width={m['table_width']} hash_num_buckets="
+              f"{m['hash_num_buckets']} hash_depth={m['hash_depth']} "
+              f"buckets={m['bucket_shapes']} edges/bucket={m['bucket_edges']}")
+        warm_s = [r.exec_seconds for r in warm]
+        print(f"prep_seconds={first.prep_seconds:.4f} (device prep, compact "
+              f"build with its one sync, row ends) first count() "
+              f"{first.exec_seconds:.4f} s; warm count() seconds "
+              f"{[round(x, 6) for x in warm_s]} (median "
+              f"{statistics.median(warm_s):.6f}); {peak_memory(torch, held)}")
+        print(f"hash_probe launches over {1 + len(warm)} count(): {launches}")
+        check(all(r.count == expected for r in [first] + warm),
+              f"count() = {first.count} every time, = {expected}")
+        check(all(a.dim() <= 2 for st in tc.plan.stages for a in st.args),
+              "the lane holds no dense (n, B, D) table: every stage argument "
+              "is 1-d or 2-d")
+        check(tuple(ptr.shape) == (g.n * m["hash_num_buckets"] + 1,)
+              and m["table_bytes"] == 4 * (ptr.numel() + vals.numel())
+              and int(ptr[-1]) == vals.numel(),
+              f"chain_ptr (n·B + 1,) = {tuple(ptr.shape)}, table_bytes = "
+              f"4 × (offsets + ids)")
+        check(launches == 4 * (1 + len(warm)),
+              "4 hash_probe launches per count()")
+        check(peak < PR13_HASH_PEAK_GIB,
+              f"the lane's own peak {peak:.2f} GiB < {PR13_HASH_PEAK_GIB} GiB "
+              f"(the dense table's lane at scale 17)")
+        return dict(tc=tc, first=first, launches=launches, peak_gib=peak,
+                    warm_ms=statistics.median(warm_s) * 1e3,
+                    prep_s=first.prep_seconds, meta=m)
+
+    phase("phase 3d: hash lane, TriangleCounter(rmat_graph(17, 16, seed=1), "
+          "algorithm='hash')")
+    t0 = time.perf_counter()
+    g = rmat_graph(17, 16, seed=1)
+    oracle = triangle_count_forward_scipy(g)
+    print(f"graph: n={g.n} m={g.m_undirected} max_degree={g.max_degree}; "
+          f"host generation + forward scipy oracle {time.perf_counter() - t0:.2f} s")
+    check(oracle == EXPECTED_SCALE17, f"forward scipy oracle = {oracle}")
+    hash17 = hash_lane(g, EXPECTED_SCALE17, "scale 17")
+    m = hash17["meta"]
+    check(m["hash_depth"] == 64 and m["hash_num_buckets"] == 512
+          and m["table_bytes"] == 4 * (131072 * 512 + 1 + 1_864_319),
+          f"B = 512, D = 64 (the reference's (131072, 512, 64) table), "
+          f"67,108,865 offsets and 1,864,319 ids: {m['table_bytes']} bytes")
+    check([sk[:2] for sk in m["bucket_shapes"]]
+          == [(16384, 8), (131072, 32), (1048576, 128), (2097152, 512)],
+          f"bucket shapes {[sk[:2] for sk in m['bucket_shapes']]}")
+    tc = hash17["tc"]
+    t0 = time.perf_counter()
+    tpv = tc.triangles_per_vertex()
+    check(int(tpv.sum()) == 3 * hash17["first"].count and tpv.shape == (g.n,),
+          f"triangles_per_vertex().sum() = {int(tpv.sum())} = 3 × count "
+          f"(filtered sidecar, {time.perf_counter() - t0:.3f} s)")
+    hash_launches = hash17["launches"]
+    hash_paths = [("scale-17 path", tc.plan.stages, m)]
+    del tc, tpv, hash17["tc"], hash17["first"]
+
+    phase("phase 3d: hash lane at scale 18, TriangleCounter(rmat_graph(18, "
+          "16, seed=1), algorithm='hash')")
+    g = rmat_graph(18, 16, seed=1)  # phase 2 checked its oracle
+    hash18 = hash_lane(g, EXPECTED_SCALE18, "scale 18")
+    hash_paths.append(("scale-18 path", hash18["tc"].plan.stages,
+                       hash18["meta"]))
+    del hash18["tc"], hash18["first"], g
+    for name in analogues:
+        for prep_backend in ("device", "host") if name in HASH_HOST_PREP \
+                else ("device",):
+            s = TriangleCounter(load_dataset(name), algorithm="hash",
+                                prep_backend=prep_backend)
+            c = s.count()
+            check(c.count == truths[name],
+                  f"{name} hash ({prep_backend} prep) count {c.count} = scipy "
+                  f"(table ({c.meta.get('table_width')} → B "
+                  f"{c.meta.get('hash_num_buckets')}, D "
+                  f"{c.meta.get('hash_depth')}, "
+                  f"{c.meta.get('table_bytes')} bytes), warm count "
+                  f"{s.count().exec_seconds * 1e3:.3f} ms)")
+    del s, c
+
+    # -- phase 4b: the hash-probe kernel against its plain version ------------
+    phase("phase 4b: hash-probe kernel against its plain torch version")
+    build = kernel_build_facts(_build.build("hash_probe"),
+                               r"hash_probe_compact_kernel",
+                               lambda h: "hash_probe_compact_kernel")
+    for inst in build:
+        print(f"  build: {inst}")
+    check(len(build) == 1 and build[0].get("spill_stores", 0) == 0
+          and build[0].get("spill_loads", 0) == 0,
+          "hash_probe_compact_kernel built, no spills")
+
+    def hash_case(label, w_lists, src, row_end, ptr, vals, b, depth):
+        """Hold K5 against its plain version, exactly, and time both beside
+        the must-read and all-bytes bounds; returns the shape's record."""
+        compact = CompactHashTable(ptr, vals, b)
+        args = (w_lists, src, row_end, compact)
+        k_out = hash_probe_compact_kernel(*args)
+        p_out = hash_probe_compact_chunked(*args)
+        torch.cuda.synchronize()
+        err = int((k_out.long() - p_out.long()).abs().max()) \
+            if w_lists.shape[0] else 0
+        check(err == 0, f"hash_probe kernel == plain at "
+                        f"{tuple(w_lists.shape)} {label}")
+        del k_out, p_out
+        k_ms = time_ms(torch, lambda: hash_probe_compact_kernel(*args), 7,
+                       flush)
+        p_ms = time_ms(torch, lambda: hash_probe_compact_chunked(*args), 1,
+                       flush)
+        bound = hash_read_bound(torch, w_lists, src, row_end, compact, depth)
+        print(f"  hash_probe {tuple(w_lists.shape)} {label}: kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, must-read bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
+              f"{bound['must_read_bytes']} bytes: {bound['candidate_sectors']} "
+              f"candidate, {bound['offset_sectors']} offset and "
+              f"{bound['id_sectors']} id sectors; {bound['compares']} "
+              f"compares), all-bytes bound {bound['all_bytes_bound_ms']:.4f} "
+              f"ms; {bound['valid_probes']} valid probes in "
+              f"{bound['chains']} distinct chains, {bound['missed_chains']} "
+              f"with a miss; rows skipped (row end 0) "
+              f"{bound['rows_skipped']}", flush=True)
+        return dict(shape=list(w_lists.shape), label=label, ms=k_ms,
+                    plain_ms=p_ms, max_abs_err=err, **bound)
+
+    entry = dict(name="hash_probe", route="cuda",
+                 kernel="hash_probe_compact_kernel",
+                 source="src/repro_torch/csrc/hash_probe.cu",
+                 replaces="src/repro/kernels/hash_tc/probe.py:91",
+                 plain="hash_probe_compact_chunked",
+                 path="scale-17 R-MAT hash count()",
+                 launches=hash_launches, tolerance=0, max_abs_err=0,
+                 ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by=None,
+                 all_bytes_bound_ms=0.0, library_ms=None, build=build,
+                 lane=dict(scale17={k: hash17[k] for k in (
+                     "launches", "peak_gib", "warm_ms", "prep_s")},
+                     scale18={k: hash18[k] for k in (
+                         "launches", "peak_gib", "warm_ms", "prep_s")}),
+                 shapes=[], scale18=dict(shapes=[]), ragged=[],
+                 dense_entry=[])
+    for label, stages, meta in hash_paths:
+        recs = entry["shapes"] if label.startswith("scale-17") \
+            else entry["scale18"]["shapes"]
+        for st in stages:
+            recs.append(hash_case(label, *st.args, meta["hash_num_buckets"],
+                                  meta["hash_depth"]))
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       recs[-1]["max_abs_err"])
+    for k in ("ms", "plain_ms", "bound_ms", "all_bytes_bound_ms"):
+        entry[k] = sum(x[k] for x in entry["shapes"])
+        entry["scale18"][k] = sum(x[k] for x in entry["scale18"]["shapes"])
+    entry["bound_by"] = max(entry["shapes"],
+                            key=lambda x: x["bound_ms"])["bound_by"]
+    print(f"  K5 over the scale-17 path: {entry['ms']:.4f} ms against its "
+          f"must-read bound {entry['bound_ms']:.4f} ms (all bytes "
+          f"{entry['all_bytes_bound_ms']:.4f}); scale 18: "
+          f"{entry['scale18']['ms']:.4f} ms against "
+          f"{entry['scale18']['bound_ms']:.4f} (all bytes "
+          f"{entry['scale18']['all_bytes_bound_ms']:.4f})")
+    del hash_paths, stages, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    hash_rows = load_test_module("hash_rows")
+    for family, e, w, b in hash_rows.CARD_CASES:
+        c = hash_rows.case(family, e, w, b, seed=e + w + b)
+        for offset in (False, True):
+            args = hash_rows.tensors(c, dev, offset=offset)
+            reset_hash_launch_counts()
+            k_out = hash_probe_compact_kernel(*args)
+            p_out = hash_probe_compact_chunked(*args)
+            torch.cuda.synchronize()
+            err = int((k_out.long() - p_out.long()).abs().max())
+            check(err == 0 and HASH_LAUNCHES["hash_probe"] == 1,
+                  f"hash_probe family {family} ({e}, {w}) B "
+                  f"{args[3].num_buckets}"
+                  f"{' offset view' if offset else ''}: kernel == plain")
+            entry["ragged"].append(dict(family=family, shape=[e, w],
+                                        num_buckets=args[3].num_buckets,
+                                        offset=offset, max_abs_err=err))
+    rng = np.random.default_rng(13)
+    for e in (1, 7, 1000, 4097):
+        for w in (1, 8, 33, 512):
+            n = max(2 * w, 64)
+            nbrs, src_np, cand = hash_ragged(np, rng, e, w, n)
+            nbrs_t = torch.from_numpy(nbrs).to(dev)
+            w_t = torch.from_numpy(cand).to(dev)
+            s_t = torch.from_numpy(src_np).to(dev)
+            for nb, d in ((8, 1), (8, 2), (32, 8), (512, 64)):
+                table = build_hash_table(nbrs_t, num_buckets=nb, depth=d)
+                k_out = hash_probe_kernel(w_t, s_t, table)
+                p_out = hash_probe_counts_chunked(w_t, s_t, table)
+                torch.cuda.synchronize()
+                err = int((k_out.long() - p_out.long()).abs().max())
+                check(err == 0, f"dense entry point ({e}, {w}) table "
+                                f"({n}, {nb}, {d}): kernel == dense plain")
+                entry["dense_entry"].append(dict(shape=[e, w],
+                                                 table=[n, nb, d],
+                                                 max_abs_err=err))
+    entry["max_abs_err"] = max(
+        [entry["max_abs_err"]] + [x["max_abs_err"] for x in
+                                  entry["ragged"] + entry["dense_entry"]])
+    del nbrs_t, w_t, s_t, table, k_out, p_out, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return entry
+
 
 
 def serve_phase(torch, np, dev, get_config, get_model, greedy_generate, fa):
@@ -1073,12 +1379,6 @@ def main() -> int:
         intersect_counts_broadcast, intersect_counts_kernel,
         intersect_counts_probe, intersect_counts_probe_kernel,
         reset_launch_counts)
-    from repro_torch.kernels.hash_tc import LAUNCHES as HASH_LAUNCHES
-    from repro_torch.kernels.hash_tc import (build_hash_table,
-                                             hash_probe_counts_chunked,
-                                             hash_probe_kernel)
-    from repro_torch.kernels.hash_tc import \
-        reset_launch_counts as reset_hash_launch_counts
     from repro_torch.kernels.masked_spgemm import LAUNCHES as MS_LAUNCHES
     from repro_torch.kernels.masked_spgemm import (
         WGMMA_BLOCKS, masked_spgemm_chunked, masked_spgemm_gathered,
@@ -1491,7 +1791,7 @@ def main() -> int:
     # disjoint ranges, padding and mixed batches, W from 1 to 20000, E past
     # one sweep of the persistent grid; each also as a view that starts
     # mid-allocation (the 4-byte copy route)
-    probe_rows = load_probe_rows()
+    probe_rows = load_test_module("probe_rows")
     for name, e, w in probe_rows.CARD_CASES:
         u_np, v_np = probe_rows.tiled(name, e, w, seed=e + w)
         u = torch.from_numpy(u_np).to(dev)
@@ -1724,63 +2024,7 @@ def main() -> int:
     print(f"released the earlier lanes' plans: memory_allocated "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
-    # -- phase 3d: the hash lane ----------------------------------------------
-    phase("phase 3d: hash lane, TriangleCounter(rmat_graph(17, 16, seed=1), "
-          "algorithm='hash')")
-    t0 = time.perf_counter()
-    g = rmat_graph(17, 16, seed=1)
-    oracle = triangle_count_forward_scipy(g)
-    print(f"graph: n={g.n} m={g.m_undirected} max_degree={g.max_degree}; "
-          f"host generation + forward scipy oracle {time.perf_counter() - t0:.2f} s")
-    check(oracle == EXPECTED_SCALE17, f"forward scipy oracle = {oracle}")
-    held = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    reset_hash_launch_counts()
-    tc = TriangleCounter(g, algorithm="hash")
-    first = tc.count()
-    warm = [tc.count() for _ in range(5)]
-    hash_launches = HASH_LAUNCHES["hash_probe"]
-    m = first.meta
-    table = tc.plan.stages[0].args[2]
-    print(f"table {tuple(table.shape)} ({table.numel() * 4 / 2**30:.2f} GiB), "
-          f"table_width={m['table_width']} hash_num_buckets="
-          f"{m['hash_num_buckets']} hash_depth={m['hash_depth']} "
-          f"buckets={m['bucket_shapes']} edges/bucket={m['bucket_edges']}")
-    print(f"prep_seconds={first.prep_seconds:.4f} (device prep, table depth "
-          f"sync and build) first count() {first.exec_seconds:.4f} s; warm "
-          f"count() seconds {[round(r.exec_seconds, 6) for r in warm]} "
-          f"(median {statistics.median(r.exec_seconds for r in warm):.6f}); "
-          f"{peak_memory(torch, held)}")
-    print(f"hash_probe launches over {1 + len(warm)} count(): {hash_launches}")
-    check(all(r.count == EXPECTED_SCALE17 for r in [first] + warm),
-          f"count() = {first.count} every time, = oracle")
-    check(tuple(table.shape) == (131072, 512, 64),
-          f"table shape {tuple(table.shape)} = (131072, 512, 64)")
-    check([sk[:2] for sk in m["bucket_shapes"]]
-          == [(16384, 8), (131072, 32), (1048576, 128), (2097152, 512)],
-          f"bucket shapes {[sk[:2] for sk in m['bucket_shapes']]}")
-    check(hash_launches == 4 * (1 + len(warm)),
-          "4 hash_probe launches per count()")
-    hash_stages, hash_bucket_edges = tc.plan.stages, m["bucket_edges"]
-    t0 = time.perf_counter()
-    tpv = tc.triangles_per_vertex()
-    check(int(tpv.sum()) == 3 * first.count and tpv.shape == (g.n,),
-          f"triangles_per_vertex().sum() = {int(tpv.sum())} = 3 × count "
-          f"(filtered sidecar, {time.perf_counter() - t0:.3f} s)")
-    del tc, tpv, first, warm, table
-    for name in analogues:
-        for prep_backend in ("device", "host") if name in HASH_HOST_PREP \
-                else ("device",):
-            s = TriangleCounter(load_dataset(name), algorithm="hash",
-                                prep_backend=prep_backend)
-            c = s.count()
-            check(c.count == truths[name],
-                  f"{name} hash ({prep_backend} prep) count {c.count} = scipy "
-                  f"(table ({c.meta.get('table_width')} → B "
-                  f"{c.meta.get('hash_num_buckets')}, D "
-                  f"{c.meta.get('hash_depth')}), warm count "
-                  f"{s.count().exec_seconds * 1e3:.3f} ms)")
-    del s, c
+    report.append(hash_phase(torch, np, dev, flush, analogues, truths))
 
     # -- phase 3e: the bfs lane -----------------------------------------------
     phase(f"phase 3e: bfs lane, TriangleCounter(grid_graph({GRID_SIDE}, ...), "
@@ -1874,76 +2118,6 @@ def main() -> int:
     check(bool(bfs_wide), "the bfs lane gave K2 a W ≥ 8192 bucket")
     entries["probe"]["bfs_analogues"] = dict(
         path="bfs forced on the Table-1 analogues", shapes=bfs_wide)
-
-    # -- phase 4b: the hash-probe kernel against its plain version ------------
-    phase("phase 4b: hash-probe kernel against its plain torch version")
-
-    def hash_case(label, w_lists, src, table, edges):
-        """Hold K5 against its plain version, exactly, and time both;
-        returns the shape's record."""
-        k_out = hash_probe_kernel(w_lists, src, table)
-        p_out = hash_probe_counts_chunked(w_lists, src, table)
-        torch.cuda.synchronize()
-        err = int((k_out.long() - p_out.long()).abs().max()) \
-            if w_lists.shape[0] else 0
-        check(err == 0, f"hash_probe kernel == plain at "
-                        f"{tuple(w_lists.shape)} table {tuple(table.shape)} "
-                        f"{label}")
-        k_ms = time_ms(torch, lambda: hash_probe_kernel(w_lists, src, table),
-                       7, flush)
-        p_ms = time_ms(torch, lambda: hash_probe_counts_chunked(
-            w_lists, src, table), 3, flush)
-        bound = hash_bound_ms(torch, w_lists, src, table, edges)
-        print(f"  hash_probe {tuple(w_lists.shape)} table "
-              f"{tuple(table.shape)} {label}: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
-              f"({bound['bound_by']}; {bound['valid_probes']} valid probes "
-              f"in {bound['chains']} distinct chains, "
-              f"{bound['missed_chains']} with a miss)", flush=True)
-        return dict(shape=list(w_lists.shape), table=list(table.shape),
-                    label=label, ms=k_ms, plain_ms=p_ms, max_abs_err=err,
-                    **bound)
-
-    entry = dict(name="hash_probe", route="cuda",
-                 source="src/repro_torch/csrc/hash_probe.cu",
-                 replaces="src/repro/kernels/hash_tc/probe.py:91",
-                 plain="hash_probe_counts_chunked",
-                 path="scale-17 R-MAT hash count()",
-                 launches=hash_launches, tolerance=0, max_abs_err=0,
-                 ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by=None,
-                 library_ms=None, shapes=[], ragged=[])
-    for st, edges in zip(hash_stages, hash_bucket_edges):
-        rec = hash_case("scale-17 path", *st.args, edges)
-        entry["shapes"].append(rec)
-        for k in ("ms", "plain_ms", "bound_ms"):
-            entry[k] += rec[k]
-        entry["max_abs_err"] = max(entry["max_abs_err"], rec["max_abs_err"])
-    entry["bound_by"] = max(entry["shapes"], key=lambda x: x["bound_ms"])["bound_by"]
-    del hash_stages, st
-    gc.collect()
-    torch.cuda.empty_cache()
-    rng = np.random.default_rng(13)
-    for e in (1, 7, 1000, 4097):
-        for w in (1, 8, 33, 512):
-            n = max(2 * w, 64)
-            nbrs, src_np, cand = hash_ragged(np, rng, e, w, n)
-            nbrs_t = torch.from_numpy(nbrs).to(dev)
-            w_t = torch.from_numpy(cand).to(dev)
-            s_t = torch.from_numpy(src_np).to(dev)
-            for nb, d in ((8, 1), (8, 2), (32, 8), (512, 64)):
-                table = build_hash_table(nbrs_t, num_buckets=nb, depth=d)
-                k_out = hash_probe_kernel(w_t, s_t, table)
-                p_out = hash_probe_counts_chunked(w_t, s_t, table)
-                torch.cuda.synchronize()
-                err = int((k_out.long() - p_out.long()).abs().max())
-                check(err == 0, f"ragged hash_probe ({e}, {w}) table "
-                                f"({n}, {nb}, {d}) kernel == plain")
-                entry["ragged"].append(dict(shape=[e, w], table=[n, nb, d],
-                                            max_abs_err=err))
-    report.append(entry)
-    del entry, nbrs_t, w_t, s_t, table, k_out, p_out
-    gc.collect()
-    torch.cuda.empty_cache()
 
     serve = serve_phase(torch, np, dev, get_config, get_model, greedy_generate,
                         fa)

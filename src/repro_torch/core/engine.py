@@ -9,7 +9,7 @@ the two lanes built on the same buckets:
 * ``"matrix"`` — the fused masked block-SpGEMM over a heavy-first tile
   schedule;
 * ``"hash"`` — the TRUST-style lane: the filtered buckets' candidate rows
-  probed against a per-vertex (n, B, D) hash table;
+  probed against a per-vertex hash table, held compactly;
 * ``"bfs"`` — BFS levels order the vertices by (level, id), and the
   level-oriented buckets run through the intersection launches.
 
@@ -71,10 +71,11 @@ from repro_torch.kernels.intersect.ops import (
     resolve_strategy,
 )
 from repro_torch.kernels.hash_tc.ops import (
-    build_hash_table,
+    CompactHashTable,
+    build_compact_hash_table,
     hash_num_buckets,
-    hash_probe_counts,
-    hash_table_depth,
+    hash_probe_compact_counts,
+    probe_row_ends,
 )
 from repro_torch.kernels.masked_spgemm import launch_order
 from repro_torch.kernels.masked_spgemm.ops import masked_spgemm_gathered_counts
@@ -241,15 +242,21 @@ class MatrixLaunch:
 @dataclasses.dataclass(frozen=True)
 class HashLaunch:
     """The hash lane's bound launch configuration. Calling it on a bucket's
-    (v_lists, src) and the plan-wide (n, B, D) table runs the hash probe
-    and returns the bucket total as an int64 scalar tensor on the bucket's
-    device (the reference sums it in int32, R5)."""
+    (v_lists, src, row_end) and the plan-wide compact table's (chain_ptr,
+    chain_vals) runs the hash probe and returns the bucket total as an
+    int64 scalar tensor on the bucket's device (the reference sums it in
+    int32, R5)."""
 
     backend: str
+    num_buckets: int
 
     def __call__(self, w_lists: torch.Tensor, src: torch.Tensor,
-                 table: torch.Tensor) -> torch.Tensor:
-        counts = hash_probe_counts(w_lists, src, table, backend=self.backend)
+                 row_end: torch.Tensor, chain_ptr: torch.Tensor,
+                 chain_vals: torch.Tensor) -> torch.Tensor:
+        counts = hash_probe_compact_counts(
+            w_lists, src, row_end,
+            CompactHashTable(chain_ptr, chain_vals, self.num_buckets),
+            backend=self.backend)
         return counts.sum(dtype=torch.int64)
 
 
@@ -293,9 +300,10 @@ def get_executable(algorithm: str, backend: str, shape_key: tuple, *,
       algorithm: "intersection" (a bucket's count; the subgraph and bfs
         lanes' buckets use it too), "matrix" (the tile triples' unique
         tiles and indices, ``shape_key`` ``(T, B, B)``), "hash" (a
-        bucket's hash probe, ``shape_key`` ``(E, W, B, D)``: the table's
-        shape class rides in the key) or "vertex" (a filtered bucket's
-        per-vertex counts; ``shape_key`` is ``(E, W, n)``).
+        bucket's hash probe, ``shape_key`` ``(E, W, B, D)``: the shape
+        class of the reference's dense table rides in the key) or
+        "vertex" (a filtered bucket's per-vertex counts; ``shape_key`` is
+        ``(E, W, n)``).
       backend: "kernel" | "ref".
       shape_key: the work unit's array shape.
       strategy: the resolved set-intersection strategy ("intersection").
@@ -315,7 +323,7 @@ def get_executable(algorithm: str, backend: str, shape_key: tuple, *,
     elif algorithm == "matrix":
         builder = functools.partial(MatrixLaunch, backend)
     elif algorithm == "hash":
-        builder = functools.partial(HashLaunch, backend)
+        builder = functools.partial(HashLaunch, backend, int(shape_key[2]))
     elif algorithm == "vertex":
         builder = functools.partial(VertexLaunch, int(shape_key[2]), int(shape_key[1]))
     else:
@@ -647,15 +655,19 @@ def _plan_hash(g: Graph, backend: str, widths: Sequence[int],
 
     Prep reuses the filtered degree-class buckets (the candidate rows are
     the intersection lane's ``v_lists`` = N⁺(dst)), plus one plan-wide
-    structure: an (n, B, D) per-vertex hash table over the oriented rows
-    (``repro_torch.kernels.hash_tc``). Each stage probes its bucket's
-    candidates against ``table[src]``, so every forward edge (u, v) adds
-    |N⁺(v) ∩ N⁺(u)| and every triangle is counted once. One scalar sync
-    measures the longest chain; B and D are powers of two, so the table
-    shape is a function of the graph's shape class.
+    structure: the per-vertex hash table over the oriented rows, held
+    compactly (``repro_torch.kernels.hash_tc.CompactHashTable``: each
+    (vertex, bucket) chain at its real length, in the reference's dense
+    (n, B, D) slot order). Each stage probes its bucket's candidates, up to
+    each row's end, against the anchor's chains, so every forward edge
+    (u, v) adds |N⁺(v) ∩ N⁺(u)| and every triangle is counted once. The
+    build's one scalar sync reads the table's size and its longest chain,
+    which, rounded to a power of two, is the reference's depth D; B and D
+    stay in the shape key.
 
-    The stages bind ``(v_lists, src, table)`` only: the buckets' u rows
-    are dropped before the table is built. The device prep's
+    The stages bind ``(v_lists, src, row_end, chain_ptr, chain_vals)``:
+    the buckets' u rows are dropped before the table is built, and each
+    bucket's row ends are found once, here. The device prep's
     ``DeviceGraph`` serves the table's padded rows too (the reference
     builds a second one; the arrays are equal).
     """
@@ -681,19 +693,19 @@ def _plan_hash(g: Graph, backend: str, widths: Sequence[int],
         else:
             nbrs = torch.from_numpy(csr_to_padded_neighbors(
                 orient_forward(g), pad_to=table_width)).to(device)
-        # one scalar sync: the longest chain, rounded to a pow2 class
-        depth = next_pow2(max(1, hash_table_depth(nbrs, num_buckets)))
-        table = build_hash_table(nbrs, num_buckets=num_buckets, depth=depth)
+        compact, longest = build_compact_hash_table(nbrs, num_buckets)
+        depth = next_pow2(max(1, longest))
         del nbrs, dg
         for width, _, v_lists, src in rows:
             shape_key = (int(v_lists.shape[0]), width, num_buckets, depth)
             stages.append(_Stage(
                 executable=get_executable("hash", backend, shape_key),
-                args=(v_lists, src, table),
+                args=(v_lists, src, probe_row_ends(v_lists, g.n),
+                      compact.chain_ptr, compact.chain_vals),
                 shape_key=shape_key,
             ))
         meta.update(hash_num_buckets=num_buckets, hash_depth=depth,
-                    table_width=table_width)
+                    table_width=table_width, table_bytes=compact.nbytes)
     meta.update(
         bucket_shapes=[s.shape_key for s in stages],
         bucket_edges=[e for _, e, _, _ in rows],

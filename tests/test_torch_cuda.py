@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import hash_rows
 import probe_rows
 
 from repro_torch.core import (TriangleCounter, subgraph_match_triangle,
@@ -357,6 +358,57 @@ def test_hash_probe_kernel_checks_inputs(cuda):
         ht.hash_probe_kernel(w_t, s_t, table[:, :6].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
         ht.hash_probe_kernel(w_t[:, ::2], s_t, table)
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("family,e,w,b", hash_rows.CARD_CASES)
+def test_hash_compact_kernel_on_families(cuda, family, e, w, b, offset):
+    c = hash_rows.case(family, e, w, b, seed=e + w + b)
+    w_t, s_t, r_t, compact = hash_rows.tensors(c, cuda, offset=offset)
+    ht.reset_launch_counts()
+    got = ht.hash_probe_compact_kernel(w_t, s_t, r_t, compact)
+    want = ht.hash_probe_compact_chunked(w_t, s_t, r_t, compact)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.device.type == "cuda"
+    assert torch.equal(got, want)  # tolerance 0: integer counts
+    assert ht.LAUNCHES == {"hash_probe": 1}
+    on_cpu = ht.CompactHashTable(compact.chain_ptr.cpu(),
+                                 compact.chain_vals.cpu(), compact.num_buckets)
+    assert torch.equal(got.cpu(), ht.hash_probe_compact_chunked(
+        w_t.cpu(), s_t.cpu(), r_t.cpu(), on_cpu))
+
+
+@pytest.mark.parametrize("family", ["holes", "wide"])
+@pytest.mark.parametrize("e,w", [(7, 8), (1000, 33), (3000, 512)])
+def test_hash_dense_entry_on_dense_tables(cuda, family, e, w):
+    c = hash_rows.case(family, e, w, 32, seed=e + w)
+    w_t = hash_rows.offset_view(torch.from_numpy(c["cand"]).to(cuda)) \
+        if e % 2 else torch.from_numpy(c["cand"]).to(cuda)
+    s_t = torch.from_numpy(c["src"]).to(cuda)
+    table = torch.from_numpy(c["dense"]).to(cuda)
+    ht.reset_launch_counts()
+    got = ht.hash_probe_kernel(w_t, s_t, table)
+    want = ht.hash_probe_counts_chunked(w_t, s_t, table)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert ht.LAUNCHES == {"hash_probe": 1}
+
+
+def test_hash_compact_kernel_checks_inputs(cuda):
+    c = hash_rows.case("built", 50, 8, 8, seed=1)
+    w_t, s_t, r_t, compact = hash_rows.tensors(c, cuda)
+    ht.reset_launch_counts()
+    assert ht.hash_probe_compact_kernel(w_t[:0], s_t[:0], r_t[:0],
+                                        compact).shape == (0,)
+    assert ht.LAUNCHES == {"hash_probe": 0}  # E = 0 launches nothing
+    with pytest.raises(ValueError, match="one device"):
+        ht.hash_probe_compact_kernel(w_t, s_t, r_t.cpu(), compact)
+    with pytest.raises(ValueError, match="one device"):
+        ht.hash_probe_compact_kernel(w_t, s_t, r_t, compact._replace(
+            chain_vals=compact.chain_vals.cpu()))
+    with pytest.raises(ValueError, match="int32"):
+        ht.hash_probe_compact_kernel(w_t, s_t, r_t.long(), compact)
+    assert ht.LAUNCHES == {"hash_probe": 0}
 
 
 @pytest.mark.parametrize("algorithm", ["hash", "bfs"])

@@ -191,12 +191,27 @@ def test_hash_plan_matches_reference(ref, name, prep_backend):
     assert plan.num_stages == len(rplan.stages)
     for st, rst in zip(plan.stages, rplan.stages):
         assert st.shape_key == rst.shape_key
-        assert len(st.args) == len(rst.args) == 3  # (v_lists, src, table)
-        for a, ra in zip(st.args, rst.args):
-            assert a.dtype == torch.int32
+        # (v_lists, src, row_end, chain_ptr, chain_vals) against the
+        # reference's (v_lists, src, table)
+        assert len(st.args) == 5 and len(rst.args) == 3
+        assert all(a.dtype == torch.int32 for a in st.args)
+        for a, ra in zip(st.args[:2], rst.args[:2]):
             np.testing.assert_array_equal(a.numpy(), np.asarray(ra))
+        v = np.asarray(rst.args[0])
+        valid = (v >= 0) & (v < g.n)
+        np.testing.assert_array_equal(st.args[2].numpy(), np.where(
+            valid, np.arange(1, v.shape[1] + 1), 0).max(axis=1, initial=0))
+        compact = ht.CompactHashTable(st.args[3], st.args[4],
+                                      plan.meta["hash_num_buckets"])
+        np.testing.assert_array_equal(
+            ht.expand_hash_table(compact, plan.meta["hash_depth"]).numpy(),
+            np.asarray(rst.args[2]))
+    if plan.num_stages:
+        assert plan.meta["table_bytes"] == 4 * (
+            plan.stages[0].args[3].numel() + plan.stages[0].args[4].numel())
     if plan.num_stages > 1:  # one plan-wide table, shared by every stage
-        assert plan.stages[0].args[2] is plan.stages[-1].args[2]
+        assert plan.stages[0].args[3] is plan.stages[-1].args[3]
+        assert plan.stages[0].args[4] is plan.stages[-1].args[4]
     assert plan.count() == rplan.count() == triangle_count_scipy(g)
 
 

@@ -10,10 +10,18 @@ fixture removes the shim and every ``repro`` module it imported, so later
 tests in the same process see the reference as they would have.
 
 The ``lmref`` fixture does the same for the language-model scaffolding
-(models, configs, serve step, flash attention). On JAX releases that
-dropped ``pallas.load``, the reference's Pallas flash kernel fails while
-it traces; ``lmref`` also sets ``pl.load = lambda ref, idx: ref[idx]`` for
-the module's tests and removes it at teardown.
+(models, configs, serve step, flash attention).
+
+On JAX releases that dropped ``pallas.load``, the reference's Pallas flash
+kernel (``repro.kernels.flash_attention``) fails while it traces. Importing
+this file sets ``pl.load = lambda ref, idx: ref[idx]``, what ``pallas.load``
+did for the unmasked loads the kernel makes, and leaves it for the rest of
+the process. The port's test modules import this file while they are
+collected, so under pytest-xdist every worker has the shim before its first
+test, and the reference's own flash tests (``tests/test_kernels.py``) run
+the kernel whichever worker takes them, instead of passing only when JAX's
+jit cache already holds their shapes. Nothing is shimmed where JAX is
+missing or still has ``pallas.load``.
 
 Use them by importing the fixture into a test module::
 
@@ -70,12 +78,24 @@ _LM_MODULES = {
 }
 
 
+def _shim_pallas_load() -> None:
+    try:
+        from jax.experimental import pallas as pl
+    except ImportError:
+        return
+    if not hasattr(pl, "load"):
+        pl.load = lambda ref, idx: ref[idx]
+
+
+_shim_pallas_load()
+
+
 def _is_reference(name: str) -> bool:
     return name == "repro" or name.startswith("repro.")
 
 
 @contextlib.contextmanager
-def _reference(modules, *, pallas_load: bool = False):
+def _reference(modules):
     """Apply the shims, import ``modules`` and yield them as a namespace;
     afterwards remove the shims and every ``repro`` module imported."""
     import jax
@@ -85,21 +105,12 @@ def _reference(modules, *, pallas_load: bool = False):
     added_shim = not hasattr(jax.experimental, "enable_x64")
     if added_shim:
         jax.experimental.enable_x64 = jax.enable_x64
-    added_load = False
-    if pallas_load:
-        from jax.experimental import pallas as pl
-
-        added_load = not hasattr(pl, "load")
-        if added_load:
-            pl.load = lambda ref, idx: ref[idx]
     try:
         yield types.SimpleNamespace(
             **{k: importlib.import_module(v) for k, v in modules.items()})
     finally:
         if added_shim:
             del jax.experimental.enable_x64
-        if added_load:
-            del pl.load
         for name in sorted(set(sys.modules) - before, reverse=True):
             if not _is_reference(name):
                 continue
@@ -125,7 +136,7 @@ def lmref():
     """Namespace of the reference's LM modules (``lmref.config``,
     ``lmref.registry``, ``lmref.layers``, ``lmref.transformer``,
     ``lmref.serve_step``, ``lmref.flash``, ``lmref.flashref``,
-    ``lmref.flashops``), imported under the enable_x64 and ``pl.load``
-    shims."""
-    with _reference(_LM_MODULES, pallas_load=True) as ns:
+    ``lmref.flashops``), imported under the enable_x64 shim (``pl.load``
+    is set when this file is imported)."""
+    with _reference(_LM_MODULES) as ns:
         yield ns
