@@ -41,7 +41,13 @@ source, all started together), and runs, in order:
 4. each kernel against its plain torch version on the card, exactly, at
    the shapes its path gave it and on ragged shapes (K2 also at W = 2048
    and 8192, the bfs lane's widths, and on the row families of
-   ``tests/probe_rows.py``, each also as a view that starts mid-allocation);
+   ``tests/probe_rows.py``; K1 and K3 on those of ``tests/intersect_rows.py``:
+   unsorted rows, duplicates, ids outside the bitmap, W from 1 to 63, K3's
+   wide rows, E past one sweep of their persistent grids, K3 at the
+   family's capacity and at the 65536-bit cap; each also as a view that
+   starts mid-allocation; with K1's and K3's registers and spills, none of
+   which may spill, and K1's time on the grid's (33554432, 8) bucket beside
+   its bound);
    the kernel's time (CUDA events, L2
    flushed before each launch), the plain version's time, the bound (K2:
    the bytes it must read, with the rows its range test skips, beside the
@@ -1806,6 +1812,64 @@ def main() -> int:
         check(max(errs) == 0, f"probe family {name} ({e}, {w}) kernel == "
                               f"plain, aligned and mid-allocation")
 
+    # K1 and K3 on their row families (tests/intersect_rows.py): unsorted
+    # rows, duplicates, ids outside the bitmap's range and the int32
+    # extremes, padding, W from 1 to 63 (K3 also its wide rows), E past one
+    # sweep of the persistent grids; each also as a view that starts
+    # mid-allocation (K1's 4-byte route); K3 at the family's capacity and at
+    # the 65536-bit cap
+    intersect_rows = load_test_module("intersect_rows")
+    entries = {s: next(x for x in report if x["name"] == KERNELS[s]["name"])
+               for s in KERNELS}
+    for strategy, make, cases in (
+            ("broadcast", intersect_rows.family, intersect_rows.CARD_CASES),
+            ("bitmap", intersect_rows.bitmap_family,
+             intersect_rows.CARD_CASES + intersect_rows.BITMAP_WIDE_CASES)):
+        kern, plain = wrappers[strategy]
+        wrong, runs = [], 0
+        for name, e, w in cases:
+            u_np, v_np, bits = intersect_rows.tiled(make, name, e, w, seed=e + w)
+            u = torch.from_numpy(u_np).to(dev)
+            v = torch.from_numpy(v_np).to(dev)
+            offset = (probe_rows.offset_view(u), probe_rows.offset_view(v))
+            for kw in ([{}] if strategy == "broadcast" else
+                       [dict(num_bits=bits), dict(num_bits=1 << 16)]):
+                want = plain(u, v, **kw)
+                for a, b in ((u, v), offset):
+                    err = int((kern(a, b, **kw).long() - want.long()).abs().max())
+                    runs += 1
+                    if err:
+                        wrong.append((name, e, w, kw, a.data_ptr() % 16, err))
+        torch.cuda.synchronize()
+        check(not wrong, f"{strategy} kernel == plain on {len(cases)} row "
+                         f"families of tests/intersect_rows.py ({runs} launches, "
+                         f"aligned and mid-allocation){f': {wrong}' if wrong else ''}")
+        entries[strategy]["families"] = dict(cases=len(cases), launches=runs,
+                                             max_abs_err=0)
+    # K1's and K3's builds: registers and spills of every instance
+    lib = _build.build("intersect")
+    for strategy, entry_re, label, count in (
+            ("broadcast", r"broadcast_(reg_kernelILi(\d+)ELb([01])|counts_kernel)",
+             lambda h: (f"broadcast_reg_kernel<{h[2]}, "
+                        f"{'true' if h[3] == '1' else 'false'}>" if h[2]
+                        else "broadcast_counts_kernel"), 11),
+            ("bitmap", r"bitmap_warp_kernelILi(\d+)E",
+             lambda h: f"bitmap_warp_kernel<{h[1]}>", 4)):
+        build = kernel_build_facts(lib, entry_re, label)
+        for inst in build:
+            print(f"  build: {inst}")
+        check(len(build) == count and all(
+            i.get("spill_stores") == 0 and i.get("spill_loads") == 0
+            for i in build),
+            f"ptxas: the {count} {strategy} instances compile without spills")
+        entries[strategy]["build"] = build
+    grid_k1 = next(x for x in entries["broadcast"]["subgraph_path"]["shapes"]
+                   if x["shape"] == [33554432, 8])
+    print(f"  headline: K1 on the grid subgraph (33554432, 8) bucket "
+          f"{grid_k1['ms']:.4f} ms against its bound {grid_k1['bound_ms']:.4f} "
+          f"ms ({100 * grid_k1['bound_ms'] / grid_k1['ms']:.1f} % of it)",
+          flush=True)
+
     # K4, the masked block-SpGEMM: at the matrix lane's gathered form, on
     # ragged gathered bf16 cases, then on ragged float32 stacks
     torch.backends.cuda.matmul.allow_tf32 = False  # the yardsticks in full fp32
@@ -2058,8 +2122,6 @@ def main() -> int:
           and bool((tpv == grid_tpv).all()),
           f"triangles_per_vertex().sum() = {int(tpv.sum())} = 3 × count, "
           f"= the subgraph lane's per-vertex counts")
-    entries = {s: next(x for x in report if x["name"] == KERNELS[s]["name"])
-               for s in KERNELS}
     for strategy, entry in entries.items():
         shapes = [intersect_case(strategy, st) for st in tc.plan.stages
                   if st.strategy == strategy]

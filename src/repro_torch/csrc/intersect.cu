@@ -1,16 +1,19 @@
-// Batched sorted-list set intersection for the intersection lane, sm_90a.
+// Batched set intersection for the intersection lane, sm_90a.
 //
 // Three kernels, one per strategy of repro_torch.kernels.intersect.ops. Each
-// takes two int32 (E, W) row-major arrays u and v whose rows are sorted
-// neighbour lists, and writes the int32 (E,) per-row count. Any E >= 1 and
-// W >= 1 are accepted: a block masks its own ragged edge, so callers never
-// pad rows to a tile multiple. Row offsets are 64-bit (E * W passes 2^31 on
-// the largest buckets).
+// takes two int32 (E, W) row-major arrays u and v and writes the int32 (E,)
+// per-row count. Any E >= 1 and W >= 1 are accepted: a kernel masks its own
+// ragged edge, so callers never pad rows to a tile multiple. Row offsets are
+// 64-bit (E * W passes 2^31 on the largest buckets).
 //
-// Sentinel contract (kept exactly): in-row padding is n (u) and n + 1 (v);
-// whole padding rows are -1 (u) and -2 (v). Broadcast counts all equal
-// pairs; probe counts the u elements whose lower bound in v hits; bitmap
-// ignores ids outside [0, num_bits) on both sides.
+// What each reads of the rows' order: broadcast (K1) counts all equal
+// (u[j], v[k]) pairs and takes any rows, unsorted and with duplicates; probe
+// (K2) needs both rows sorted ascending; bitmap (K3) counts the u elements,
+// with multiplicity, whose id lies in [0, num_bits) and occurs in v, and
+// takes any u (its plain version packs v by first occurrences, so equal v
+// ids must be adjacent there; the kernel ORs bits and does not need it).
+// The engine's sentinels (in-row padding n for u and n + 1 for v, whole
+// padding rows -1 and -2) never match under any of the three.
 //
 // The C interface takes raw device pointers, ints and a cudaStream_t passed
 // as void*, and returns cudaGetLastError() after the launch, so a refused
@@ -18,12 +21,14 @@
 //
 // Bound, all three: the function must read u and v once and write the
 // counts, 2*E*W*4 + 4*E bytes, against 3.35 TB/s of HBM on an H100 SXM; the
-// (4194304, 512) bucket of the scale-18 R-MAT is about 5.1 ms. The least
-// compare work, a merge of two sorted rows, is about 2*W steps a row and is
-// far below the bytes at these widths. K2 also skips the rows whose id
-// ranges cannot meet, so it is held against the bytes it must read: whole
-// rows where the ranges overlap, the row ends elsewhere (about 3.3 ms on
-// that bucket, whose whole padding rows are 37 % of it).
+// (4194304, 512) bucket of the scale-18 R-MAT is about 5.1 ms, the grid's
+// (33554432, 8) about 0.68 ms. K1 and K3 read every row, since their
+// functions are exact for any input. The least compare work, a merge of two
+// sorted rows, is about 2*W steps a row and is far below the bytes at these
+// widths. K2 also skips the rows whose id ranges cannot meet, so it is held
+// against the bytes it must read: whole rows where the ranges overlap, the
+// row ends elsewhere (about 3.3 ms on that bucket, whose whole padding rows
+// are 37 % of it).
 
 #include <cuda_runtime.h>
 
@@ -31,13 +36,12 @@
 
 namespace {
 
-constexpr int kThreads = 256;    // threads per block, all kernels
-constexpr int kSlab = 1024;      // K1: v values staged per pass
+constexpr int kThreads = 256;    // threads per block of K1 and K2
+constexpr int kSlab = 1024;      // K1's slab route: v values staged per pass
 
-// Rows a block handles and threads per row, for a per-row extent `w` (the
-// width, or the bitmap's word count when that is larger). Narrow rows are
-// packed several to a block so that every thread has work; a row of 256 or
-// more takes a block of its own.
+// K1's slab route: rows a block handles and threads per row, for a width
+// `w`. Narrow rows are packed several to a block so that every thread has
+// work; a row of 256 or more takes a block of its own.
 struct Tiling {
   int rows;
   int tpr;
@@ -52,13 +56,151 @@ inline Tiling tiling_for(int w) {
 // K1 — broadcast compare.
 // Replaces repro/kernels/intersect/intersect.py _intersect_kernel
 // (intersect_counts_pallas). The TPU kernel compared a (TE, W) u tile with
-// 128-lane slabs of v in VMEM. Here a block takes `rows` rows; v is staged
-// in shared memory in slabs of at most kSlab values, and each thread compares
-// its u elements against the whole slab. O(W^2) compares a row, so the
-// kernel is compare-bound past small W; the auto cost model only gives it
-// rows narrower than 64, where one slab holds the row and each u element
-// is read once from global memory per slab.
+// 128-lane slabs of v in VMEM. The function is kept: each row's count of
+// all equal (u[j], v[k]) pairs, for any rows (unsorted, duplicates counted
+// pair by pair). Two routes, by width:
+//
+// W < kRegMaxWidth (64, the auto cost model's broadcast cut-off, so every
+// width auto gives K1): broadcast_reg_kernel, in registers.
+// - Bound: bytes. Every row must be read; at W = 8 a row is 64 bytes for
+//   64 compares, so HBM's rate, not the ALUs, sets the pace, and the
+//   kernel's job is to keep enough bytes in flight.
+// - Groups of G lanes, G = ceil(W/4) rounded up to a power of two, own a
+//   row; lane g of a group holds u and v ids 4g .. 4g + 3 in registers, so a
+//   warp takes 32/G rows at once (a tile). At W = 8 that is 16 rows, 512
+//   contiguous bytes of u and of v, read by one 16-byte load a lane of each.
+//   The 16-byte route needs W % 4 == 0 and both base pointers 16-byte
+//   aligned; else each id is read by a 4-byte load (odd W, views that start
+//   mid-allocation). The tail past W is masked by predicates: any int32 can
+//   be a real id, so no filler value would do.
+// - Compares: each lane takes the group's v quads in turn by __shfl_sync
+//   over the group, 16 compares a step, then the group sums by shuffles and
+//   its first lane writes the count. Where every lane of a group holds ids
+//   (ceil(W/4) a power of two: W = 8, 16, 32, ...) a lane starts with its
+//   own quad and rotates through the others, G steps; else only the first
+//   ceil(W/4) lanes hold ids and every lane takes those in turn, so no step
+//   is spent on an empty quad. No shared memory, no block barrier, no
+//   atomics.
+// - A persistent grid sized by occupancy: warp w takes tiles w, w + NW, ...
+//   and keeps the loads of its next kDepth tiles in flight in registers
+//   while it compares the current one. Every lane of a warp runs the same
+//   number of iterations (rows past E are predicated off, never branched
+//   around), so the full-mask shuffles are always converged.
+//
+// W >= 64 arrives only when broadcast is forced: broadcast_counts_kernel, the
+// first port's kernel. A block takes `rows` rows; v is staged in shared
+// memory in slabs of at most kSlab values, and each thread compares its u
+// elements against the whole slab. O(W^2) compares a row, so it is
+// compare-bound there.
 // ---------------------------------------------------------------------------
+
+constexpr int kRegMaxWidth = 64;  // K1's register route takes W below this
+constexpr int kRegDepth = 2;      // K1: tiles a warp keeps loading ahead
+
+template <bool kVec16>
+__device__ __forceinline__ int4 load_quad(const int* __restrict__ p,
+                                          long long row, long long W, int c0,
+                                          int n) {
+  int4 q = make_int4(0, 0, 0, 0);
+  if (n <= 0) return q;
+  const int* r = p + row * W + c0;
+  if constexpr (kVec16) return __ldcs(reinterpret_cast<const int4*>(r));
+  q.x = __ldcs(r);
+  if (n > 1) q.y = __ldcs(r + 1);
+  if (n > 2) q.z = __ldcs(r + 2);
+  if (n > 3) q.w = __ldcs(r + 3);
+  return q;
+}
+
+// Equal pairs between a u quad with nu valid ids and a v quad with nv.
+template <bool kVec16>
+__device__ __forceinline__ int quad_pairs(const int4& a, int nu,
+                                          const int4& b, int nv) {
+  if constexpr (kVec16) {  // W % 4 == 0: a quad is whole or empty
+    const int cnt = (a.x == b.x) + (a.x == b.y) + (a.x == b.z) + (a.x == b.w)
+                  + (a.y == b.x) + (a.y == b.y) + (a.y == b.z) + (a.y == b.w)
+                  + (a.z == b.x) + (a.z == b.y) + (a.z == b.z) + (a.z == b.w)
+                  + (a.w == b.x) + (a.w == b.y) + (a.w == b.z) + (a.w == b.w);
+    return nu > 0 && nv > 0 ? cnt : 0;
+  } else {
+    auto row = [&](int x, bool live) {
+      return live ? (nv > 0 && x == b.x) + (nv > 1 && x == b.y)
+                  + (nv > 2 && x == b.z) + (nv > 3 && x == b.w) : 0;
+    };
+    return row(a.x, nu > 0) + row(a.y, nu > 1) + row(a.z, nu > 2) +
+           row(a.w, nu > 3);
+  }
+}
+
+// Lane `src`'s quad, within groups of G lanes.
+template <int G>
+__device__ __forceinline__ int4 shfl_quad(const int4& q, int src) {
+  return make_int4(__shfl_sync(0xffffffffu, q.x, src, G),
+                   __shfl_sync(0xffffffffu, q.y, src, G),
+                   __shfl_sync(0xffffffffu, q.z, src, G),
+                   __shfl_sync(0xffffffffu, q.w, src, G));
+}
+
+template <int G, bool kVec16>
+__global__ void __launch_bounds__(kThreads)
+broadcast_reg_kernel(const int* __restrict__ u, const int* __restrict__ v,
+                     int* __restrict__ out, int E, int W) {
+  constexpr int R = 32 / G;  // rows a warp takes per tile
+  const int lane = threadIdx.x & 31;
+  const int g = lane & (G - 1);
+  const int r = lane / G;
+  const long long Wl = W;
+  // ids in this lane's quad (the same for every row, so computed once)
+  const int mine = max(0, min(4, W - 4 * g));
+  const int quads = (W + 3) / 4;  // group lanes that hold ids
+  const long long nw = (long long)gridDim.x * (kThreads / 32);
+  const long long w0 = (long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  const long long ntiles = (E + R - 1) / R;
+
+  int4 bu[kRegDepth], bv[kRegDepth];
+#pragma unroll
+  for (int d = 0; d < kRegDepth; ++d) {
+    const long long row = (w0 + d * nw) * R + r;
+    const int n = row < E ? mine : 0;
+    bu[d] = load_quad<kVec16>(u, row, Wl, 4 * g, n);
+    bv[d] = load_quad<kVec16>(v, row, Wl, 4 * g, n);
+  }
+  for (long long t = w0; t < ntiles; t += kRegDepth * nw) {
+#pragma unroll
+    for (int d = 0; d < kRegDepth; ++d) {
+      const int4 cu = bu[d];
+      const int4 cv = bv[d];
+      const long long row = (t + d * nw) * R + r;
+      const int nu = row < E ? mine : 0;
+      {  // refill the slot with the tile kRegDepth ahead
+        const long long ahead = (t + (kRegDepth + d) * nw) * R + r;
+        const int n = ahead < E ? mine : 0;
+        bu[d] = load_quad<kVec16>(u, ahead, Wl, 4 * g, n);
+        bv[d] = load_quad<kVec16>(v, ahead, Wl, 4 * g, n);
+      }
+      int cnt = 0;
+      if (quads == G) {  // every lane of a group holds ids: rotate them
+        cnt = quad_pairs<kVec16>(cu, nu, cv, mine);
+#pragma unroll 7
+        for (int s = 1; s < G; ++s) {
+          const int src = (g + s) & (G - 1);
+          cnt += quad_pairs<kVec16>(cu, nu, shfl_quad<G>(cv, src),
+                                    max(0, min(4, W - 4 * src)));
+        }
+      } else {  // only the first `quads` lanes do: each lane takes them in turn
+#pragma unroll 4
+        for (int s = 0; s < quads; ++s)
+          cnt += quad_pairs<kVec16>(cu, nu, shfl_quad<G>(cv, s),
+                                    min(4, W - 4 * s));
+      }
+#pragma unroll
+      for (int o = G / 2; o > 0; o >>= 1)
+        cnt += __shfl_xor_sync(0xffffffffu, cnt, o);
+      if (g == 0 && row < E) out[row] = cnt;
+    }
+  }
+}
+
 __global__ void broadcast_counts_kernel(const int* __restrict__ u,
                                         const int* __restrict__ v,
                                         int* __restrict__ out, int E, int W,
@@ -363,128 +505,286 @@ probe_merge_kernel(const int* __restrict__ u, const int* __restrict__ v,
 // Replaces repro/kernels/intersect/bitmap.py _bitmap_kernel
 // (intersect_counts_bitmap_pallas, body _pack_and_probe). The TPU kernel
 // summed first-occurrence bits word by word into (TE, num_bits/32) words.
-// Here each row owns num_bits/32 words of shared memory (8 KB at the 65536
-// cap): clear, atomicOr the bit of every in-range v (OR is idempotent, so
-// no first-occurrence pass), sync, then test every in-range u. One HBM read
-// of u and v a row; the bitmap never leaves the SM.
+// The function is kept: each row's count of the u elements, with
+// multiplicity, whose id lies in [0, num_bits) and occurs in v.
+//
+// Bound: bytes (every row is read once; a row costs O(W) shared-memory
+// operations, far below its bytes).
+//
+// Design, against what held the one-bitmap-a-row kernel back (each row
+// cleared all num_bits/32 words and passed two block barriers, so a W = 8
+// row cleared ~135 words for each id it tested):
+// - One bitmap a warp, num_bits/32 words of shared memory (8 KB at the
+//   65536 cap), zeroed once at the start of the launch. A warp takes whole
+//   rows: it sets v's in-range bits with atomicOr (two lanes can hit one
+//   word; OR is idempotent, so duplicates need no first-occurrence pass),
+//   __syncwarp, tests u's in-range ids, __syncwarp, clears only the words
+//   that v set by walking v again from registers, __syncwarp. A row costs
+//   O(W) and no block barrier; the last barrier keeps the clear apart from
+//   the next row's set.
+// - Lane l holds ids l, l + 32, ... of the row: K a lane, K = ceil(W/32)
+//   rounded up to a power of two, at most kBitmapMaxK (8: more registers
+//   a thread cost more in occupancy than the chunks below cost in loads).
+//   Rows wider than 32 * kBitmapMaxK take further chunks of the row
+//   inline; their clear zeroes the whole bitmap where it has at most
+//   kClearAllWords words an id of the row (stores are cheaper than reading
+//   v again from L2), else walks v again.
+// - A persistent grid of kBitmapThreads-thread blocks, sized by occupancy
+//   at the launch's shared bytes: warp w takes rows w, w + NW, ... and
+//   issues the next row's loads of u and v before the current row's set
+//   and test. Ids outside [0, num_bits) are masked, so padding lanes load
+//   -1.
+// - Ids equal to the row's last id are set and cleared by its last slot
+//   alone: the engine's rows end in a run of the padding sentinel, which
+//   its n + 2 bits cover, and the run's atomicOr to one word would
+//   otherwise be serialized lane by lane.
 // ---------------------------------------------------------------------------
-__global__ void bitmap_counts_kernel(const int* __restrict__ u,
-                                     const int* __restrict__ v,
-                                     int* __restrict__ out, int E, int W,
-                                     int num_bits, int rows, int tpr) {
-  extern __shared__ unsigned int words[];  // rows * nwords, then rcount
-  const int nwords = num_bits >> 5;
-  int* rcount = reinterpret_cast<int*>(words + rows * nwords);
-  const int lr = threadIdx.x / tpr;
-  const int lane = threadIdx.x - lr * tpr;
-  const long long row0 = (long long)blockIdx.x * rows;
-  const long long row = row0 + lr;
-  const bool active = lr < rows && row < E;
-  unsigned int* bits = words + lr * nwords;
-  if (lr < rows)
-    for (int k = lane; k < nwords; k += tpr) bits[k] = 0u;
-  if (threadIdx.x < rows) rcount[threadIdx.x] = 0;
-  __syncthreads();
-  if (active) {
-    const int* vr = v + row * W;
-    for (int j = lane; j < W; j += tpr) {
-      const int x = vr[j];
-      if (x >= 0 && x < num_bits) atomicOr(&bits[x >> 5], 1u << (x & 31));
-    }
+
+constexpr int kBitmapThreads = 128;  // K3: 4 warps, 4 bitmaps a block
+constexpr int kBitmapMaxK = 8;       // K3: ids a lane holds, at most
+constexpr int kClearAllWords = 4;    // K3: words an id, at most, to clear all
+
+template <int K>
+__device__ __forceinline__ void load_ids(const int* __restrict__ p,
+                                         long long row, long long E,
+                                         long long W, int c0, int lane,
+                                         int (&x)[K]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int c = c0 + lane + 32 * k;
+    x[k] = row < E && c < W ? __ldg(p + row * W + c) : -1;
   }
-  __syncthreads();
-  int cnt = 0;
-  if (active) {
-    const int* ur = u + row * W;
-    for (int j = lane; j < W; j += tpr) {
-      const int x = ur[j];
-      if (x >= 0 && x < num_bits) cnt += (bits[x >> 5] >> (x & 31)) & 1u;
-    }
-  }
-  if (active && cnt) atomicAdd(&rcount[lr], cnt);
-  __syncthreads();
-  if (threadIdx.x < rows && row0 + threadIdx.x < E)
-    out[row0 + threadIdx.x] = rcount[threadIdx.x];
 }
 
+template <int K>
+__global__ void __launch_bounds__(kBitmapThreads)
+bitmap_warp_kernel(const int* __restrict__ u, const int* __restrict__ v,
+                   int* __restrict__ out, int E, int W, int num_bits) {
+  extern __shared__ unsigned int bsmem[];
+  constexpr int C = 32 * K;  // ids of a row a lane's registers hold
+  const int lane = threadIdx.x & 31;
+  const int nwords = num_bits >> 5;
+  unsigned int* bits = bsmem + (size_t)(threadIdx.x >> 5) * nwords;
+  const unsigned int ubits = static_cast<unsigned int>(num_bits);
+  for (int k = lane; k < nwords; k += 32) bits[k] = 0u;
+  __syncwarp();
+  const long long Wl = W;
+  const long long nw = (long long)gridDim.x * (kBitmapThreads / 32);
+  const bool wide = W > C;
+  const bool clear_all = wide && nwords <= kClearAllWords * W;
+
+  // An id equal to the row's last one is left to the last slot: a sorted
+  // row's padding run (in range when num_bits covers the sentinels, as the
+  // engine's n + 2 does) would otherwise send all its lanes' atomicOr to
+  // one word, one after another.
+  int last = -1;
+  auto owns = [&](int x, int c) { return x != last || c == W - 1; };
+  auto set = [&](int x, int c) {
+    if (static_cast<unsigned int>(x) < ubits && owns(x, c))
+      atomicOr(&bits[x >> 5], 1u << (x & 31));
+  };
+  auto test = [&](int x) -> int {
+    return static_cast<unsigned int>(x) < ubits ? (bits[x >> 5] >> (x & 31)) & 1u : 0;
+  };
+  auto clear = [&](int x, int c) {
+    if (static_cast<unsigned int>(x) < ubits && owns(x, c)) bits[x >> 5] = 0u;
+  };
+  auto load_last = [&](long long r) {
+    return r < E ? __ldg(v + r * Wl + W - 1) : -1;
+  };
+
+  long long row = (long long)blockIdx.x * (kBitmapThreads / 32) + (threadIdx.x >> 5);
+  int nu[K], nv[K];
+  load_ids<K>(u, row, E, Wl, 0, lane, nu);
+  load_ids<K>(v, row, E, Wl, 0, lane, nv);
+  int nlast = load_last(row);
+  for (; row < E; row += nw) {
+    int cu[K], cv[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      cu[k] = nu[k];
+      cv[k] = nv[k];
+    }
+    load_ids<K>(u, row + nw, E, Wl, 0, lane, nu);  // the next row, ahead
+    load_ids<K>(v, row + nw, E, Wl, 0, lane, nv);
+    last = nlast;
+    nlast = load_last(row + nw);
+#pragma unroll
+    for (int k = 0; k < K; ++k) set(cv[k], lane + 32 * k);
+    for (int c0 = C; c0 < W; c0 += C) {
+      int x[K];
+      load_ids<K>(v, row, E, Wl, c0, lane, x);
+#pragma unroll
+      for (int k = 0; k < K; ++k) set(x[k], c0 + lane + 32 * k);
+    }
+    __syncwarp();
+    int cnt = 0;
+#pragma unroll
+    for (int k = 0; k < K; ++k) cnt += test(cu[k]);
+    for (int c0 = C; c0 < W; c0 += C) {
+      int x[K];
+      load_ids<K>(u, row, E, Wl, c0, lane, x);
+#pragma unroll
+      for (int k = 0; k < K; ++k) cnt += test(x[k]);
+    }
+    __syncwarp();
+    if (clear_all) {
+      for (int k = lane; k < nwords; k += 32) bits[k] = 0u;
+    } else {
+#pragma unroll
+      for (int k = 0; k < K; ++k) clear(cv[k], lane + 32 * k);
+      for (int c0 = C; c0 < W; c0 += C) {
+        int x[K];
+        load_ids<K>(v, row, E, Wl, c0, lane, x);
+#pragma unroll
+        for (int k = 0; k < K; ++k) clear(x[k], c0 + lane + 32 * k);
+      }
+    }
+    __syncwarp();
+    cnt = __reduce_add_sync(0xffffffffu, cnt);
+    if (lane == 0) out[row] = cnt;
+  }
+}
+
+// K1's slab route: blocks of `rows` rows that cover E rows.
 inline unsigned int blocks_for(int E, int rows) {
   return (unsigned int)((E + (long long)rows - 1) / rows);
 }
 
-// K2's launch facts, read from the driver once and kept: a device's SM
-// count and opt-in shared-memory cap (on first sight of a device both
-// routes' dynamic shared-memory limit is raised to that cap), and the
-// blocks an SM holds for each (device, route, shared bytes). A launch then
-// makes no driver query but cudaGetDevice.
-struct ProbeDevice {
+// Launch facts of the persistent kernels (K1's register route, K2, K3),
+// asked of the CUDA runtime once and kept: a device's SM count and opt-in
+// shared-memory cap (on first sight of a device, K2's and K3's dynamic
+// shared-memory limit is raised to that cap, before any launch there), and
+// the blocks an SM holds for each (device, kernel, shared bytes). A launch
+// then makes no runtime query but cudaGetDevice.
+struct DeviceFacts {
   int sms = 0;
   int optin = 0;
 };
 
-struct ProbeOccupancy {
+struct Occupancy {
   int dev;
-  bool staged;
+  const void* fn;
   size_t smem;
   int per_sm;
 };
 
 using ProbeKernel = void (*)(const int*, const int*, int*, int, int, int,
                              int);
+using BroadcastKernel = void (*)(const int*, const int*, int*, int, int);
+using BitmapKernel = void (*)(const int*, const int*, int*, int, int, int);
 
 inline ProbeKernel probe_kernel(bool staged) {
   return staged ? probe_merge_kernel<true> : probe_merge_kernel<false>;
 }
 
-constexpr int kProbeDevices = 64;     // devices whose facts are kept
-constexpr int kProbeOccupancies = 64; // (device, route, bytes) kept
+template <bool kVec16>
+inline BroadcastKernel broadcast_reg_for(int groups) {
+  switch (groups) {
+    case 1: return broadcast_reg_kernel<1, kVec16>;
+    case 2: return broadcast_reg_kernel<2, kVec16>;
+    case 4: return broadcast_reg_kernel<4, kVec16>;
+    case 8: return broadcast_reg_kernel<8, kVec16>;
+    default: return broadcast_reg_kernel<16, kVec16>;
+  }
+}
 
-std::mutex probe_facts_mu;
-ProbeDevice probe_devices[kProbeDevices];
-ProbeOccupancy probe_occupancies[kProbeOccupancies];
-int probe_occupancy_count = 0;
+// K1's register route for W < kRegMaxWidth: groups of ceil(W/4) lanes,
+// rounded up to a power of two.
+inline int reg_groups(int W) {
+  int groups = 1;
+  while (groups * 4 < W) groups <<= 1;
+  return groups;
+}
 
-cudaError_t probe_device(int dev, ProbeDevice* out) {
-  std::lock_guard<std::mutex> lock(probe_facts_mu);
-  const bool kept = dev >= 0 && dev < kProbeDevices;
-  if (kept && probe_devices[dev].sms > 0) {
-    *out = probe_devices[dev];
+// K3's instances, K = 1, 2, 4, ..., kBitmapMaxK.
+const BitmapKernel kBitmapKernels[] = {
+    bitmap_warp_kernel<1>, bitmap_warp_kernel<2>, bitmap_warp_kernel<4>,
+    bitmap_warp_kernel<kBitmapMaxK>};
+static_assert(kBitmapMaxK == 8, "kBitmapKernels lists K = 1 ... kBitmapMaxK");
+
+// K3's instance: K = ceil(W/32) ids a lane, rounded up to a power of two,
+// at most kBitmapMaxK.
+inline BitmapKernel bitmap_kernel(int W) {
+  int i = 0;
+  while ((32 << i) < W && (1 << i) < kBitmapMaxK) ++i;
+  return kBitmapKernels[i];
+}
+
+constexpr int kDevices = 64;      // devices whose facts are kept
+constexpr int kOccupancies = 64;  // (device, kernel, bytes) kept
+
+std::mutex facts_mu;
+DeviceFacts devices[kDevices];
+Occupancy occupancies[kOccupancies];
+int occupancy_count = 0;
+
+cudaError_t device_facts(int dev, DeviceFacts* out) {
+  std::lock_guard<std::mutex> lock(facts_mu);
+  const bool kept = dev >= 0 && dev < kDevices;
+  if (kept && devices[dev].sms > 0) {
+    *out = devices[dev];
     return cudaSuccess;
   }
-  ProbeDevice d;
+  DeviceFacts d;
   cudaError_t err =
       cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&d.optin,
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(probe_kernel(true),
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               d.optin);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(probe_kernel(false),
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               d.optin);
+  auto optin = [&](const void* fn) {
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 d.optin);
+  };
+  optin(reinterpret_cast<const void*>(probe_kernel(true)));
+  optin(reinterpret_cast<const void*>(probe_kernel(false)));
+  for (const BitmapKernel fn : kBitmapKernels)
+    optin(reinterpret_cast<const void*>(fn));
   if (err != cudaSuccess) return err;
-  if (kept) probe_devices[dev] = d;
+  if (kept) devices[dev] = d;
   *out = d;
   return cudaSuccess;
 }
 
-cudaError_t probe_blocks_per_sm(int dev, bool staged, size_t smem,
-                                int* per_sm) {
-  std::lock_guard<std::mutex> lock(probe_facts_mu);
-  for (int i = 0; i < probe_occupancy_count; ++i) {
-    const ProbeOccupancy& o = probe_occupancies[i];
-    if (o.dev == dev && o.staged == staged && o.smem == smem) {
+cudaError_t blocks_per_sm(int dev, const void* fn, int threads, size_t smem,
+                          int* per_sm) {
+  std::lock_guard<std::mutex> lock(facts_mu);
+  for (int i = 0; i < occupancy_count; ++i) {
+    const Occupancy& o = occupancies[i];
+    if (o.dev == dev && o.fn == fn && o.smem == smem) {
       *per_sm = o.per_sm;
       return cudaSuccess;
     }
   }
-  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, probe_kernel(staged), kThreads, smem);
-  if (err == cudaSuccess && probe_occupancy_count < kProbeOccupancies)
-    probe_occupancies[probe_occupancy_count++] = {dev, staged, smem, *per_sm};
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, threads, smem);
+  if (err == cudaSuccess && occupancy_count < kOccupancies)
+    occupancies[occupancy_count++] = {dev, fn, smem, *per_sm};
   return err;
+}
+
+cudaError_t current_device(int* dev, DeviceFacts* d) {
+  const cudaError_t err = cudaGetDevice(dev);
+  return err == cudaSuccess ? device_facts(*dev, d) : err;
+}
+
+// A persistent grid: as many blocks of `threads` as an SM of device `dev`
+// holds of `fn` at `smem` shared bytes, times the SMs, but no more than
+// `wanted`.
+cudaError_t persistent_grid(int dev, const DeviceFacts& d, const void* fn,
+                            int threads, size_t smem, long long wanted,
+                            unsigned int* grid) {
+  int per_sm = 0;
+  const cudaError_t err = blocks_per_sm(dev, fn, threads, smem, &per_sm);
+  if (err != cudaSuccess) return err;
+  const long long resident = (long long)(per_sm > 0 ? per_sm : 1) * d.sms;
+  *grid = (unsigned int)(wanted < resident ? wanted : resident);
+  return cudaSuccess;
+}
+
+inline bool aligned16(const int* u, const int* v) {
+  return ((reinterpret_cast<size_t>(u) | reinterpret_cast<size_t>(v)) & 15) == 0;
 }
 
 }  // namespace
@@ -493,10 +793,28 @@ extern "C" {
 
 int tc_broadcast_counts(const int* u, const int* v, int* out, int E, int W,
                         void* stream) {
-  const Tiling t = tiling_for(W);
-  broadcast_counts_kernel<<<blocks_for(E, t.rows), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      u, v, out, E, W, t.rows, t.tpr);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (W >= kRegMaxWidth) {  // forced broadcast on wide rows: the slab kernel
+    const Tiling t = tiling_for(W);
+    broadcast_counts_kernel<<<blocks_for(E, t.rows), kThreads, 0, st>>>(
+        u, v, out, E, W, t.rows, t.tpr);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int groups = reg_groups(W);
+  const BroadcastKernel kernel =
+      W % 4 == 0 && aligned16(u, v) ? broadcast_reg_for<true>(groups)
+                                    : broadcast_reg_for<false>(groups);
+  const long long tiles = (E + 32LL / groups - 1) / (32 / groups);
+  int dev = 0;
+  DeviceFacts d;
+  unsigned int grid = 0;
+  cudaError_t err = current_device(&dev, &d);
+  if (err == cudaSuccess)
+    err = persistent_grid(dev, d, reinterpret_cast<const void*>(kernel),
+                          kThreads, 0, (tiles + kThreads / 32 - 1) / (kThreads / 32),
+                          &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kThreads, 0, st>>>(u, v, out, E, W);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -507,25 +825,20 @@ int tc_probe_counts(const int* u, const int* v, int* out, int E, int W,
     tw <<= 1;
   const int teams = kThreads / 32 / tw;
   int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  ProbeDevice d;
-  if (err == cudaSuccess) err = probe_device(dev, &d);
+  DeviceFacts d;
+  cudaError_t err = current_device(&dev, &d);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t base = sizeof(int) * kProbePartials;
   const size_t ring = sizeof(int) * (size_t)teams * kProbeStages * 2 * W;
   const bool staged = base + ring <= (size_t)d.optin;
   const size_t smem = staged ? base + ring : base;
-  const int vec16 = W % 4 == 0 && ((reinterpret_cast<size_t>(u) |
-                                    reinterpret_cast<size_t>(v)) & 15) == 0;
-  int per_sm = 0;
-  err = probe_blocks_per_sm(dev, staged, smem, &per_sm);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long batches = (E + (long long)kProbeBatch - 1) / kProbeBatch;
-  const long long wanted = (batches + teams - 1) / teams;
-  const long long resident = (long long)(per_sm > 0 ? per_sm : 1) * d.sms;
-  const unsigned int grid =
-      (unsigned int)(wanted < resident ? wanted : resident);
+  const int vec16 = W % 4 == 0 && aligned16(u, v);
   const ProbeKernel kernel = probe_kernel(staged);
+  const long long batches = (E + (long long)kProbeBatch - 1) / kProbeBatch;
+  unsigned int grid = 0;
+  err = persistent_grid(dev, d, reinterpret_cast<const void*>(kernel), kThreads,
+                        smem, (batches + teams - 1) / teams, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       u, v, out, E, W, tw, vec16);
   return static_cast<int>(cudaGetLastError());
@@ -533,12 +846,20 @@ int tc_probe_counts(const int* u, const int* v, int* out, int E, int W,
 
 int tc_bitmap_counts(const int* u, const int* v, int* out, int E, int W,
                      int num_bits, void* stream) {
-  const int nwords = num_bits >> 5;
-  const Tiling t = tiling_for(W > nwords ? W : nwords);
-  const size_t smem = sizeof(unsigned int) * ((size_t)t.rows * nwords + t.rows);
-  bitmap_counts_kernel<<<blocks_for(E, t.rows), kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      u, v, out, E, W, num_bits, t.rows, t.tpr);
+  constexpr int warps = kBitmapThreads / 32;
+  const size_t smem = sizeof(unsigned int) * (size_t)warps * (num_bits >> 5);
+  const BitmapKernel kernel = bitmap_kernel(W);
+  int dev = 0;
+  DeviceFacts d;
+  unsigned int grid = 0;
+  cudaError_t err = current_device(&dev, &d);
+  if (err == cudaSuccess)
+    err = persistent_grid(dev, d, reinterpret_cast<const void*>(kernel),
+                          kBitmapThreads, smem,
+                          (E + (long long)warps - 1) / warps, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kBitmapThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      u, v, out, E, W, num_bits);
   return static_cast<int>(cudaGetLastError());
 }
 

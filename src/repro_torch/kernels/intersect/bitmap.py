@@ -3,7 +3,9 @@
 TRUST-style dense core: pack each v row into ``num_bits/32`` words (bit i
 set iff id i is in the row), then test each u element with one word gather
 plus shift/AND. K3 of the port: ``intersect_counts_bitmap_kernel`` launches
-the CUDA kernel ``bitmap_counts_kernel`` (``csrc/intersect.cu``), which
+the CUDA kernel ``bitmap_warp_kernel`` (``csrc/intersect.cu``: one bitmap a
+warp in shared memory for the whole launch, set from v's row, tested by u's,
+then cleared word by word from v's row again, so a row costs O(W)), which
 replaces the TPU kernel ``_bitmap_kernel`` /
 ``intersect_counts_bitmap_pallas`` of ``repro/kernels/intersect/bitmap.py``.
 ``intersect_counts_bitmap`` is its plain torch version.
@@ -12,7 +14,10 @@ Contract (shared by the kernel, the plain version and the numpy ref):
 
 * rows sorted ascending: real values strictly increasing, then a run of one
   repeated padding sentinel. Strictness lets the plain packer add bits
-  instead of OR-ing them (each kept value owns a distinct bit).
+  instead of OR-ing them (each kept value owns a distinct bit); what it
+  needs is that equal v ids are adjacent. The kernel ORs bits and reads no
+  order, and u may be in any order on every path: each u element counts,
+  with multiplicity, if its id is in v.
 * values outside ``[0, num_bits)`` never match, on either side. Callers
   that need exact agreement with the other strategies choose
   ``num_bits`` ≥ the id range (the engine uses ``n + 2``).
@@ -34,7 +39,7 @@ __all__ = [
 ]
 
 # hard cap on any bitmap's capacity: the kernel keeps num_bits/32 words a
-# row in shared memory (8 KB at the cap), and the reference refuses larger
+# warp in shared memory (8 KB at the cap), and the reference refuses larger
 # bitmaps the same way
 BITMAP_MAX_BITS = 1 << 16
 
@@ -115,7 +120,7 @@ def intersect_counts_bitmap_kernel(u_lists: torch.Tensor, v_lists: torch.Tensor,
       u_lists, v_lists: (E, W) int32, contiguous, rows sorted (see the
         module contract); any E and W.
       num_bits: bitmap capacity, a positive multiple of 32 (the kernel
-        keeps ``num_bits/32`` words a row in shared memory, so it is
+        keeps ``num_bits/32`` words a warp in shared memory, so it is
         capped at ``BITMAP_MAX_BITS``).
 
     Returns:
@@ -129,7 +134,7 @@ def intersect_counts_bitmap_kernel(u_lists: torch.Tensor, v_lists: torch.Tensor,
     num_bits = _check_bits(num_bits)
     if num_bits > BITMAP_MAX_BITS:
         raise ValueError(f"num_bits={num_bits} exceeds BITMAP_MAX_BITS="
-                         f"{BITMAP_MAX_BITS} (the kernel's shared-memory row)")
+                         f"{BITMAP_MAX_BITS} (the kernel's shared-memory bitmap)")
     if u_lists.device.type == "cpu":
         return intersect_counts_bitmap(u_lists, v_lists, num_bits=num_bits)
     return _launch.launch_counts("bitmap", u_lists, v_lists, num_bits)

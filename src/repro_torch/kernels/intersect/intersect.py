@@ -1,11 +1,19 @@
 """Broadcast-compare set intersection (the ``broadcast`` strategy).
 
-K1 of the port: ``intersect_counts_kernel`` launches the CUDA kernel
-``broadcast_counts_kernel`` (``csrc/intersect.cu``), which replaces the TPU
-kernel ``_intersect_kernel`` / ``intersect_counts_pallas`` of
-``repro/kernels/intersect/intersect.py``. ``intersect_counts_broadcast`` is
-its plain torch version: the same O(W²) compare, in row chunks that bound
-the (rows, W, W) compare tensor.
+K1 of the port: ``intersect_counts_kernel`` launches the CUDA kernel of
+``csrc/intersect.cu`` that replaces the TPU kernel ``_intersect_kernel`` /
+``intersect_counts_pallas`` of ``repro/kernels/intersect/intersect.py``:
+``broadcast_reg_kernel`` for W < 64 (every width the ``auto`` cost model
+gives this strategy; rows held in registers by groups of lanes, 16-byte
+loads where W % 4 == 0 and both arrays are 16-byte aligned), and the slab
+kernel ``broadcast_counts_kernel`` for wider rows, which only a forced
+strategy sends. ``intersect_counts_broadcast`` is its plain torch version:
+the same O(W²) compare, in row chunks that bound the (rows, W, W) compare
+tensor.
+
+The function reads no order: each row's count of all equal (u[j], v[k])
+pairs, for any rows, unsorted and with duplicates counted pair by pair,
+as the TPU kernel computes it.
 """
 
 from __future__ import annotations
@@ -40,8 +48,9 @@ def intersect_counts_kernel(u_lists: torch.Tensor,
     on a CPU tensor.
 
     Args:
-      u_lists, v_lists: (E, W) int32, contiguous, rows sorted with disjoint
-        padding sentinels; any E and W.
+      u_lists, v_lists: (E, W) int32, contiguous; any E and W, and any
+        rows: unsorted, with duplicates (each equal pair counts once).
+        The engine's disjoint padding sentinels never match.
 
     Returns:
       (E,) int32 counts.

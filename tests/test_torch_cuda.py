@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import hash_rows
+import intersect_rows
 import probe_rows
 
 from repro_torch.core import (TriangleCounter, subgraph_match_triangle,
@@ -129,6 +130,56 @@ def test_probe_kernel_empty_launches_nothing(cuda):
     reset_launch_counts()
     out = intersect_counts_probe_kernel(u[:0], v[:0])
     assert out.shape == (0,) and LAUNCHES["probe"] == 0
+
+
+def _on_card(cuda, make, case):
+    name, e, w = case
+    u_np, v_np, bits = intersect_rows.tiled(make, name, e, w, seed=e + w)
+    return (torch.from_numpy(u_np).to(cuda), torch.from_numpy(v_np).to(cuda),
+            bits)
+
+
+@pytest.mark.parametrize("case", intersect_rows.CARD_CASES,
+                         ids=["{}-{}x{}".format(*c) for c in intersect_rows.CARD_CASES])
+def test_broadcast_kernel_on_row_families(cuda, case):
+    """K1 equals its plain version exactly (tolerance 0) on every family of
+    ``intersect_rows`` (unsorted rows, duplicates, any int32 id, W from 1 to
+    63, E past one sweep of the persistent grid), one launch a call, on the
+    rows as allocated (the 16-byte route where W % 4 == 0) and on a view
+    that starts mid-allocation (the 4-byte route)."""
+    u, v, _ = _on_card(cuda, intersect_rows.family, case)
+    want = intersect_counts_broadcast(u, v)
+    reset_launch_counts()
+    got = intersect_counts_kernel(u, v)
+    torch.cuda.synchronize()
+    assert LAUNCHES["broadcast"] == 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    uo, vo = probe_rows.offset_view(u), probe_rows.offset_view(v)
+    assert uo.data_ptr() % 16 and uo.is_contiguous()
+    assert torch.equal(intersect_counts_kernel(uo, vo), want)
+    assert LAUNCHES["broadcast"] == 2
+
+
+@pytest.mark.parametrize("case", intersect_rows.CARD_CASES
+                         + intersect_rows.BITMAP_WIDE_CASES,
+                         ids=["{}-{}x{}".format(*c) for c in intersect_rows.CARD_CASES
+                              + intersect_rows.BITMAP_WIDE_CASES])
+def test_bitmap_kernel_on_row_families(cuda, case):
+    """K3 equals its plain version exactly on the same families (v's equal
+    ids adjacent, as the plain packer needs) and on its wide rows, at the
+    family's capacity (a wide row's clear zeroes the whole bitmap) and at
+    the 65536-bit cap (8 KB a warp; rows of 257 to 511 ids walk v again to
+    clear), aligned and mid-allocation."""
+    u, v, bits = _on_card(cuda, intersect_rows.bitmap_family, case)
+    uo, vo = probe_rows.offset_view(u), probe_rows.offset_view(v)
+    for nb in (bits, 1 << 16):
+        want = intersect_counts_bitmap(u, v, num_bits=nb)
+        reset_launch_counts()
+        for a, b in ((u, v), (uo, vo)):
+            got = intersect_counts_bitmap_kernel(a, b, num_bits=nb)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.int32 and torch.equal(got, want), nb
+        assert LAUNCHES["bitmap"] == 2
 
 
 @pytest.mark.parametrize("query", [(0, 0, 0), (0, 1, 2), (1, 1, 0), (2, 0, 1)])

@@ -4,8 +4,10 @@ Each plain torch version (and each kernel wrapper, which takes its plain
 version on a CPU tensor) must exactly equal the JAX Pallas kernel run with
 ``interpret=True`` and the reference oracles, at W ∈ {8, 32, 64, 128, 512},
 with sentinel rows and an E that is not a multiple of 256; the probe core
-also on K2's row families (``probe_rows``), the bitmap core at its
-id-range boundary. The strategy resolvers must agree with the
+also on K2's row families (``probe_rows``), the broadcast and bitmap
+cores on K1's and K3's (``intersect_rows``: unsorted rows, duplicates, ids
+outside the bitmap's range, W from 1 to 63, each also as a view that starts
+mid-allocation), the bitmap core at its id-range boundary. The strategy resolvers must agree with the
 reference on a grid, errors included.
 """
 
@@ -13,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import intersect_rows
 import probe_rows
 from torch_reference import ref  # noqa: F401
 
@@ -65,6 +68,53 @@ def test_broadcast_matches_pallas(ref, w):
                 port_ops.intersect_counts(tu, tv, strategy="broadcast")):
         assert got.dtype == torch.int32
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _as_allocated_and_offset(u, v):
+    """The pair as allocated and as views that start mid-allocation."""
+    tu, tv = torch.from_numpy(u), torch.from_numpy(v)
+    return ((tu, tv), (probe_rows.offset_view(tu), probe_rows.offset_view(tv)))
+
+
+@pytest.mark.parametrize("case", intersect_rows.CPU_CASES,
+                         ids=["{}-{}x{}".format(*c) for c in intersect_rows.CPU_CASES])
+def test_broadcast_on_row_families(ref, case):
+    """K1's function on its row families (``intersect_rows``): any rows,
+    unsorted, with duplicates counted pair by pair and any int32 id, W from
+    1 to 63, E around the rows a warp takes. The Pallas kernel in interpret
+    mode and the reference oracle against the plain version and the
+    wrapper (which takes it on a CPU tensor), aligned and offset."""
+    name, e, w = case
+    u, v, _ = intersect_rows.family(name, e, w, seed=e + w)
+    want = pallas(ref, u, v, "broadcast", tile_edges=8)
+    np.testing.assert_array_equal(want, np.asarray(ref.kref.intersect_counts_ref(u, v)))
+    for tu, tv in _as_allocated_and_offset(u, v):
+        for got in (port_intersect.intersect_counts_broadcast(tu, tv),
+                    port_intersect.intersect_counts_kernel(tu, tv)):
+            assert got.dtype == torch.int32
+            np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("case", intersect_rows.CPU_CASES,
+                         ids=["{}-{}x{}".format(*c) for c in intersect_rows.CPU_CASES])
+def test_bitmap_on_row_families(ref, case):
+    """K3's function on the same families, v's equal ids adjacent (the
+    packer's contract) but rows otherwise unsorted: the u elements, with
+    multiplicity, whose id is in [0, num_bits) and in v, at the family's
+    capacity and at one word (most ids masked). The Pallas kernel in
+    interpret mode and the set-based reference against the plain version
+    and the wrapper, aligned and offset."""
+    name, e, w = case
+    u, v, bits = intersect_rows.bitmap_family(name, e, w, seed=e + w)
+    for nb in sorted({bits, 32}):
+        want = pallas(ref, u, v, "bitmap", bitmap_bits=nb, tile_edges=8)
+        np.testing.assert_array_equal(
+            want, ref.bitmap.intersect_counts_bitmap_ref(u, v, num_bits=nb))
+        for tu, tv in _as_allocated_and_offset(u, v):
+            for got in (port_bitmap.intersect_counts_bitmap(tu, tv, num_bits=nb),
+                        port_bitmap.intersect_counts_bitmap_kernel(tu, tv,
+                                                                   num_bits=nb)):
+                np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("case", WIDTHS + [
