@@ -79,6 +79,34 @@ source, all started together), and runs, in order:
    read (``hash_read_bound``) beside PR 13's all-bytes bound, the rows
    whose row end is 0, and the build's registers and spills (none may
    spill);
+3g. tiled counting: the pinned host-to-device rate (1 GiB, median of 5),
+   then ``TriangleCounter(rmat_graph(18, 16, seed=1),
+   max_device_bytes=1 << 30)``: its (2097152, 128) bucket streams in 4
+   chunks of 524,288 rows and its (4194304, 512) bucket in 32 of 131,072,
+   19.33 GB of u and v a count, from pinned host memory, against 82,629,122
+   and phase 2's per-vertex counts, with no cache miss over three warm
+   replays and the launch counters read around it; its warm ``count()``
+   beside the streamed bytes over the measured rate, and the session's own
+   peak; the phase-3c grid through the subgraph lane under the same budget
+   (K1 on its chunks) against 17,988,002 and phase 3c's per-vertex counts;
+   each chunk shape (its first and last chunk) held against the plain
+   version, exactly, and timed;
+3h. beyond the card: ``rmat_graph(20, 16, seed=1)`` under 8 GiB when the
+   host has 128 GiB or more (its buckets pin 80.14 GiB), else
+   ``rmat_graph(19, 16, seed=1)`` under 4 GiB (32.06 GiB pinned), against
+   the forward scipy oracle (timed), with the session's own peak and the
+   warm ``count()`` beside its bound;
+3i. the tiled matrix lane: orkut-like with ``max_device_bytes=1 << 30``:
+   22 chunks of 4,096 triples, each with its own bf16 tiles, against
+   13,038,569, 22 tensor-core launches a count, the bytes it streams, and
+   its first and last chunk held against the plain version;
+3j. batching: ``count_many`` over R-MAT scales 10–14 (seeds 0–63, edge
+   factor 16) and the non-tiny analogues at ``batch_size=16``, each count
+   against ``triangle_count_scipy`` and a per-graph ``TriangleCounter``,
+   one intersection launch per width per batch, no cache miss on a second
+   pass, its wall time beside the per-graph loop's; a forced-bitmap batch
+   for K3; the first batch's stacked shapes held against the plain
+   versions;
 3e. the bfs lane: the phase-3c grid again with ``algorithm="bfs"`` (about
    3,000 BFS rounds) against 17,988,002 and phase 3c's per-vertex counts,
    with the intersection kernels' counters read around it and each of its
@@ -127,11 +155,13 @@ source, all started together), and runs, in order:
 5. a ``{"kernels": [...]}`` line, the card's name and power limit from
    nvidia-smi, and a last line ``{"ok": true, "device": {...}}``.
 
-The phases run in the order 1, 2, 3, 3b, 3c, 4, 3d, 4b, 3e, 3f, 4c, 5:
-phase 4 needs the earlier lanes' plans (about 40 GiB), so the new lanes
-wait until it has released them (phase 4b holds the hash paths' stages
-and releases them before the bfs lane), and the serving slice runs once
-every graph plan is gone.
+The phases run in the order 1, 2, 3, 3b, 3c, 4, 3d, 4b, 3g–3j, 3e, 3f,
+4c, 5: phase 4 needs the earlier lanes' plans (about 40 GiB), so the new
+lanes wait until it has released them (phase 4b holds the hash paths'
+stages and releases them before the tiled phases, which free their pinned
+host memory before the next), and the serving slice runs once every graph
+plan is gone. The kernels line's K1–K4 entries carry the tiled and batch
+shapes under ``tiled_path`` and ``batch_path``.
 
 Any failed check raises, so the script exits non-zero and prints no last
 line. Without a CUDA device, or outside a checkout, it exits 2 at once.
@@ -159,6 +189,9 @@ EXPECTED_SCALE17 = 36_128_651
 EXPECTED_ORKUT = 13_038_569
 EXPECTED_K512 = math.comb(512, 3)  # 22,238,720
 GRID_SIDE = 3000
+# the device budget of phases 3g and 3i, and of phase 3h by scale
+TILE_BUDGET = 1 << 30
+BEYOND_BUDGET = {20: 8 << 30, 19: 4 << 30}
 HASH_HOST_PREP = ("coauthors-like", "citpatents-like")  # also host-prepped
 # the hash lane's own peak at scale 17 with the dense (131072, 512, 64)
 # table (NVIDIA H100 80GB HBM3, 700.00 W, PR 13): the compact lane must stay
@@ -882,6 +915,412 @@ def hash_phase(torch, np, dev, flush, analogues, truths) -> dict:
 
 
 
+def host_memory_gib() -> float:
+    """MemTotal of /proc/meminfo, in GiB (0 where the file is missing)."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemTotal:"):
+                    return int(line.split()[1]) * 1024 / 2**30
+    except OSError:
+        pass
+    return 0.0
+
+
+def h2d_rate(torch, dev) -> float:
+    """Pinned host-to-device copy rate in bytes/s: 1 GiB, CUDA events,
+    median of 5 after a warm-up."""
+    src = torch.empty(1 << 30, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    dst.copy_(src, non_blocking=True)
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dst.copy_(src, non_blocking=True)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) * 1e-3)
+    del src, dst
+    return (1 << 30) / statistics.median(times)
+
+
+def release_host_memory(torch) -> None:
+    """Free dropped plans and hand PyTorch's cached pinned host blocks back
+    to the system (the next phase pins its own)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    if empty is not None:
+        empty()
+
+
+def tiled_batch_phase(torch, np, dev, ctx) -> None:
+    """Phases 3g-3j: tiled counting over a device budget (scale 18, the
+    grid through the subgraph lane, R-MAT scale 20 or 19 beyond the card,
+    the matrix lane) and batched ``count_many``; each new chunk and batch
+    shape of K1-K4 held against its plain version. Adds ``tiled_path`` /
+    ``batch_path`` records to the kernels' entries in ``ctx``."""
+    import types
+
+    from repro_torch.core import (GraphBatch, TriangleCounter,
+                                  executable_cache_info,
+                                  triangle_count_forward_scipy,
+                                  triangle_count_scipy)
+    from repro_torch.core.engine import _TiledStage
+    from repro_torch.graphs import load_dataset, rmat_graph
+    from repro_torch.kernels.intersect import LAUNCHES, reset_launch_counts
+    from repro_torch.kernels.masked_spgemm import LAUNCHES as MS_LAUNCHES
+    from repro_torch.kernels.masked_spgemm import (
+        masked_spgemm_gathered, masked_spgemm_gathered_chunked)
+    from repro_torch.kernels.masked_spgemm import \
+        reset_launch_counts as reset_ms_launch_counts
+
+    entries, intersect_case = ctx["entries"], ctx["intersect_case"]
+    flush = ctx["flush"]
+
+    def tiled_stages(tc):
+        return [st for st in tc.plan.stages if isinstance(st, _TiledStage)]
+
+    def hold_chunks(st, label):
+        """The stage's first and last chunk on the card, each held against
+        the plain version exactly (the last carries the tail's padding
+        rows, padded at launch as ``run()`` pads them); the first is timed
+        as ``intersect_case`` times a path shape. Returns its record."""
+        rec = None
+        for chunk in (st.chunks[0], st.chunks[-1]):
+            u, v = (x.to(dev) for x in chunk)
+            short = st.chunk_rows - u.shape[0]
+            if short:
+                u = torch.cat([u, u.new_full((short, u.shape[1]), -1)])
+                v = torch.cat([v, v.new_full((short, v.shape[1]), -2)])
+            if rec is None:
+                rec = intersect_case(st.strategy, types.SimpleNamespace(
+                    args=(u, v), bitmap_bits=st.bitmap_bits))
+                rec.update(label=label, of=list(st.shape_key),
+                           num_chunks=st.num_chunks)
+                continue
+            kern, plain = ctx["wrappers"][st.strategy]
+            kw = dict(num_bits=st.bitmap_bits) \
+                if st.strategy == "bitmap" else {}
+            err = int((kern(u, v, **kw).long()
+                       - plain(u, v, **kw).long()).abs().max())
+            torch.cuda.synchronize()
+            check(err == 0, f"{st.strategy} kernel == plain on the last chunk "
+                            f"of {label} {st.shape_key}")
+        return rec
+
+    def add_path(entry, key, path, launches, shapes, **extra):
+        rec = entry.setdefault(key, dict(path=[], launches=0, shapes=[]))
+        rec["path"].append(path)
+        rec["launches"] += launches
+        rec["shapes"] += shapes
+        rec.update(extra)
+        entry["max_abs_err"] = max([entry["max_abs_err"]]
+                                   + [x["max_abs_err"] for x in shapes])
+
+    def hold_tiled(tc, label, launches, **extra):
+        """Every tiled stage's chunks held and timed, recorded per kernel."""
+        by_strategy = {}
+        for st in tiled_stages(tc):
+            by_strategy.setdefault(st.strategy, []).append(
+                hold_chunks(st, label))
+        for strategy, shapes in by_strategy.items():
+            add_path(entries[strategy], "tiled_path", label,
+                     launches[strategy], shapes, **extra)
+
+    # -- phase 3g: the tiled main path ----------------------------------------
+    phase("phase 3g: tiled main path, TriangleCounter(rmat_graph(18, 16, "
+          "seed=1), max_device_bytes=1 << 30)")
+    rate = h2d_rate(torch, dev)
+    print(f"pinned host-to-device rate: {rate / 1e9:.2f} GB/s (1 GiB, CUDA "
+          f"events, median of 5)")
+    g = rmat_graph(18, 16, seed=1)  # phase 2 checked its oracle
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    tc = TriangleCounter(g, max_device_bytes=TILE_BUDGET)
+    first = tc.count()
+    misses = executable_cache_info()["misses"]
+    warm = [tc.count() for _ in range(3)]
+    replay_misses = executable_cache_info()["misses"] - misses
+    launches = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    tpv = tc.triangles_per_vertex()
+    tpv_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    m = first.meta
+    streamed = m["streamed_bytes"]
+    bound_s = streamed / rate
+    warm_s = statistics.median(r.exec_seconds for r in warm)
+    print(f"buckets={m['bucket_shapes']} strategies={first.bucket_strategies} "
+          f"tiled_buckets={m['tiled_buckets']} num_chunks={m['num_chunks']}")
+    print(f"prep_seconds={first.prep_seconds:.4f} (device prep; the tiled "
+          f"buckets gathered chunk by chunk into pinned host memory) first "
+          f"count() {first.exec_seconds:.4f} s; warm count() seconds "
+          f"{[round(r.exec_seconds, 6) for r in warm]} (median {warm_s:.6f}; "
+          f"resident in phase 2 {ctx['main_warm_s']:.6f}); streamed "
+          f"{streamed} bytes a count ({streamed / 1e9:.2f} GB): bound "
+          f"{bound_s:.6f} s at {rate / 1e9:.2f} GB/s, the warm count at "
+          f"{100 * bound_s / warm_s:.1f} % of it; triangles_per_vertex "
+          f"{tpv_s:.3f} s; {peak_memory(torch, held)}")
+    print(f"launches over {1 + len(warm)} count(): {launches}; cache misses "
+          f"over the three warm replays: {replay_misses}")
+    check(all(r.count == EXPECTED_SCALE18 == ctx["main_count"]
+              for r in [first] + warm),
+          f"tiled count() = {first.count} every time, = phase 2's count")
+    check(m["tiled_buckets"] == [
+        dict(shape=(2097152, 128), chunk_rows=524288, num_chunks=4),
+        dict(shape=(4194304, 512), chunk_rows=131072, num_chunks=32)]
+        and m["num_chunks"] == 36,
+        "(2097152, 128) streams in 4 chunks of 524,288 rows, (4194304, 512) "
+        "in 32 of 131,072: 36 chunks")
+    check(streamed == (2097152 * 128 + 4194304 * 512) * 8,
+          f"{streamed} bytes streamed a count: the tiled buckets' u and v")
+    check(bool((tpv == ctx["main_tpv"]).all()),
+          "triangles_per_vertex() = phase 2's, bit for bit")
+    check(replay_misses == 0, "no cache miss over three warm replays")
+    check(launches["probe"] == 36 * (1 + len(warm))
+          and launches["broadcast"] == 2 * (1 + len(warm)),
+          "36 probe launches (one a chunk) and 2 broadcast launches (the "
+          "resident W = 8 and 32 buckets) a count()")
+    hold_tiled(tc, "scale-18 tiled count(), max_device_bytes 1 GiB",
+               launches, scale18=dict(
+                   warm_count_s=warm_s,
+                   resident_warm_count_s=ctx["main_warm_s"],
+                   streamed_bytes=streamed, h2d_bytes_per_s=rate,
+                   bound_s=bound_s, peak_gib=peak,
+                   prep_s=first.prep_seconds, tpv_s=tpv_s))
+    del tc, first, warm, tpv, g
+    release_host_memory(torch)
+
+    # the grid through the subgraph lane under the same budget: K1 tiled
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    tc = TriangleCounter(ctx["grid"], max_device_bytes=TILE_BUDGET)
+    first = tc.count()
+    warm = [tc.count() for _ in range(3)]
+    launches = dict(LAUNCHES)
+    tpv = tc.triangles_per_vertex()
+    m = first.meta
+    warm_s = statistics.median(r.exec_seconds for r in warm)
+    print(f"grid, subgraph lane tiled: tiled_buckets={m['tiled_buckets']} "
+          f"buckets={m['bucket_shapes']} prep_seconds="
+          f"{first.prep_seconds:.4f}; warm count() median {warm_s:.6f} s, "
+          f"streamed {m['streamed_bytes']} bytes (bound "
+          f"{m['streamed_bytes'] / rate:.6f} s); launches {launches}; "
+          f"{peak_memory(torch, held)}")
+    check(first.algorithm == "subgraph"
+          and all(r.count == EXPECTED_GRID for r in [first] + warm)
+          and bool((tpv == ctx["grid_tpv"]).all()),
+          "the grid's tiled subgraph count = 2·2999², per-vertex = phase "
+          "3c's")
+    check(m["num_chunks"] >= 2 and launches["broadcast"] > 0,
+          f"the grid streams {m['num_chunks']} chunks through K1")
+    hold_tiled(tc, f"grid_graph({GRID_SIDE}) tiled subgraph count(), "
+                   f"max_device_bytes 1 GiB", launches,
+               grid=dict(warm_count_s=warm_s,
+                         streamed_bytes=m["streamed_bytes"],
+                         bound_s=m["streamed_bytes"] / rate))
+    del tc, first, warm, tpv
+    release_host_memory(torch)
+
+    # -- phase 3h: a graph whose buckets the card cannot hold ---------------
+    mem = host_memory_gib()
+    # scale 20 pins 80.14 GiB of buckets (84.24 GiB with the resident ones),
+    # scale 19 32.06 GiB; the oracle and the graph need a few GiB more
+    scale = 20 if mem >= 128 else 19
+    budget = BEYOND_BUDGET[scale]
+    phase(f"phase 3h: R-MAT scale {scale} tiled, TriangleCounter("
+          f"rmat_graph({scale}, 16, seed=1), max_device_bytes={budget >> 30} "
+          f"<< 30)")
+    print(f"host memory: MemTotal {mem:.1f} GiB; scale 20 would pin 80.14 "
+          f"GiB of buckets, so it runs where MemTotal >= 128 GiB: "
+          f"{'scale 20' if scale == 20 else 'scale 19 here'}")
+    t0 = time.perf_counter()
+    g = rmat_graph(scale, 16, seed=1)
+    t_gen = time.perf_counter() - t0
+    oracle = triangle_count_forward_scipy(g)
+    t_oracle = time.perf_counter() - t0 - t_gen
+    print(f"graph: n={g.n} m={g.m_undirected} max_degree={g.max_degree}; "
+          f"host generation {t_gen:.2f} s, forward scipy oracle "
+          f"{t_oracle:.2f} s")
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    tc = TriangleCounter(g, max_device_bytes=budget)
+    first = tc.count()
+    warm = [tc.count() for _ in range(2)]
+    launches = dict(LAUNCHES)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    m = first.meta
+    whole = sum((e * (8 * w + 8)) for e, w in m["bucket_shapes"])
+    warm_s = statistics.median(r.exec_seconds for r in warm)
+    streamed = m["streamed_bytes"]
+    print(f"buckets={m['bucket_shapes']} strategies={first.bucket_strategies} "
+          f"tiled_buckets={m['tiled_buckets']}; all buckets resident would "
+          f"take {whole / 2**30:.2f} GiB")
+    print(f"prep_seconds={first.prep_seconds:.4f} first count() "
+          f"{first.exec_seconds:.4f} s; warm count() seconds "
+          f"{[round(r.exec_seconds, 6) for r in warm]} (median {warm_s:.6f}); "
+          f"streamed {streamed} bytes a count ({streamed / 1e9:.2f} GB): "
+          f"bound {streamed / rate:.6f} s; launches {launches}; "
+          f"{peak_memory(torch, held)}")
+    check(all(r.count == oracle for r in [first] + warm),
+          f"scale-{scale} tiled count() = {first.count} = the forward scipy "
+          f"oracle")
+    check(peak * 2**30 < whole / 2,
+          f"the session's own peak {peak:.2f} GiB is under half of the "
+          f"{whole / 2**30:.2f} GiB the buckets take whole")
+    hold_tiled(tc, f"scale-{scale} tiled count(), max_device_bytes "
+                   f"{budget >> 30} GiB", launches,
+               **{f"scale{scale}": dict(
+                   warm_count_s=warm_s, streamed_bytes=streamed,
+                   bound_s=streamed / rate, peak_gib=peak,
+                   host_memtotal_gib=mem, oracle_s=t_oracle,
+                   count=first.count, resident_bytes_needed=whole)})
+    del tc, first, warm, g
+    release_host_memory(torch)
+
+    # -- phase 3i: the tiled matrix lane ---------------------------------------
+    phase("phase 3i: tiled matrix lane, TriangleCounter(orkut-like, "
+          "algorithm='matrix', max_device_bytes=1 << 30)")
+    g = load_dataset("orkut-like")
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_ms_launch_counts()
+    tc = TriangleCounter(g, algorithm="matrix",
+                           max_device_bytes=TILE_BUDGET)
+    first = tc.count()
+    warm = [tc.count() for _ in range(3)]
+    ms_launches = dict(MS_LAUNCHES)
+    m = first.meta
+    (st,) = tc.plan.stages
+    warm_s = statistics.median(r.exec_seconds for r in warm)
+    print(f"tiled_buckets={m['tiled_buckets']} streamed "
+          f"{m['streamed_bytes']} bytes a count "
+          f"({m['streamed_bytes'] / 2**30:.3f} GiB); prep_seconds="
+          f"{first.prep_seconds:.3f} (host schedule "
+          f"{m['schedule_seconds']:.3f} s); warm count() seconds "
+          f"{[round(r.exec_seconds, 6) for r in warm]} (median {warm_s:.6f}; "
+          f"bound {m['streamed_bytes'] / rate:.6f} s); launches "
+          f"{ms_launches}; {peak_memory(torch, held)}")
+    check(all(r.count == EXPECTED_ORKUT for r in [first] + warm),
+          f"tiled matrix count() = {first.count} every time")
+    check(m["tiled_buckets"] == [dict(shape=(90025, 128, 128),
+                                      chunk_rows=4096, num_chunks=22)],
+          "90,025 triples stream in 22 chunks of 4,096")
+    check(ms_launches == {"masked_spgemm_wgmma": 22 * (1 + len(warm)),
+                          "masked_spgemm": 0},
+          "one tensor-core launch a chunk, no float32 launch")
+    shapes = []
+    for chunk in (st.chunks[0], st.chunks[-1]):
+        l, u, li, ui, ai, order = (x.to(dev) for x in chunk)
+        k_out = masked_spgemm_gathered(l, u, u, li, ui, ai, order=order)
+        p_out = masked_spgemm_gathered_chunked(l, u, u, li, ui, ai)
+        torch.cuda.synchronize()
+        err = float((k_out - p_out).abs().max())
+        t = int(li.shape[0])
+        check(err == 0, f"masked_spgemm_wgmma == plain on a ({t}, 128, 128) "
+                        f"chunk of {l.shape[0]} + {u.shape[0]} tiles")
+        k_ms = time_ms(torch, lambda: masked_spgemm_gathered(
+            l, u, u, li, ui, ai, order=order), 7, flush)
+        p_ms = time_ms(torch, lambda: masked_spgemm_gathered_chunked(
+            l, u, u, li, ui, ai), 3, flush)
+        read = spgemm_read_bytes(torch, (l, u, u, li, ui, ai, order))
+        b_ms, b_by = spgemm_bound_ms(t, 128, read)
+        print(f"  masked_spgemm_wgmma chunk ({t}, 128, 128): kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by})", flush=True)
+        shapes.append(dict(shape=[t, 128, 128], ms=k_ms, plain_ms=p_ms,
+                           bound_ms=b_ms, bound_by=b_by, read_bytes=read,
+                           max_abs_err=err, tiles=[int(l.shape[0]),
+                                                   int(u.shape[0])]))
+    add_path(ctx["k4"], "tiled_path", "orkut-like tiled matrix count(), "
+             "max_device_bytes 1 GiB", ms_launches["masked_spgemm_wgmma"],
+             shapes, orkut=dict(warm_count_s=warm_s,
+                                streamed_bytes=m["streamed_bytes"],
+                                bound_s=m["streamed_bytes"] / rate))
+    del tc, first, warm, st, g
+    release_host_memory(torch)
+
+    # -- phase 3j: batched count_many --------------------------------------------
+    phase("phase 3j: count_many over R-MAT scales 10-14 (seeds 0-63) and the "
+          "Table-1 analogues, batch_size=16")
+    graphs = [rmat_graph(10 + s % 5, 16, seed=s) for s in range(64)] \
+        + [load_dataset(name) for name in ctx["analogues"]]
+    truths = [triangle_count_scipy(x) for x in graphs]
+    session = TriangleCounter(rmat_graph(9, 16, seed=1000),
+                              algorithm="intersection")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = session.count_many(graphs, batch_size=16)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    # only counts are kept from here on: a result holds its batch's stacks
+    plans = list({id(r.plan): r.plan for r in res}.values())
+    batched = [int(r) for r in res]
+    sizes = [p.batch_size for p in plans]
+    batchable = all(isinstance(p, GraphBatch) for p in plans)
+    want_launches = sum(len(p.specs) if isinstance(p, GraphBatch)
+                        else p.num_stages for p in plans)
+    first_batch = plans[0]
+    del res, plans
+    gc.collect()
+    misses = executable_cache_info()["misses"]
+    t0 = time.perf_counter()
+    again = [int(r) for r in session.count_many(graphs, batch_size=16)]
+    again_s = time.perf_counter() - t0
+    again_misses = executable_cache_info()["misses"] - misses
+    t0 = time.perf_counter()
+    loop = [TriangleCounter(x, algorithm="intersection").count().count
+            for x in graphs]  # each session and its plan dropped at once
+    loop_s = time.perf_counter() - t0
+    print(f"{len(graphs)} graphs in {len(sizes)} batches ({sizes}); "
+          f"count_many {batch_s:.3f} s, again {again_s:.3f} s; the "
+          f"per-graph loop {loop_s:.3f} s; launches {launches} (one a width "
+          f"a batch: {want_launches}); cache misses on the second pass "
+          f"{again_misses}")
+    check(batched == again == loop == truths,
+          "every batched count = triangle_count_scipy = a per-graph "
+          "TriangleCounter(g).count()")
+    check(batchable and sum(launches.values()) == want_launches,
+          "one intersection launch per width per batch")
+    check(again_misses == 0, "the second pass builds no new cache entry")
+    # K3 through a batch: bitmap forced on the first 16 R-MAT graphs
+    bitmap_batch = GraphBatch.from_graphs(graphs[:16], algorithm="intersection",
+                                          strategy="bitmap")
+    reset_launch_counts()
+    check([int(c) for c in bitmap_batch.counts()] == truths[:16],
+          f"forced bitmap batch = scipy ({bitmap_batch.specs})")
+    bitmap_launches = dict(LAUNCHES)
+    batch_info = dict(graphs=len(graphs), batches=len(sizes),
+                      batch_size=16, count_many_s=batch_s,
+                      second_pass_s=again_s, loop_s=loop_s)
+    for batch, key_launches in ((first_batch, launches),
+                                (bitmap_batch, bitmap_launches)):
+        by_strategy = {}
+        for i, (strat, bits, (e, w)) in enumerate(batch.specs):
+            u, v = (a.view(batch.batch_size * e, w)
+                    for a in batch.arrays[2 * i:2 * i + 2])
+            rec = intersect_case(strat, types.SimpleNamespace(
+                args=(u, v), bitmap_bits=bits))
+            rec.update(batch_size=batch.batch_size, stack=[
+                batch.batch_size, e, w])
+            by_strategy.setdefault(strat, []).append(rec)
+        for strat, shapes in by_strategy.items():
+            label = ("forced bitmap GraphBatch of 16 R-MAT graphs"
+                     if batch is bitmap_batch else
+                     f"count_many, first batch of 16 of {len(graphs)} graphs")
+            add_path(entries[strat], "batch_path", label,
+                     key_launches[strat], shapes, batch=batch_info)
+    del first_batch, bitmap_batch, graphs, session
+    release_host_memory(torch)
+
+
 def serve_phase(torch, np, dev, get_config, get_model, greedy_generate, fa):
     """Phase 3f: gemma2-2b served at full width through K6; returns what
     phase 4c reports beside the kernel's times."""
@@ -1460,6 +1899,9 @@ def main() -> int:
     check(tpv.shape == (g.n,) and int(tpv.min()) >= 0,
           "per-vertex counts are (n,) and non-negative")
     main_stages = tc.plan.stages
+    # phase 3g holds the tiled plan to these
+    main_count, main_tpv = first.count, tpv
+    main_warm_s = statistics.median(r.exec_seconds for r in warm)
     # the first ``edges`` rows of each bucket are real, the rest padding
     stage_edges = {id(st): e for st, e in zip(main_stages,
                                               first.meta["bucket_edges"])}
@@ -2089,6 +2531,13 @@ def main() -> int:
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
     report.append(hash_phase(torch, np, dev, flush, analogues, truths))
+    tiled_batch_phase(torch, np, dev, dict(
+        entries=entries, k4=next(x for x in report
+                                 if x["name"] == "masked_spgemm"),
+        intersect_case=intersect_case, wrappers=wrappers, flush=flush,
+        main_count=main_count, main_tpv=main_tpv, main_warm_s=main_warm_s,
+        grid=grid, grid_tpv=grid_tpv, analogues=analogues))
+    del main_tpv
 
     # -- phase 3e: the bfs lane -----------------------------------------------
     phase(f"phase 3e: bfs lane, TriangleCounter(grid_graph({GRID_SIDE}, ...), "

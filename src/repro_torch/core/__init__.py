@@ -1,5 +1,6 @@
-"""Triangle counting: options, registry, plan/execute engine, the five
-lanes (intersection, subgraph, matrix, hash, bfs), front door."""
+"""Triangle counting: options, registry, plan/execute engine (tiled
+stages under a device budget, stacked graph batches), the five lanes
+(intersection, subgraph, matrix, hash, bfs), front door."""
 
 from repro_torch.core.options import CountOptions, DEFAULT_WIDTHS
 from repro_torch.core.registry import (
@@ -9,6 +10,7 @@ from repro_torch.core.registry import (
     register_algorithm,
 )
 from repro_torch.core.engine import (
+    GraphBatch,
     TrianglePlan,
     cache_info,
     clear_caches,
@@ -38,6 +40,7 @@ __all__ = [
     "CountResult",
     "CounterSession",
     "DEFAULT_WIDTHS",
+    "GraphBatch",
     "TriangleCounter",
     "TrianglePlan",
     "available_algorithms",

@@ -9,6 +9,7 @@ lanes:
     res = tc.count()                         # CountResult
     res.count, res.algorithm, res.bucket_strategies
     tc.triangles_per_vertex()                # (n,) int64, cached plan
+    tc.count_many(graphs, batch_size=16)     # one launch per width a batch
 
 A session runs on the CUDA device unless it is given another
 (``device="cpu"`` runs the plain torch versions of the kernels). It owns
@@ -19,14 +20,20 @@ one ``TrianglePlan``, built lazily through the algorithm registry, so every
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import (Any, Dict, Iterable, Iterator, List, Optional, Tuple,
+                    Union)
 
 import numpy as np
 import torch
 
 from repro_torch.core import registry
-from repro_torch.core.engine import executable_cache_info, plan_triangle_count
+from repro_torch.core.engine import (
+    GraphBatch,
+    executable_cache_info,
+    plan_triangle_count,
+)
 from repro_torch.core.options import CountOptions
 from repro_torch.graphs.device import resolve_device
 from repro_torch.graphs.formats import Graph
@@ -166,13 +173,88 @@ class TriangleCounter(CounterSession):
         super().__init__(g, options, device=device, **overrides)
         self._vertex_counts: Optional[np.ndarray] = None
 
-    def count_many(self, graphs, *, batch_size: int = 8):
-        """Not ported yet: batched counting (ROADMAP.md Queue 1 item 10)."""
-        raise NotImplementedError(
-            "count_many / iter_counts (batched counting) are not ported yet; "
-            "see ROADMAP.md Queue 1 item 10")
+    def count_many(self, graphs: Iterable[Graph],
+                   *, batch_size: int = 8) -> List[CountResult]:
+        """Count a batch of graphs under this session's options and device.
 
-    iter_counts = count_many
+        The input is consumed lazily, ``batch_size`` graphs at a time. In
+        each chunk, every graph whose lane resolves to the batchable regime
+        (``intersection``, ``backend="kernel"``, ``prep_backend="device"``:
+        the defaults) is device-prepped and stacked into one
+        ``GraphBatch``, counted by one launch per width and one host sync.
+        Successive chunks whose policy-rounded layouts collide reuse the
+        cached batch launch. A chunk with a single batchable graph counts
+        it in a plain session; graphs outside the regime get per-graph
+        sessions, and the session's own graph reuses the session plan.
+
+        Results come back in input order. Batched results share their
+        ``GraphBatch`` as ``plan``, and their ``prep_seconds`` /
+        ``exec_seconds`` are the whole chunk's (``meta["batched"]`` and
+        ``meta["batch_size"]`` mark them).
+
+        Raises:
+          ValueError: ``batch_size`` < 1.
+        """
+        return list(self.iter_counts(graphs, batch_size=batch_size))
+
+    def iter_counts(self, graphs: Iterable[Graph],
+                    *, batch_size: int = 8) -> Iterator[CountResult]:
+        """Generator form of ``count_many``: yields results in input order,
+        pulling at most ``batch_size`` graphs ahead of the consumer."""
+        if batch_size < 1:
+            raise ValueError(f"batch_size must be ≥ 1, got {batch_size}")
+        it = iter(graphs)
+        while True:
+            chunk = list(itertools.islice(it, batch_size))
+            if not chunk:
+                return
+            yield from self._count_chunk(chunk)
+
+    def _batchable(self, lane: str) -> bool:
+        return (lane == "intersection"
+                and self.options.backend == "kernel"
+                and self.options.prep_backend == "device")
+
+    def _count_chunk(self, chunk: List[Graph]) -> List[CountResult]:
+        results: List[Optional[CountResult]] = [None] * len(chunk)
+        batchable: List[Tuple[int, Graph]] = []
+        for pos, g in enumerate(chunk):
+            if g is self.graph:
+                results[pos] = self.count()
+                continue
+            lane = (self.options.algorithm
+                    if self.options.algorithm != "auto"
+                    else registry.choose_algorithm(g))
+            if self._batchable(lane):
+                batchable.append((pos, g))
+            else:
+                results[pos] = TriangleCounter(g, self.options,
+                                               device=self.device).count()
+        if len(batchable) == 1:  # nothing to stack; a plain session is cheaper
+            pos, g = batchable[0]
+            results[pos] = TriangleCounter(g, self.options,
+                                           device=self.device).count()
+        elif batchable:
+            opts = self.options if self.options.algorithm == "intersection" \
+                else self.options.replace(algorithm="intersection")
+            batch = GraphBatch.from_graphs([g for _, g in batchable], opts,
+                                           device=self.device)
+            t0 = time.perf_counter()
+            counts = batch.counts()
+            exec_seconds = time.perf_counter() - t0
+            for (pos, g), c in zip(batchable, counts):
+                results[pos] = CountResult(
+                    count=int(c),
+                    algorithm="intersection",
+                    options=self.options,
+                    bucket_strategies=batch.meta["bucket_strategies"],
+                    prep_seconds=batch.prep_seconds,
+                    exec_seconds=exec_seconds,
+                    plan=batch,
+                    meta=dict(batch.meta, graph=g.name, n=g.n,
+                              m=g.m_undirected, batched=True),
+                )
+        return results
 
     def edge_support(self):
         """Not ported yet: the edge lane (ROADMAP.md Queue 1 item 8)."""

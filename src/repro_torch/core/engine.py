@@ -61,7 +61,12 @@ from repro_torch.graphs.device import (
 )
 from repro_torch.core import prep
 from repro_torch.core.options import BACKENDS, DEFAULT_WIDTHS
-from repro_torch.core.prep import DeviceBucket
+from repro_torch.core.prep import (
+    DeviceBucket,
+    _bucket_nbytes,
+    _tile_chunk_rows,
+    bucket_is_tiled,
+)
 from repro_torch.core.registry import register_algorithm
 from repro_torch.kernels.intersect.ops import (
     STRATEGIES,
@@ -82,6 +87,8 @@ from repro_torch.kernels.masked_spgemm.ops import masked_spgemm_gathered_counts
 
 __all__ = [
     "ALGORITHMS",
+    "BatchLaunch",
+    "GraphBatch",
     "HashLaunch",
     "IntersectLaunch",
     "MatrixLaunch",
@@ -90,6 +97,7 @@ __all__ = [
     "cache_info",
     "clear_caches",
     "executable_cache_info",
+    "get_batch_executable",
     "get_executable",
     "plan_bfs_count",
     "plan_hash_count",
@@ -332,6 +340,44 @@ def get_executable(algorithm: str, backend: str, shape_key: tuple, *,
     return _EXECUTABLE_CACHE.get_or_build(key, builder)
 
 
+@dataclasses.dataclass(frozen=True)
+class BatchLaunch:
+    """A stacked batch layout's bound launch configuration. Calling it on
+    the flattened (u, v) stacks, each (B, E, W) and contiguous, runs ONE
+    intersection launch per width over the stack viewed as (B·E, W), sums
+    each graph's rows in int64 (``.view(B, E).sum(1)``; the reference sums
+    in int32, which wraps like R5) and returns the (B,) int64 totals on the
+    stacks' device."""
+
+    specs: tuple  # ((strategy, bitmap_bits, (e_pad, width)), ...) per width
+    backend: str
+
+    def __call__(self, *arrays: torch.Tensor) -> torch.Tensor:
+        total = torch.zeros(arrays[0].shape[0], dtype=torch.int64,
+                            device=arrays[0].device)
+        for i, (strat, bits, (e, w)) in enumerate(self.specs):
+            u, v = arrays[2 * i], arrays[2 * i + 1]
+            b = int(u.shape[0])
+            counts = intersect_counts(u.view(b * e, w), v.view(b * e, w),
+                                      strategy=strat, backend=self.backend,
+                                      bitmap_bits=bits)
+            total += counts.view(b, e).sum(1, dtype=torch.int64)
+        return total
+
+
+def get_batch_executable(specs: tuple, backend: str, batch: int) -> Callable:
+    """Fetch (or build) the bound launch of one stacked batch layout.
+
+    Cached in the process-wide cache under ``("intersection_batch", None,
+    backend, None, (batch,) + specs)``, as the reference keys it: two
+    batches whose policy-rounded layouts collide share one entry.
+    """
+    key = ("intersection_batch", None, backend, None,
+           (int(batch),) + tuple(specs))
+    return _EXECUTABLE_CACHE.get_or_build(
+        key, functools.partial(BatchLaunch, tuple(specs), backend))
+
+
 def executable_cache_info() -> dict:
     """``{'size', 'hits', 'misses', 'maxsize', 'evictions'}``."""
     return _EXECUTABLE_CACHE.info()
@@ -372,11 +418,158 @@ class _Stage:
         return self.executable(*self.args)
 
 
+def _matrix_chunk_args(views: Tuple[torch.Tensor, ...]) -> tuple:
+    """A matrix chunk's (l, u, l_index, u_index, a_index, order) as
+    ``MatrixLaunch`` takes them: the U tiles serve as the A tiles too."""
+    l, u, li, ui, ai, order = views
+    return l, u, u, li, ui, ai, order
+
+
+@dataclasses.dataclass
+class _TiledStage:
+    """A work unit over the ``max_device_bytes`` budget, streamed through
+    one cached chunk-shaped launch instead of held resident.
+
+    ``chunks`` are the unit's host arrays, chunk by chunk (pinned on a CUDA
+    device): row views of a bucket's padded (u, v), or the matrix lane's
+    per-chunk tiles and re-based indices. ``run()`` copies chunk i + 1 into
+    one of two device slots on a side stream while the kernel reads chunk i
+    from the other. Events order each copy after the launch that last read
+    its slot, and each launch after its copy. A chunk shorter than its slot
+    is padded with ``fills`` (the inert rows -1 / -2) or, where the fill is
+    None, passed as the slot's leading part. The partials accumulate in an
+    int64 device scalar: ``TrianglePlan.count()`` syncs once. On a CPU
+    device the chunks are the kernels' inputs as they are.
+    """
+
+    executable: Callable
+    chunks: List[Tuple[torch.Tensor, ...]]
+    fills: Tuple[Optional[int], ...]
+    chunk_rows: int
+    shape_key: tuple        # the whole unit's shape (meta parity with _Stage)
+    chunk_shape_key: tuple  # the launch's shape class
+    device: torch.device
+    strategy: Optional[str] = None
+    bitmap_bits: Optional[int] = None
+    # host (src, dst) row views per chunk: filtered stages only
+    vertex_chunks: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None
+    launch_args: Callable = tuple  # device views -> the executable's args
+    args: Tuple = ()  # nothing resident
+    _slots: Optional[list] = dataclasses.field(default=None, repr=False)
+    _side: Any = dataclasses.field(default=None, repr=False)
+
+    @property
+    def num_chunks(self) -> int:
+        return len(self.chunks)
+
+    @property
+    def streamed_bytes(self) -> int:
+        """Host-to-device bytes one ``run()`` copies."""
+        return sum(x.numel() * x.element_size()
+                   for chunk in self.chunks for x in chunk)
+
+    def run(self) -> torch.Tensor:
+        """Stream every chunk through the cached launch; the int64 total
+        stays on the device."""
+        total = torch.zeros((), dtype=torch.int64, device=self.device)
+
+        def consume(views):
+            total.add_(self.executable(*self.launch_args(views)))
+
+        if self._slots is None and self.device.type == "cuda":
+            self._slots = self._allocate(self.chunks, self.fills)
+        self._stream(self.chunks, self.fills, consume, self._slots)
+        return total
+
+    def run_vertex(self, fn: Callable, total: torch.Tensor) -> None:
+        """Stream (u, v, src, dst) chunks through the per-vertex launch
+        ``fn``, adding into ``total`` (the slots live for this call only)."""
+        chunks = [c + v for c, v in zip(self.chunks, self.vertex_chunks)]
+        fills = self.fills + (0, 0)
+        slots = self._allocate(chunks, fills) \
+            if self.device.type == "cuda" else None
+        self._stream(chunks, fills,
+                     lambda views: total.add_(fn(*views)), slots)
+
+    def _slot_rows(self, chunks, j: int, fill) -> int:
+        if fill is not None:
+            return self.chunk_rows
+        return max(int(c[j].shape[0]) for c in chunks)
+
+    def _allocate(self, chunks, fills) -> list:
+        """Two device slots, each one buffer per host array; the side
+        stream writes them, so the allocator is told it uses them."""
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        first = chunks[0]
+        slots = []
+        for _ in range(2):
+            bufs = []
+            for j, (x, f) in enumerate(zip(first, fills)):
+                buf = torch.empty((self._slot_rows(chunks, j, f),)
+                                  + tuple(x.shape[1:]), dtype=x.dtype,
+                                  device=self.device)
+                buf.record_stream(self._side)
+                bufs.append(buf)
+            slots.append(tuple(bufs))
+        return slots
+
+    def _stream(self, chunks, fills, consume, slots) -> None:
+        if self.device.type != "cuda":
+            for chunk in chunks:
+                consume(tuple(_pad_rows(x, self.chunk_rows, f)
+                              for x, f in zip(chunk, fills)))
+            return
+        main = torch.cuda.current_stream(self.device)
+        side = self._side
+        ready = [torch.cuda.Event(), torch.cuda.Event()]
+        freed: List[Optional[torch.cuda.Event]] = [None, None]
+
+        def copy(i: int) -> tuple:
+            k = i % 2
+            views = []
+            with torch.cuda.stream(side):
+                if freed[k] is not None:  # the launch that read slot k
+                    side.wait_event(freed[k])
+                for buf, x, f in zip(slots[k], chunks[i], fills):
+                    r = int(x.shape[0])
+                    buf[:r].copy_(x, non_blocking=True)
+                    if f is None:
+                        views.append(buf[:r])
+                        continue
+                    if r < buf.shape[0]:
+                        buf[r:].fill_(f)
+                    views.append(buf)
+                ready[k].record(side)
+            return tuple(views)
+
+        upcoming = copy(0)
+        for i in range(len(chunks)):
+            views = upcoming
+            if i + 1 < len(chunks):
+                upcoming = copy(i + 1)  # overlaps launch i below
+            main.wait_event(ready[i % 2])
+            consume(views)
+            ev = torch.cuda.Event()
+            ev.record(main)
+            freed[i % 2] = ev
+
+
+def _pad_rows(x: torch.Tensor, rows: int, fill) -> torch.Tensor:
+    """``x`` padded to ``rows`` rows with ``fill`` (None: as it is)."""
+    if fill is None or x.shape[0] >= rows:
+        return x
+    pad = torch.full((rows - x.shape[0],) + tuple(x.shape[1:]), fill,
+                     dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad])
+
+
 @dataclasses.dataclass
 class TrianglePlan:
     """A prepared triangle count: device buffers + bound launches.
 
-    ``count()`` replays the device stage only. Build via
+    ``count()`` replays the device stage only; a ``_TiledStage`` streams
+    its chunks from host memory through the same kind of launch. Build via
     ``plan_triangle_count``.
     """
 
@@ -440,7 +633,8 @@ class TrianglePlan:
         """
         if self.algorithm not in ("intersection", "subgraph", "bfs") \
                 or self.divisor != 1 \
-                or any(st.vertex_args is None for st in self.stages):
+                or any((st.vertex_chunks if isinstance(st, _TiledStage)
+                        else st.vertex_args) is None for st in self.stages):
             raise NotImplementedError(
                 f"per-vertex counts need filtered-intersection stages; "
                 f"algorithm={self.algorithm!r} divisor={self.divisor} does "
@@ -449,6 +643,11 @@ class TrianglePlan:
         n_local = int(self.meta.get("vertex_n", self.meta["n"]))
         total = torch.zeros(n_local, dtype=torch.int64, device=self.device)
         for st in self.stages:
+            if isinstance(st, _TiledStage):  # the same chunks, with (src, dst)
+                e, w = st.chunk_shape_key
+                fn = get_executable("vertex", self.backend, (e, w, n_local))
+                st.run_vertex(fn, total)
+                continue
             e, w = st.shape_key
             fn = get_executable("vertex", self.backend, (e, w, n_local))
             total += fn(*st.args, *st.vertex_args)
@@ -493,38 +692,54 @@ def _resolve_bucket_strategy(width: int, id_range: int, strategy: str,
 
 def _buckets_for_plan(g: Graph, variant: str, widths: Sequence[int],
                       prep_backend: str, policy: Optional[ShapePolicy],
-                      device: torch.device) -> List[DeviceBucket]:
+                      device: torch.device,
+                      max_device_bytes: Optional[int] = None
+                      ) -> List[DeviceBucket]:
     """Run the prep stage on the requested backend; either way the result
-    is ``DeviceBucket``s on ``device`` (the host path uploads its arrays)."""
+    is ``DeviceBucket``s on ``device`` (the host path uploads its arrays),
+    except the buckets over ``max_device_bytes``, which stay in host memory
+    (pinned on a CUDA device) for their tiled stages."""
     if prep_backend == "device":
         return prep.prepare_intersection_buckets_device(
             g, variant=variant, widths=widths, policy=policy, device=device,
+            max_device_bytes=max_device_bytes,
         )
     host = prep.prepare_intersection_buckets_host(g, variant=variant,
                                                   widths=widths)
+    out = []
+    for b in host:
+        tiled = bucket_is_tiled(b["u_lists"].shape[0], b["width"],
+                                max_device_bytes)
 
-    def up(a):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
+        def place(a, tiled=tiled):
+            t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+            if not tiled:
+                return t.to(device)
+            return t.pin_memory() if device.type == "cuda" else t
 
-    return [
-        DeviceBucket(width=b["width"], edges=int(b["u_lists"].shape[0]),
-                     u_lists=up(b["u_lists"]), v_lists=up(b["v_lists"]),
-                     src=up(b["src"]), dst=up(b["dst"]))
-        for b in host
-    ]
+        out.append(DeviceBucket(
+            width=b["width"], edges=int(b["u_lists"].shape[0]),
+            u_lists=place(b["u_lists"]), v_lists=place(b["v_lists"]),
+            src=place(b["src"]), dst=place(b["dst"])))
+    return out
 
 
 def _plan_intersection(g: Graph, variant: str, backend: str,
                        widths: Sequence[int], strategy: str,
                        bitmap_bits: Optional[int], prep_backend: str,
                        shape_policy: Optional[ShapePolicy],
-                       device: torch.device) -> Tuple[List[_Stage], int, dict]:
+                       device: torch.device,
+                       max_device_bytes: Optional[int] = None,
+                       ) -> Tuple[List[_Stage], int, dict]:
     buckets = _buckets_for_plan(g, variant, widths, prep_backend,
-                                shape_policy, device)
+                                shape_policy, device, max_device_bytes)
     stages, bucket_meta = _bucket_stages(buckets, g.n, backend, strategy,
                                          bitmap_bits,
-                                         per_vertex=(variant == "filtered"))
+                                         per_vertex=(variant == "filtered"),
+                                         max_device_bytes=max_device_bytes,
+                                         device=device)
     policy = shape_policy if shape_policy is not None else DEFAULT_SHAPE_POLICY
+    tiled = [st for st in stages if isinstance(st, _TiledStage)]
     meta = dict(
         variant=variant,
         widths=tuple(widths),
@@ -532,17 +747,35 @@ def _plan_intersection(g: Graph, variant: str, backend: str,
         prep_backend=prep_backend,
         shape_policy=policy.key() if prep_backend == "device" else None,
         **bucket_meta,
+        **_tiled_meta(tiled, max_device_bytes),
     )
     return stages, (6 if variant == "full" else 1), meta
 
 
+def _tiled_meta(tiled: List[_TiledStage],
+                max_device_bytes: Optional[int]) -> dict:
+    """The reference's budget keys (``max_device_bytes``, ``tiled_buckets``,
+    ``num_chunks``) plus the host-to-device bytes one count streams."""
+    return dict(
+        max_device_bytes=max_device_bytes,
+        tiled_buckets=[dict(shape=st.shape_key, chunk_rows=st.chunk_rows,
+                            num_chunks=st.num_chunks) for st in tiled],
+        num_chunks=int(sum(st.num_chunks for st in tiled)),
+        streamed_bytes=int(sum(st.streamed_bytes for st in tiled)),
+    )
+
+
 def _bucket_stages(buckets: List[DeviceBucket], n: int, backend: str,
                    strategy: str, bitmap_bits: Optional[int], *,
-                   per_vertex: bool) -> Tuple[List[_Stage], dict]:
+                   per_vertex: bool, max_device_bytes: Optional[int] = None,
+                   device: Optional[torch.device] = None,
+                   ) -> Tuple[list, dict]:
     """Bind each bucket to its cached intersection launch, with the
     strategy resolved per bucket; ``per_vertex`` keeps the forward
-    endpoints for the per-vertex stage. Returns the stages and their
-    bucket meta (shapes, strategies, edges)."""
+    endpoints for the per-vertex stage. A bucket over ``max_device_bytes``
+    (held on the host by the prep) becomes a ``_TiledStage`` whose launch
+    is cached at the chunk shape ``(chunk_rows, W)``. Returns the stages
+    and their bucket meta (shapes, strategies, edges)."""
     # real ids [0, n) plus the in-row sentinels n (u) and n + 1 (v); whole
     # padding rows (-1/-2) are negative and never match in any core
     id_range = n + 2
@@ -550,6 +783,27 @@ def _bucket_stages(buckets: List[DeviceBucket], n: int, backend: str,
     for b in buckets:
         strat, bits = _resolve_bucket_strategy(b.width, id_range, strategy,
                                                bitmap_bits)
+        if bucket_is_tiled(b.e_pad, b.width, max_device_bytes):
+            chunk = _tile_chunk_rows(b.e_pad, _bucket_nbytes(1, b.width),
+                                     max_device_bytes)
+            cuts = range(0, b.e_pad, chunk)
+            stages.append(_TiledStage(
+                executable=get_executable("intersection", backend,
+                                          (chunk, b.width), strategy=strat,
+                                          bitmap_bits=bits),
+                chunks=[(b.u_lists[s:s + chunk], b.v_lists[s:s + chunk])
+                        for s in cuts],
+                fills=(-1, -2),  # whole-row padding: zero matches
+                chunk_rows=chunk,
+                shape_key=b.shape,
+                chunk_shape_key=(chunk, b.width),
+                device=device,
+                strategy=strat,
+                bitmap_bits=bits,
+                vertex_chunks=[(b.src[s:s + chunk], b.dst[s:s + chunk])
+                               for s in cuts] if per_vertex else None,
+            ))
+            continue
         stages.append(_Stage(
             executable=get_executable("intersection", backend, b.shape,
                                       strategy=strat, bitmap_bits=bits),
@@ -568,12 +822,22 @@ def _bucket_stages(buckets: List[DeviceBucket], n: int, backend: str,
 
 
 def _plan_matrix(g: Graph, block, permute: bool, backend: str,
-                 device: torch.device) -> Tuple[List[_Stage], int, dict]:
+                 device: torch.device,
+                 max_device_bytes: Optional[int] = None,
+                 ) -> Tuple[List[_Stage], int, dict]:
     """The matrix lane: the host tile schedule, then one stage holding the
     gathered form on the device: the unique tiles (bf16 at a B of K4's
     tensor-core route, else float32), the (T,) int32 triple indices and the
     launch order (``launch_order``, made once here). Its shape key is
-    (T, B, B). T = 0 gives no stage, so the count is 0."""
+    (T, B, B). T = 0 gives no stage, so the count is 0.
+
+    Under ``max_device_bytes`` the reference's rule decides: the three
+    (T, B, B) float32 stacks it would hold (3·B²·4 bytes a triple) over the
+    budget make a ``_TiledStage`` of ``_tile_chunk_rows(T, 3·B²·4, budget)``
+    consecutive triples a chunk, each with its own distinct tiles and
+    re-based indices on the host (``TileSchedule.host_chunks``), streamed
+    through the launch cached at (chunk, B, B). A chunk names at most
+    3 × chunk tiles, so it stays within the budget."""
     if block == "auto":
         block = prep.choose_block(g)
     t0 = time.perf_counter()
@@ -581,7 +845,23 @@ def _plan_matrix(g: Graph, block, permute: bool, backend: str,
     t1 = time.perf_counter()
     stages = []
     tile_bytes = 0
-    if sched.num_triples:
+    t = sched.num_triples
+    stack_row_bytes = 3 * block * block * 4
+    if t and max_device_bytes is not None \
+            and t * stack_row_bytes > max_device_bytes:
+        chunk = _tile_chunk_rows(t, stack_row_bytes, max_device_bytes)
+        chunk_key = (chunk, block, block)
+        stages.append(_TiledStage(
+            executable=get_executable("matrix", backend, chunk_key),
+            chunks=sched.host_chunks(chunk, device),
+            fills=(None,) * 6,  # a short last chunk launches fewer triples
+            chunk_rows=chunk,
+            shape_key=(t, block, block),
+            chunk_shape_key=chunk_key,
+            device=device,
+            launch_args=_matrix_chunk_args,
+        ))
+    elif t:
         l_blocks, u_blocks, l_index, u_index, a_index = sched.to_device(device)
         order = launch_order(l_index, a_index)
         args = (l_blocks, u_blocks, u_blocks, l_index, u_index, a_index, order)
@@ -593,19 +873,23 @@ def _plan_matrix(g: Graph, block, permute: bool, backend: str,
             args=args, shape_key=shape_key))
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+    tiled = [st for st in stages if isinstance(st, _TiledStage)]
     meta = dict(permute=permute, schedule_seconds=t1 - t0,
                 upload_seconds=time.perf_counter() - t1, tile_bytes=tile_bytes,
-                **sched.stats)
+                **_tiled_meta(tiled, max_device_bytes), **sched.stats)
     return stages, 1, meta
 
 
 def _plan_subgraph(g: Graph, backend: str, widths: Sequence[int],
                    strategy: str, bitmap_bits: Optional[int],
                    prep_backend: str, shape_policy: Optional[ShapePolicy],
-                   device: torch.device) -> Tuple[List[_Stage], int, dict]:
+                   device: torch.device,
+                   max_device_bytes: Optional[int] = None,
+                   ) -> Tuple[List[_Stage], int, dict]:
     """The subgraph lane: FILTER (2-core peel to its fixed point),
     RECONSTRUCT (the induced graph) and the forward-filtered intersection
-    JOIN on the survivors, which counts each triangle once."""
+    JOIN on the survivors, which counts each triangle once. The budget
+    passes through to the join's buckets."""
     if prep_backend == "device":
         # the induced graph keeps the original ids (dead vertices just lose
         # their rows), so stage counts scatter straight into id space
@@ -617,7 +901,7 @@ def _plan_subgraph(g: Graph, backend: str, widths: Sequence[int],
         alive_count = int(alive.sum())
         stages, _, inner = _plan_intersection(
             sub_dg, "filtered", backend, widths, strategy, bitmap_bits,
-            "device", policy, device)
+            "device", policy, device, max_device_bytes)
         meta = dict(
             vertices_pruned=int(g.n - alive_count),
             prune_fraction=float(1.0 - alive_count / max(g.n, 1)),
@@ -633,7 +917,7 @@ def _plan_subgraph(g: Graph, backend: str, widths: Sequence[int],
     sub, old_ids = induced_subgraph(g, alive)
     stages, _, inner = _plan_intersection(
         sub, "filtered", backend, widths, strategy, bitmap_bits, "host",
-        None, device)
+        None, device, max_device_bytes)
     meta = dict(
         vertices_pruned=int(g.n - alive.sum()),
         prune_fraction=float(1.0 - alive.sum() / max(g.n, 1)),
@@ -793,40 +1077,40 @@ def plan_triangle_count(
         prep) or "host" (the numpy path); the bfs lane always preps on the
         device.
       shape_policy: the ``ShapePolicy``; None means ``DEFAULT_SHAPE_POLICY``.
-      max_device_bytes: must be None: tiled streaming is not ported yet.
+      max_device_bytes: intersection/subgraph/matrix lanes — optional
+        per-bucket device-bytes budget. A bucket (or the matrix lane's
+        triples) whose resident arrays would exceed it stays in host memory
+        (pinned on a CUDA device) and streams through one launch cached at
+        a pow2 chunk shape at ``count()`` time (``_TiledStage``); the
+        counts equal the resident plan's. None plans everything resident.
+        The hash and bfs lanes take no budget, as in the reference.
       device: where the buckets live and the kernels run; None means the
         CUDA device (see ``resolve_device``).
 
     Raises:
       ValueError: unknown algorithm or backend.
-      NotImplementedError: ``max_device_bytes`` is set.
-      RuntimeError: ``device`` is None or CUDA and no card is present.
+      RuntimeError: ``device`` is None or CUDA and no card is present; on a
+        CUDA device, host memory that cannot be pinned.
     """
     if algorithm not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {algorithm!r}; expected one of "
                          f"{ALGORITHMS}")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
-    if max_device_bytes is not None:
-        raise NotImplementedError(
-            "max_device_bytes (tiled streaming of buckets or tile stacks "
-            "over a device budget) is not ported yet; see ROADMAP.md "
-            "Queue 1 item 10"
-        )
     device = resolve_device(device)
     t0 = time.perf_counter()
     if algorithm == "intersection":
         stages, divisor, meta = _plan_intersection(
             g, variant, backend, widths, strategy, bitmap_bits, prep_backend,
-            shape_policy, device,
+            shape_policy, device, max_device_bytes,
         )
     elif algorithm == "matrix":
         stages, divisor, meta = _plan_matrix(g, block, permute, backend,
-                                             device)
+                                             device, max_device_bytes)
     elif algorithm == "subgraph":
         stages, divisor, meta = _plan_subgraph(
             g, backend, widths, strategy, bitmap_bits, prep_backend,
-            shape_policy, device,
+            shape_policy, device, max_device_bytes,
         )
     elif algorithm == "hash":
         stages, divisor, meta = _plan_hash(g, backend, widths, prep_backend,
@@ -908,3 +1192,160 @@ def _bfs_planner(g: Graph, options, *, device):
 register_algorithm("intersection", _intersection_planner)
 register_algorithm("hash", _hash_planner)
 register_algorithm("bfs", _bfs_planner)
+
+
+# ---------------------------------------------------------------------------
+# GraphBatch — graphs of one policy stacked into one launch per width
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class GraphBatch:
+    """A batch of graphs prepped under one ``ShapePolicy`` and stacked, so
+    the whole batch is counted by ONE intersection launch per width.
+
+    Build via ``from_graphs``: each member runs the device intersection
+    prep, each width's buckets are harmonized to the largest policy-rounded
+    extent across members (a width a member lacks becomes all-padding
+    rows, which count zero), and each width's (u, v) pairs are stored
+    contiguous as (B, E, W) stacks. ``counts()`` passes each stack viewed as
+    (B·E, W) to one K1/K2/K3 launch (``BatchLaunch``, from the shared cache
+    under the reference's ``"intersection_batch"`` key) and makes one host
+    sync for the batch. This is the ``TriangleCounter.count_many`` fast
+    path.
+    """
+
+    graphs: List[Graph]
+    backend: str
+    device: torch.device
+    divisor: int
+    specs: tuple  # ((strategy, bitmap_bits, (e_pad, width)), ...) per width
+    arrays: List[torch.Tensor]  # flattened (u, v) stacks, (B, E, W) each
+    meta: Dict[str, Any]
+    prep_seconds: float
+    executions: int = 0
+
+    @property
+    def batch_size(self) -> int:
+        return len(self.graphs)
+
+    @property
+    def shape_keys(self) -> List[tuple]:
+        return [shape for _, _, shape in self.specs]
+
+    def counts(self) -> np.ndarray:
+        """(B,) exact triangle counts: one launch per width, one sync.
+
+        Raises:
+          RuntimeError: a full-variant total that is not a multiple of 6.
+        """
+        if not self.specs:
+            out = np.zeros(self.batch_size, dtype=np.int64)
+        else:
+            fn = get_batch_executable(self.specs, self.backend,
+                                      self.batch_size)
+            out = fn(*self.arrays).cpu().numpy()
+        if self.divisor != 1:
+            if (out % self.divisor).any():
+                raise RuntimeError(f"totals {out.tolist()} are not multiples "
+                                   f"of divisor {self.divisor}")
+            out //= self.divisor
+        self.executions += 1
+        return out
+
+    def synchronize(self) -> "GraphBatch":
+        """Wait for the device (useful before timing counts)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
+    @classmethod
+    def from_graphs(cls, graphs: Sequence[Graph], options=None, *,
+                    device: Union[None, str, torch.device] = None,
+                    **overrides) -> "GraphBatch":
+        """Prep and stack ``graphs`` under one options bag.
+
+        Args:
+          graphs: host ``Graph``s of any mix of sizes; each width's stack
+            takes the largest policy-rounded extent among the members.
+          options: a ``CountOptions``; None builds one from ``**overrides``.
+            It must have ``backend="kernel"`` and ``prep_backend="device"``
+            (the defaults). The strategy resolves per width with
+            ``id_range = max n + 2`` across the members.
+          device: where the stacks live and the kernels run; None means the
+            CUDA device (see ``resolve_device``).
+
+        Raises:
+          ValueError: an empty batch, or options outside the batchable
+            regime.
+          RuntimeError: ``device`` is None or CUDA and no card is present.
+        """
+        from repro_torch.core.options import CountOptions
+
+        if options is None:
+            options = CountOptions(**overrides)
+        elif overrides:
+            options = options.replace(**overrides)
+        graphs = list(graphs)
+        if not graphs:
+            raise ValueError("GraphBatch needs at least one graph")
+        if options.backend != "kernel":
+            raise ValueError(
+                f"GraphBatch requires backend='kernel' (each width's stack "
+                f"goes through one kernel launch); got {options.backend!r}")
+        if options.prep_backend != "device":
+            raise ValueError(
+                "GraphBatch requires prep_backend='device' (the stacked "
+                "layout is defined by the device prep's ShapePolicy)")
+        device = resolve_device(device)
+        policy = options.resolved_shape_policy
+        t0 = time.perf_counter()
+        per_graph = [
+            {b.width: b for b in prep.prepare_intersection_buckets_device(
+                g, variant=options.variant, widths=options.widths,
+                policy=policy, device=device)}
+            for g in graphs
+        ]
+        widths_union = sorted({w for bs in per_graph for w in bs})
+        id_range = max(g.n for g in graphs) + 2
+        specs, arrays = [], []
+        for w in widths_union:
+            members = [bs.get(w) for bs in per_graph]
+            e_pad = max(policy.round_edges(1) if b is None else b.e_pad
+                        for b in members)
+            u = torch.full((len(graphs), e_pad, w), -1, dtype=torch.int32,
+                           device=device)
+            v = torch.full((len(graphs), e_pad, w), -2, dtype=torch.int32,
+                           device=device)
+            for i, b in enumerate(members):
+                if b is not None:
+                    u[i, :b.e_pad] = b.u_lists
+                    v[i, :b.e_pad] = b.v_lists
+            strat, bits = _resolve_bucket_strategy(
+                w, id_range, options.strategy, options.bitmap_bits)
+            specs.append((strat, bits, (e_pad, w)))
+            arrays.extend([u, v])
+        del per_graph
+        batch = cls(
+            graphs=graphs,
+            backend=options.backend,
+            device=device,
+            divisor=6 if options.variant == "full" else 1,
+            specs=tuple(specs),
+            arrays=arrays,
+            meta=dict(
+                batch_size=len(graphs),
+                variant=options.variant,
+                widths=tuple(options.widths),
+                strategy=options.strategy,
+                shape_policy=policy.key(),
+                prep_backend="device",
+                bucket_shapes=[s[2] for s in specs],
+                bucket_strategies=[(s[2][1], s[0]) for s in specs],
+                graphs=[g.name for g in graphs],
+                device=str(device),
+            ),
+            prep_seconds=0.0,
+        )
+        batch.synchronize()
+        batch.prep_seconds = time.perf_counter() - t0
+        return batch

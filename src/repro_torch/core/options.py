@@ -57,8 +57,10 @@ class CountOptions:
       shape_policy: the ``ShapePolicy`` rounding prep extents; None means
         ``DEFAULT_SHAPE_POLICY``.
       max_device_bytes: per-bucket device-bytes budget for streamed
-        (tiled) execution. Validated here; the port has no tiled stages
-        yet, so planning with a value raises ``NotImplementedError``.
+        (tiled) execution on the intersection, subgraph and matrix lanes:
+        a bucket (or the matrix lane's triples) over it stays in host
+        memory and streams through the kernels chunk by chunk; None keeps
+        everything resident.
     """
 
     algorithm: str = "auto"

@@ -7,6 +7,9 @@ The port of ``repro.core.prep``:
   padded gathers on a torch device, returning ``DeviceBucket``s;
 * ``prepare_intersection_buckets_host`` — the numpy path, kept as the
   parity reference and for ``prep_backend="host"``;
+* ``bucket_is_tiled`` / ``_bucket_nbytes`` / ``_tile_chunk_rows`` — the
+  ``max_device_bytes`` budget rule: a bucket over it is gathered in chunks
+  into host memory (pinned on a CUDA device) and streamed at count time;
 * ``prepare_bfs_buckets_device`` — the bfs lane's BFS levels, (level, id)
   orientation and buckets, on the device;
 * ``peel_to_two_core_device`` / ``induced_device_graph`` — the subgraph
@@ -46,17 +49,22 @@ from repro_torch.graphs.device import (
     _bfs_levels_dev,
     _bucket_sort_dev,
     _gather_bucket_dev,
+    _gather_bucket_rows_dev,
     _induced_compact_dev,
     _padded_neighbors_dev,
     _two_core_peel_dev,
     next_pow2,
 )
 from repro_torch.core.options import DEFAULT_WIDTHS
-from repro_torch.kernels.masked_spgemm.masked_spgemm import WGMMA_BLOCKS
+from repro_torch.kernels.masked_spgemm.masked_spgemm import (
+    WGMMA_BLOCKS,
+    launch_order,
+)
 
 __all__ = [
     "DeviceBucket",
     "TileSchedule",
+    "bucket_is_tiled",
     "build_tile_schedule",
     "choose_block",
     "induced_device_graph",
@@ -76,7 +84,9 @@ class DeviceBucket:
     ``u_lists``/``v_lists`` are (e_pad, width) int32 sorted neighbour
     lists; the first ``edges`` rows are real, the rest whole-row padding
     (u = -1, v = -2 ⇒ zero matches). ``src``/``dst`` are the (e_pad,) int32
-    edge endpoints of each row (padding rows carry 0).
+    edge endpoints of each row (padding rows carry 0). A bucket over a
+    ``max_device_bytes`` budget (``bucket_is_tiled``) holds its four arrays
+    in host memory instead, pinned when the prep ran on a CUDA device.
     """
 
     width: int
@@ -102,6 +112,38 @@ def _check_variant(variant: str) -> None:
         )
 
 
+def _bucket_nbytes(e_pad: int, width: int) -> int:
+    """Device bytes one resident intersection bucket costs: the (e, w)
+    int32 u/v neighbour-list pair plus the (e,) int32 src/dst endpoints
+    (the reference's rule; ``count()`` streams only u and v)."""
+    return int(e_pad) * (8 * int(width) + 8)
+
+
+def _tile_chunk_rows(rows: int, row_bytes: int, max_device_bytes: int) -> int:
+    """Largest pow2 chunk row count whose device footprint fits the budget
+    (floored at 1: a budget below one row's cost streams row by row)."""
+    c = 1
+    while c * 2 <= rows and (c * 2) * row_bytes <= max_device_bytes:
+        c *= 2
+    return c
+
+
+def bucket_is_tiled(e_pad: int, width: int,
+                    max_device_bytes: Optional[int]) -> bool:
+    """Whether an (e_pad, width) bucket streams under the budget rather
+    than staying resident (the budget is per bucket, as in the reference)."""
+    return max_device_bytes is not None \
+        and _bucket_nbytes(e_pad, width) > max_device_bytes
+
+
+def _host_array(shape: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """An empty int32 host tensor that feeds ``device``: pinned when
+    ``device`` is a CUDA device (a failure to pin raises), plain CPU memory
+    otherwise."""
+    return torch.empty(shape, dtype=torch.int32,
+                       pin_memory=device.type == "cuda")
+
+
 def prepare_intersection_buckets_device(
     g: Union[Graph, DeviceGraph],
     *,
@@ -109,6 +151,7 @@ def prepare_intersection_buckets_device(
     widths: Sequence[int] = DEFAULT_WIDTHS,
     policy: Optional[ShapePolicy] = None,
     device: Union[None, str, torch.device] = None,
+    max_device_bytes: Optional[int] = None,
 ) -> List[DeviceBucket]:
     """Device-resident intersection prep: orientation + bucket layout +
     padded neighbour gathers.
@@ -123,6 +166,10 @@ def prepare_intersection_buckets_device(
       policy: the ``ShapePolicy`` rounding per-bucket extents (ignored for
         a ``DeviceGraph``).
       device: where a host ``Graph`` is uploaded; required for one.
+      max_device_bytes: optional per-bucket budget. A bucket over it
+        (``bucket_is_tiled``) is gathered in row ranges of the stage's chunk
+        size straight into host arrays (pinned on a CUDA device), so the
+        device never holds it whole; its arrays equal the resident ones.
 
     Returns:
       A list of ``DeviceBucket``; empty degree classes are dropped.
@@ -143,9 +190,13 @@ def prepare_intersection_buckets_device(
     else:
         src, dst, valid = dg.edge_sources(), dg.csr.col_idx, dg.edge_valid()
         deg = dg.csr.degrees
-    return _gather_buckets(
+    buckets = _gather_buckets(
         dg, src, dst, valid, deg, widths,
-        lambda w: dg.padded_neighbors(w, oriented=(variant == "filtered")))
+        lambda w: dg.padded_neighbors(w, oriented=(variant == "filtered")),
+        max_device_bytes=max_device_bytes)
+    if max_device_bytes is not None:
+        dg._nbrs.clear()  # a budgeted plan keeps no (n, top) neighbour matrix
+    return buckets
 
 
 def prepare_bfs_buckets_device(dg: DeviceGraph, *,
@@ -173,11 +224,15 @@ def prepare_bfs_buckets_device(dg: DeviceGraph, *,
 
 def _gather_buckets(dg: DeviceGraph, src: torch.Tensor, dst: torch.Tensor,
                     valid: torch.Tensor, deg: torch.Tensor,
-                    widths: Sequence[int], neighbors) -> List[DeviceBucket]:
+                    widths: Sequence[int], neighbors,
+                    max_device_bytes: Optional[int] = None
+                    ) -> List[DeviceBucket]:
     """Sort oriented edge slots into degree-class buckets (by the larger
     endpoint degree, CSR order kept within a bucket) and gather each
     bucket's padded (u, v) rows from ``neighbors(width)``, the (n, width)
-    neighbour matrix of the same orientation."""
+    neighbour matrix of the same orientation. A bucket over
+    ``max_device_bytes`` is gathered chunk by chunk into host arrays
+    (``_gather_bucket_host``)."""
     n = dg.n
     dmax = int(deg.max())  # one scalar sync picks the top-bucket width
     bounds = [int(w) for w in widths]
@@ -201,12 +256,40 @@ def _gather_buckets(dg: DeviceGraph, src: torch.Tensor, dst: torch.Tensor,
         if c == 0:
             continue
         e_pad = dg.policy.round_edges(c)
-        u, v, sb, db = _gather_bucket_dev(
-            ssrc, sdst, int(starts_h[i]), c, nbrs, n=n, e_pad=e_pad, width=w,
-        )
+        args = (ssrc, sdst, int(starts_h[i]), c, nbrs)
+        if bucket_is_tiled(e_pad, w, max_device_bytes):
+            u, v, sb, db = _gather_bucket_host(
+                *args, n=n, e_pad=e_pad, width=w,
+                max_device_bytes=max_device_bytes)
+        else:
+            u, v, sb, db = _gather_bucket_dev(*args, n=n, e_pad=e_pad, width=w)
         out.append(DeviceBucket(width=w, edges=c, u_lists=u, v_lists=v,
                                 src=sb, dst=db))
     return out
+
+
+def _gather_bucket_host(sorted_src: torch.Tensor, sorted_dst: torch.Tensor,
+                        start: int, count: int, nbrs: torch.Tensor, *, n: int,
+                        e_pad: int, width: int, max_device_bytes: int):
+    """``_gather_bucket_dev``'s arrays, built in host memory (pinned when
+    the prep runs on a CUDA device): each range of ``_tile_chunk_rows``
+    real rows is gathered on the device and copied down; the padding rows
+    past ``count`` are filled on the host (u = -1, v = -2, src = dst = 0)."""
+    dev = sorted_src.device
+    chunk = _tile_chunk_rows(e_pad, _bucket_nbytes(1, width), max_device_bytes)
+    u = _host_array((e_pad, width), dev)
+    v = _host_array((e_pad, width), dev)
+    sb = _host_array((e_pad,), dev)
+    db = _host_array((e_pad,), dev)
+    for lo in range(0, count, chunk):
+        hi = min(lo + chunk, count)
+        parts = _gather_bucket_rows_dev(sorted_src, sorted_dst, start, count,
+                                        nbrs, n=n, lo=lo, hi=hi, width=width)
+        for host, part in zip((u, v, sb, db), parts):
+            host[lo:hi].copy_(part)  # a blocking copy: the host reads it next
+    for host, fill in zip((u, v, sb, db), (-1, -2, 0, 0)):
+        host[count:] = fill
+    return u, v, sb, db
 
 
 def prepare_intersection_buckets_host(
@@ -372,8 +455,7 @@ class TileSchedule:
         Raises:
           ValueError: an index outside its tile array.
         """
-        dtype = (torch.bfloat16 if self.stats["block"] in WGMMA_BLOCKS
-                 else torch.float32)
+        dtype = self.tile_dtype
         index = []
         for name, idx, n in (("l_index", self.l_index, len(self.l_blocks)),
                              ("u_index", self.u_index, len(self.u_blocks)),
@@ -387,6 +469,44 @@ class TileSchedule:
             return torch.from_numpy(a).to(device).to(dtype)
 
         return (tiles(self.l_blocks), tiles(self.u_blocks), *index)
+
+    @property
+    def tile_dtype(self) -> torch.dtype:
+        """bf16 at a B of K4's tensor-core route, else float32."""
+        return (torch.bfloat16 if self.stats["block"] in WGMMA_BLOCKS
+                else torch.float32)
+
+    def host_chunks(self, rows: int, device: Union[str, torch.device]
+                    ) -> List[Tuple[torch.Tensor, ...]]:
+        """The gathered form cut into chunks of ``rows`` consecutive
+        triples, on the host, for a stage that streams them to ``device``.
+
+        Each chunk is ``(l_tiles, u_tiles, l_index, u_index, a_index,
+        order)``: its own distinct L tiles and its distinct U-or-A tiles (in
+        ``tile_dtype``), its triples' indices re-based onto them as (rows,)
+        int32 vectors (the last chunk may be shorter), and its
+        ``launch_order``. A chunk names at most ``3 × rows`` tiles. Pinned
+        when ``device`` is a CUDA device.
+        """
+        dev = torch.device(device)
+        pin = dev.type == "cuda"
+        dtype = self.tile_dtype
+        l_all = torch.from_numpy(self.l_blocks).to(dtype)
+        u_all = torch.from_numpy(self.u_blocks).to(dtype)
+        out = []
+        for s in range(0, self.num_triples, rows):
+            li, ui, ai = (x[s:s + rows] for x in
+                          (self.l_index, self.u_index, self.a_index))
+            l_keep, l_re = np.unique(li, return_inverse=True)
+            u_keep, ua_re = np.unique(np.concatenate([ui, ai]),
+                                      return_inverse=True)
+            index = [torch.from_numpy(x.reshape(-1).astype(np.int32)) for x in
+                     (l_re, ua_re[:len(ui)], ua_re[len(ui):])]
+            chunk = (l_all.index_select(0, torch.from_numpy(l_keep)),
+                     u_all.index_select(0, torch.from_numpy(u_keep)),
+                     *index, launch_order(index[0], index[2]))
+            out.append(tuple(x.pin_memory() for x in chunk) if pin else chunk)
+        return out
 
 
 def tile_schedule(g: Graph, block: int = 128,

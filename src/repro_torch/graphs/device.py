@@ -281,17 +281,29 @@ def _gather_bucket_dev(sorted_src: torch.Tensor, sorted_dst: torch.Tensor,
     carry src = dst = 0 (their match counts are zero). Built in place, so
     the largest transient is one (e_pad, width) bool mask.
     """
+    return _gather_bucket_rows_dev(sorted_src, sorted_dst, start, count, nbrs,
+                                   n=n, lo=0, hi=e_pad, width=width)
+
+
+def _gather_bucket_rows_dev(sorted_src: torch.Tensor, sorted_dst: torch.Tensor,
+                            start: int, count: int, nbrs: torch.Tensor,
+                            *, n: int, lo: int, hi: int, width: int):
+    """Rows [lo, hi) of one bucket's padded layout (see
+    ``_gather_bucket_dev``), so an over-budget bucket can be gathered one
+    chunk at a time: the largest transient is one (hi - lo, width) mask."""
     dev = sorted_src.device
-    sb = torch.zeros(e_pad, dtype=torch.int32, device=dev)
-    db = torch.zeros(e_pad, dtype=torch.int32, device=dev)
-    sb[:count] = sorted_src[start:start + count]
-    db[:count] = sorted_dst[start:start + count]
+    rows = hi - lo
+    real = max(0, min(hi, count) - lo)  # rows of this range below count
+    sb = torch.zeros(rows, dtype=torch.int32, device=dev)
+    db = torch.zeros(rows, dtype=torch.int32, device=dev)
+    sb[:real] = sorted_src[start + lo:start + lo + real]
+    db[:real] = sorted_dst[start + lo:start + lo + real]
     cols = nbrs[:, :width]
     u = cols.index_select(0, sb.long())
-    u[count:] = -1
+    u[real:] = -1
     v = cols.index_select(0, db.long())
     v.masked_fill_(v == n, n + 1)
-    v[count:] = -2
+    v[real:] = -2
     return u, v, sb, db
 
 

@@ -176,12 +176,7 @@ def test_options_validate_like_reference(ref):
 
 def test_unported_surfaces_raise_not_implemented():
     g = GRAPHS["tiny-rmat"]()
-    tc = TriangleCounter(g, device=CPU, max_device_bytes=1 << 20)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tc.count()
     tc = TriangleCounter(g, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tc.count_many([g])
     with pytest.raises(NotImplementedError, match="item 8"):
         tc.edge_support()
     with pytest.raises(NotImplementedError, match="item 8"):

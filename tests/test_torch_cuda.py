@@ -576,3 +576,94 @@ def test_prefill_through_flash_kernel_matches_plain_path(cuda):
     assert fa.LAUNCHES["flash_attention"] == 1
     with pytest.raises(NotImplementedError):
         L.attention(q, q[:, :, :2], q[:, :, :2], q_pos=pos, k_pos=pos - 1)
+
+
+@pytest.mark.parametrize("prep_backend", ["device", "host"])
+@pytest.mark.parametrize("strategy", ["auto", "broadcast", "probe", "bitmap"])
+def test_tiled_equals_resident_on_card(cuda, strategy, prep_backend):
+    from repro_torch.core.engine import _TiledStage
+
+    g = rmat_graph(10, 8, seed=3)
+    kw = dict(algorithm="intersection", strategy=strategy,
+              prep_backend=prep_backend)
+    resident = TriangleCounter(g, **kw)
+    want = resident.count()
+    reset_launch_counts()
+    tiled = TriangleCounter(g, max_device_bytes=1 << 15, **kw)
+    res = tiled.count()
+    assert res == want == triangle_count_scipy(g)
+    chunks = [st for st in tiled.plan.stages if isinstance(st, _TiledStage)]
+    assert res.meta["num_chunks"] >= 2 and chunks
+    # one launch per resident stage and per chunk of each tiled stage
+    assert sum(LAUNCHES.values()) == res.meta["num_chunks"] + sum(
+        not isinstance(st, _TiledStage) for st in tiled.plan.stages)
+    for st in chunks:  # the host side is pinned; nothing of it is resident
+        assert all(x.is_pinned() for c in st.chunks for x in c)
+        assert all(x.is_pinned() for c in st.vertex_chunks for x in c)
+        assert st.args == ()
+    for _ in range(3):
+        assert tiled.count() == res.count
+    np.testing.assert_array_equal(tiled.triangles_per_vertex(),
+                                  resident.triangles_per_vertex())
+
+
+def test_chunked_prep_on_card_equals_cpu(cuda):
+    from repro_torch.core import prep
+
+    g = rmat_graph(10, 8, seed=3)
+    budget = 1 << 14
+    got = prep.prepare_intersection_buckets_device(g, device=cuda,
+                                                   max_device_bytes=budget)
+    want = prep.prepare_intersection_buckets_device(g, device="cpu")
+    assert any(prep.bucket_is_tiled(b.e_pad, b.width, budget) for b in got)
+    for gb, wb in zip(got, want, strict=True):
+        tiled = prep.bucket_is_tiled(gb.e_pad, gb.width, budget)
+        for name in ("u_lists", "v_lists", "src", "dst"):
+            a = getattr(gb, name)
+            assert (a.device.type == "cpu" and a.is_pinned()) if tiled \
+                else a.device.type == "cuda"
+            assert torch.equal(a.cpu(), getattr(wb, name))
+
+
+def test_tiled_matrix_on_card(cuda):
+    from repro_torch.core.engine import _TiledStage
+
+    g = rmat_graph(10, 16, seed=2)
+    want = TriangleCounter(g, algorithm="matrix").count()
+    ms.reset_launch_counts()
+    tiled = TriangleCounter(g, algorithm="matrix",
+                            max_device_bytes=3 * 128 * 128 * 4 * 8)
+    res = tiled.count()
+    assert res.meta["block"] == 128
+    assert res == want == triangle_count_scipy(g)
+    (st,) = tiled.plan.stages
+    assert isinstance(st, _TiledStage) and st.chunk_rows == 8
+    assert res.meta["num_chunks"] == st.num_chunks >= 2
+    assert ms.LAUNCHES == {"masked_spgemm": 0,
+                           "masked_spgemm_wgmma": st.num_chunks}
+    assert all(x.is_pinned() for c in st.chunks for x in c)
+
+
+def test_batch_equals_loop_on_card(cuda):
+    from repro_torch.core import GraphBatch
+
+    graphs = [rmat_graph(8 + s % 3, 8, seed=s) for s in range(10)] \
+        + [load_dataset("tiny-rmat"), complete_graph(20)]
+    session = TriangleCounter(rmat_graph(7, 8, seed=99),
+                              algorithm="intersection")
+    reset_launch_counts()
+    res = session.count_many(graphs, batch_size=6)
+    batches = {id(r.plan): r.plan for r in res}
+    assert all(isinstance(b, GraphBatch) for b in batches.values())
+    # one launch per width per batch
+    assert sum(LAUNCHES.values()) == sum(len(b.specs)
+                                         for b in batches.values())
+    for g, r in zip(graphs, res):
+        assert r == TriangleCounter(g, algorithm="intersection").count() \
+            == triangle_count_scipy(g)
+    for strategy in ("broadcast", "probe", "bitmap"):
+        batch = GraphBatch.from_graphs(graphs[:4], algorithm="intersection",
+                                       strategy=strategy)
+        assert all(a.device.type == "cuda" for a in batch.arrays)
+        assert [int(c) for c in batch.counts()] == \
+            [triangle_count_scipy(g) for g in graphs[:4]]
