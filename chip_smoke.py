@@ -79,6 +79,29 @@ source, all started together), and runs, in order:
    read (``hash_read_bound``) beside PR 13's all-bytes bound, the rows
    whose row end is 0, and the build's registers and spills (none may
    spill);
+3k. the edge lane: ``TriangleCounter(rmat_graph(18, 16, seed=1),
+   algorithm="edge")`` (wide int64 keys, mk = 4,194,304): ``edge_support()``
+   against ``edge_support_forward_scipy`` (timed), Σ support = 3 ×
+   82,629,122 and each vertex's incident supports = 2·t(v) from phase 2;
+   prep seconds, the warm ``edge_support()`` and ``count()`` (medians of
+   3) and the lane's own peak; ``k_truss(K_TRUSS)`` against a scipy peel on
+   the same oracle (non-empty, ≥ 2 rounds, as many rounds); each strategy
+   forced on every non-tiny analogue (int32 keys) against the oracle;
+   ``truss_decomposition()`` on coauthors-like and road-like against
+   ``truss_decomposition_forward_scipy``; one ``edge_support()`` under
+   ``torch.profiler`` (device busy time, idle share, kernels by time);
+3l. dynamic sessions: ``DynamicTriangleCounter(rmat_graph(18, 16,
+   seed=1))`` (wide keys, capacity 4,194,304) takes 64 batches of 256
+   updates from ``np.random.default_rng(0)`` (half deletes of live edges,
+   half inserts of random pairs, two repeats and two self-loops each);
+   the median batch of 2–64 and updates/s, every growth of the capacity
+   or width class, no new cache entry in steady state, the own peak; 8
+   more batches under ``torch.profiler``; then
+   ``recount()`` with K1–K3's counters read around it, against the kept
+   count and ``triangle_count_forward_scipy(snapshot())``, and each of the
+   recount's stages held against its plain version (``recount_path`` in
+   the kernels line); shorter streams on coauthors-like and road-like
+   (int32 keys); a ``{"lanes": ...}`` line with the two lanes' numbers;
 3g. tiled counting: the pinned host-to-device rate (1 GiB, median of 5),
    then ``TriangleCounter(rmat_graph(18, 16, seed=1),
    max_device_bytes=1 << 30)``: its (2097152, 128) bucket streams in 4
@@ -155,13 +178,14 @@ source, all started together), and runs, in order:
 5. a ``{"kernels": [...]}`` line, the card's name and power limit from
    nvidia-smi, and a last line ``{"ok": true, "device": {...}}``.
 
-The phases run in the order 1, 2, 3, 3b, 3c, 4, 3d, 4b, 3g–3j, 3e, 3f,
-4c, 5: phase 4 needs the earlier lanes' plans (about 40 GiB), so the new
-lanes wait until it has released them (phase 4b holds the hash paths'
-stages and releases them before the tiled phases, which free their pinned
-host memory before the next), and the serving slice runs once every graph
-plan is gone. The kernels line's K1–K4 entries carry the tiled and batch
-shapes under ``tiled_path`` and ``batch_path``.
+The phases run in the order 1, 2, 3, 3b, 3c, 4, 3d, 4b, 3k, 3l, 3g–3j,
+3e, 3f, 4c, 5: phase 4 needs the earlier lanes' plans (about 40 GiB), so
+the new lanes wait until it has released them (phase 4b holds the hash
+paths' stages and releases them before the edge and dynamic lanes, and the
+tiled phases free their pinned host memory before the next), and the
+serving slice runs once every graph plan is gone. The kernels line's K1–K4
+entries carry the tiled, batch and recount shapes under ``tiled_path``,
+``batch_path`` and ``recount_path``.
 
 Any failed check raises, so the script exits non-zero and prints no last
 line. Without a CUDA device, or outside a checkout, it exits 2 at once.
@@ -197,6 +221,11 @@ HASH_HOST_PREP = ("coauthors-like", "citpatents-like")  # also host-prepped
 # table (NVIDIA H100 80GB HBM3, 700.00 W, PR 13): the compact lane must stay
 # below it
 PR13_HASH_PEAK_GIB = 23.44
+# phase 3k's k-truss of R-MAT scale 18: non-empty, peeled in more than one
+# round, and small enough after its first round that the scipy peel which
+# checks it takes seconds (a smaller k peels more rounds over a larger
+# graph, each a scipy support of it)
+K_TRUSS = 128
 EXPECTED_GRID = 2 * (GRID_SIDE - 1) ** 2  # two triangles per unit square
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 ALU_OPS_PER_S = 67e12      # H100 SXM non-tensor 32-bit rate, NVIDIA data sheet
@@ -1319,6 +1348,286 @@ def tiled_batch_phase(torch, np, dev, ctx) -> None:
                      key_launches[strat], shapes, batch=batch_info)
     del first_batch, bitmap_batch, graphs, session
     release_host_memory(torch)
+
+
+def profile_line(prof: dict, top: int = 6) -> str:
+    """A ``device_profile`` result as one line: wall, device busy, idle
+    share and the ``top`` kernels by summed time."""
+    names = sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:top]
+    return (f"wall {prof['wall_s']:.4f} s, device busy {prof['busy_s']:.4f} "
+            f"s over {prof['kernels']} kernels and copies, idle share "
+            f"{prof['idle_share']:.3f}; top: "
+            + "; ".join(f"{k[:60]} {v * 1e3:.2f} ms" for k, v in names))
+
+
+def edge_dynamic_phase(torch, np, dev, ctx) -> None:
+    """Phases 3k and 3l: the edge lane (edge support, k-truss, forced
+    strategies, truss decomposition) and dynamic sessions (a 64-batch
+    stream at scale 18, shorter int32-key streams), each against scipy. The
+    K1-K3 entries of ``ctx`` gain the full recount's shapes
+    (``recount_path``)."""
+    import types
+
+    from repro_torch.core import (DynamicTriangleCounter, TriangleCounter,
+                                  edge_support_forward_scipy,
+                                  executable_cache_info,
+                                  k_truss_forward_scipy,
+                                  triangle_count_forward_scipy,
+                                  truss_decomposition_forward_scipy)
+    from repro_torch.graphs import edges_to_csr, load_dataset, rmat_graph
+    from repro_torch.kernels.intersect import LAUNCHES, reset_launch_counts
+
+    entries, intersect_case = ctx["entries"], ctx["intersect_case"]
+
+    def same_support(got, want) -> bool:
+        return all(a.dtype == b.dtype and np.array_equal(a, b)
+                   for a, b in zip(got, want))
+
+    # -- phase 3k: the edge lane ----------------------------------------------
+    phase("phase 3k: edge lane, TriangleCounter(rmat_graph(18, 16, seed=1), "
+          "algorithm='edge')")
+    g = rmat_graph(18, 16, seed=1)  # phase 2 checked its count
+    t0 = time.perf_counter()
+    oracle = edge_support_forward_scipy(g)
+    oracle_s = time.perf_counter() - t0
+    print(f"edge_support_forward_scipy {oracle_s:.2f} s; max support "
+          f"{int(oracle[2].max())}, median {float(np.median(oracle[2]))}")
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tc = TriangleCounter(g, algorithm="edge")
+    first = tc.count()
+    plan = tc.plan
+    support_s, count_s = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = tc.edge_support()
+        support_s.append(time.perf_counter() - t0)
+        count_s.append(tc.count().exec_seconds)
+    m = first.meta
+    print(f"key_mode={m['key_mode']} mk={int(plan.edge_keys.shape[0])} "
+          f"buckets={m['bucket_shapes']} strategies={m['bucket_strategies']} "
+          f"edges/bucket={m['bucket_edges']}")
+    print(f"prep_seconds={first.prep_seconds:.4f}; first count() "
+          f"{first.exec_seconds:.4f} s; warm edge_support() seconds "
+          f"{[round(x, 6) for x in support_s]} (median "
+          f"{statistics.median(support_s):.6f}); warm count() seconds "
+          f"{[round(x, 6) for x in count_s]} (median "
+          f"{statistics.median(count_s):.6f}); {peak_memory(torch, held)}")
+    check(m["key_mode"] == "wide" and plan.edge_keys.dtype == torch.int64
+          and plan.edge_keys.shape[0] == 4_194_304,
+          "wide (int64) keys, mk = 4,194,304")
+    check(first.count == EXPECTED_SCALE18 and all(
+        tc.count().count == EXPECTED_SCALE18 for _ in range(2)),
+        f"count() = Σ support / 3 = {first.count}")
+    check(same_support(got, oracle),
+          "edge_support() = edge_support_forward_scipy, array for array")
+    check(int(got[2].sum()) == 3 * EXPECTED_SCALE18,
+          f"Σ support = {int(got[2].sum())} = 3 × 82,629,122")
+    incident = (np.bincount(got[0], weights=got[2], minlength=g.n)
+                + np.bincount(got[1], weights=got[2], minlength=g.n))
+    check(bool((incident.astype(np.int64) == 2 * ctx["main_tpv"]).all()),
+          "each vertex's incident supports sum to 2·t(v), t from phase 2")
+    support_prof = device_profile(torch, tc.edge_support)
+    print(f"edge_support() under torch.profiler: {profile_line(support_prof)}")
+    edge_info = dict(prep_s=first.prep_seconds,
+                     support_s=statistics.median(support_s),
+                     count_s=statistics.median(count_s),
+                     oracle_s=oracle_s,
+                     peak_gib=(torch.cuda.max_memory_allocated() - held) / 2**30,
+                     buckets=m["bucket_shapes"],
+                     strategies=m["bucket_strategies"],
+                     profile={k: v for k, v in support_prof.items()
+                              if k != "by_name"})
+    del got, incident
+
+    t0 = time.perf_counter()
+    truss = tc.k_truss(K_TRUSS)
+    truss_s = time.perf_counter() - t0
+    rounds = plan.meta["peel_rounds"]
+    # the scipy peel's first round is the oracle above
+    t0 = time.perf_counter()
+    keep = oracle[2] >= K_TRUSS - 2
+    if keep.all():
+        want, want_rounds = g, 1
+    else:
+        want, later = k_truss_forward_scipy(
+            edges_to_csr(oracle[0][keep], oracle[1][keep], n=g.n), K_TRUSS)
+        want_rounds = 1 + later
+    scipy_truss_s = time.perf_counter() - t0
+    del oracle, keep
+    print(f"k_truss({K_TRUSS}): {truss.m_undirected} edges of "
+          f"{g.m_undirected}, {rounds} rounds, converged "
+          f"{plan.meta['peel_converged']}, {truss_s:.3f} s; the scipy peel "
+          f"{want_rounds} rounds, {scipy_truss_s:.2f} s")
+    check(truss.m_undirected > 0 and rounds >= 2,
+          f"the {K_TRUSS}-truss is non-empty and the peel ran ≥ 2 rounds")
+    check(np.array_equal(truss.row_ptr, want.row_ptr)
+          and np.array_equal(truss.col_idx, want.col_idx)
+          and rounds == want_rounds,
+          f"k_truss({K_TRUSS}) = the scipy peel, in as many rounds")
+    edge_info.update(k=K_TRUSS, k_truss_s=truss_s, peel_rounds=rounds,
+                     truss_edges=truss.m_undirected)
+    del tc, plan, first, truss, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    forced = []
+    for name in ctx["analogues"]:
+        d = load_dataset(name)
+        want = edge_support_forward_scipy(d)
+        line = [f"{name}: m={d.m_undirected}"]
+        for strategy in ("auto", "broadcast", "probe", "bitmap"):
+            s = TriangleCounter(d, algorithm="edge", strategy=strategy)
+            got = s.edge_support()
+            check(s.plan.key_mode == "int32"
+                  and s.plan.edge_keys.dtype == torch.int32
+                  and same_support(got, want),
+                  f"{name} strategy={strategy}: int32 keys, edge_support() "
+                  f"= scipy ({s.plan.meta['bucket_strategies']})")
+            t0 = time.perf_counter()
+            s.edge_support()
+            dt = time.perf_counter() - t0
+            line.append(f"{strategy} {dt * 1e3:.2f} ms")
+            forced.append(dict(graph=name, strategy=strategy, seconds=dt))
+        print("  " + "; ".join(line), flush=True)
+    for name in ("coauthors-like", "road-like"):
+        d = load_dataset(name)
+        t0 = time.perf_counter()
+        got = TriangleCounter(d, algorithm="edge").truss_decomposition()
+        dec_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = truss_decomposition_forward_scipy(d)
+        check(same_support(got, want),
+              f"{name} truss_decomposition() = scipy (max trussness "
+              f"{int(got[2].max())}, {dec_s:.3f} s; scipy "
+              f"{time.perf_counter() - t0:.2f} s)")
+    edge_info["forced"] = forced
+
+    # -- phase 3l: dynamic sessions -------------------------------------------
+    phase("phase 3l: dynamic session, DynamicTriangleCounter(rmat_graph(18, "
+          "16, seed=1)), 64 batches of 256 updates")
+
+    def stream(dc, graph, batches, rng, label):
+        """``batches`` batches of 256 updates: half deletes of live edges,
+        half inserts of random pairs, two repeats and two self-loops each.
+        Returns the per-batch seconds and the growths seen."""
+        n1 = graph.n + 1
+        lo, hi = graph.edge_list_unique()
+        pool = lo.astype(np.int64) * n1 + hi
+        alive = np.ones(pool.shape[0], dtype=bool)
+        seconds, growths = [], []
+        for b in range(batches):
+            pick = rng.choice(np.flatnonzero(alive), 126, replace=False)
+            alive[pick] = False
+            ins = rng.integers(0, graph.n, size=(126, 2))
+            ups = [(int(k // n1), int(k % n1), False) for k in pool[pick]]
+            ups += [(int(a), int(c)) for a, c in ins]
+            ups += [ups[3], ups[200]]  # repeats
+            ups += [(int(v), int(v)) for v in rng.integers(0, graph.n, 2)]
+            new = np.minimum(ins[:, 0], ins[:, 1]).astype(np.int64) * n1 \
+                + np.maximum(ins[:, 0], ins[:, 1])
+            pool = np.concatenate([pool, new[ins[:, 0] != ins[:, 1]]])
+            alive = np.concatenate(
+                [alive, np.ones(int((ins[:, 0] != ins[:, 1]).sum()), bool)])
+            before = (dc.plan.cap, dc.plan.bounds)
+            t0 = time.perf_counter()
+            dc.apply_updates(ups)
+            seconds.append(time.perf_counter() - t0)
+            after = (dc.plan.cap, dc.plan.bounds)
+            if after != before:
+                growths.append(dict(batch=b + 1, capacity=after[0],
+                                    bounds=list(after[1])))
+                print(f"  {label} batch {b + 1}: capacity {before[0]} -> "
+                      f"{after[0]}, bounds {before[1]} -> {after[1]}")
+        return seconds, growths
+
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    # no periodic recount inside the timed stream: it runs after it
+    dc = DynamicTriangleCounter(g, recount_interval=0)
+    p = dc.plan
+    print(f"key_mode={p.key_mode} capacity={p.cap} bounds={p.bounds} "
+          f"update_rows={p.ub} strategies={p.meta['bucket_strategies']} "
+          f"prep_seconds={p.prep_seconds:.4f}")
+    check(p.key_mode == "wide" and p._keys.dtype == torch.int64
+          and p.cap == 4_194_304, "wide (int64) keys, capacity 4,194,304")
+    check(dc.count().count == EXPECTED_SCALE18, "the seed's count = 82,629,122")
+    rng = np.random.default_rng(0)
+    first_s, first_growths = stream(dc, g, 1, rng, "scale 18")
+    cache_before = executable_cache_info()["size"]
+    seconds, growths = stream(dc, g, 63, rng, "scale 18")
+    cache_after = executable_cache_info()["size"]
+    growths = first_growths + growths
+    batch_ms = statistics.median(seconds) * 1e3
+    print(f"batch 1 {first_s[0] * 1e3:.3f} ms; batches 2-64 ms: median "
+          f"{batch_ms:.3f}, min {min(seconds) * 1e3:.3f}, max "
+          f"{max(seconds) * 1e3:.3f}; {256 / (batch_ms / 1e3):.0f} updates/s "
+          f"(256 a batch); inserted {p.inserted}, deleted {p.deleted}, "
+          f"recounts {p.recounts}; cache entries {cache_before} -> "
+          f"{cache_after}; {peak_memory(torch, held)}")
+    stream_prof = device_profile(torch, lambda: stream(
+        dc, g, 8, np.random.default_rng(2), "profiled"))
+    print(f"8 more batches under torch.profiler: {profile_line(stream_prof)}")
+    later = [x for x in growths if x["batch"] > 1]
+    check(cache_after == cache_before if not later
+          else cache_after - cache_before <= 3 * len(later),
+          f"no new cache entry in steady state ({len(later)} class growths "
+          f"after batch 1)")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    full = dc.recount()
+    recount_s = time.perf_counter() - t0
+    recount_launches = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    snap = dc.snapshot()
+    snap_truth = triangle_count_forward_scipy(snap)
+    snap_s = time.perf_counter() - t0
+    print(f"recount() {recount_s:.3f} s, launches {recount_launches}; "
+          f"snapshot + forward scipy {snap_s:.2f} s; m = {snap.m_undirected}")
+    check(full == dc.count().count == snap_truth,
+          f"the kept count {full} = recount() = scipy on snapshot()")
+    check(sum(recount_launches.values()) > 0,
+          "the recount ran the intersection kernels (K1-K3)")
+    recount_stages = p.recount_stages()
+    reset_launch_counts()
+    for st in recount_stages:
+        st.run()
+    by_strategy = {}
+    for st in recount_stages:
+        by_strategy.setdefault(st.strategy, []).append(intersect_case(
+            st.strategy, types.SimpleNamespace(args=st.args,
+                                               bitmap_bits=st.bitmap_bits)))
+    for strategy, shapes in by_strategy.items():
+        entry = entries[strategy]
+        entry["recount_path"] = dict(
+            path="DynamicTriangleCounter(rmat_graph(18)) recount() after 64 "
+                 "batches", launches=recount_launches[strategy],
+            shapes=shapes)
+        entry["max_abs_err"] = max([entry["max_abs_err"]]
+                                   + [x["max_abs_err"] for x in shapes])
+    dyn_info = dict(prep_s=p.prep_seconds, batch_ms=batch_ms,
+                    profile={k: v for k, v in stream_prof.items()
+                             if k != "by_name"},
+                    updates_per_s=256 / (batch_ms / 1e3),
+                    first_batch_ms=first_s[0] * 1e3, growths=growths,
+                    recount_s=recount_s,
+                    peak_gib=(torch.cuda.max_memory_allocated() - held) / 2**30)
+    del dc, p, recount_stages, snap
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in ("coauthors-like", "road-like"):
+        d = load_dataset(name)
+        dc = DynamicTriangleCounter(d, recount_interval=0)
+        seconds, growths = stream(dc, d, 16, np.random.default_rng(1), name)
+        check(dc.plan.key_mode == "int32" and dc.plan._keys.dtype == torch.int32
+              and dc.count().count == dc.recount()
+              == triangle_count_forward_scipy(dc.snapshot()),
+              f"{name}: int32 keys; after 16 batches the kept count "
+              f"{dc.count().count} = recount() = scipy (median batch "
+              f"{statistics.median(seconds) * 1e3:.3f} ms)")
+        dyn_info.setdefault("int32", {})[name] = statistics.median(seconds) * 1e3
+        del dc
+    print(json.dumps({"lanes": {"edge": edge_info, "dynamic": dyn_info}}))
 
 
 def serve_phase(torch, np, dev, get_config, get_model, greedy_generate, fa):
@@ -2531,6 +2840,9 @@ def main() -> int:
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
     report.append(hash_phase(torch, np, dev, flush, analogues, truths))
+    edge_dynamic_phase(torch, np, dev, dict(
+        entries=entries, intersect_case=intersect_case, main_tpv=main_tpv,
+        analogues=analogues))
     tiled_batch_phase(torch, np, dev, dict(
         entries=entries, k4=next(x for x in report
                                  if x["name"] == "masked_spgemm"),

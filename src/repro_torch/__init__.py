@@ -7,14 +7,23 @@ The intersection lane (and the subgraph lane after its 2-core peel, and
 the bfs lane after its level orientation) counts per-bucket set
 intersections (``csrc/intersect.cu``); the matrix lane runs a fused masked
 block-SpGEMM over a tile schedule (``csrc/masked_spgemm.cu``); the hash
-lane probes a per-vertex hash table (``csrc/hash_probe.cu``). Entry points
+lane probes a per-vertex hash table (``csrc/hash_probe.cu``). The edge lane
+(``TriangleCounter(g).edge_support()`` / ``k_truss(k)`` /
+``truss_decomposition()``) and dynamic sessions
+(``DynamicTriangleCounter``) work over packed undirected-edge keys on the
+device; the dynamic recount runs the intersection kernels. Entry points
 run on the CUDA device unless they are given ``device="cpu"``, where each
 kernel's plain torch version runs instead. The package imports neither
 JAX nor ``repro``.
 """
 
-from repro_torch.core import CountOptions, CountResult, TriangleCounter
-from repro_torch.graphs import Graph, graph_from_arrays
+from repro_torch.core import (
+    CountOptions,
+    CountResult,
+    DynamicTriangleCounter,
+    TriangleCounter,
+)
+from repro_torch.graphs import EdgeUpdate, Graph, graph_from_arrays
 
-__all__ = ["CountOptions", "CountResult", "Graph", "TriangleCounter",
-           "graph_from_arrays"]
+__all__ = ["CountOptions", "CountResult", "DynamicTriangleCounter",
+           "EdgeUpdate", "Graph", "TriangleCounter", "graph_from_arrays"]

@@ -1,20 +1,26 @@
 """One front door for triangle counting: ``TriangleCounter`` + ``CountResult``.
 
-The port of ``repro.core.api`` for the intersection, subgraph and matrix
-lanes:
+The port of ``repro.core.api``:
 
-    from repro_torch.core import TriangleCounter
+    from repro_torch.core import TriangleCounter, DynamicTriangleCounter
 
     tc = TriangleCounter(g)                  # on the card; algorithm="auto"
     res = tc.count()                         # CountResult
     res.count, res.algorithm, res.bucket_strategies
     tc.triangles_per_vertex()                # (n,) int64, cached plan
     tc.count_many(graphs, batch_size=16)     # one launch per width a batch
+    tc.edge_support()                        # (src, dst, support), edge lane
+    tc.k_truss(5), tc.truss_decomposition()
+
+    dc = DynamicTriangleCounter(g)           # the dynamic lane
+    dc.apply_updates([(0, 1), (2, 3, False)])  # CountResult, kept exact
+    dc.recount(), dc.snapshot()
 
 A session runs on the CUDA device unless it is given another
 (``device="cpu"`` runs the plain torch versions of the kernels). It owns
-one ``TrianglePlan``, built lazily through the algorithm registry, so every
-``count()`` is a device replay.
+one plan, built lazily through the algorithm registry, so every
+``count()`` is a device replay (a ``DynamicTriangleCounter``'s count is
+kept, not recomputed).
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import time
+import warnings
 from typing import (Any, Dict, Iterable, Iterator, List, Optional, Tuple,
                     Union)
 
@@ -36,9 +43,21 @@ from repro_torch.core.engine import (
 )
 from repro_torch.core.options import CountOptions
 from repro_torch.graphs.device import resolve_device
-from repro_torch.graphs.formats import Graph
+from repro_torch.graphs.formats import Graph, normalize_edge_updates
 
-__all__ = ["CountResult", "CounterSession", "TriangleCounter"]
+__all__ = ["CountResult", "CounterSession", "DynamicTriangleCounter",
+           "TriangleCounter", "warn_deprecated"]
+
+
+def warn_deprecated(old: str, new: str) -> None:
+    """Emit the front door's standard ``DeprecationWarning`` (the
+    ``listing`` shims use it; the stack level points at the shim's
+    caller)."""
+    warnings.warn(
+        f"{old} is deprecated; use {new} (see README.md §Migration)",
+        DeprecationWarning,
+        stacklevel=3,
+    )
 
 
 @dataclasses.dataclass(eq=False)
@@ -53,7 +72,8 @@ class CountResult:
       prep_seconds: the plan's one-time prep stage.
       exec_seconds: this count's device replay, measured around ``count()``
         (which ends in a host sync).
-      plan: the live ``TrianglePlan``.
+      plan: the live plan (``TrianglePlan``, ``TrussPlan`` or
+        ``DynamicPlan``).
       meta: the plan's statistics dict.
 
     Compares equal to ints via ``count``.
@@ -166,12 +186,14 @@ class CounterSession:
 
 class TriangleCounter(CounterSession):
     """A static counting session (see ``CounterSession``), with the
-    per-vertex analysis accessors routed through the cached plan."""
+    per-vertex and per-edge analysis accessors routed through the cached
+    plan (or a memoized sidecar plan of the lane that has them)."""
 
     def __init__(self, g: Graph, options: Optional[CountOptions] = None,
                  *, device: Union[None, str, torch.device] = None, **overrides):
         super().__init__(g, options, device=device, **overrides)
         self._vertex_counts: Optional[np.ndarray] = None
+        self._edge_sidecar = None
 
     def count_many(self, graphs: Iterable[Graph],
                    *, batch_size: int = 8) -> List[CountResult]:
@@ -256,15 +278,42 @@ class TriangleCounter(CounterSession):
                 )
         return results
 
-    def edge_support(self):
-        """Not ported yet: the edge lane (ROADMAP.md Queue 1 item 8)."""
-        raise NotImplementedError(
-            "edge_support / k_truss (the edge lane) are not ported yet; "
-            "see ROADMAP.md Queue 1 item 8")
+    # -- per-edge analysis (support, k-truss), through the edge lane -------
 
-    def k_truss(self, k: int, *, max_iters: Optional[int] = None):
-        """Not ported yet: the edge lane (ROADMAP.md Queue 1 item 8)."""
-        return self.edge_support()
+    def _edge_plan(self):
+        """The session's edge-lane ``TrussPlan``: the session plan itself
+        when ``algorithm="edge"``, else a sidecar built once from the same
+        options on the same device."""
+        if self.algorithm == "edge":
+            return self.plan
+        if self._edge_sidecar is None:
+            planner = registry.get_algorithm("edge")
+            self._edge_sidecar = planner(self.graph, self.options,
+                                         device=self.device)
+        return self._edge_sidecar
+
+    def edge_support(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(src, dst, support) with src < dst: each undirected edge's
+        triangle count, in ``Graph.edge_list_unique`` order (int32, int32,
+        int64), replayed through the edge lane's cached launches."""
+        return self._edge_plan().edge_support()
+
+    def k_truss(self, k: int, *, max_iters: Optional[int] = None) -> Graph:
+        """The maximal subgraph whose every edge is in ≥ k − 2 triangles:
+        the edge lane's peel (support → filter → re-orient, until its fixed
+        point or ``max_iters`` rounds, default the session's
+        ``max_peel_iters``). Returns a ``Graph``."""
+        return self._edge_plan().k_truss(k, max_iters=max_iters)
+
+    def truss_decomposition(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(src, dst, trussness) with src < dst: each edge's largest k whose
+        k-truss keeps it (2 for edges in no triangle).
+
+        Raises:
+          ValueError: ``max_peel_iters`` stopped a level's peel before its
+            fixed point.
+        """
+        return self._edge_plan().truss_decomposition()
 
     def triangles_per_vertex(self) -> np.ndarray:
         """(n,) int64 per-vertex triangle counts.
@@ -300,6 +349,74 @@ class TriangleCounter(CounterSession):
     def __repr__(self) -> str:
         return (f"TriangleCounter(graph={self.graph.name!r}, "
                 f"algorithm={self.algorithm!r}, device={str(self.device)!r}, "
+                f"planned={self._plan is not None})")
+
+
+class DynamicTriangleCounter(CounterSession):
+    """A dynamic-graph session: batched edge updates, a kept exact count.
+
+    Seed it with a ``Graph`` (it may be empty), then stream batches through
+    ``apply_updates``::
+
+        dc = DynamicTriangleCounter(g, update_batch_size=256)
+        dc.count()                                   # the seed's count
+        dc.apply_updates([EdgeUpdate(0, 1),          # insert (default)
+                          EdgeUpdate(2, 3, insert=False),
+                          (4, 5)])                   # a pair inserts
+        dc.count()                                   # kept, O(1)
+
+    Updates are normalized on the host (``lo < hi``, no self loops, last
+    wins within a batch), then applied ``update_batch_size`` at a time by
+    the cached step and delta launches of ``engine.DynamicPlan`` on the
+    session's device. Inserting a present edge and deleting an absent one
+    are no-ops. Every ``recount_interval`` batches (0: never) a full
+    recount checks the kept count; ``recount()`` runs it on demand and
+    ``snapshot()`` returns the live edge set as a host ``Graph``.
+
+    The session always runs the "dynamic" lane: any other ``algorithm``
+    raises ``ValueError``.
+    """
+
+    def _resolve_algorithm(self) -> str:
+        if self.options.algorithm not in ("auto", "dynamic"):
+            raise ValueError(
+                f"DynamicTriangleCounter always runs the dynamic lane; "
+                f"got algorithm={self.options.algorithm!r} "
+                f"(expected one of ('auto', 'dynamic'))")
+        return "dynamic"
+
+    def apply_updates(self, updates) -> CountResult:
+        """Apply one batch of edge updates and return the kept count.
+
+        ``updates`` is any iterable of ``EdgeUpdate``s, ``(u, v)`` pairs
+        (insert) or ``(u, v, insert)`` triples, with ids in ``[0, n)``. The
+        result's ``exec_seconds`` covers the whole batch, and its ``meta``
+        is the session's state after it.
+        """
+        lo, hi, ins = normalize_edge_updates(updates, self.graph.n)
+        plan = self.plan
+        t0 = time.perf_counter()
+        plan.apply_updates(lo, hi, ins)
+        res = self.count()
+        res.exec_seconds = time.perf_counter() - t0
+        return res
+
+    def recount(self) -> int:
+        """The full recount now (raises ``RuntimeError`` on drift)."""
+        return self.plan.recount()
+
+    def snapshot(self) -> Graph:
+        """The live edge set as a host ``Graph``."""
+        return self.plan.snapshot()
+
+    @property
+    def m_undirected(self) -> int:
+        """The number of live undirected edges."""
+        return self.plan.m
+
+    def __repr__(self) -> str:
+        return (f"DynamicTriangleCounter(graph={self.graph.name!r}, "
+                f"device={str(self.device)!r}, "
                 f"planned={self._plan is not None})")
 
 

@@ -11,7 +11,13 @@ the two lanes built on the same buckets:
 * ``"hash"`` — the TRUST-style lane: the filtered buckets' candidate rows
   probed against a per-vertex hash table, held compactly;
 * ``"bfs"`` — BFS levels order the vertices by (level, id), and the
-  level-oriented buckets run through the intersection launches.
+  level-oriented buckets run through the intersection launches;
+* ``"edge"`` — per-edge support over the filtered buckets and the
+  k-truss peel (``TrussPlan``);
+* ``"dynamic"`` — an edge set kept as two sorted orderings of packed keys
+  on the device, updated in batches with an incrementally maintained
+  count (``DynamicPlan``); its full recount runs the filtered
+  intersection plan.
 
 Planning runs the prep stage once on the session's device and binds each
 work unit (a bucket, or the tile triples' unique tiles and indices) to a
@@ -49,15 +55,21 @@ import torch
 from repro_torch.graphs.formats import (
     Graph,
     csr_to_padded_neighbors,
+    edges_to_csr,
     induced_subgraph,
     orient_forward,
 )
 from repro_torch.graphs.device import (
     DEFAULT_SHAPE_POLICY,
+    DeviceCSR,
     DeviceGraph,
     ShapePolicy,
+    dynamic_update_step,
+    edge_key_dtype,
+    edge_key_sentinel,
     next_pow2,
     resolve_device,
+    resolve_edge_key_mode,
 )
 from repro_torch.core import prep
 from repro_torch.core.options import BACKENDS, DEFAULT_WIDTHS
@@ -72,6 +84,7 @@ from repro_torch.kernels.intersect.ops import (
     STRATEGIES,
     intersect_counts,
     intersect_matches,
+    intersect_matches_both,
     resolve_mask_strategy,
     resolve_strategy,
 )
@@ -88,11 +101,16 @@ from repro_torch.kernels.masked_spgemm.ops import masked_spgemm_gathered_counts
 __all__ = [
     "ALGORITHMS",
     "BatchLaunch",
+    "DeltaLaunch",
+    "DynamicPlan",
+    "DynamicStepLaunch",
+    "EdgeLaunch",
     "GraphBatch",
     "HashLaunch",
     "IntersectLaunch",
     "MatrixLaunch",
     "TrianglePlan",
+    "TrussPlan",
     "VertexLaunch",
     "cache_info",
     "clear_caches",
@@ -100,6 +118,8 @@ __all__ = [
     "get_batch_executable",
     "get_executable",
     "plan_bfs_count",
+    "plan_dynamic_count",
+    "plan_edge_support",
     "plan_hash_count",
     "plan_triangle_count",
     "set_cache_limit",
@@ -299,6 +319,129 @@ class VertexLaunch:
         return t
 
 
+@dataclasses.dataclass(frozen=True)
+class EdgeLaunch:
+    """Per-edge support contributions of one filtered bucket, in forward
+    CSR slot order (each undirected edge owns one forward slot).
+
+    Every match (e, j) of the u row is one triangle (src, dst, w =
+    u[e, j]) whose three edges each gain one:
+
+    * (src, dst): slot ``row_ptr[src] + (dst's position in the sorted u
+      row)``, the per-row intersection size added once;
+    * (src, w): w sits at u-row position j, so slot ``row_ptr[src] + j``,
+      from the u-side match mask;
+    * (dst, w): slot ``row_ptr[dst] + j`` for a match at v-row position j,
+      from the v-side mask (``intersect_matches_both``).
+
+    The reference groups the side masks by vertex into (n, W) arrays and
+    adds whole rows; here each matched position goes straight into its
+    slot with ``index_add_`` (integer adds, so the result is the same bit
+    for bit, without the (n, W) arrays: 512 MiB a W = 512 bucket at n =
+    2¹⁸). Rows go through in chunks of ``_VERTEX_CHUNK_ELEMS`` elements.
+    Padding rows never match; slots past ``mk`` (which only zero values
+    reach) go to a scratch slot, as the reference's ``mode="drop"`` drops
+    them. Returns the (mk,) int64 contributions on the bucket's device.
+    """
+
+    strategy: str
+    bitmap_bits: Optional[int]
+    width: int
+    mk: int
+
+    def __call__(self, u_lists, v_lists, src, dst, row_ptr) -> torch.Tensor:
+        dev = u_lists.device
+        w, mk = self.width, self.mk
+        supp = torch.zeros(mk + 1, dtype=torch.int64, device=dev)
+        lanes = torch.arange(w, device=dev)
+
+        def add(slots, values):
+            supp.index_add_(0, torch.where(slots < mk, slots, mk),
+                            values.to(torch.int64))
+
+        step = max(1, _VERTEX_CHUNK_ELEMS // max(w, 1))
+        for s in range(0, int(u_lists.shape[0]), step):
+            uc, vc = u_lists[s:s + step], v_lists[s:s + step]
+            dc = dst[s:s + step]
+            mu, mv = intersect_matches_both(uc, vc, strategy=self.strategy,
+                                            bitmap_bits=self.bitmap_bits)
+            base_j = torch.searchsorted(uc, dc[:, None]).squeeze(1)
+            src_base = row_ptr[src[s:s + step].long()].long()
+            dst_base = row_ptr[dc.long()].long()
+            add(src_base + base_j.clamp_(0, w - 1), mu.sum(dim=1))
+            add((src_base[:, None] + lanes).reshape(-1), mu.reshape(-1))
+            add((dst_base[:, None] + lanes).reshape(-1), mv.reshape(-1))
+        return supp[:mk]
+
+
+@dataclasses.dataclass(frozen=True)
+class DynamicStepLaunch:
+    """The dynamic lane's bound update step at one (capacity, update rows,
+    n, width) class: ``graphs.device.dynamic_update_step``."""
+
+    n: int
+    width: int
+
+    def __call__(self, keys, rkeys, upd_keys, upd_rkeys, upd_ins, upd_valid):
+        return dynamic_update_step(keys, rkeys, upd_keys, upd_rkeys, upd_ins,
+                                   upd_valid, n=self.n, width=self.width)
+
+
+def _resolve_delta_classes(bounds: Sequence[int], n: int, strategy: str,
+                           bitmap_bits: Optional[int]) -> tuple:
+    """The match-mask strategy of each width class of a delta launch: the
+    edge lane's cost model over id range n + 2, with the forced
+    ``bitmap_bits`` override."""
+    return tuple(_resolve_bucket_strategy(int(w), n + 2, strategy, bitmap_bits,
+                                          resolve_mask_strategy)
+                 for w in bounds)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeltaLaunch:
+    """Weighted triangle deltas of one padded batch of anchor edges.
+
+    The anchor edges are re-bucketed by degree class
+    (``prep.delta_update_buckets``); each class runs its match mask, and
+    every matched triangle (lo, hi, w) is weighed by how many of its three
+    edges are anchors (looked up in the sorted, sentinel-padded anchor keys
+    ``skeys``): a triangle with k anchor edges is found once per anchor
+    edge, so weights 6/k (the table [0, 6, 3, 2]) make the total exactly
+    6 × the triangles that touch the anchor set. The caller checks the
+    divisibility by 6 and divides. Keys are computed in int64 and cast to
+    ``skeys``' dtype; padding rows go negative or meet sentinels and never
+    match a key. Returns an int64 scalar on the device (the reference sums
+    in int32).
+    """
+
+    n: int
+    bounds: tuple
+    resolved: tuple  # ((strategy, bitmap_bits), ...) per class
+
+    def __call__(self, lo_rows, hi_rows, lo_deg, hi_deg, lo, hi, valid,
+                 skeys) -> torch.Tensor:
+        dev = lo.device
+        kdt = skeys.dtype
+        n1 = self.n + 1
+        ub = int(skeys.shape[0])
+        weight = torch.tensor([0, 6, 3, 2], dtype=torch.int64, device=dev)
+        total = torch.zeros((), dtype=torch.int64, device=dev)
+        classes = prep.delta_update_buckets(lo_rows, hi_rows, lo_deg, hi_deg,
+                                            lo, hi, valid, n=self.n,
+                                            bounds=self.bounds)
+        for (_, u, v, sb, db), (strat, bits) in zip(classes, self.resolved):
+            matched = intersect_matches(u, v, strategy=strat, bitmap_bits=bits)
+            uk = u.long()
+            k = torch.ones(u.shape, dtype=torch.int64, device=dev)
+            for end in (sb, db):
+                e = end.long()[:, None]
+                key = (torch.minimum(e, uk) * n1 + torch.maximum(e, uk)).to(kdt)
+                i = torch.searchsorted(skeys, key).clamp_(0, ub - 1)
+                k += skeys[i] == key
+            total += torch.where(matched, weight[k], 0).sum()
+        return total
+
+
 def get_executable(algorithm: str, backend: str, shape_key: tuple, *,
                    strategy: Optional[str] = None,
                    bitmap_bits: Optional[int] = None) -> Callable:
@@ -309,12 +452,19 @@ def get_executable(algorithm: str, backend: str, shape_key: tuple, *,
         lanes' buckets use it too), "matrix" (the tile triples' unique
         tiles and indices, ``shape_key`` ``(T, B, B)``), "hash" (a
         bucket's hash probe, ``shape_key`` ``(E, W, B, D)``: the shape
-        class of the reference's dense table rides in the key) or
-        "vertex" (a filtered bucket's per-vertex counts; ``shape_key`` is
-        ``(E, W, n)``).
+        class of the reference's dense table rides in the key), "vertex"
+        (a filtered bucket's per-vertex counts; ``shape_key`` is
+        ``(E, W, n)``), "edge" (a filtered bucket's slot-ordered edge
+        support; ``(E, W, mk, n + 1, max_peel_iters, peel_early_exit)``:
+        the peel knobs ride in the key, as in the reference), or the
+        dynamic lane's "dynamic_step" (``(capacity, update rows, n + 1,
+        width)``) and "delta" (``(update rows, n + 1, *bounds)``), each
+        with a trailing ``"wide"`` in the wide key mode.
       backend: "kernel" | "ref".
       shape_key: the work unit's array shape.
-      strategy: the resolved set-intersection strategy ("intersection").
+      strategy: the resolved set-intersection strategy ("intersection"),
+        the resolved mask strategy ("edge"), or the dynamic session's
+        strategy, resolved per class ("delta").
       bitmap_bits: the bitmap capacity when strategy="bitmap".
 
     Returns:
@@ -323,10 +473,13 @@ def get_executable(algorithm: str, backend: str, shape_key: tuple, *,
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+    if algorithm in ("intersection", "edge") and strategy not in STRATEGIES:
+        raise ValueError(f"unresolved strategy {strategy!r}; "
+                         f"expected one of {STRATEGIES}")
+    # the wide key mode's trailing marker keeps the two key dtypes apart
+    dims = tuple(shape_key[:-1]) if shape_key and shape_key[-1] == "wide" \
+        else tuple(shape_key)
     if algorithm == "intersection":
-        if strategy not in STRATEGIES:
-            raise ValueError(f"unresolved strategy {strategy!r}; "
-                             f"expected one of {STRATEGIES}")
         builder = functools.partial(IntersectLaunch, strategy, backend, bitmap_bits)
     elif algorithm == "matrix":
         builder = functools.partial(MatrixLaunch, backend)
@@ -334,6 +487,17 @@ def get_executable(algorithm: str, backend: str, shape_key: tuple, *,
         builder = functools.partial(HashLaunch, backend, int(shape_key[2]))
     elif algorithm == "vertex":
         builder = functools.partial(VertexLaunch, int(shape_key[2]), int(shape_key[1]))
+    elif algorithm == "edge":
+        builder = functools.partial(EdgeLaunch, strategy, bitmap_bits,
+                                    int(shape_key[1]), int(shape_key[2]))
+    elif algorithm == "dynamic_step":
+        builder = functools.partial(DynamicStepLaunch, int(dims[2]) - 1,
+                                    int(dims[3]))
+    elif algorithm == "delta":
+        n = int(dims[1]) - 1
+        bounds = tuple(int(w) for w in dims[2:])
+        builder = lambda: DeltaLaunch(  # noqa: E731
+            n, bounds, _resolve_delta_classes(bounds, n, strategy, bitmap_bits))
     else:
         raise ValueError(f"unknown algorithm {algorithm!r}")
     key = (algorithm, strategy, backend, bitmap_bits, tuple(shape_key))
@@ -675,10 +839,13 @@ class TrianglePlan:
 
 
 def _resolve_bucket_strategy(width: int, id_range: int, strategy: str,
-                             bitmap_bits: Optional[int]):
-    """Resolve one bucket's (strategy, bitmap_bits), honouring a forced
-    ``bitmap_bits`` override (which must cover the id range)."""
-    strat, bits = resolve_strategy(width, id_range, strategy=strategy)
+                             bitmap_bits: Optional[int],
+                             resolver: Callable = resolve_strategy):
+    """Resolve one bucket's (strategy, bitmap_bits) with ``resolver`` (the
+    counting cost model, or ``resolve_mask_strategy`` for the mask lanes),
+    honouring a forced ``bitmap_bits`` override (which must cover the id
+    range)."""
+    strat, bits = resolver(width, id_range, strategy=strategy)
     if bitmap_bits is not None and strat == "bitmap":
         if bitmap_bits < id_range:
             raise ValueError(
@@ -1192,6 +1359,745 @@ def _bfs_planner(g: Graph, options, *, device):
 register_algorithm("intersection", _intersection_planner)
 register_algorithm("hash", _hash_planner)
 register_algorithm("bfs", _bfs_planner)
+
+
+# ---------------------------------------------------------------------------
+# TrussPlan — the edge lane: per-edge support and the k-truss peel
+# ---------------------------------------------------------------------------
+
+def _decode_edge_keys(keys: np.ndarray, n1: int):
+    """Packed ``lo·n1 + hi`` keys → (lo, hi) int32 arrays (host side)."""
+    keys = np.asarray(keys, dtype=np.int64)
+    return (keys // n1).astype(np.int32), (keys % n1).astype(np.int32)
+
+
+@dataclasses.dataclass
+class _EdgeStage:
+    executable: Callable
+    args: Tuple[torch.Tensor, ...]  # (u_lists, v_lists, src, dst, row_ptr)
+    shape_key: tuple
+    strategy: str  # the resolved mask strategy (broadcast | probe | bitmap)
+
+
+def _edge_stages(g: Union[Graph, DeviceGraph], *, widths: Sequence[int],
+                 strategy: str, bitmap_bits: Optional[int], prep_backend: str,
+                 policy: ShapePolicy, peel_key: tuple, key_mode: str,
+                 device: torch.device):
+    """One graph's edge-support stages: the filtered buckets, the sorted
+    edge keys with the slot permutation and the forward row_ptr, and each
+    bucket bound to its cached edge launch. A host graph is uploaded once:
+    the buckets and the keys share its forward orientation.
+
+    Returns (stages, edge_keys, perm, m_edges, meta): ``edge_keys`` is the
+    (mk,) sorted key array whose first ``m_edges`` entries are the real
+    edges, and ``perm`` reorders slot-ordered support into key order.
+    """
+    n = g.n
+    mode = prep.check_edge_key_range(n, key_mode)
+    if prep_backend == "device":
+        dg = g if isinstance(g, DeviceGraph) \
+            else DeviceGraph.from_graph(g, policy, device=device)
+        buckets = prep.prepare_intersection_buckets_device(
+            dg, variant="filtered", widths=widths)
+        keys, perm, row_ptr, m_edges = prep.forward_edge_keys_device(
+            dg, key_mode=mode)
+    else:
+        buckets = _buckets_for_plan(g, "filtered", widths, "host", policy,
+                                    device)
+        keys_h, perm_h, row_ptr_h, m_edges = prep.forward_edge_keys_host(
+            g, mode)
+        keys = torch.from_numpy(keys_h).to(device)
+        perm = torch.from_numpy(perm_h).to(device)
+        row_ptr = torch.from_numpy(row_ptr_h).to(device)
+    mk, n1 = int(keys.shape[0]), n + 1
+    id_range = n + 2  # real ids and the in-row sentinels n (u) and n+1 (v)
+    stages = []
+    for b in buckets:
+        strat, bits = _resolve_bucket_strategy(b.width, id_range, strategy,
+                                               bitmap_bits,
+                                               resolve_mask_strategy)
+        shape_key = b.shape + (mk, n1) + tuple(peel_key)
+        stages.append(_EdgeStage(
+            executable=get_executable("edge", "kernel", shape_key,
+                                      strategy=strat, bitmap_bits=bits),
+            args=(b.u_lists, b.v_lists, b.src, b.dst, row_ptr),
+            shape_key=shape_key,
+            strategy=strat,
+        ))
+    meta = dict(
+        bucket_shapes=[s.shape_key[:2] for s in stages],
+        bucket_strategies=[(s.shape_key[1], s.strategy) for s in stages],
+        bucket_edges=[b.edges for b in buckets],
+        key_mode=mode,
+    )
+    return stages, keys, perm, m_edges, meta
+
+
+@dataclasses.dataclass
+class TrussPlan:
+    """A prepared edge-analytics session: resident buckets, the sorted edge
+    keys and cached edge launches for per-edge support, and the k-truss
+    peel.
+
+    Construction runs the prep once; ``support()`` / ``edge_support()`` /
+    ``count()`` replay the stages. ``k_truss(k)`` peels (support → filter →
+    re-orient through ``DeviceCSR.from_edges`` and the device prep) until
+    its fixed point or ``max_peel_iters`` rounds, one host sync a round;
+    rounds whose rounded shapes collide reuse cached launches. The host
+    enumeration in ``repro_torch.core.listing`` is never called. Build via
+    ``plan_edge_support``.
+    """
+
+    graph: Graph
+    stages: List[_EdgeStage]
+    edge_keys: torch.Tensor  # (mk,) sorted keys; padding = the dtype's max
+    perm: torch.Tensor  # (mk,) slot → key-order permutation
+    m_edges: int
+    widths: Tuple[int, ...]
+    strategy: str
+    bitmap_bits: Optional[int]
+    prep_backend: str
+    policy: ShapePolicy
+    max_peel_iters: int
+    peel_early_exit: bool
+    meta: Dict[str, Any]
+    prep_seconds: float
+    device: torch.device
+    executions: int = 0
+    key_mode: str = "int32"  # the resolved packed-key mode (int32 | wide)
+
+    algorithm: str = "edge"
+
+    @staticmethod
+    def _run_stages(stages: List[_EdgeStage], keys: torch.Tensor,
+                    perm: torch.Tensor) -> torch.Tensor:
+        """The stages' slot-ordered supports summed in int64, reordered
+        into key order (one gather)."""
+        total = torch.zeros(keys.shape[0], dtype=torch.int64,
+                            device=keys.device)
+        for st in stages:
+            total += st.executable(*st.args)
+        return total[perm.long()]
+
+    def support(self) -> np.ndarray:
+        """(m,) int64 per-edge triangle counts in ``edge_list_unique``
+        order."""
+        total = self._run_stages(self.stages, self.edge_keys, self.perm)
+        self.executions += 1
+        return total[: self.m_edges].cpu().numpy()
+
+    def edge_support(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(src, dst, support) with src < dst, in ``edge_list_unique``
+        order (int32, int32, int64), as ``listing.edge_support`` gives
+        them."""
+        keys = self.edge_keys[: self.m_edges].cpu().numpy()
+        su, sv = _decode_edge_keys(keys, self.graph.n + 1)
+        return su, sv, self.support()
+
+    def count(self) -> int:
+        """Exact triangle count: each triangle adds 1 to each of its three
+        edges, so Σ support = 3Δ (summed on the device, one sync).
+
+        Raises:
+          RuntimeError: Σ support is not a multiple of 3.
+        """
+        supp = self._run_stages(self.stages, self.edge_keys, self.perm)
+        total = int(supp[: self.m_edges].sum())
+        self.executions += 1
+        if total % 3:
+            raise RuntimeError(
+                f"edge support total {total} is not a multiple of 3")
+        return total // 3
+
+    def count_with_stats(self) -> Tuple[int, dict]:
+        return self.count(), dict(self.meta)
+
+    def _peel(self, start: Optional[Graph], k: int,
+              max_iters: int) -> Tuple[np.ndarray, int, bool]:
+        """Bulk k-truss peel to its fixed point (or ``max_iters`` rounds):
+        every round removes all edges with support < k − 2 at once, as the
+        host oracle does. ``start=None`` peels the plan's own graph with
+        its first-round stages. Returns (the surviving keys as int64,
+        rounds run, converged)."""
+        thresh = int(k) - 2
+        kw = dict(widths=self.widths, strategy=self.strategy,
+                  bitmap_bits=self.bitmap_bits,
+                  prep_backend=self.prep_backend, policy=self.policy,
+                  peel_key=(self.max_peel_iters, self.peel_early_exit),
+                  key_mode=self.key_mode, device=self.device)
+        if start is None:
+            stages, keys, perm, m_cur = (self.stages, self.edge_keys,
+                                         self.perm, self.m_edges)
+        else:
+            stages, keys, perm, m_cur, _ = _edge_stages(start, **kw)
+        n, n1 = self.graph.n, self.graph.n + 1
+        rounds, converged = 0, (m_cur == 0)
+        while rounds < max_iters and m_cur > 0:
+            supp = self._run_stages(stages, keys, perm)
+            keep = supp[:m_cur] >= thresh
+            kept = int(keep.sum())  # the round's one host sync
+            rounds += 1
+            if kept == m_cur:
+                converged = True
+                if self.peel_early_exit:
+                    break
+                continue  # the fixed point is stable; later rounds are no-ops
+            if kept == 0:
+                m_cur, converged = 0, True  # the empty set is a fixed point
+                break
+            if self.prep_backend == "device":
+                # survivors symmetrized through the sort-based CSR build
+                lo = (keys[:m_cur] // n1).to(torch.int32)
+                hi = (keys[:m_cur] % n1).to(torch.int32)
+                csr = DeviceCSR.from_edges(
+                    torch.cat([lo, hi]), torch.cat([hi, lo]), n,
+                    valid=torch.cat([keep, keep]), policy=self.policy,
+                    key_mode=self.key_mode, device=self.device)
+                cur = DeviceGraph(csr, policy=self.policy,
+                                  name=self.graph.name + "+peel")
+            else:
+                keys_h = keys[:m_cur][keep].cpu().numpy()
+                su, sv = _decode_edge_keys(keys_h, n1)
+                cur = edges_to_csr(su, sv, n=n, name=self.graph.name + "+peel")
+            stages, keys, perm, m_cur, _ = _edge_stages(cur, **kw)
+        self.executions += rounds
+        return keys[:m_cur].cpu().numpy().astype(np.int64), rounds, converged
+
+    def k_truss(self, k: int, *, max_iters: Optional[int] = None) -> Graph:
+        """The maximal subgraph whose every edge is in ≥ k − 2 triangles.
+
+        Peels until the fixed point (``peel_early_exit``) or ``max_iters``
+        rounds (default: the plan's ``max_peel_iters``); the surviving edge
+        set equals ``listing.k_truss``'s. ``meta["peel_rounds"]`` and
+        ``meta["peel_converged"]`` record the last peel.
+        """
+        max_iters = self.max_peel_iters if max_iters is None else int(max_iters)
+        keys, rounds, converged = self._peel(None, k, max_iters)
+        self.meta["peel_rounds"] = rounds
+        self.meta["peel_converged"] = converged
+        su, sv = _decode_edge_keys(keys, self.graph.n + 1)
+        return edges_to_csr(su, sv, n=self.graph.n,
+                            name=self.graph.name + f"+truss{k}")
+
+    def truss_decomposition(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Per-edge trussness, the largest k whose k-truss keeps the edge
+        (2 for edges in no triangle): (src, dst, trussness) with src < dst,
+        in ``edge_list_unique`` order.
+
+        Peels level by level, each k-truss from the previous level's
+        survivors; the edges a level removes have trussness k − 1.
+
+        Raises:
+          ValueError: a level's peel stopped at ``max_peel_iters`` before
+            its fixed point (trussness is defined only there).
+        """
+        n1 = self.graph.n + 1
+        orig = self.edge_keys[: self.m_edges].cpu().numpy().astype(np.int64)
+        truss = np.full(orig.shape[0], 2, dtype=np.int64)
+        cur_keys, cur_graph, k = orig, None, 3
+        while cur_keys.size:
+            nxt_keys, _, converged = self._peel(cur_graph, k,
+                                                self.max_peel_iters)
+            if not converged:
+                raise ValueError(
+                    f"truss_decomposition needs every peel level to reach "
+                    f"its fixpoint, but the {k}-truss peel was truncated at "
+                    f"max_peel_iters={self.max_peel_iters}; raise the "
+                    f"max_peel_iters option"
+                )
+            removed = cur_keys[~np.isin(cur_keys, nxt_keys)]
+            truss[np.searchsorted(orig, removed)] = k - 1
+            su, sv = _decode_edge_keys(nxt_keys, n1)
+            cur_graph = edges_to_csr(su, sv, n=self.graph.n,
+                                     name=self.graph.name + f"+truss{k}")
+            cur_keys, k = nxt_keys, k + 1
+        su, sv = _decode_edge_keys(orig, n1)
+        return su, sv, truss
+
+    def synchronize(self) -> "TrussPlan":
+        """Wait for the device (useful before timing)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
+    @property
+    def num_stages(self) -> int:
+        return len(self.stages)
+
+    @property
+    def shape_keys(self) -> List[tuple]:
+        return [st.shape_key for st in self.stages]
+
+
+def plan_edge_support(
+    g: Graph,
+    *,
+    widths: Sequence[int] = DEFAULT_WIDTHS,
+    strategy: str = "auto",
+    bitmap_bits: Optional[int] = None,
+    prep_backend: str = "device",
+    shape_policy: Optional[ShapePolicy] = None,
+    max_peel_iters: int = 1000,
+    peel_early_exit: bool = True,
+    key_mode: str = "auto",
+    device: Union[None, str, torch.device] = None,
+) -> TrussPlan:
+    """Run the edge lane's prep once and return a replayable ``TrussPlan``.
+
+    Args:
+      g: the input ``Graph``. Packed edge keys are int32 while
+        ``(n + 1)² ≤ int32 max`` (n ≤ 46,339) and int64 past it under
+        ``key_mode="auto"``.
+      widths: degree-class bucket widths.
+      strategy: the match-mask core of each bucket: "auto"
+        (``resolve_mask_strategy``: bitmap while the id range fits ~4·W
+        packed bits, probe for W ≥ 64, broadcast below) or a forced
+        "broadcast" | "probe" | "bitmap".
+      bitmap_bits: optional forced bitmap capacity (must cover n + 2).
+      prep_backend: "device" (torch prep and peel on the device) or "host"
+        (the numpy prep, uploaded; the support still runs on the device).
+      shape_policy: the ``ShapePolicy``; None means the default.
+      max_peel_iters: the k-truss peel's round bound.
+      peel_early_exit: stop the peel at its fixed point (default) or run
+        exactly ``max_peel_iters`` rounds (same result). Both knobs ride in
+        the edge launches' cache keys.
+      key_mode: "auto" | "int32" | "wide"
+        (``graphs.device.resolve_edge_key_mode``).
+      device: where the plan lives; None means the CUDA device.
+
+    The reference's ``mesh`` argument (sharded edge support) is not taken:
+    the sharded lanes are ROADMAP.md Queue 1 item 14.
+
+    Raises:
+      ValueError: ``max_peel_iters`` < 1, or a ``bitmap_bits`` that cannot
+        cover the id range.
+      GraphTooLargeError: the key mode cannot represent the graph.
+      RuntimeError: ``device`` is None or CUDA and no card is present.
+    """
+    policy = shape_policy if shape_policy is not None else DEFAULT_SHAPE_POLICY
+    max_peel_iters = int(max_peel_iters)
+    peel_early_exit = bool(peel_early_exit)
+    if max_peel_iters < 1:
+        raise ValueError(f"max_peel_iters must be ≥ 1, got {max_peel_iters}")
+    device = resolve_device(device)
+    t0 = time.perf_counter()
+    stages, keys, perm, m_edges, bucket_meta = _edge_stages(
+        g, widths=tuple(widths), strategy=strategy, bitmap_bits=bitmap_bits,
+        prep_backend=prep_backend, policy=policy,
+        peel_key=(max_peel_iters, peel_early_exit), key_mode=key_mode,
+        device=device,
+    )
+    meta = dict(
+        graph=g.name,
+        n=g.n,
+        m=g.m_undirected,
+        edges=m_edges,
+        widths=tuple(widths),
+        strategy=strategy,
+        prep_backend=prep_backend,
+        shape_policy=policy.key() if prep_backend == "device" else None,
+        max_peel_iters=max_peel_iters,
+        peel_early_exit=peel_early_exit,
+        device=str(device),
+        **bucket_meta,
+    )
+    plan = TrussPlan(
+        graph=g, stages=stages, edge_keys=keys, perm=perm, m_edges=m_edges,
+        widths=tuple(widths), strategy=strategy, bitmap_bits=bitmap_bits,
+        prep_backend=prep_backend, policy=policy,
+        max_peel_iters=max_peel_iters, peel_early_exit=peel_early_exit,
+        meta=meta, prep_seconds=0.0, device=device,
+        key_mode=bucket_meta["key_mode"],
+    )
+    plan.synchronize()
+    plan.prep_seconds = time.perf_counter() - t0
+    return plan
+
+
+def _edge_planner(g: Graph, options, *, device):
+    """Registry planner: CountOptions → edge-lane TrussPlan."""
+    return plan_edge_support(g, device=device, **options.plan_kwargs("edge"))
+
+
+register_algorithm("edge", _edge_planner)
+
+
+# ---------------------------------------------------------------------------
+# DynamicPlan — the dynamic lane: batched edge updates, incremental count
+# ---------------------------------------------------------------------------
+
+class DynamicPlan:
+    """Device state and cached launches of one dynamic-graph session.
+
+    The plan owns the live edge set as two sorted orderings of packed keys
+    on the device, ``lo·(n+1)+hi`` and ``hi·(n+1)+lo`` (int32 while
+    ``(n+1)² ≤ int32 max``, else int64), with the dtype's max in dead
+    slots; the orderings are the adjacency. It keeps the exact triangle
+    count across batches of ``EdgeUpdate``s:
+
+    1. the "dynamic_step" launch resolves the batch against the key set
+       (tombstones deletes, merges inserts, one sort an ordering) and
+       gathers the anchor rows of the batch's endpoints before and after
+       the update, touching O(batch) adjacency;
+    2. the "delta" launch counts the triangles on the effective deletes in
+       the old adjacency (Δ⁻) and on the effective inserts in the new one
+       (Δ⁺), weighted 6/k (``DeltaLaunch``);
+    3. count = count − Δ⁻ + Δ⁺.
+
+    A chunk syncs with the host three times: the step's stats (live edges,
+    max degree, inserts, deletes) and the two delta sums. Every extent
+    (key capacity, update rows, the top width class) is a ``ShapePolicy``
+    class that only grows, so steady-state batches add no cache entry; a
+    class that grows adds one (visible in ``executable_cache_info()``).
+    Every ``recount_interval`` batches, and on ``recount()``, a full
+    recount through the filtered intersection plan (K1–K3 on the card)
+    checks the count and raises on drift.
+    """
+
+    algorithm = "dynamic"
+
+    def __init__(self, g: Graph, *, backend: str = "kernel",
+                 widths: Sequence[int] = DEFAULT_WIDTHS,
+                 strategy: str = "auto",
+                 bitmap_bits: Optional[int] = None,
+                 shape_policy: Optional[ShapePolicy] = None,
+                 update_batch_size: int = 256,
+                 recount_interval: int = 64,
+                 key_mode: str = "auto",
+                 device: Union[None, str, torch.device] = None):
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; expected one "
+                             f"of {BACKENDS}")
+        self.key_mode = resolve_edge_key_mode(g.n, key_mode, lane="dynamic")
+        self._sentinel = edge_key_sentinel(self.key_mode)
+        self._key_dtype = edge_key_dtype(self.key_mode)
+        self._np_key_dtype = np.int64 if self.key_mode == "wide" else np.int32
+        update_batch_size = int(update_batch_size)
+        recount_interval = int(recount_interval)
+        if update_batch_size < 1:
+            raise ValueError(
+                f"update_batch_size must be ≥ 1, got {update_batch_size}")
+        if recount_interval < 0:
+            raise ValueError(
+                f"recount_interval must be ≥ 0 (0 disables the periodic "
+                f"oracle), got {recount_interval}")
+        self.device = resolve_device(device)
+        t0 = time.perf_counter()
+        self.graph = g
+        self.name = g.name
+        self.n = int(g.n)
+        self.backend = backend
+        self.widths = tuple(int(w) for w in widths)
+        self.strategy = strategy
+        self.bitmap_bits = bitmap_bits
+        self.policy = (shape_policy if shape_policy is not None
+                       else DEFAULT_SHAPE_POLICY)
+        self.update_batch_size = update_batch_size
+        self.recount_interval = recount_interval
+        self.ub = self.policy.round_edges(update_batch_size)
+        # the width classes: the widths plus a pow2 top that only grows
+        self._extra_top: Optional[int] = None
+        dmax = int(g.max_degree)
+        if dmax > self.widths[-1]:
+            self._extra_top = next_pow2(dmax)
+        lo, hi = g.edge_list_unique()
+        self.m = int(lo.shape[0])
+        self.cap = self.policy.round_edges(self.m)
+        n1 = self.n + 1
+        host = []
+        for a, b in ((lo, hi), (hi, lo)):
+            keys = np.full(self.cap, self._sentinel, np.int64)
+            keys[: self.m] = np.sort(a.astype(np.int64) * n1 + b)
+            host.append(torch.from_numpy(keys.astype(self._np_key_dtype)))
+        self._keys, self._rkeys = (k.to(self.device) for k in host)
+        self.batches = 0
+        self.inserted = 0
+        self.deleted = 0
+        self.recounts = 0
+        self.executions = 0
+        # prime: one all-padding step binds this shape class
+        self._apply_step(
+            np.full(self.ub, self._sentinel, np.int64),
+            np.full(self.ub, self._sentinel, np.int64),
+            np.zeros(self.ub, bool), np.zeros(self.ub, bool))
+        self._count = self._full_recount()
+        self.meta = dict(
+            graph=self.name, n=self.n, m=self.m,
+            key_mode=self.key_mode,
+            widths=self.widths, strategy=self.strategy,
+            shape_policy=self.policy.key(),
+            update_batch_size=self.update_batch_size,
+            update_rows=self.ub,
+            recount_interval=self.recount_interval,
+            bounds=self.bounds, capacity=self.cap,
+            bucket_strategies=self._bucket_strategies(),
+            batches=0, inserted=0, deleted=0, recounts=0,
+            device=str(self.device),
+        )
+        self.synchronize()
+        self.prep_seconds = time.perf_counter() - t0
+
+    # -- shape classes ------------------------------------------------------
+
+    @property
+    def bounds(self) -> tuple:
+        """The session's width classes (widths plus the monotone top)."""
+        if self._extra_top is not None:
+            return self.widths + (self._extra_top,)
+        return self.widths
+
+    def _bucket_strategies(self) -> list:
+        id_range = self.n + 2
+        return [(int(w), resolve_mask_strategy(int(w), id_range,
+                                               self.strategy)[0])
+                for w in self.bounds]
+
+    def _maybe_grow_width(self, dmax: int) -> bool:
+        if dmax <= self.bounds[-1]:
+            return False
+        self._extra_top = next_pow2(dmax)
+        return True
+
+    def _grow_capacity(self, needed: int) -> None:
+        new_cap = self.policy.round_edges(needed)
+        if new_cap <= self.cap:  # pragma: no cover - rounding is monotone
+            raise AssertionError("capacity growth must be monotone")
+        pad = torch.full((new_cap - self.cap,), self._sentinel,
+                         dtype=self._key_dtype, device=self.device)
+        self._keys = torch.cat([self._keys, pad])
+        self._rkeys = torch.cat([self._rkeys, pad])
+        self.cap = new_cap
+
+    # -- cached launches ----------------------------------------------------
+
+    def _step_executable(self) -> Callable:
+        wide = ("wide",) if self.key_mode == "wide" else ()
+        return get_executable(
+            "dynamic_step", "kernel",
+            (self.cap, self.ub, self.n + 1, int(self.bounds[-1])) + wide)
+
+    def _delta_executable(self) -> Callable:
+        wide = ("wide",) if self.key_mode == "wide" else ()
+        return get_executable(
+            "delta", "kernel", (self.ub, self.n + 1) + self.bounds + wide,
+            strategy=self.strategy, bitmap_bits=self.bitmap_bits)
+
+    # -- update path --------------------------------------------------------
+
+    def _upload(self, a: np.ndarray, dtype=None) -> torch.Tensor:
+        return torch.from_numpy(a if dtype is None else a.astype(dtype)) \
+            .to(self.device)
+
+    def _apply_step(self, upd_keys: np.ndarray, upd_rkeys: np.ndarray,
+                    upd_ins: np.ndarray, upd_valid: np.ndarray):
+        """Run one padded step and return its whole output tuple."""
+        return self._step_executable()(
+            self._keys, self._rkeys,
+            self._upload(upd_keys, self._np_key_dtype),
+            self._upload(upd_rkeys, self._np_key_dtype),
+            self._upload(upd_ins), self._upload(upd_valid))
+
+    def apply_updates(self, lo: np.ndarray, hi: np.ndarray,
+                      insert: np.ndarray) -> dict:
+        """Apply a normalized update stream and keep the count.
+
+        Args are the arrays of ``graphs.formats.normalize_edge_updates``
+        (lo < hi pairs, no self loops, last-wins deduplicated). The stream
+        runs in chunks of ``update_batch_size``, each one step and two
+        delta launches. Returns the refreshed ``meta``.
+        """
+        lo = np.asarray(lo, dtype=np.int32)
+        hi = np.asarray(hi, dtype=np.int32)
+        insert = np.asarray(insert, dtype=bool)
+        ubs = self.update_batch_size
+        for s in range(0, int(lo.shape[0]), ubs):
+            self._apply_chunk(lo[s:s + ubs], hi[s:s + ubs], insert[s:s + ubs])
+        return self._sync_meta()
+
+    def _apply_chunk(self, lo_c: np.ndarray, hi_c: np.ndarray,
+                     ins_c: np.ndarray) -> None:
+        nu = int(lo_c.shape[0])
+        if nu == 0:
+            return
+        # grow the key arrays before the step, so that a capacity class is
+        # bound once, not once a batch
+        n_ins_req = int(ins_c.sum())
+        if self.m + n_ins_req > self.cap:
+            self._grow_capacity(self.m + n_ins_req)
+        n1 = self.n + 1
+        upd_keys = np.full(self.ub, self._sentinel, np.int64)
+        upd_keys[:nu] = lo_c.astype(np.int64) * n1 + hi_c
+        upd_rkeys = np.full(self.ub, self._sentinel, np.int64)
+        upd_rkeys[:nu] = hi_c.astype(np.int64) * n1 + lo_c
+        upd_ins = np.zeros(self.ub, bool)
+        upd_ins[:nu] = ins_c
+        upd_valid = np.zeros(self.ub, bool)
+        upd_valid[:nu] = True
+        d_lo = np.zeros(self.ub, np.int32)
+        d_lo[:nu] = lo_c
+        d_hi = np.zeros(self.ub, np.int32)
+        d_hi[:nu] = hi_c
+        step_out = self._apply_step(upd_keys, upd_rkeys, upd_ins, upd_valid)
+        d_lo, d_hi = self._upload(d_lo), self._upload(d_hi)
+        # Δ⁻: delete-anchored triangles in the old adjacency, launched
+        # before the stats sync (the old rows fit the old class)
+        (_, _, eff_ins, eff_del, ins_skeys, del_skeys,
+         old_lr, old_hr, old_ld, old_hd, _, _, _, _, st) = step_out
+        sum_del = self._delta_executable()(old_lr, old_hr, old_ld, old_hd,
+                                           d_lo, d_hi, eff_del, del_skeys)
+        m_new, dmax_new, n_ins, n_del = st.tolist()  # the step's one sync
+        if self._maybe_grow_width(dmax_new):
+            # the same step again at the grown width class, so that the Δ⁺
+            # rows hold the whole new adjacency (nothing is committed yet)
+            step_out = self._apply_step(upd_keys, upd_rkeys, upd_ins,
+                                        upd_valid)
+        (new_keys, new_rkeys, eff_ins, eff_del, ins_skeys, del_skeys,
+         _, _, _, _, new_lr, new_hr, new_ld, new_hd, st) = step_out
+        # Δ⁺: insert-anchored triangles in the new adjacency
+        sum_ins = self._delta_executable()(new_lr, new_hr, new_ld, new_hd,
+                                           d_lo, d_hi, eff_ins, ins_skeys)
+        sdel, sins = int(sum_del), int(sum_ins)
+        if sdel % 6 or sins % 6:
+            raise RuntimeError(
+                f"dynamic delta drift on {self.name!r}: weighted anchor "
+                f"sums ({sdel}, {sins}) are not divisible by 6")
+        self._count += sins // 6 - sdel // 6
+        self._keys, self._rkeys = new_keys, new_rkeys
+        self.m = m_new
+        self.inserted += n_ins
+        self.deleted += n_del
+        self.executions += 1
+        self.batches += 1
+        if self.recount_interval and self.batches % self.recount_interval == 0:
+            self.recount()
+
+    # -- counting and the parity oracle -------------------------------------
+
+    def _full_recount(self) -> int:
+        """Count the live edge set from scratch through the filtered
+        intersection plan (K1–K3 on the card), with one host sync."""
+        if self.m == 0:
+            return 0
+        total = torch.zeros((), dtype=torch.int64, device=self.device)
+        for st in self.recount_stages():
+            total += st.run()
+        return int(total)
+
+    def recount_stages(self) -> list:
+        """The filtered intersection stages of the live edge set, as the
+        full recount builds them. The CSR is built on the device: both
+        orderings together are every directed edge ``src·(n+1)+dst``, and
+        one sort puts them in CSR order."""
+        if self.m == 0:
+            return []
+        n, n1 = self.n, self.n + 1
+        directed = torch.sort(torch.cat([self._keys[: self.m],
+                                         self._rkeys[: self.m]]).long()).values
+        row_ptr = torch.searchsorted(
+            directed, torch.arange(n + 1, device=self.device) * n1)
+        csr = DeviceCSR(n=n, m=2 * self.m, row_ptr=row_ptr.to(torch.int32),
+                        col_idx=(directed % n1).to(torch.int32))
+        dg = DeviceGraph(csr, policy=self.policy, name=self.name + "+recount")
+        stages, _, _ = _plan_intersection(
+            dg, "filtered", self.backend, self.widths, self.strategy,
+            self.bitmap_bits, "device", self.policy, self.device)
+        return stages
+
+    def count(self) -> int:
+        """The incrementally kept exact triangle count (O(1))."""
+        return self._count
+
+    def count_with_stats(self):
+        """(count, meta) with the meta refreshed to the current state."""
+        return self._count, self._sync_meta()
+
+    def recount(self) -> int:
+        """Count the live edges from scratch and raise ``RuntimeError`` if
+        the kept count has drifted."""
+        full = self._full_recount()
+        self.recounts += 1
+        if full != self._count:
+            raise RuntimeError(
+                f"incremental triangle count drifted on {self.name!r}: "
+                f"incremental={self._count}, full recount={full} after "
+                f"{self.batches} update batches")
+        return full
+
+    def snapshot(self) -> Graph:
+        """The live edge set as a host ``Graph``."""
+        keys = self._keys.cpu().numpy().astype(np.int64)
+        keys = keys[keys != self._sentinel]
+        lo, hi = _decode_edge_keys(keys, self.n + 1)
+        return edges_to_csr(lo, hi, n=self.n, name=self.name + "+dynamic")
+
+    def synchronize(self) -> "DynamicPlan":
+        """Wait for the device (useful before timing)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
+    def _sync_meta(self) -> dict:
+        self.meta.update(
+            m=self.m, capacity=self.cap, bounds=self.bounds,
+            bucket_strategies=self._bucket_strategies(),
+            batches=self.batches, inserted=self.inserted,
+            deleted=self.deleted, recounts=self.recounts)
+        return dict(self.meta)
+
+    def __repr__(self) -> str:
+        return (f"DynamicPlan(graph={self.name!r}, n={self.n}, m={self.m}, "
+                f"count={self._count}, batches={self.batches}, "
+                f"device={str(self.device)!r})")
+
+
+def plan_dynamic_count(
+    g: Graph,
+    *,
+    backend: str = "kernel",
+    widths: Sequence[int] = DEFAULT_WIDTHS,
+    strategy: str = "auto",
+    bitmap_bits: Optional[int] = None,
+    shape_policy: Optional[ShapePolicy] = None,
+    update_batch_size: int = 256,
+    recount_interval: int = 64,
+    key_mode: str = "auto",
+    device: Union[None, str, torch.device] = None,
+) -> DynamicPlan:
+    """Open a dynamic-graph counting session seeded from ``g``.
+
+    Args:
+      g: the seed ``Graph`` (may be empty).
+      backend / widths / strategy / bitmap_bits / shape_policy: as on the
+        intersection lane; they set the delta launches' mask strategies and
+        the full recount.
+      update_batch_size: updates a step; longer streams are chunked. Padded
+        to a policy extent (the "update rows" class).
+      recount_interval: run the full recount every this many batches (0:
+        never; ``recount()`` is always there).
+      key_mode: "auto" | "int32" | "wide"
+        (``graphs.device.resolve_edge_key_mode``).
+      device: where the session lives; None means the CUDA device.
+
+    Raises:
+      ValueError: an unknown backend, ``update_batch_size`` < 1 or
+        ``recount_interval`` < 0.
+      GraphTooLargeError: the key mode cannot represent the graph.
+      RuntimeError: ``device`` is None or CUDA and no card is present.
+    """
+    return DynamicPlan(
+        g, backend=backend, widths=widths, strategy=strategy,
+        bitmap_bits=bitmap_bits, shape_policy=shape_policy,
+        update_batch_size=update_batch_size,
+        recount_interval=recount_interval, key_mode=key_mode, device=device)
+
+
+def _dynamic_planner(g: Graph, options, *, device):
+    """Registry planner: CountOptions → dynamic-lane DynamicPlan."""
+    return plan_dynamic_count(g, device=device,
+                              **options.plan_kwargs("dynamic"))
+
+
+register_algorithm("dynamic", _dynamic_planner)
 
 
 # ---------------------------------------------------------------------------

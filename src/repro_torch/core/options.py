@@ -1,7 +1,8 @@
 """Typed options for the triangle-counting front door.
 
 ``CountOptions`` is the port of ``repro.core.options.CountOptions`` with the
-fields the intersection, subgraph, matrix, hash and bfs lanes read: one frozen,
+fields the intersection, subgraph, matrix, hash, bfs, edge and dynamic lanes
+read: one frozen,
 validated, hashable dataclass. Equal options give equal ``key()``s, and the
 engine's launch-configuration cache keys derive from the fields.
 
@@ -17,7 +18,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple, Union
 
-from repro_torch.graphs.device import DEFAULT_SHAPE_POLICY, ShapePolicy
+from repro_torch.graphs.device import (
+    DEFAULT_SHAPE_POLICY,
+    EDGE_KEY_MODES,
+    ShapePolicy,
+)
 from repro_torch.kernels.intersect.ops import (
     BACKENDS,
     BITMAP_MAX_BITS,
@@ -40,7 +45,7 @@ class CountOptions:
     Attributes:
       algorithm: "auto" (``repro_torch.core.registry.choose_algorithm``) or
         a registered lane name ("intersection" | "matrix" | "subgraph" |
-        "hash" | "bfs").
+        "hash" | "bfs" | "edge" | "dynamic").
       variant: "filtered" (forward algorithm, each triangle once) or "full"
         (every directed edge, found 6×).
       backend: "kernel" | "ref" per-bucket execution path.
@@ -61,6 +66,14 @@ class CountOptions:
         a bucket (or the matrix lane's triples) over it stays in host
         memory and streams through the kernels chunk by chunk; None keeps
         everything resident.
+      max_peel_iters: edge lane — the k-truss peel's round bound.
+      peel_early_exit: edge lane — stop the peel at its fixed point (True)
+        or run exactly ``max_peel_iters`` rounds (same result).
+      update_batch_size: dynamic lane — updates per device step.
+      recount_interval: dynamic lane — full recount every this many
+        batches (0 disables it).
+      key_mode: edge and dynamic lanes — packed-key mode, "auto" (int32
+        while ``(n + 1)²`` fits, else int64) | "int32" | "wide".
     """
 
     algorithm: str = "auto"
@@ -73,6 +86,11 @@ class CountOptions:
     bitmap_bits: Optional[int] = None
     prep_backend: str = "device"
     shape_policy: Optional[ShapePolicy] = None
+    max_peel_iters: int = 1000
+    peel_early_exit: bool = True
+    update_batch_size: int = 256
+    recount_interval: int = 64
+    key_mode: str = "auto"
     max_device_bytes: Optional[int] = None
 
     def __post_init__(self):
@@ -137,6 +155,36 @@ class CountOptions:
                 f"shape_policy must be None or a ShapePolicy, "
                 f"got {self.shape_policy!r}"
             )
+        if not isinstance(self.max_peel_iters, int) \
+                or isinstance(self.max_peel_iters, bool) \
+                or self.max_peel_iters < 1:
+            raise ValueError(
+                f"max_peel_iters must be a positive int, "
+                f"got {self.max_peel_iters!r}"
+            )
+        if not isinstance(self.peel_early_exit, bool):
+            raise ValueError(
+                f"peel_early_exit must be a bool, got {self.peel_early_exit!r}"
+            )
+        if not isinstance(self.update_batch_size, int) \
+                or isinstance(self.update_batch_size, bool) \
+                or self.update_batch_size < 1:
+            raise ValueError(
+                f"update_batch_size must be a positive int, "
+                f"got {self.update_batch_size!r}"
+            )
+        if not isinstance(self.recount_interval, int) \
+                or isinstance(self.recount_interval, bool) \
+                or self.recount_interval < 0:
+            raise ValueError(
+                f"recount_interval must be a non-negative int (0 disables "
+                f"the periodic oracle), got {self.recount_interval!r}"
+            )
+        if self.key_mode not in EDGE_KEY_MODES:
+            raise ValueError(
+                f"unknown key_mode {self.key_mode!r}; expected one of "
+                f"{EDGE_KEY_MODES}"
+            )
         if self.max_device_bytes is not None:
             b = self.max_device_bytes
             if not isinstance(b, int) or isinstance(b, bool) or b < 1:
@@ -158,8 +206,10 @@ class CountOptions:
         return (
             self.algorithm, self.variant, self.backend, self.strategy,
             self.widths, self.block, self.permute, self.bitmap_bits,
-            self.prep_backend,
-            self.resolved_shape_policy.key(), self.max_device_bytes,
+            self.prep_backend, self.resolved_shape_policy.key(),
+            self.max_peel_iters, self.peel_early_exit,
+            self.update_batch_size, self.recount_interval, self.key_mode,
+            self.max_device_bytes,
         )
 
     def replace(self, **changes) -> "CountOptions":
@@ -171,8 +221,9 @@ class CountOptions:
 
         Lanes ignore knobs that do not apply to them (the matrix lane has
         no ``widths``, the intersection lane no ``block``, the hash and bfs
-        lanes no ``max_device_bytes``, as in the reference), so one options
-        object can drive ``algorithm="auto"`` across all lanes.
+        lanes no ``max_device_bytes``, the edge lane no ``backend``: its
+        masks are torch ops, as in the reference), so one options object
+        can drive ``algorithm="auto"`` across all lanes.
 
         Raises:
           ValueError: a lane the port does not have.
@@ -194,6 +245,21 @@ class CountOptions:
             return dict(backend=self.backend, block=self.block,
                         permute=self.permute,
                         max_device_bytes=self.max_device_bytes)
+        if lane == "edge":
+            return dict(widths=self.widths, strategy=self.strategy,
+                        bitmap_bits=self.bitmap_bits,
+                        prep_backend=self.prep_backend,
+                        shape_policy=self.shape_policy,
+                        max_peel_iters=self.max_peel_iters,
+                        peel_early_exit=self.peel_early_exit,
+                        key_mode=self.key_mode)
+        if lane == "dynamic":
+            return dict(backend=self.backend, widths=self.widths,
+                        strategy=self.strategy, bitmap_bits=self.bitmap_bits,
+                        shape_policy=self.shape_policy,
+                        update_batch_size=self.update_batch_size,
+                        recount_interval=self.recount_interval,
+                        key_mode=self.key_mode)
         if lane == "hash":
             return dict(backend=self.backend, widths=self.widths,
                         prep_backend=self.prep_backend,
@@ -204,5 +270,6 @@ class CountOptions:
                         shape_policy=self.shape_policy)
         raise ValueError(
             f"unknown engine lane {lane!r}; expected one of "
-            f"('bfs', 'hash', 'intersection', 'matrix', 'subgraph')"
+            f"('bfs', 'dynamic', 'edge', 'hash', 'intersection', 'matrix', "
+            f"'subgraph')"
         )

@@ -17,7 +17,13 @@ The port of ``repro.core.prep``:
   original vertex ids; ``peel_to_two_core`` is the host API;
 * ``choose_block`` / ``tile_schedule`` / ``build_tile_schedule`` — the
   matrix lane's host stage: degree permutation, BSR tiling and the
-  heavy-first (L, U, A) tile-triple schedule.
+  heavy-first (L, U, A) tile-triple schedule;
+* ``check_edge_key_range`` / ``forward_edge_keys_device`` /
+  ``forward_edge_keys_host`` — the edge lane's undirected-edge addressing:
+  each forward slot's packed key, sorted, and the permutation back to
+  slots;
+* ``delta_update_buckets`` — the dynamic lane's re-bucketing of one update
+  batch's anchor edges, with no host sync.
 
 The only device→host traffic during device prep is a handful of scalars
 (the max degree, the per-bucket counts, one "changed" flag per peel or BFS
@@ -46,6 +52,7 @@ from repro_torch.graphs.device import (
     DeviceCSR,
     DeviceGraph,
     ShapePolicy,
+    _sorted_edge_keys_dev,
     _bfs_levels_dev,
     _bucket_sort_dev,
     _gather_bucket_dev,
@@ -53,7 +60,10 @@ from repro_torch.graphs.device import (
     _induced_compact_dev,
     _padded_neighbors_dev,
     _two_core_peel_dev,
+    edge_key_dtype,
+    edge_key_sentinel,
     next_pow2,
+    resolve_edge_key_mode,
 )
 from repro_torch.core.options import DEFAULT_WIDTHS
 from repro_torch.kernels.masked_spgemm.masked_spgemm import (
@@ -66,7 +76,11 @@ __all__ = [
     "TileSchedule",
     "bucket_is_tiled",
     "build_tile_schedule",
+    "check_edge_key_range",
     "choose_block",
+    "delta_update_buckets",
+    "forward_edge_keys_device",
+    "forward_edge_keys_host",
     "induced_device_graph",
     "peel_to_two_core",
     "peel_to_two_core_device",
@@ -320,6 +334,149 @@ def prepare_intersection_buckets_host(
         v_lists[v_lists == g.n] = g.n + 1  # disjoint sentinel
         out.append(dict(u_lists=u_lists, v_lists=v_lists,
                         src=b["src"], dst=b["dst"], width=w))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Edge and dynamic lanes: packed edge keys, anchor re-bucketing
+# ---------------------------------------------------------------------------
+
+def check_edge_key_range(n: int, key_mode: str = "auto", *,
+                         lane: str = "edge-support") -> str:
+    """Resolve the edge lane's packed-key mode for a graph ("int32" or
+    "wide"), through ``graphs.device.resolve_edge_key_mode``.
+
+    Raises:
+      GraphTooLargeError: the requested mode cannot represent the graph.
+    """
+    return resolve_edge_key_mode(n, key_mode, lane=lane)
+
+
+def forward_edge_keys_device(
+    g: Union[Graph, DeviceGraph],
+    *,
+    policy: Optional[ShapePolicy] = None,
+    key_mode: str = "auto",
+    device: Union[None, str, torch.device] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """The edge lane's undirected-edge addressing, on the device.
+
+    The forward orientation keeps one directed copy of every undirected
+    edge, so a forward CSR slot is an undirected edge id. The edge lane
+    adds support in slot order; this gives each slot's packed
+    ``min·(n+1)+max`` key, sorted (``edge_list_unique`` order), and the
+    permutation from sorted positions back to slots. Padding slots carry
+    the sentinel and sort to the end.
+
+    Args:
+      g: a host ``Graph`` (uploaded to ``device``) or a ``DeviceGraph``
+        (which carries its own device and policy; its cached forward
+        orientation is shared with the bucket prep).
+      policy: the ``ShapePolicy`` for a host graph.
+      key_mode: "auto" | "int32" | "wide".
+      device: where a host ``Graph`` is uploaded; required for one.
+
+    Returns:
+      (keys, perm, row_ptr, m): the (mk,) sorted keys (int32, or int64 in
+      the wide mode), the (mk,) int32 slot permutation, the forward (n+1,)
+      int32 row_ptr and the undirected edge count.
+    """
+    if isinstance(g, DeviceGraph):
+        dg = g
+    else:
+        if device is None:
+            raise ValueError("a host Graph needs device= to be uploaded to")
+        dg = DeviceGraph.from_graph(g, policy or DEFAULT_SHAPE_POLICY,
+                                    device=device)
+    mode = check_edge_key_range(dg.n, key_mode)
+    if dg.m == 0:
+        mk = dg.policy.round_edges(0)
+        return (torch.full((mk,), edge_key_sentinel(mode),
+                           dtype=edge_key_dtype(mode), device=dg.device),
+                torch.arange(mk, dtype=torch.int32, device=dg.device),
+                torch.zeros(dg.n + 1, dtype=torch.int32, device=dg.device), 0)
+    fwd = dg.forward()
+    keys, perm = _sorted_edge_keys_dev(fwd.src, fwd.dst, fwd.kvalid,
+                                       n1=dg.n + 1, wide=(mode == "wide"))
+    return keys, perm, fwd.row_ptr, dg.m // 2
+
+
+def forward_edge_keys_host(
+    g: Graph, key_mode: str = "auto",
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """The numpy twin of ``forward_edge_keys_device``: host slots are the
+    oriented DAG's CSR positions (``orient_forward``).
+
+    Returns:
+      (keys, perm, row_ptr, m): the unpadded (m,) sorted keys (int32, or
+      int64 in the wide mode), the (m,) int32 slot permutation, the
+      oriented (n+1,) int32 row_ptr, and m.
+    """
+    mode = check_edge_key_range(g.n, key_mode)
+    dag = orient_forward(g)
+    src, dst = dag.edge_endpoints()
+    lo = np.minimum(src, dst).astype(np.int64)
+    hi = np.maximum(src, dst).astype(np.int64)
+    key = (lo * (g.n + 1) + hi).astype(
+        np.int64 if mode == "wide" else np.int32)
+    perm = np.argsort(key, kind="stable").astype(np.int32)
+    return key[perm], perm, dag.row_ptr.astype(np.int32), int(key.shape[0])
+
+
+def delta_update_buckets(lo_rows: torch.Tensor, hi_rows: torch.Tensor,
+                         lo_deg: torch.Tensor, hi_deg: torch.Tensor,
+                         lo: torch.Tensor, hi: torch.Tensor,
+                         valid: torch.Tensor, *, n: int,
+                         bounds: Sequence[int]) -> list:
+    """Re-bucket one update batch's anchor edges by degree class, on the
+    device and with no host sync.
+
+    Each valid anchor edge goes to the first bound ≥ max(deg(lo),
+    deg(hi)) (stable: batch order kept within a class); every class is
+    gathered to a fixed (ub, width) layout, ub the batch's row extent, and
+    an empty class is all padding rows (u = -1, v = -2), so the layout
+    never depends on the data. The rows come from the step's anchor-row
+    blocks, so the pass touches O(batch · width) data.
+
+    Args:
+      lo_rows, hi_rows: (ub, bounds[-1]) ascending anchor rows (in-row
+        sentinel ``n``) of each anchor edge's endpoints.
+      lo_deg, hi_deg: (ub,) their degrees.
+      lo, hi: (ub,) anchor edge endpoints.
+      valid: (ub,) mask of live anchor rows.
+      n: vertex count.
+      bounds: ascending class bounds; ``bounds[-1]`` ≥ the max degree.
+
+    Returns:
+      One ``(width, u_lists, v_lists, src, dst)`` per bound, each
+      (ub, width) / (ub,) int32 with the repo-wide sentinels.
+    """
+    dev = lo.device
+    ub = int(lo.shape[0])
+    num_bounds = len(bounds)
+    barr = torch.tensor([int(w) for w in bounds], dtype=torch.int32,
+                        device=dev)
+    w = torch.maximum(lo_deg, hi_deg).to(torch.int32)
+    b = torch.searchsorted(barr, w)
+    b = torch.where(valid, b, num_bounds)
+    order = torch.sort(b, stable=True).indices
+    counts = torch.bincount(b, minlength=num_bounds + 1)[:num_bounds]
+    starts = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    rows = torch.arange(ub, device=dev)
+    out = []
+    for i, width in enumerate(bounds):
+        width = int(width)
+        bvalid = rows < counts[i]
+        slot = order[(starts[i] + rows).clamp_(0, max(ub - 1, 0))]
+        sb = torch.where(bvalid, lo[slot], 0).to(torch.int32)
+        db = torch.where(bvalid, hi[slot], 0).to(torch.int32)
+        u = torch.where(bvalid[:, None], lo_rows[slot, :width],
+                        -1).to(torch.int32)
+        vfull = hi_rows[slot, :width]
+        v = torch.where(bvalid[:, None],
+                        torch.where(vfull == n, n + 1, vfull),
+                        -2).to(torch.int32)
+        out.append((width, u, v, sb, db))
     return out
 
 

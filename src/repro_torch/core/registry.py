@@ -7,10 +7,11 @@ The port of ``repro.core.registry``. Each lane registers a planner —
 
 The builtin lanes are the paper's three formulations, ``"intersection"``
 (``core.engine``), ``"subgraph"`` (``core.tc_subgraph``) and ``"matrix"``
-(``core.tc_matrix``), and the TRUST-style ``"hash"`` and level-ordered
-``"bfs"`` lanes (``core.engine``). The chooser is the reference's heuristic
-unchanged, so ``auto`` resolves on every graph and never picks hash or
-bfs: those run when they are asked for by name.
+(``core.tc_matrix``), the TRUST-style ``"hash"`` and level-ordered
+``"bfs"`` lanes, the ``"edge"`` lane (edge support, k-truss) and the
+``"dynamic"`` lane (``core.engine``). The chooser is the reference's
+heuristic unchanged, so ``auto`` resolves on every graph and never picks
+hash, bfs, edge or dynamic: those run when they are asked for by name.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ def register_algorithm(name: str, planner: Callable, *,
 
 def _ensure_builtin() -> None:
     """Import the builtin lane modules so their registrations have run."""
-    import repro_torch.core.engine  # noqa: F401  (intersection, hash, bfs)
+    import repro_torch.core.engine  # noqa: F401  (intersection, hash, bfs, edge, dynamic)
     import repro_torch.core.tc_matrix  # noqa: F401  (registers "matrix")
     import repro_torch.core.tc_subgraph  # noqa: F401  (registers "subgraph")
 

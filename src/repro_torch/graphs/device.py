@@ -3,7 +3,15 @@
 The port of ``repro.graphs.device``: CSR build by sorting, degree-rank
 forward orientation, padded neighbour gathers, the degree-class bucket
 layout, the 2-core peel and the BFS levels of the bfs lane (with its
-level orientation), as torch ops on an explicit ``torch.device``.
+level orientation), the packed undirected-edge keys of the edge and
+dynamic lanes and the dynamic lane's in-place update step, as torch ops on
+an explicit ``torch.device``.
+
+Packed edge keys are ``lo·(n+1)+hi``: int32 while ``(n+1)² ≤ int32 max``
+(n ≤ 46,339), int64 ("wide") past it or when asked for, with the dtype's
+max as the dead-slot sentinel. Each key is computed in int64 and cast to
+the mode's dtype, so an int32 session holds int32 keys, as the reference
+does.
 
 ``ShapePolicy`` rounds every data-dependent extent (edge-array lengths,
 per-bucket edge counts) up to a power of two, padding with the repo-wide
@@ -35,9 +43,14 @@ __all__ = [
     "DeviceCSR",
     "DeviceGraph",
     "EDGE_KEY_MODES",
+    "EDGE_KEY_SENTINEL",
     "GraphTooLargeError",
     "ShapePolicy",
+    "WIDE_EDGE_KEY_SENTINEL",
     "bfs_levels",
+    "dynamic_update_step",
+    "edge_key_dtype",
+    "edge_key_sentinel",
     "fits_int32_pair_keys",
     "fits_int64_pair_keys",
     "next_pow2",
@@ -47,6 +60,11 @@ __all__ = [
 
 #: Valid values for every ``key_mode`` parameter.
 EDGE_KEY_MODES: Tuple[str, ...] = ("auto", "int32", "wide")
+
+#: Dead-slot sentinels of the two key modes (each dtype's max): they sort
+#: past every real key, and no real key reaches them.
+EDGE_KEY_SENTINEL: int = int(np.iinfo(np.int32).max)
+WIDE_EDGE_KEY_SENTINEL: int = int(np.iinfo(np.int64).max)
 
 
 def resolve_device(device: Union[None, str, torch.device] = None) -> torch.device:
@@ -127,6 +145,16 @@ def resolve_edge_key_mode(n: int, key_mode: str = "auto", *,
             f"or the matrix / hash / bfs lanes, which use no packed keys"
         )
     return "wide"
+
+
+def edge_key_dtype(mode: str) -> torch.dtype:
+    """The dtype of packed edge keys in a resolved key mode."""
+    return torch.int64 if mode == "wide" else torch.int32
+
+
+def edge_key_sentinel(mode: str) -> int:
+    """The dead-slot sentinel (the dtype's max) of a resolved key mode."""
+    return WIDE_EDGE_KEY_SENTINEL if mode == "wide" else EDGE_KEY_SENTINEL
 
 
 @dataclasses.dataclass(frozen=True)
@@ -307,6 +335,28 @@ def _gather_bucket_rows_dev(sorted_src: torch.Tensor, sorted_dst: torch.Tensor,
     return u, v, sb, db
 
 
+def _sorted_edge_keys_dev(src: torch.Tensor, dst: torch.Tensor,
+                          valid: torch.Tensor, *, n1: int, wide: bool = False):
+    """Sorted packed keys of a masked undirected edge list, and the sort
+    permutation.
+
+    A live slot's key is ``min(src, dst)·n1 + max(src, dst)`` (``n1`` =
+    n + 1), so ascending keys are ascending (lo, hi) pairs, the order of
+    ``Graph.edge_list_unique``. Dead slots take the dtype's max and sort to
+    the end. The sort is stable, so ``perm``'s dead slots stay in slot
+    order, as the reference's ``jnp.argsort`` leaves them. Returns
+    ``(sorted_keys, perm)`` with ``sorted_keys = keys[perm]``: int32 keys,
+    or int64 when ``wide``, and an int32 ``perm``.
+    """
+    kdt = torch.int64 if wide else torch.int32
+    lo = torch.minimum(src, dst).long()
+    hi = torch.maximum(src, dst).long()
+    key = torch.where(valid, lo * n1 + hi,
+                      WIDE_EDGE_KEY_SENTINEL if wide else EDGE_KEY_SENTINEL)
+    sorted_keys, perm = torch.sort(key.to(kdt), stable=True)
+    return sorted_keys, perm.to(torch.int32)
+
+
 def _two_core_peel_dev(src: torch.Tensor, dst: torch.Tensor,
                        valid: torch.Tensor, init_alive: torch.Tensor,
                        *, n: int) -> Tuple[torch.Tensor, int]:
@@ -406,6 +456,125 @@ def _induced_compact_dev(row_ptr: torch.Tensor, col_idx: torch.Tensor,
     row_ptr_sub = torch.zeros(n + 1, dtype=torch.int32, device=dev)
     row_ptr_sub[1:] = torch.cumsum(deg[:n], 0)
     return row_ptr_sub, col, keep.sum()
+
+
+def _anchor_rows(keys: torch.Tensor, rkeys: torch.Tensor, verts: torch.Tensor,
+                 valid: torch.Tensor, *, n: int, width: int):
+    """Padded adjacency rows of a batch of anchor vertices, read straight
+    from the two sorted key orderings (no (n, W) matrix is built).
+
+    Vertex v's neighbours above v are the run of ``keys`` (sorted
+    ``lo·(n+1)+hi``) in ``[v·(n+1), v·(n+1) + n)``, those below it the same
+    run of ``rkeys`` (sorted ``hi·(n+1)+lo``); two searches a side find
+    them. The reverse run goes first, so each row ascends, padded with the
+    in-row sentinel ``n``. Invalid anchors get all-padding rows and degree
+    0. Returns ``(rows (B, width) int32, deg (B,) int32)``; the key dtype
+    follows ``keys``.
+    """
+    cap = int(keys.shape[0])
+    kdt = keys.dtype
+    n1 = n + 1
+    v = verts.long().clamp(0, max(n - 1, 0))
+    base = (v * n1).to(kdt)
+    # v·n1 + n is in range for either dtype: resolve_edge_key_mode rules
+    # out the int32 overflow
+    top = (v * n1 + n).to(kdt)
+    sf = torch.searchsorted(keys, base)
+    ef = torch.searchsorted(keys, top)
+    sr = torch.searchsorted(rkeys, base)
+    er = torch.searchsorted(rkeys, top)
+    df = torch.where(valid, ef - sf, 0)
+    dr = torch.where(valid, er - sr, 0)
+    lanes = torch.arange(width, device=keys.device)[None, :]
+    rev = rkeys[(sr[:, None] + lanes).clamp_(0, cap - 1)] % n1
+    fwd = keys[(sf[:, None] + lanes - dr[:, None]).clamp_(0, cap - 1)] % n1
+    rows = torch.where(lanes < dr[:, None], rev,
+                       torch.where(lanes < (dr + df)[:, None], fwd, n))
+    return rows.to(torch.int32), (df + dr).to(torch.int32)
+
+
+def dynamic_update_step(keys: torch.Tensor, rkeys: torch.Tensor,
+                        upd_keys: torch.Tensor, upd_rkeys: torch.Tensor,
+                        upd_ins: torch.Tensor, upd_valid: torch.Tensor,
+                        *, n: int, width: int):
+    """One step of the dynamic lane: apply a padded batch of edge updates
+    to the device-resident edge set.
+
+    The edge set is two sorted orderings of packed keys, ``keys`` by
+    ``lo·(n+1)+hi`` and ``rkeys`` by ``hi·(n+1)+lo``, each of capacity
+    ``keys.shape[0]`` with the dtype's max in dead slots; together they are
+    the adjacency (a vertex's row is two contiguous runs). The step:
+
+    1. resolves the batch against the set: effective deletes are requested
+       deletes that are present, effective inserts requested inserts that
+       are absent;
+    2. tombstones each deleted slot in both orderings, then merges the
+       inserts in and compacts each ordering with one sort (the caller has
+       grown the capacity so that the live edges fit);
+    3. gathers the anchor rows of every update edge's endpoints at the
+       ``width`` class, before the update (for Δ⁻) and after it (for Δ⁺),
+       with :func:`_anchor_rows`;
+    4. finds every vertex's degree in the new set with one search of each
+       ordering, for the max-degree statistic.
+
+    Nothing here syncs with the host. Returns (new_keys, new_rkeys,
+    eff_ins, eff_del, ins_skeys, del_skeys, old_lo_rows, old_hi_rows,
+    old_lo_deg, old_hi_deg, new_lo_rows, new_hi_rows, new_lo_deg,
+    new_hi_deg, stats): ``ins_skeys`` / ``del_skeys`` are the sorted
+    effective update keys (sentinel-padded), the row blocks (ub, width)
+    int32, the degrees (ub,) int32, and ``stats`` the (4,) int32
+    ``[live_edges, max_degree, num_inserted, num_deleted]``.
+    """
+    cap = int(keys.shape[0])
+    kdt = keys.dtype
+    sent = WIDE_EDGE_KEY_SENTINEL if kdt == torch.int64 else EDGE_KEY_SENTINEL
+    n1 = n + 1
+    # -- resolve: which requests take effect against the current set
+    idx = torch.searchsorted(keys, upd_keys).clamp_(0, cap - 1)
+    present = (keys[idx] == upd_keys) & upd_valid
+    eff_del = present & ~upd_ins
+    eff_ins = upd_valid & upd_ins & ~present
+    del_skeys = torch.sort(torch.where(eff_del, upd_keys, sent)).values
+    ins_skeys = torch.sort(torch.where(eff_ins, upd_keys, sent)).values
+    # -- apply: tombstone deletes, then merge the inserts and compact; a
+    # masked index lands on a scratch slot past the end (mode="drop" in the
+    # reference: an out-of-range index is a device fault in torch)
+    ins_keys = torch.where(eff_ins, upd_keys, sent)
+    ins_rkeys = torch.where(eff_ins, upd_rkeys, sent)
+    ridx = torch.searchsorted(rkeys, upd_rkeys).clamp_(0, cap - 1)
+    new = []
+    for ordering, pos, inserts in ((keys, idx, ins_keys),
+                                   (rkeys, ridx, ins_rkeys)):
+        tomb = torch.cat([ordering, ordering.new_full((1,), sent)])
+        tomb[torch.where(eff_del, pos, cap)] = sent
+        new.append(torch.sort(torch.cat([tomb[:cap], inserts])).values[:cap])
+    new_keys, new_rkeys = new
+    # -- gather: anchor rows for the delta passes
+    lo = torch.where(upd_valid, upd_keys // n1, 0).to(torch.int32)
+    hi = torch.where(upd_valid, upd_keys % n1, 0).to(torch.int32)
+    old_lo_rows, old_lo_deg = _anchor_rows(keys, rkeys, lo, upd_valid,
+                                           n=n, width=width)
+    old_hi_rows, old_hi_deg = _anchor_rows(keys, rkeys, hi, upd_valid,
+                                           n=n, width=width)
+    new_lo_rows, new_lo_deg = _anchor_rows(new_keys, new_rkeys, lo,
+                                           upd_valid, n=n, width=width)
+    new_hi_rows, new_hi_deg = _anchor_rows(new_keys, new_rkeys, hi,
+                                           upd_valid, n=n, width=width)
+    # -- degrees of the new set: one n-query search of each ordering
+    live = (new_keys != sent).sum()
+    bnds = (torch.arange(n, device=keys.device) * n1).to(kdt)
+    tail = live.reshape(1)
+    deg = (torch.diff(torch.cat([torch.searchsorted(new_keys, bnds), tail]))
+           + torch.diff(torch.cat([torch.searchsorted(new_rkeys, bnds), tail])))
+    stats = torch.stack([
+        live,
+        torch.cat([deg, deg.new_zeros(1)]).max(),  # max(initial=0)
+        eff_ins.sum(),
+        eff_del.sum(),
+    ]).to(torch.int32)
+    return (new_keys, new_rkeys, eff_ins, eff_del, ins_skeys, del_skeys,
+            old_lo_rows, old_hi_rows, old_lo_deg, old_hi_deg,
+            new_lo_rows, new_hi_rows, new_lo_deg, new_hi_deg, stats)
 
 
 # ---------------------------------------------------------------------------

@@ -11,12 +11,13 @@ host; the device prep that the counting lanes use lives in
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Iterable, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 __all__ = [
     "BlockSparse",
+    "EdgeUpdate",
     "Graph",
     "apply_permutation",
     "bucket_edges_by_degree",
@@ -25,9 +26,86 @@ __all__ = [
     "edges_to_csr",
     "graph_from_arrays",
     "induced_subgraph",
+    "normalize_edge_updates",
     "orient_forward",
     "to_block_sparse",
 ]
+
+
+class EdgeUpdate(NamedTuple):
+    """One streamed edge mutation: insert (default) or delete edge (u, v).
+
+    The dynamic lane (``repro_torch.core.api.DynamicTriangleCounter``)
+    consumes batches of these. Endpoints are undirected: ``EdgeUpdate(3,
+    7)`` and ``EdgeUpdate(7, 3)`` name the same edge. Inserting a present
+    edge and deleting an absent one are both no-ops (set semantics).
+    """
+
+    u: int
+    v: int
+    insert: bool = True
+
+
+def normalize_edge_updates(
+    updates: Iterable[Union[EdgeUpdate, Tuple[int, ...]]], n: int
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Canonicalize a batch of edge updates for the dynamic lane.
+
+    Accepts ``EdgeUpdate``s, ``(u, v)`` pairs (insert) or ``(u, v,
+    insert)`` triples. Endpoints become ``lo < hi``, self loops are
+    dropped, and updates naming the same undirected edge are deduplicated
+    last-wins, in the order of their last occurrence: the net effect of the
+    batch applied in order.
+
+    Args:
+      updates: the update batch, in application order.
+      n: vertex count; every endpoint must satisfy ``0 <= id < n``.
+
+    Returns:
+      (lo, hi, insert): int32 / int32 / bool arrays, one row per surviving
+      distinct undirected edge.
+
+    Raises:
+      ValueError: malformed update tuples or out-of-range endpoints.
+    """
+    us, vs, ins = [], [], []
+    for upd in updates:
+        t = tuple(upd)
+        if len(t) == 2:
+            u, v, i = t[0], t[1], True
+        elif len(t) == 3:
+            u, v, i = t
+        else:
+            raise ValueError(
+                f"edge update must be (u, v) or (u, v, insert), got {upd!r}"
+            )
+        us.append(u)
+        vs.append(v)
+        ins.append(bool(i))
+    u = np.asarray(us, dtype=np.int64)
+    v = np.asarray(vs, dtype=np.int64)
+    flag = np.asarray(ins, dtype=bool)
+    if u.size:
+        bad = (u < 0) | (u >= n) | (v < 0) | (v >= n)
+        if bad.any():
+            j = int(np.flatnonzero(bad)[0])
+            raise ValueError(
+                f"edge update ({int(u[j])}, {int(v[j])}) out of range for "
+                f"n={n}; endpoints must satisfy 0 <= id < n"
+            )
+    lo = np.minimum(u, v)
+    hi = np.maximum(u, v)
+    keep = lo != hi  # drop self loops
+    lo, hi, flag = lo[keep], hi[keep], flag[keep]
+    if lo.size:
+        # last wins: the first occurrence of each key in the reversed
+        # batch, put back in batch order (int64 keys cannot overflow for
+        # int32 ids)
+        key = lo * (n + 1) + hi
+        _, first_rev = np.unique(key[::-1], return_index=True)
+        idx = np.sort(key.shape[0] - 1 - first_rev)
+        lo, hi, flag = lo[idx], hi[idx], flag[idx]
+    return lo.astype(np.int32), hi.astype(np.int32), flag
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +145,13 @@ class Graph:
         by its degree."""
         src = np.repeat(np.arange(self.n, dtype=np.int32), self.degrees)
         return src, self.col_idx
+
+    def edge_list_unique(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(src, dst) with src < dst: one row per undirected edge, in
+        (src, dst) lexicographic order."""
+        src, dst = self.edge_endpoints()
+        keep = src < dst
+        return src[keep], dst[keep]
 
     def to_scipy(self):
         import scipy.sparse as sp

@@ -19,6 +19,7 @@ from repro_torch.kernels.intersect.ops import (
     choose_strategy,
     intersect_counts,
     intersect_matches,
+    intersect_matches_both,
     packed_bits,
     resolve_mask_strategy,
     resolve_strategy,
@@ -51,6 +52,7 @@ __all__ = [
     "intersect_counts_ref",
     "intersect_matches",
     "intersect_matches_bitmap",
+    "intersect_matches_both",
     "packed_bits",
     "reset_launch_counts",
     "resolve_mask_strategy",

@@ -47,6 +47,7 @@ __all__ = [
     "choose_strategy",
     "intersect_counts",
     "intersect_matches",
+    "intersect_matches_both",
     "packed_bits",
     "resolve_mask_strategy",
     "resolve_strategy",
@@ -246,6 +247,19 @@ def _broadcast_mask(u_lists: torch.Tensor, v_lists: torch.Tensor) -> torch.Tenso
     return out
 
 
+def _broadcast_mask_both(u_lists: torch.Tensor, v_lists: torch.Tensor):
+    """Both broadcast masks from one compare tensor a row chunk."""
+    e, w = u_lists.shape
+    out_u = torch.zeros(e, w, dtype=torch.bool, device=u_lists.device)
+    out_v = torch.zeros_like(out_u)
+    step = max(1, _MASK_CHUNK_ELEMS // max(w * w, 1))
+    for s in range(0, e, step):
+        eq = u_lists[s:s + step, :, None] == v_lists[s:s + step, None, :]
+        out_u[s:s + step] = eq.any(dim=2)
+        out_v[s:s + step] = eq.any(dim=1)
+    return out_u, out_v
+
+
 def _probe_mask(u_lists: torch.Tensor, v_lists: torch.Tensor) -> torch.Tensor:
     e, w = u_lists.shape
     out = torch.zeros(e, w, dtype=torch.bool, device=u_lists.device)
@@ -286,3 +300,31 @@ def intersect_matches(
         return intersect_matches_bitmap(u_lists, v_lists,
                                         num_bits=int(bitmap_bits))
     return _probe_mask(u_lists, v_lists)
+
+
+def intersect_matches_both(
+    u_lists: torch.Tensor,
+    v_lists: torch.Tensor,
+    *,
+    strategy: str = "auto",
+    bitmap_bits=None,
+) -> tuple:
+    """Both directions of ``intersect_matches`` in one call.
+
+    Returns ``(matched_u, matched_v)``: (E, W) bool masks of the u-row
+    positions found in v and the v-row positions found in u. Rows are
+    deduplicated neighbour lists, so each common element is one True in
+    each mask and both masks row-sum to the per-row intersection sizes.
+    The broadcast strategy reduces one compare tensor both ways a row
+    chunk; probe and bitmap run twice with the roles swapped. The edge
+    lane credits its side edges from the two masks.
+    """
+    strategy, bitmap_bits = _resolve_args(u_lists, v_lists, strategy,
+                                          bitmap_bits, resolve_mask_strategy)
+    if strategy == "broadcast":
+        return _broadcast_mask_both(u_lists, v_lists)
+    if strategy == "bitmap":
+        bits = int(bitmap_bits)
+        return (intersect_matches_bitmap(u_lists, v_lists, num_bits=bits),
+                intersect_matches_bitmap(v_lists, u_lists, num_bits=bits))
+    return _probe_mask(u_lists, v_lists), _probe_mask(v_lists, u_lists)

@@ -103,8 +103,9 @@ def test_auto_on_other_lanes_raises_unregistered(ref, name, monkeypatch):
     tc = TriangleCounter(g, device=CPU)
     assert tc.algorithm == lane and tc.count() == triangle_count_scipy(g)
     # a chosen lane that is not registered still raises the reference's error
+    rest = tuple(sorted(set(available_algorithms()) - {lane}))
+    assert set(ALGORITHMS) - {lane} <= set(rest)
     monkeypatch.delitem(registry._REGISTRY, lane)
-    rest = tuple(sorted(set(ALGORITHMS) - {lane}))
     with pytest.raises(ValueError) as err:
         TriangleCounter(g, device=CPU)
     assert str(err.value) == (f"auto chooser returned unregistered lane "
@@ -165,22 +166,28 @@ def test_options_validate_like_reference(ref):
     assert a.replace(block=32).key() != a.key()
     assert a.replace(permute=False).key() != a.key()
     assert a.plan_kwargs("intersection")["widths"] == (8, 32, 128, 512)
-    for lane in ("matrix", "subgraph", "hash", "bfs"):  # the reference's keys, less interpret
+    for lane in ("matrix", "subgraph", "hash", "bfs", "edge", "dynamic"):
+        # the reference's keys, less interpret
         want = set(ref.options.CountOptions().plan_kwargs(lane)) - {"interpret"}
         assert set(a.plan_kwargs(lane)) == want
     with pytest.raises(ValueError, match="unknown engine lane"):
-        a.plan_kwargs("edge")
-    assert available_algorithms() == ("bfs", "hash", "intersection", "matrix",
-                                      "subgraph")
+        a.plan_kwargs("intersection_distributed")
+    assert available_algorithms() == ("bfs", "dynamic", "edge", "hash",
+                                      "intersection", "matrix", "subgraph")
 
 
-def test_unported_surfaces_raise_not_implemented():
+def test_unported_surfaces_raise_not_implemented(ref):
+    """``edge_support`` and ``k_truss`` raised ``NotImplementedError``
+    until the edge lane was ported; they now answer as the reference does,
+    through a sidecar edge plan of a counting session."""
     g = GRAPHS["tiny-rmat"]()
     tc = TriangleCounter(g, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tc.edge_support()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tc.k_truss(3)
+    theirs = _ref_counter(ref, g)
+    for a, b in zip(tc.edge_support(), theirs.edge_support()):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    mine3, ref3 = tc.k_truss(3), theirs.k_truss(3)
+    np.testing.assert_array_equal(mine3.row_ptr, ref3.row_ptr)
+    np.testing.assert_array_equal(mine3.col_idx, ref3.col_idx)
 
 
 def test_launch_cache_is_shared_and_bounded():

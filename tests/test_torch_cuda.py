@@ -667,3 +667,59 @@ def test_batch_equals_loop_on_card(cuda):
         assert all(a.device.type == "cuda" for a in batch.arrays)
         assert [int(c) for c in batch.counts()] == \
             [triangle_count_scipy(g) for g in graphs[:4]]
+
+
+ANALOGUES = ("coauthors-like", "road-like", "citpatents-like")
+
+
+@pytest.mark.parametrize("strategy", ["auto", "broadcast", "probe", "bitmap"])
+@pytest.mark.parametrize("name", ANALOGUES)
+def test_edge_lane_on_card_equals_cpu(cuda, name, strategy):
+    g = load_dataset(name)
+    tc = TriangleCounter(g, algorithm="edge", strategy=strategy)
+    cpu = TriangleCounter(g, algorithm="edge", strategy=strategy,
+                          device="cpu")
+    for a, b in zip(tc.edge_support(), cpu.edge_support()):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert tc.plan.edge_keys.device.type == "cuda"
+    assert tc.count() == triangle_count_scipy(g)
+    for k in (4, 6):
+        a, b = tc.k_truss(k), cpu.k_truss(k)
+        np.testing.assert_array_equal(a.col_idx, b.col_idx)
+        assert tc.plan.meta["peel_rounds"] == cpu.plan.meta["peel_rounds"]
+
+
+def test_truss_decomposition_on_card_equals_cpu(cuda):
+    from repro_torch.core import truss_decomposition_forward_scipy
+
+    g = rmat_graph(9, 8, seed=1)
+    got = TriangleCounter(g, algorithm="edge").truss_decomposition()
+    for a, b in zip(got, truss_decomposition_forward_scipy(g)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("key_mode", ["auto", "wide"])
+@pytest.mark.parametrize("name", ("coauthors-like", "road-like"))
+def test_dynamic_lane_on_card_equals_cpu(cuda, name, key_mode):
+    from repro_torch.core import DynamicTriangleCounter
+
+    g = load_dataset(name)
+    rng = np.random.default_rng(0)
+    kw = dict(update_batch_size=64, recount_interval=0, key_mode=key_mode)
+    card = DynamicTriangleCounter(g, **kw)
+    cpu = DynamicTriangleCounter(g, device="cpu", **kw)
+    lo, hi = g.edge_list_unique()
+    for _ in range(6):
+        dels = rng.choice(lo.shape[0], 32, replace=False)
+        ups = [(int(lo[i]), int(hi[i]), False) for i in dels]
+        ups += [(int(a), int(b)) for a, b in rng.integers(0, g.n, (32, 2))]
+        assert card.apply_updates(ups).count == cpu.apply_updates(ups).count
+        np.testing.assert_array_equal(card.plan._keys.cpu().numpy(),
+                                      cpu.plan._keys.numpy())
+        np.testing.assert_array_equal(card.plan._rkeys.cpu().numpy(),
+                                      cpu.plan._rkeys.numpy())
+    reset_launch_counts()
+    assert card.recount() == card.count().count \
+        == triangle_count_scipy(card.snapshot())
+    assert sum(LAUNCHES.values()) > 0  # the recount ran K1-K3

@@ -49,6 +49,7 @@ _MODULES = {
     "registry": "repro.core.registry",
     "engine": "repro.core.engine",
     "api": "repro.core.api",
+    "listing": "repro.core.listing",
     "ops": "repro.kernels.intersect.ops",
     "kref": "repro.kernels.intersect.ref",
     "bitmap": "repro.kernels.intersect.bitmap",
