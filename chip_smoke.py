@@ -139,6 +139,29 @@ source, all started together), and runs, in order:
    give K2 a (262144, 8192) bucket of 17 GiB, held against its plain
    version and timed there beside both bounds, the plain version and the
    yardstick);
+3m. the measured ``algorithm="auto"`` chooser: the six Table-1 analogues,
+   ``complete_graph(512)`` and ``rmat_graph(14, 16, seed=1)``, each kept
+   only if its widest bfs bucket (reckoned from its levels on the card,
+   nothing gathered) takes at most half the free memory; every lane
+   timed on each (``calibrate``, iters 3, warmup 1) and priced
+   (``analytic_seed``, the H100 bound of ``launch.roofline``); a line per
+   graph with its bin, the heuristic and measured picks, each lane's ms
+   and the analytic ranking; the measured pick timed again within
+   2·t_best + 200 µs; the table through a ``CALIB_*.json`` sidecar under
+   ``build/`` and back with the same choices; ``CountOptions(chooser=
+   "measured")`` on each graph against its oracle on the table's lane;
+3n. ``TriangleService`` on the card: phase 3j's pool warmed up, 512 count
+   requests from 4 tenants in bursts of 1, 3, 8 and 64 against phase 3j's
+   scipy truths, no cache miss after ``warmup()``, no errored request;
+   requests/s, p50/p90/p99 latency, the coalesce factor and dispatches
+   beside the per-request ``TriangleCounter(g).count()`` loop and
+   ``count_many``; one 64-request burst under ``torch.profiler``; the
+   largest stacked batch of another held against the plain versions
+   (``serve_path``);
+   R-MAT scale 18 through a subgraph-lane service (count twice, the
+   second a session-cache hit; vertex; edge_support; ``k_truss(128)``)
+   against phases 2 and 3k; 8 update batches of phase 3l's stream, each
+   against a ``recount()``; load shedding at depth 4 with a 1 ms deadline;
 3f. serving: gemma2-2b at its published width and depth (26 layers, bf16
    weights drawn from seed 0), batch 2, a 6144-token prompt (past the
    4096 window of the local layers) and 16 greedy tokens through
@@ -179,13 +202,14 @@ source, all started together), and runs, in order:
    nvidia-smi, and a last line ``{"ok": true, "device": {...}}``.
 
 The phases run in the order 1, 2, 3, 3b, 3c, 4, 3d, 4b, 3k, 3l, 3g–3j,
-3e, 3f, 4c, 5: phase 4 needs the earlier lanes' plans (about 40 GiB), so
+3e, 3m, 3n, 3f, 4c, 5: phase 4 needs the earlier lanes' plans (about 40 GiB), so
 the new lanes wait until it has released them (phase 4b holds the hash
 paths' stages and releases them before the edge and dynamic lanes, and the
 tiled phases free their pinned host memory before the next), and the
 serving slice runs once every graph plan is gone. The kernels line's K1–K4
-entries carry the tiled, batch and recount shapes under ``tiled_path``,
-``batch_path`` and ``recount_path``.
+entries carry the tiled, batch, recount and served shapes under
+``tiled_path``, ``batch_path``, ``recount_path`` and ``serve_path``, and
+K1–K5 the chooser's launches under ``chooser_path``.
 
 Any failed check raises, so the script exits non-zero and prints no last
 line. Without a CUDA device, or outside a checkout, it exits 2 at once.
@@ -1346,6 +1370,7 @@ def tiled_batch_phase(torch, np, dev, ctx) -> None:
                      f"count_many, first batch of 16 of {len(graphs)} graphs")
             add_path(entries[strat], "batch_path", label,
                      key_launches[strat], shapes, batch=batch_info)
+    ctx.update(pool=graphs[:64], pool_truths=truths[:64])  # phase 3n's pool
     del first_batch, bitmap_batch, graphs, session
     release_host_memory(torch)
 
@@ -1358,6 +1383,30 @@ def profile_line(prof: dict, top: int = 6) -> str:
             f"s over {prof['kernels']} kernels and copies, idle share "
             f"{prof['idle_share']:.3f}; top: "
             + "; ".join(f"{k[:60]} {v * 1e3:.2f} ms" for k, v in names))
+
+
+def update_batches(np, graph, rng):
+    """Endless batches of 256 edge updates of ``graph`` (phase 3l's
+    stream): half deletes of live edges, half inserts of random pairs, two
+    repeats and two self-loops each."""
+    n1 = graph.n + 1
+    lo, hi = graph.edge_list_unique()
+    pool = lo.astype(np.int64) * n1 + hi
+    alive = np.ones(pool.shape[0], dtype=bool)
+    while True:
+        pick = rng.choice(np.flatnonzero(alive), 126, replace=False)
+        alive[pick] = False
+        ins = rng.integers(0, graph.n, size=(126, 2))
+        ups = [(int(k // n1), int(k % n1), False) for k in pool[pick]]
+        ups += [(int(a), int(c)) for a, c in ins]
+        ups += [ups[3], ups[200]]  # repeats
+        ups += [(int(v), int(v)) for v in rng.integers(0, graph.n, 2)]
+        new = np.minimum(ins[:, 0], ins[:, 1]).astype(np.int64) * n1 \
+            + np.maximum(ins[:, 0], ins[:, 1])
+        pool = np.concatenate([pool, new[ins[:, 0] != ins[:, 1]]])
+        alive = np.concatenate(
+            [alive, np.ones(int((ins[:, 0] != ins[:, 1]).sum()), bool)])
+        yield ups
 
 
 def edge_dynamic_phase(torch, np, dev, ctx) -> None:
@@ -1454,6 +1503,8 @@ def edge_dynamic_phase(torch, np, dev, ctx) -> None:
             edges_to_csr(oracle[0][keep], oracle[1][keep], n=g.n), K_TRUSS)
         want_rounds = 1 + later
     scipy_truss_s = time.perf_counter() - t0
+    # phase 3n serves the same graph and holds its answers to these
+    ctx.update(scale18=g, scale18_support=oracle, scale18_truss=want)
     del oracle, keep
     print(f"k_truss({K_TRUSS}): {truss.m_undirected} edges of "
           f"{g.m_undirected}, {rounds} rounds, converged "
@@ -1508,27 +1559,12 @@ def edge_dynamic_phase(torch, np, dev, ctx) -> None:
           "16, seed=1)), 64 batches of 256 updates")
 
     def stream(dc, graph, batches, rng, label):
-        """``batches`` batches of 256 updates: half deletes of live edges,
-        half inserts of random pairs, two repeats and two self-loops each.
-        Returns the per-batch seconds and the growths seen."""
-        n1 = graph.n + 1
-        lo, hi = graph.edge_list_unique()
-        pool = lo.astype(np.int64) * n1 + hi
-        alive = np.ones(pool.shape[0], dtype=bool)
+        """``batches`` batches of ``update_batches``. Returns the per-batch
+        seconds and the growths seen."""
         seconds, growths = [], []
+        batch_of = update_batches(np, graph, rng)
         for b in range(batches):
-            pick = rng.choice(np.flatnonzero(alive), 126, replace=False)
-            alive[pick] = False
-            ins = rng.integers(0, graph.n, size=(126, 2))
-            ups = [(int(k // n1), int(k % n1), False) for k in pool[pick]]
-            ups += [(int(a), int(c)) for a, c in ins]
-            ups += [ups[3], ups[200]]  # repeats
-            ups += [(int(v), int(v)) for v in rng.integers(0, graph.n, 2)]
-            new = np.minimum(ins[:, 0], ins[:, 1]).astype(np.int64) * n1 \
-                + np.maximum(ins[:, 0], ins[:, 1])
-            pool = np.concatenate([pool, new[ins[:, 0] != ins[:, 1]]])
-            alive = np.concatenate(
-                [alive, np.ones(int((ins[:, 0] != ins[:, 1]).sum()), bool)])
+            ups = next(batch_of)
             before = (dc.plan.cap, dc.plan.bounds)
             t0 = time.perf_counter()
             dc.apply_updates(ups)
@@ -1628,6 +1664,439 @@ def edge_dynamic_phase(torch, np, dev, ctx) -> None:
         dyn_info.setdefault("int32", {})[name] = statistics.median(seconds) * 1e3
         del dc
     print(json.dumps({"lanes": {"edge": edge_info, "dynamic": dyn_info}}))
+
+
+def bfs_widest_bucket(torch, g, dev) -> tuple:
+    """(width, rows, bytes) of the bfs lane's widest bucket of ``g``, with no
+    bucket gathered: the BFS levels and the (level, id) orientation on the
+    card, the prep's own bucket sort and shape policy, and the prep's byte
+    rule (u and v rows, src and dst)."""
+    from repro_torch.core.options import DEFAULT_WIDTHS
+    from repro_torch.core.prep import _bucket_nbytes
+    from repro_torch.graphs.device import (DEFAULT_SHAPE_POLICY, DeviceGraph,
+                                           _bfs_levels_dev, _bucket_sort_dev,
+                                           next_pow2)
+
+    if g.m_undirected == 0:
+        return 0, 0, 0
+    dg = DeviceGraph.from_graph(g, DEFAULT_SHAPE_POLICY, device=dev)
+    lvl, _ = _bfs_levels_dev(dg.edge_sources(), dg.csr.col_idx,
+                             dg.edge_valid(), n=dg.n)
+    fwd = dg.level_oriented(lvl)
+    bounds = [int(w) for w in DEFAULT_WIDTHS]
+    dmax = int(fwd.degrees.max())
+    if dmax > bounds[-1]:
+        bounds.append(next_pow2(dmax))
+    _, _, counts, _ = _bucket_sort_dev(
+        fwd.src, fwd.dst, fwd.kvalid, fwd.degrees,
+        torch.tensor(bounds, dtype=torch.int32, device=dev), n=dg.n,
+        num_bounds=len(bounds))
+    w, c = max((w, c) for w, c in zip(bounds, counts.tolist()) if c)
+    rows = dg.policy.round_edges(c)
+    return w, rows, _bucket_nbytes(rows, w)
+
+
+def chooser_phase(torch, np, dev, ctx) -> dict:
+    """Phase 3m: the measured ``algorithm="auto"`` chooser on the card. Each
+    sweep graph's widest bfs bucket is reckoned first (a graph whose
+    bucket would take more than half the free device memory is left out
+    and named); every lane is timed on every graph (``calibrate``, iters
+    3, warmup 1) and priced (``analytic_seed``); the measured pick, timed
+    again, must be within 2·t_best + 200 µs of its bin's best lane; the
+    table survives a sidecar round trip; ``CountOptions(chooser=
+    "measured")`` counts each graph exactly on the table's lane. Returns
+    the phase's numbers."""
+    import importlib
+    import tempfile
+
+    from repro_torch.core import (CountOptions, TriangleCounter,
+                                  analytic_seed, calibrate, choose_algorithm,
+                                  choose_measured, load_table, save_table,
+                                  set_default_table, triangle_count_scipy)
+    from repro_torch.graphs import complete_graph, load_dataset, rmat_graph
+    from repro_torch.kernels.hash_tc import LAUNCHES as HASH_LAUNCHES
+    from repro_torch.kernels.hash_tc import \
+        reset_launch_counts as reset_hash_launch_counts
+    from repro_torch.kernels.intersect import LAUNCHES, reset_launch_counts
+    from repro_torch.kernels.masked_spgemm import LAUNCHES as MS_LAUNCHES
+    from repro_torch.kernels.masked_spgemm import \
+        reset_launch_counts as reset_ms_launch_counts
+
+    cal = importlib.import_module("repro_torch.core.calibrate")
+    phase("phase 3m: measured chooser, calibrate() over the Table-1 "
+          "analogues, complete_graph(512) and rmat_graph(14, 16, seed=1), "
+          "all five lanes")
+    free = torch.cuda.mem_get_info()[0]
+    candidates = [(name, lambda name=name: load_dataset(name),
+                   ctx["truths"][name]) for name in ctx["analogues"]]
+    candidates += [("complete_graph(512)", lambda: complete_graph(512),
+                    512 * 511 * 510 // 6),
+                   ("rmat_graph(14, 16, seed=1)",
+                    lambda: rmat_graph(14, 16, seed=1), None)]
+    sweep, left_out = [], []
+    for label, make, truth in candidates:
+        g = make()
+        w, rows, nbytes = bfs_widest_bucket(torch, g, dev)
+        fits = nbytes <= free // 2
+        print(f"  {label}: widest bfs bucket ({rows}, {w}), "
+              f"{nbytes / 2**30:.2f} GiB of {free / 2**30:.2f} GiB free: "
+              f"{'in the sweep' if fits else 'left out'}")
+        if not fits:
+            left_out.append(label)
+            continue
+        sweep.append((label, g, triangle_count_scipy(g) if truth is None
+                      else truth))
+    print(f"sweep: {len(sweep)} graphs; left out: {left_out or 'none'}")
+    check(len(sweep) >= 2, "at least two sweep graphs fit the card")
+
+    reset_launch_counts()
+    reset_ms_launch_counts()
+    reset_hash_launch_counts()
+    table = cal.CalibrationTable(device=cal.device_label(dev))
+    rows = []
+    t0 = time.perf_counter()
+    for label, g, _ in sweep:
+        # calibrate() graph by graph, merged by record() as calibrate()
+        # merges a sweep, so each graph's own lane times stay visible
+        one = calibrate([g], iters=3, warmup=1)
+        key = cal.feature_key(cal.graph_features(g))
+        table.record(key, one.entries[key], "measured")
+        rows.append(dict(graph=label, bin=list(key),
+                         lane_ms={k: v * 1e3 for k, v in
+                                  one.entries[key].items()}))
+    calibrate_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES, **MS_LAUNCHES, **HASH_LAUNCHES)
+    print(f"calibrate: {calibrate_s:.2f} s over {len(sweep)} graphs x 5 "
+          f"lanes (prep, 1 warm-up and 3 timed counts each); launches "
+          f"{launches}; table device {table.device!r}")
+    check(table.device != "cpu" and launches["broadcast"] > 0
+          and launches["probe"] > 0 and launches["hash_probe"] > 0
+          and launches["masked_spgemm"] + launches["masked_spgemm_wgmma"] > 0,
+          "calibrate ran the lanes' kernels on the card (K1, K2, K4, K5)")
+
+    t0 = time.perf_counter()
+    agree = 0
+    for row, (label, g, truth) in zip(rows, sweep):
+        seed = analytic_seed(g)
+        ranking = sorted(seed, key=lambda lane: (seed[lane], lane))
+        pick = choose_measured(g, table)
+        t_best = min(table.lookup(g).values())
+        fresh = cal.measure_lanes(g, [pick], iters=3, warmup=1)[pick]
+        agree += ranking[0] == pick
+        row.update(heuristic=choose_algorithm(g), measured=pick,
+                   analytic_ranking=ranking,
+                   analytic_us={k: v * 1e6 for k, v in seed.items()},
+                   pick_again_ms=fresh * 1e3, bin_best_ms=t_best * 1e3)
+        print(f"  {label}: bin {tuple(row['bin'])}; heuristic "
+              f"{row['heuristic']}, measured {pick}; lane ms "
+              + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+                  row["lane_ms"].items(), key=lambda kv: kv[1]))
+              + f"; analytic ranking {ranking} ("
+              + ", ".join(f"{k} {seed[k] * 1e6:.2f} us" for k in ranking)
+              + ")", flush=True)
+        check(fresh <= 2.0 * t_best + 200e-6,
+              f"{label}: the measured pick {pick}, timed again, "
+              f"{fresh * 1e3:.4f} ms <= 2 x {t_best * 1e3:.4f} ms + 0.2 ms "
+              f"(its bin's best)")
+    recheck_s = time.perf_counter() - t0
+    differ = sum(r["heuristic"] != r["measured"] for r in rows)
+    print(f"measured pick differs from the heuristic's on {differ} of "
+          f"{len(rows)} graphs; the analytic seed's top pick equals the "
+          f"measured pick on {agree} of {len(rows)} (a finding, not a "
+          f"check); pricing and re-timing {recheck_s:.2f} s")
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        path = save_table(table, cal.calib_path(d, table.device))
+        back = load_table(path)
+    check(back.entries == table.entries and back.sources == table.sources
+          and all(back.choose(g) == table.choose(g) for _, g, _ in sweep),
+          f"the sidecar {Path(path).name} loads back with the same choices")
+
+    prev = set_default_table(back)
+    try:
+        for row, (label, g, truth) in zip(rows, sweep):
+            tc = TriangleCounter(g, CountOptions(chooser="measured"))
+            res = tc.count()
+            check(tc.algorithm == res.algorithm == row["measured"]
+                  and res.count == truth,
+                  f"{label}: CountOptions(chooser='measured') -> "
+                  f"{res.algorithm}, count {res.count} = the oracle")
+            del tc, res
+    finally:
+        set_default_table(prev)
+    info = dict(graphs=rows, left_out=left_out, calibrate_s=calibrate_s,
+                recheck_s=recheck_s, differ_from_heuristic=differ,
+                analytic_agrees=agree, launches=launches,
+                device=table.device)
+    print(json.dumps({"chooser": info}))
+    return info
+
+
+def triangle_service_phase(torch, np, dev, ctx) -> dict:
+    """Phase 3n: ``TriangleService`` on the card. Phase 3j's pool is warmed
+    up, then 512 count requests from 4 tenants in bursts of 1, 3, 8 and
+    64, each against phase 3j's scipy truth, with no new cache entry after
+    ``warmup()`` and no errored request; beside them the per-request
+    ``TriangleCounter(g).count()`` loop and ``count_many`` on the same
+    requests; one 64-request burst under ``torch.profiler``; the stacked
+    shapes of another burst's largest batch held against the plain
+    versions; R-MAT scale
+    18 served singly through one subgraph-lane session (count twice,
+    vertex, edge_support, k_truss) against phases 2 and 3k; 8 update
+    batches through a dynamic session, each against a ``recount()``; and
+    load shedding. Returns the phase's numbers."""
+    import types
+
+    import repro_torch.serve.coalescer as coalescer_module
+    from repro_torch.core import (CountOptions, DynamicTriangleCounter,
+                                  TriangleCounter, executable_cache_info,
+                                  graph_fingerprint)
+    from repro_torch.graphs import rmat_graph
+    from repro_torch.kernels.intersect import LAUNCHES, reset_launch_counts
+    from repro_torch.serve import (SHED_DEADLINE, SHED_QUEUE_FULL,
+                                   RequestShed, ServeConfig, TriangleService)
+
+    entries, intersect_case = ctx["entries"], ctx["intersect_case"]
+    pool, truths = ctx["pool"], ctx["pool_truths"]
+    phase("phase 3n: TriangleService(algorithm='intersection', ServeConfig("
+          "batch_window_ms=2.0, max_batch=8)): 512 count requests over "
+          "phase 3j's pool from 4 tenants")
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    opts = CountOptions(algorithm="intersection")
+    svc = TriangleService(opts, config=ServeConfig(batch_window_ms=2.0,
+                                                   max_batch=8)).start()
+    check(svc.device.type == "cuda", f"the service runs on {svc.device}")
+    warm = svc.warmup(pool)
+    misses0 = executable_cache_info()["misses"]
+    print(f"warmup over {len(pool)} graphs: {warm}")
+    picks = np.random.default_rng(0).integers(0, len(pool), size=512)
+    want = [truths[p] for p in picks]
+    bursts, total, i = [], 0, 0
+    while total < len(picks):
+        k = min((1, 3, 8, 64)[i % 4], len(picks) - total)
+        bursts.append(k)
+        total += k
+        i += 1
+
+    def serve_burst(start: int, k: int) -> list:
+        """Submit requests start..start+k at once, then wait for each."""
+        futs = [svc.submit("count", pool[picks[j]], tenant=f"tenant{j % 4}")
+                for j in range(start, start + k)]
+        return [f.result(timeout=120) for f in futs]
+
+    reset_launch_counts()
+    served, pos = [], 0
+    t0 = time.perf_counter()
+    for k in bursts:
+        served += serve_burst(pos, k)
+        pos += k
+    serve_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    snap = svc.snapshot()
+    check([r.count for r in served] == want,
+          f"all {len(served)} served counts = phase 3j's scipy truths")
+    new_misses = executable_cache_info()["misses"] - misses0
+    counters, lat = snap["counters"], snap["latency"]["total"]
+    rps = len(served) / serve_s
+    print(f"{len(served)} requests in {len(bursts)} bursts ({bursts[:8]}...) "
+          f"in {serve_s:.3f} s: {rps:.1f} requests/s; total latency p50 "
+          f"{lat['p50_ms']:.3f} ms, p90 {lat['p90_ms']:.3f} ms, p99 "
+          f"{lat['p99_ms']:.3f} ms; coalesce factor "
+          f"{snap['coalesce_factor']:.3f}, {counters['dispatches']} "
+          f"dispatches; launches {launches}; cache misses after warmup "
+          f"{new_misses}; plan cache {snap['plan_cache']}")
+    check(new_misses == 0, "no launch configuration built after warmup()")
+    check(counters.get("errors", 0) == 0
+          and counters["completed"] == len(served),
+          "no errored request; every future resolved")
+    check(launches["broadcast"] > 0 and launches["probe"] > 0,
+          "the served batches ran the broadcast and probe kernels")
+
+    t0 = time.perf_counter()
+    loop = [TriangleCounter(pool[p], algorithm="intersection").count().count
+            for p in picks]  # each session and its plan dropped at once
+    loop_s = time.perf_counter() - t0
+    session = TriangleCounter(rmat_graph(9, 16, seed=1000),
+                              algorithm="intersection")
+    t0 = time.perf_counter()
+    # count_many's list would hold every batch's stacks; its generator twin
+    # keeps one batch at a time
+    many = [int(r) for r in session.iter_counts([pool[p] for p in picks],
+                                                batch_size=8)]
+    many_s = time.perf_counter() - t0
+    del session
+    print(f"the same {len(picks)} requests: per-request TriangleCounter(g)"
+          f".count() loop {loop_s:.3f} s ({len(picks) / loop_s:.1f}/s); "
+          f"iter_counts(batch_size=8), count_many's generator twin, "
+          f"{many_s:.3f} s "
+          f"({len(picks) / many_s:.1f}/s); the service {serve_s:.3f} s "
+          f"(x{loop_s / serve_s:.2f} faster than the loop, "
+          f"x{many_s / serve_s:.2f} than count_many)")
+    check(loop == many == want, "the loop and count_many = the truths")
+    t0 = time.perf_counter()
+    for p in picks:  # what submit() hashes on the caller's thread
+        graph_fingerprint(pool[p])
+    fingerprint_s = time.perf_counter() - t0
+    print(f"graph_fingerprint of the {len(picks)} requests' graphs on the "
+          f"host: {fingerprint_s:.3f} s ({fingerprint_s / serve_s * 100:.1f} "
+          f"% of the service's wall time)")
+
+    misses1 = executable_cache_info()["misses"]  # the loop's own entries
+    prof = device_profile(torch, lambda: serve_burst(0, 64))
+    print(f"one 64-request burst under torch.profiler: {profile_line(prof)}")
+
+    # the stacked shapes of the largest batch of one more 64-request burst,
+    # as the coalescer launches them
+    real = coalescer_module.get_batch_executable
+    seen = {}
+
+    def recording(specs, backend, batch):
+        fn = real(specs, backend, batch)
+
+        def call(*arrays):
+            if batch > max(seen, default=1):
+                seen.clear()
+                seen[batch] = (specs, arrays)
+            return fn(*arrays)
+        return call
+
+    coalescer_module.get_batch_executable = recording
+    try:
+        again = serve_burst(0, 64)
+    finally:
+        coalescer_module.get_batch_executable = real
+    check([r.count for r in again] == want[:64] and bool(seen),
+          f"a burst of 64 served through stacked batches (largest "
+          f"{max(seen, default=0)})")
+    size, (specs, arrays) = seen.popitem()
+    by_strategy = {}
+    for i, (strat, bits, (e, w)) in enumerate(specs):
+        u, v = (a.view(size * e, w) for a in arrays[2 * i:2 * i + 2])
+        rec = intersect_case(strat, types.SimpleNamespace(args=(u, v),
+                                                          bitmap_bits=bits))
+        rec.update(batch_size=size, stack=[size, e, w])
+        by_strategy.setdefault(strat, []).append(rec)
+    del arrays, u, v
+    for strat, shapes in by_strategy.items():
+        entry = entries[strat]
+        entry["serve_path"] = dict(
+            path=f"TriangleService, {len(served)} count requests over phase "
+                 f"3j's pool (stacked batches of up to 8; held at {size})",
+            launches=launches[strat], shapes=shapes)
+        entry["max_abs_err"] = max([entry["max_abs_err"]]
+                                   + [x["max_abs_err"] for x in shapes])
+    check(all(launches[s] > 0 for s in by_strategy),
+          "every kernel of the stacked layout launched on the served path")
+    check(svc.snapshot()["counters"].get("errors", 0) == 0
+          and executable_cache_info()["misses"] == misses1,
+          "still no errored request, and the profiled and recorded bursts "
+          "built no cache entry")
+    pool_peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+
+    # -- R-MAT scale 18, served singly ---------------------------------------
+    g = ctx["scale18"]
+    print("rmat_graph(18, 16, seed=1) singly, through a service of the "
+          "subgraph lane (one session answers count, vertex, edge support "
+          "and k-truss):")
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    single = TriangleService(CountOptions(algorithm="subgraph"),
+                             config=ServeConfig(batch_window_ms=0.0)).start()
+    first = single.submit("count", g).result(timeout=600)
+    again = single.submit("count", g).result(timeout=600)
+    hits = single.snapshot()["session_cache"]["hits"]
+    vertex = single.submit("vertex", g).result(timeout=600)
+    support = single.submit("edge_support", g).result(timeout=600)
+    truss = single.submit("k_truss", g, k=K_TRUSS).result(timeout=600)
+    sessions = single.snapshot()["session_cache"]
+    single_peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    print(f"  count {first.count} in {first.exec_s:.3f} s (prep included), "
+          f"again {again.exec_s * 1e3:.3f} ms (session-cache hits {hits}); "
+          f"vertex {vertex.exec_s:.3f} s; edge_support {support.exec_s:.3f} "
+          f"s; k_truss({K_TRUSS}) {truss.exec_s:.3f} s, "
+          f"{truss.value.m_undirected} edges; session cache {sessions}; "
+          f"own peak {single_peak:.2f} GiB")
+    check(first.count == again.count == ctx["main_count"] and hits >= 1,
+          "count twice = phase 2's count, the second a session-cache hit")
+    check(bool((vertex.value == ctx["main_tpv"]).all()),
+          "vertex = phase 2's per-vertex counts")
+    check(all(a.dtype == b.dtype and np.array_equal(a, b)
+              for a, b in zip(support.value, ctx["scale18_support"])),
+          "edge_support = phase 3k's scipy supports, array for array")
+    want_truss = ctx["scale18_truss"]
+    check(np.array_equal(truss.value.row_ptr, want_truss.row_ptr)
+          and np.array_equal(truss.value.col_idx, want_truss.col_idx),
+          f"k_truss({K_TRUSS}) = phase 3k's scipy peel")
+    single_info = dict(count_s=first.exec_s, again_ms=again.exec_s * 1e3,
+                       vertex_s=vertex.exec_s, support_s=support.exec_s,
+                       k_truss_s=truss.exec_s, peak_gib=single_peak)
+    single.stop()
+    del single, first, again, vertex, support, truss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- dynamic updates through the service ---------------------------------
+    handle = svc.open_dynamic_session(g, tenant="stream")
+    check_dc = DynamicTriangleCounter(g, recount_interval=0)
+    batch_of = update_batches(np, g, np.random.default_rng(0))
+    update_ms = []
+    for b in range(8):
+        ups = next(batch_of)
+        res = svc.submit("update", handle=handle, updates=ups).result(
+            timeout=600)
+        check_dc.apply_updates(ups)
+        full = check_dc.recount()
+        check(res.count == full and res.algorithm == "dynamic",
+              f"update batch {b + 1}: served count {res.count} = recount()")
+        update_ms.append(res.exec_s * 1e3)
+    svc.close_dynamic_session(handle)
+    print(f"8 update batches of 256 through open_dynamic_session: exec ms "
+          f"{[round(x, 3) for x in update_ms]}")
+    del check_dc
+
+    # -- load shedding ---------------------------------------------------------
+    shed_svc = TriangleService(opts, config=ServeConfig(
+        max_queue_depth=4, batch_window_ms=0.0, default_deadline_ms=1.0))
+    small = [x for x in pool if x.n <= 1024][:8]  # quick to fingerprint
+    futs = [shed_svc.submit("count", x) for x in small]
+    time.sleep(0.005)  # the 4 admitted requests' 1 ms deadlines pass
+    shed_svc.start()
+    shed_svc.stop(drain=True, timeout=60)
+    reasons = []
+    for f in futs:
+        try:
+            f.result(timeout=60)
+            reasons.append("served")
+        except RequestShed as e:
+            reasons.append(e.reason)
+    shed = shed_svc.snapshot()["counters"]
+    print(f"shedding at depth 4, 1 ms deadline: {reasons}; counters {shed}")
+    check(len(reasons) == 8 and set(reasons) <= {SHED_DEADLINE,
+                                                 SHED_QUEUE_FULL}
+          and reasons.count(SHED_QUEUE_FULL) <= 4 and shed["shed"] == 8,
+          "each of the 8 requests raised a typed RequestShed (past its "
+          "deadline or over the depth); none was served, none hung")
+
+    final = svc.snapshot()
+    svc.stop()
+    check(final["counters"].get("errors", 0) == 0,
+          "the service ended with no errored request")
+    del svc
+    gc.collect()
+    torch.cuda.empty_cache()
+    info = dict(requests=len(served), bursts=len(bursts), serve_s=serve_s,
+                requests_per_s=rps, p50_ms=lat["p50_ms"],
+                p90_ms=lat["p90_ms"], p99_ms=lat["p99_ms"],
+                coalesce_factor=snap["coalesce_factor"],
+                dispatches=counters["dispatches"], launches=launches,
+                loop_s=loop_s, count_many_s=many_s,
+                fingerprint_s=fingerprint_s,
+                warmup_s=warm["seconds"], pool_peak_gib=pool_peak,
+                profile={k: v for k, v in prof.items() if k != "by_name"},
+                single=single_info, update_ms=update_ms, shed=reasons)
+    print(json.dumps({"service": info}))
+    return info
 
 
 def serve_phase(torch, np, dev, get_config, get_model, greedy_generate, fa):
@@ -2840,16 +3309,24 @@ def main() -> int:
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
     report.append(hash_phase(torch, np, dev, flush, analogues, truths))
-    edge_dynamic_phase(torch, np, dev, dict(
-        entries=entries, intersect_case=intersect_case, main_tpv=main_tpv,
-        analogues=analogues))
-    tiled_batch_phase(torch, np, dev, dict(
+    edge_ctx = dict(entries=entries, intersect_case=intersect_case,
+                    main_tpv=main_tpv, analogues=analogues)
+    edge_dynamic_phase(torch, np, dev, edge_ctx)
+    tiled_ctx = dict(
         entries=entries, k4=next(x for x in report
                                  if x["name"] == "masked_spgemm"),
         intersect_case=intersect_case, wrappers=wrappers, flush=flush,
         main_count=main_count, main_tpv=main_tpv, main_warm_s=main_warm_s,
-        grid=grid, grid_tpv=grid_tpv, analogues=analogues))
-    del main_tpv
+        grid=grid, grid_tpv=grid_tpv, analogues=analogues)
+    tiled_batch_phase(torch, np, dev, tiled_ctx)
+    # phase 3n serves phase 3j's pool and phase 3k's graph again
+    service_ctx = dict(
+        entries=entries, intersect_case=intersect_case, main_count=main_count,
+        main_tpv=main_tpv, pool=tiled_ctx.pop("pool"),
+        pool_truths=tiled_ctx.pop("pool_truths"),
+        **{k: edge_ctx.pop(k) for k in ("scale18", "scale18_support",
+                                        "scale18_truss")})
+    del main_tpv, edge_ctx, tiled_ctx
 
     # -- phase 3e: the bfs lane -----------------------------------------------
     phase(f"phase 3e: bfs lane, TriangleCounter(grid_graph({GRID_SIDE}, ...), "
@@ -2942,6 +3419,19 @@ def main() -> int:
     entries["probe"]["bfs_analogues"] = dict(
         path="bfs forced on the Table-1 analogues", shapes=bfs_wide)
 
+    chooser = chooser_phase(torch, np, dev, dict(analogues=analogues,
+                                                 truths=truths))
+    service = triangle_service_phase(torch, np, dev, service_ctx)
+    del service_ctx
+    counters_of = {KERNELS[s]["name"]: (s,) for s in KERNELS}
+    counters_of.update(masked_spgemm=("masked_spgemm", "masked_spgemm_wgmma"),
+                       hash_probe=("hash_probe",))
+    for entry in report:  # K1-K5 ran in the chooser's timed counts
+        keys = counters_of.get(entry["name"])
+        if keys:
+            entry["chooser_path"] = dict(
+                path="phase 3m: calibrate() of the sweep, all five lanes",
+                launches=sum(chooser["launches"][k] for k in keys))
     serve = serve_phase(torch, np, dev, get_config, get_model, greedy_generate,
                         fa)
     report.append(flash_phase(torch, np, dev, fa, flush, serve))

@@ -11,10 +11,13 @@ lane probes a per-vertex hash table (``csrc/hash_probe.cu``). The edge lane
 (``TriangleCounter(g).edge_support()`` / ``k_truss(k)`` /
 ``truss_decomposition()``) and dynamic sessions
 (``DynamicTriangleCounter``) work over packed undirected-edge keys on the
-device; the dynamic recount runs the intersection kernels. Entry points
-run on the CUDA device unless they are given ``device="cpu"``, where each
-kernel's plain torch version runs instead. The package imports neither
-JAX nor ``repro``.
+device; the dynamic recount runs the intersection kernels.
+``CountOptions(chooser="measured")`` resolves ``algorithm="auto"`` through
+a calibration table timed on the card (``repro_torch.core.calibrate``),
+and ``repro_torch.serve.TriangleService`` serves concurrent requests over
+the stacked batch launches. Entry points run on the CUDA device unless
+they are given ``device="cpu"``, where each kernel's plain torch version
+runs instead. The package imports neither JAX nor ``repro``.
 """
 
 from repro_torch.core import (

@@ -26,6 +26,7 @@ kept, not recomputed).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import itertools
 import time
 import warnings
@@ -46,7 +47,23 @@ from repro_torch.graphs.device import resolve_device
 from repro_torch.graphs.formats import Graph, normalize_edge_updates
 
 __all__ = ["CountResult", "CounterSession", "DynamicTriangleCounter",
-           "TriangleCounter", "warn_deprecated"]
+           "TriangleCounter", "graph_fingerprint", "warn_deprecated"]
+
+
+def graph_fingerprint(g: Graph) -> str:
+    """A stable content hash of a graph's CSR (32 hex chars).
+
+    Graphs with equal ``(n, row_ptr, col_idx)`` fingerprint alike whatever
+    their ``name``: blake2b-16 over ``n`` and the int64 bytes of both
+    arrays, so the hex equals the reference's for the same graph. The
+    serving layer keys its session and prep caches on it. One pass over
+    the CSR on the host.
+    """
+    h = hashlib.blake2b(digest_size=16)
+    h.update(str(int(g.n)).encode())
+    h.update(np.ascontiguousarray(g.row_ptr, dtype=np.int64).tobytes())
+    h.update(np.ascontiguousarray(g.col_idx, dtype=np.int64).tobytes())
+    return h.hexdigest()
 
 
 def warn_deprecated(old: str, new: str) -> None:
@@ -140,7 +157,17 @@ class CounterSession:
     def _resolve_algorithm(self) -> str:
         if self.options.algorithm != "auto":
             return self.options.algorithm
-        return registry.choose_algorithm(self.graph)
+        return self._choose_auto(self.graph)
+
+    def _choose_auto(self, g: Graph) -> str:
+        """Resolve ``algorithm="auto"`` for ``g`` per ``options.chooser``:
+        "measured" consults the calibration table (``core.calibrate``, the
+        heuristic when there is none), "heuristic" the registry's
+        chooser."""
+        if self.options.chooser == "measured":
+            from repro_torch.core.calibrate import choose_measured
+            return choose_measured(g)
+        return registry.choose_algorithm(g)
 
     @property
     def plan(self):
@@ -182,6 +209,12 @@ class CounterSession:
     def cache_stats() -> Dict[str, int]:
         """Process-wide launch-configuration cache statistics."""
         return executable_cache_info()
+
+    def session_key(self) -> tuple:
+        """The session's reuse identity, ``(graph_fingerprint(graph),
+        options.key())``: sessions with equal keys are interchangeable,
+        which is what the serving layer's session cache keys on."""
+        return (graph_fingerprint(self.graph), self.options.key())
 
 
 class TriangleCounter(CounterSession):
@@ -246,7 +279,7 @@ class TriangleCounter(CounterSession):
                 continue
             lane = (self.options.algorithm
                     if self.options.algorithm != "auto"
-                    else registry.choose_algorithm(g))
+                    else self._choose_auto(g))
             if self._batchable(lane):
                 batchable.append((pos, g))
             else:

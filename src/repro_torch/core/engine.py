@@ -82,6 +82,7 @@ from repro_torch.core.prep import (
 from repro_torch.core.registry import register_algorithm
 from repro_torch.kernels.intersect.ops import (
     STRATEGIES,
+    choose_strategy,
     intersect_counts,
     intersect_matches,
     intersect_matches_both,
@@ -109,11 +110,14 @@ __all__ = [
     "HashLaunch",
     "IntersectLaunch",
     "MatrixLaunch",
+    "STRATEGIES",
     "TrianglePlan",
     "TrussPlan",
     "VertexLaunch",
     "cache_info",
+    "choose_strategy",
     "clear_caches",
+    "clear_executable_cache",
     "executable_cache_info",
     "get_batch_executable",
     "get_executable",
@@ -122,6 +126,8 @@ __all__ = [
     "plan_edge_support",
     "plan_hash_count",
     "plan_triangle_count",
+    "prepare_intersection_buckets",
+    "resolve_strategy",
     "set_cache_limit",
 ]
 
@@ -557,6 +563,19 @@ def clear_caches() -> None:
     _EXECUTABLE_CACHE.clear()
 
 
+clear_executable_cache = clear_caches  # the reference's name
+
+
+def prepare_intersection_buckets(g: Graph, variant: str = "filtered",
+                                 widths: Sequence[int] = DEFAULT_WIDTHS
+                                 ) -> list:
+    """The numpy intersection prep (the parity path): see
+    ``prep.prepare_intersection_buckets_host``. Plans prep on the device
+    unless ``prep_backend="host"``."""
+    return prep.prepare_intersection_buckets_host(g, variant=variant,
+                                                  widths=widths)
+
+
 def set_cache_limit(maxsize: int) -> int:
     """Re-bound the process-wide cache; returns the old bound. Shrinking
     evicts LRU entries at once; live plans keep their entries."""
@@ -726,6 +745,11 @@ def _pad_rows(x: torch.Tensor, rows: int, fill) -> torch.Tensor:
     pad = torch.full((rows - x.shape[0],) + tuple(x.shape[1:]), fill,
                      dtype=x.dtype, device=x.device)
     return torch.cat([x, pad])
+
+
+# the serving coalescer pads a member's rows into its stack (u = -1, v = -2,
+# zero matches) as GraphBatch.from_graphs does
+_pad_bucket_rows = _pad_rows
 
 
 @dataclasses.dataclass

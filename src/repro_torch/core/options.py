@@ -29,10 +29,12 @@ from repro_torch.kernels.intersect.ops import (
     STRATEGIES,
 )
 
-__all__ = ["BACKENDS", "CountOptions", "DEFAULT_WIDTHS", "PREP_BACKENDS",
-           "VARIANTS"]
+__all__ = ["BACKENDS", "CHOOSERS", "CountOptions", "DEFAULT_WIDTHS",
+           "PREP_BACKENDS", "VARIANTS"]
 
 DEFAULT_WIDTHS: Tuple[int, ...] = (8, 32, 128, 512)
+
+CHOOSERS = ("heuristic", "measured")
 
 VARIANTS = ("filtered", "full")
 PREP_BACKENDS = ("device", "host")
@@ -46,6 +48,12 @@ class CountOptions:
       algorithm: "auto" (``repro_torch.core.registry.choose_algorithm``) or
         a registered lane name ("intersection" | "matrix" | "subgraph" |
         "hash" | "bfs" | "edge" | "dynamic").
+      chooser: how ``algorithm="auto"`` resolves: "heuristic" (default:
+        the shape rules of ``registry._default_chooser``, or whatever
+        ``registry.set_auto_chooser`` installed) or "measured" (the
+        per-device calibration table of ``repro_torch.core.calibrate``,
+        falling back to the heuristic without a table). Ignored when
+        ``algorithm`` names a lane.
       variant: "filtered" (forward algorithm, each triangle once) or "full"
         (every directed edge, found 6×).
       backend: "kernel" | "ref" per-bucket execution path.
@@ -77,6 +85,7 @@ class CountOptions:
     """
 
     algorithm: str = "auto"
+    chooser: str = "heuristic"
     variant: str = "filtered"
     backend: str = "kernel"
     strategy: str = "auto"
@@ -109,6 +118,10 @@ class CountOptions:
                     f"unknown algorithm {self.algorithm!r}; expected 'auto' "
                     f"or one of {names}"
                 )
+        if self.chooser not in CHOOSERS:
+            raise ValueError(
+                f"unknown chooser {self.chooser!r}; expected one of {CHOOSERS}"
+            )
         if self.variant not in VARIANTS:
             raise ValueError(
                 f"unknown variant {self.variant!r}; expected one of {VARIANTS}"
@@ -208,8 +221,8 @@ class CountOptions:
             self.widths, self.block, self.permute, self.bitmap_bits,
             self.prep_backend, self.resolved_shape_policy.key(),
             self.max_peel_iters, self.peel_early_exit,
-            self.update_batch_size, self.recount_interval, self.key_mode,
-            self.max_device_bytes,
+            self.update_batch_size, self.recount_interval, self.chooser,
+            self.key_mode, self.max_device_bytes,
         )
 
     def replace(self, **changes) -> "CountOptions":

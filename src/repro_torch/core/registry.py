@@ -9,20 +9,23 @@ The builtin lanes are the paper's three formulations, ``"intersection"``
 (``core.engine``), ``"subgraph"`` (``core.tc_subgraph``) and ``"matrix"``
 (``core.tc_matrix``), the TRUST-style ``"hash"`` and level-ordered
 ``"bfs"`` lanes, the ``"edge"`` lane (edge support, k-truss) and the
-``"dynamic"`` lane (``core.engine``). The chooser is the reference's
-heuristic unchanged, so ``auto`` resolves on every graph and never picks
-hash, bfs, edge or dynamic: those run when they are asked for by name.
+``"dynamic"`` lane (``core.engine``). The default chooser is the
+reference's heuristic unchanged, so ``auto`` resolves on every graph and
+never picks hash, bfs, edge or dynamic: those run when they are asked for
+by name, or when a chooser installed with ``set_auto_chooser`` (such as
+``core.calibrate.install_measured_chooser``) picks them.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 __all__ = [
     "available_algorithms",
     "choose_algorithm",
     "get_algorithm",
     "register_algorithm",
+    "set_auto_chooser",
 ]
 
 _REGISTRY: Dict[str, Callable] = {}
@@ -101,13 +104,17 @@ def _default_chooser(g) -> str:
     return "intersection"
 
 
+_CHOOSER: Callable = _default_chooser
+
+
 def choose_algorithm(g) -> str:
-    """Resolve ``algorithm="auto"`` for graph ``g``.
+    """Resolve ``algorithm="auto"`` for graph ``g`` through the current
+    chooser (``_default_chooser`` unless ``set_auto_chooser`` swapped it).
 
     Raises:
       ValueError: the chooser named a lane that is not registered.
     """
-    lane = _default_chooser(g)
+    lane = _CHOOSER(g)
     _ensure_builtin()
     if lane not in _REGISTRY:
         raise ValueError(
@@ -115,3 +122,18 @@ def choose_algorithm(g) -> str:
             f"registered: {available_algorithms()}"
         )
     return lane
+
+
+def set_auto_chooser(chooser: Optional[Callable] = None) -> Callable:
+    """Override the ``algorithm="auto"`` chooser process-wide.
+
+    Args:
+      chooser: ``chooser(g) -> lane name``, or None to restore the default.
+
+    Returns:
+      The previously active chooser (so callers can restore it).
+    """
+    global _CHOOSER
+    previous = _CHOOSER
+    _CHOOSER = chooser if chooser is not None else _default_chooser
+    return previous

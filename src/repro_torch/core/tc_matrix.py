@@ -22,12 +22,16 @@ This module registers the ``"matrix"`` lane; the front door is
 
 from __future__ import annotations
 
+from typing import Union
+
+import torch
+
 from repro_torch.graphs.formats import Graph
 from repro_torch.core.engine import plan_triangle_count
 from repro_torch.core.prep import build_tile_schedule, choose_block
 from repro_torch.core.registry import register_algorithm
 
-__all__ = ["build_tile_schedule", "choose_block"]
+__all__ = ["build_tile_schedule", "choose_block", "triangle_count_matrix"]
 
 
 def _planner(g: Graph, options, *, device):
@@ -37,3 +41,28 @@ def _planner(g: Graph, options, *, device):
 
 
 register_algorithm("matrix", _planner)
+
+
+def triangle_count_matrix(
+    g: Graph,
+    *,
+    block=128,  # int or "auto" (see choose_block)
+    permute: bool = True,
+    backend: str = "kernel",
+    device: Union[None, str, torch.device] = None,
+) -> int:
+    """Deprecated shim: the exact count by the fused masked block-SpGEMM.
+
+    Use ``TriangleCounter(g, CountOptions(algorithm="matrix", ...))``.
+    Returns the count as a Python int.
+    """
+    from repro_torch.core.api import TriangleCounter, warn_deprecated
+    from repro_torch.core.options import CountOptions
+
+    warn_deprecated(
+        "triangle_count_matrix(g, ...)",
+        'TriangleCounter(g, CountOptions(algorithm="matrix", ...)).count()',
+    )
+    opts = CountOptions(algorithm="matrix", block=block, permute=permute,
+                        backend=backend)
+    return int(TriangleCounter(g, opts, device=device).count())

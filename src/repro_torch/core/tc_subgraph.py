@@ -39,7 +39,8 @@ from repro_torch.core.prep import _two_core_peel, peel_to_two_core
 from repro_torch.core.registry import register_algorithm
 from repro_torch.kernels.intersect.ops import resolve_strategy
 
-__all__ = ["peel_to_two_core", "subgraph_match_triangle"]
+__all__ = ["peel_to_two_core", "subgraph_match_triangle",
+           "triangle_count_subgraph"]
 
 
 def _planner(g: Graph, options, *, device):
@@ -49,6 +50,43 @@ def _planner(g: Graph, options, *, device):
 
 
 register_algorithm("subgraph", _planner)
+
+
+def triangle_count_subgraph(
+    g: Graph,
+    *,
+    backend: str = "kernel",
+    return_stats: bool = False,
+    device: Union[None, str, torch.device] = None,
+):
+    """Deprecated shim: the exact count by filter (2-core peel), reform and
+    join.
+
+    Use ``TriangleCounter(g, CountOptions(algorithm="subgraph", ...))``;
+    its ``CountResult.meta`` carries what ``return_stats=True`` returns
+    here. Returns an int, or ``(int, stats dict)`` with
+    ``return_stats=True``.
+    """
+    from repro_torch.core.api import TriangleCounter, warn_deprecated
+    from repro_torch.core.options import CountOptions
+
+    warn_deprecated(
+        "triangle_count_subgraph(g, ...)",
+        'TriangleCounter(g, CountOptions(algorithm="subgraph", ...)).count()',
+    )
+    opts = CountOptions(algorithm="subgraph", backend=backend)
+    result = TriangleCounter(g, opts, device=device).count()
+    if return_stats:
+        meta = result.meta
+        stats = dict(
+            vertices_pruned=meta["vertices_pruned"],
+            prune_fraction=meta["prune_fraction"],
+            edges_after=meta["edges_after"],
+            edges_before=meta["edges_before"],
+            num_embeddings=meta["num_embeddings"],
+        )
+        return result.count, stats
+    return result.count
 
 
 def subgraph_match_triangle(

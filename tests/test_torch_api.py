@@ -146,14 +146,15 @@ def test_options_validate_like_reference(ref):
            dict(bitmap_bits=1 << 17), dict(prep_backend="gpu"),
            dict(shape_policy="pow2"), dict(max_device_bytes=0),
            dict(algorithm="nope"), dict(widths=5), dict(block=0),
-           dict(block="big"), dict(block=True), dict(permute=1)]
+           dict(block="big"), dict(block=True), dict(permute=1),
+           dict(chooser="fastest")]
     for kw in bad:
         with pytest.raises(ValueError):
             CountOptions(**kw)
     # messages are the reference's wherever both packages take the field
     for kw in (dict(variant="x"), dict(strategy="merge"), dict(widths=(32, 8)),
                dict(bitmap_bits=33), dict(max_device_bytes=0), dict(block=0),
-               dict(permute=1)):
+               dict(permute=1), dict(chooser="fastest")):
         with pytest.raises(ValueError) as pe:
             CountOptions(**kw)
         with pytest.raises(ValueError) as re_:
@@ -165,6 +166,10 @@ def test_options_validate_like_reference(ref):
     assert a.replace(strategy="probe").key() != a.key()
     assert a.replace(block=32).key() != a.key()
     assert a.replace(permute=False).key() != a.key()
+    assert a.chooser == ref.options.CountOptions().chooser == "heuristic"
+    assert a.replace(chooser="measured").key() != a.key()
+    assert a.replace(chooser="measured").plan_kwargs("intersection") == \
+        a.plan_kwargs("intersection")
     assert a.plan_kwargs("intersection")["widths"] == (8, 32, 128, 512)
     for lane in ("matrix", "subgraph", "hash", "bfs", "edge", "dynamic"):
         # the reference's keys, less interpret
@@ -221,14 +226,19 @@ def test_import_without_jax_or_reference():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None; "
             "import repro_torch, repro_torch.core, repro_torch.graphs, "
             "repro_torch.kernels.intersect, repro_torch.kernels.masked_spgemm, "
-            "repro_torch.kernels.hash_tc, repro_torch.kernels._build; "
+            "repro_torch.kernels.hash_tc, repro_torch.kernels._build, "
+            "repro_torch.serve, repro_torch.core.calibrate, "
+            "repro_torch.launch.roofline; "
             "g = repro_torch.graphs.rmat_graph(6, 6, seed=2); "
+            "svc = repro_torch.serve.TriangleService(device='cpu').start(); "
+            "print(svc.count(g).count); svc.stop(); "
             "print(repro_torch.TriangleCounter(g, device='cpu').count().count)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) == triangle_count_scipy(rmat_graph(6, 6, seed=2))
+    want = triangle_count_scipy(rmat_graph(6, 6, seed=2))
+    assert [int(x) for x in out.stdout.split()] == [want, want]
 
 
 def _imported_roots(path: pathlib.Path):
@@ -252,3 +262,27 @@ def test_ast_audit_no_jax_or_reference_imports():
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", "repro"), (f, name)
     assert repro_torch.__name__ == "repro_torch"
+
+
+def test_front_door_names_match_reference(ref):
+    """``repro_torch.core`` exports every name of ``repro.core`` but the
+    sharded lanes' (ROADMAP item 14) and the Pallas-only interpret knobs;
+    ``repro_torch.serve`` exports exactly ``repro.serve``'s names."""
+    import importlib
+
+    import repro_torch.core
+    import repro_torch.serve
+
+    ref_core = importlib.import_module("repro.core")
+    ref_serve = importlib.import_module("repro.serve")
+    missing = set(ref_core.__all__) - set(repro_torch.core.__all__)
+    assert missing == {
+        "DISTRIBUTED_ALGORITHMS", "mesh_cache_component",
+        "triangle_count_intersection_distributed",
+        "triangle_count_matrix_distributed",
+        "DEFAULT_INTERPRET", "resolve_interpret",
+    }
+    assert all(hasattr(repro_torch.core, n) for n in repro_torch.core.__all__)
+    assert repro_torch.serve.__all__ == ref_serve.__all__
+    assert all(hasattr(repro_torch.serve, n)
+               for n in repro_torch.serve.__all__)

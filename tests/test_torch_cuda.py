@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain torch versions, on the card,
-the five lanes on the card against scipy, and the dense LM's prefill
-through the flash kernel against its plain attention path.
+the five lanes on the card against scipy, the dense LM's prefill
+through the flash kernel against its plain attention path, and the
+triangle service and the measured chooser on the card.
 
 Marked ``cuda``: each test decides at run time whether a CUDA device is
 present and skips with a reason if not, so this file collects the same
@@ -723,3 +724,99 @@ def test_dynamic_lane_on_card_equals_cpu(cuda, name, key_mode):
     assert card.recount() == card.count().count \
         == triangle_count_scipy(card.snapshot())
     assert sum(LAUNCHES.values()) > 0  # the recount ran K1-K3
+
+
+SERVE_KINDS = ("count", "vertex", "edge_support", "k_truss", "update")
+
+
+def _serve_kinds(device, graphs, opts):
+    """Every request kind through a ``TriangleService`` on ``device``; the
+    served results in order, the snapshot and the CUDA devices the
+    dispatcher thread's sessions were built under."""
+    from repro_torch.serve import ServeConfig, TriangleService
+    from repro_torch.serve import service as service_module
+
+    seen = []
+
+    class Recording(service_module.TriangleCounter):
+        def __init__(self, *a, **kw):
+            if torch.cuda.is_available():
+                seen.append(torch.cuda.current_device())
+            super().__init__(*a, **kw)
+
+    svc = TriangleService(opts, config=ServeConfig(batch_window_ms=250.0,
+                                                   max_batch=8),
+                          device=device)
+    orig = service_module.TriangleCounter
+    service_module.TriangleCounter = Recording
+    try:
+        with svc:
+            svc.warmup(graphs)
+            out = {"count": [f.result(timeout=120) for f in
+                             [svc.submit("count", g) for g in graphs * 2]]}
+            out["vertex"] = [svc.submit("vertex", g).result(timeout=120)
+                             for g in graphs]
+            out["edge_support"] = [svc.submit("edge_support", g).result(
+                timeout=120) for g in graphs]
+            out["k_truss"] = [svc.submit("k_truss", g, k=4).result(
+                timeout=120) for g in graphs]
+            h = svc.open_dynamic_session(graphs[0])
+            out["update"] = [svc.submit("update", handle=h, updates=u).result(
+                timeout=120) for u in ([(0, 1), (1, 2), (0, 2)],
+                                       [(3, 4), (0, 1, False)])]
+            snap = svc.snapshot()
+    finally:
+        service_module.TriangleCounter = orig
+    return out, snap, seen
+
+
+def test_service_on_card_equals_cpu(cuda):
+    from repro_torch.core import CountOptions
+
+    graphs = [rmat_graph(8 + i % 3, 8, seed=700 + i) for i in range(4)] \
+        + [load_dataset("tiny-grid")]
+    opts = CountOptions(algorithm="intersection")
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    gpu, snap, seen = _serve_kinds(last, graphs, opts)
+    cpu, _, _ = _serve_kinds("cpu", graphs, opts)
+    assert snap["counters"].get("errors", 0) == 0
+    assert snap["coalesce_factor"] > 1.0
+    # the dispatcher thread built every session under the service's card
+    assert seen and all(d == last.index for d in seen)
+    for kind in SERVE_KINDS:
+        for a, b in zip(gpu[kind], cpu[kind]):
+            assert a.count == b.count and a.algorithm == b.algorithm, kind
+            if kind == "vertex":
+                np.testing.assert_array_equal(a.value, b.value)
+            elif kind == "edge_support":
+                for x, y in zip(a.value, b.value):
+                    np.testing.assert_array_equal(x, y)
+            elif kind == "k_truss":
+                np.testing.assert_array_equal(a.value.col_idx,
+                                              b.value.col_idx)
+    assert [r.count for r in gpu["count"]] == \
+        [triangle_count_scipy(g) for g in graphs * 2]
+
+
+def test_measured_chooser_on_card_dominates(cuda):
+    """Two sweep graphs, every lane timed on the card: the table's pick,
+    timed again, is within 2·t_best + 200 µs (the reference's tolerance in
+    tests/test_auto_dominance.py), and counts exactly."""
+    import importlib
+
+    from repro_torch.core import CountOptions, calibrate, choose_measured
+
+    cal = importlib.import_module("repro_torch.core.calibrate")
+    graphs = [load_dataset("coauthors-like"), complete_graph(512)]
+    table = calibrate(graphs, iters=3, warmup=1)
+    assert table.device == cal.device_label()
+    assert table.device != "cpu"
+    for g in graphs:
+        timings = table.lookup(g)
+        assert set(timings) == set(cal.CHOOSER_LANES)
+        pick = choose_measured(g, table)
+        t_best = min(timings.values())
+        fresh = cal.measure_lanes(g, [pick], iters=3, warmup=1)[pick]
+        assert fresh <= 2.0 * t_best + 200e-6, (g.name, pick, fresh, t_best)
+        tc = TriangleCounter(g, CountOptions(algorithm=pick))
+        assert tc.count() == triangle_count_scipy(g)

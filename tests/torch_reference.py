@@ -64,6 +64,12 @@ _MODULES = {
     "hashbuild": "repro.kernels.hash_tc.build",
     "hashprobe": "repro.kernels.hash_tc.probe",
     "hashref": "repro.kernels.hash_tc.ref",
+    "calibrate": "repro.core.calibrate",
+    "tc_intersection": "repro.core.tc_intersection",
+    "queueing": "repro.serve.queueing",
+    "metrics": "repro.serve.metrics",
+    "coalescer": "repro.serve.coalescer",
+    "service": "repro.serve.service",
 }
 
 
@@ -125,9 +131,9 @@ def _reference(modules):
 @pytest.fixture(scope="module")
 def ref():
     """Namespace of reference modules (``ref.generators``, ``ref.prep``,
-    ``ref.ops``, ``ref.msops``, ``ref.hashops``, ``ref.tc_subgraph``, ...),
-    imported under
-    the enable_x64 shim."""
+    ``ref.ops``, ``ref.msops``, ``ref.hashops``, ``ref.tc_subgraph``,
+    ``ref.calibrate``, ``ref.service``, ...), imported under the enable_x64
+    shim."""
     with _reference(_MODULES) as ns:
         yield ns
 
