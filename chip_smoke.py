@@ -117,8 +117,9 @@ source, all started together), and runs, in order:
 3h. beyond the card: ``rmat_graph(20, 16, seed=1)`` under 8 GiB when the
    host has 128 GiB or more (its buckets pin 80.14 GiB), else
    ``rmat_graph(19, 16, seed=1)`` under 4 GiB (32.06 GiB pinned), against
-   the forward scipy oracle (timed), with the session's own peak and the
-   warm ``count()`` beside its bound;
+   the forward scipy oracle (timed; at scale 19 its value from earlier
+   runs, 187,666,186), with the session's own peak and the warm
+   ``count()`` beside its bound;
 3i. the tiled matrix lane: orkut-like with ``max_device_bytes=1 << 30``:
    22 chunks of 4,096 triples, each with its own bf16 tiles, against
    13,038,569, 22 tensor-core launches a count, the bytes it streams, and
@@ -162,6 +163,23 @@ source, all started together), and runs, in order:
    second a session-cache hit; vertex; edge_support; ``k_truss(128)``)
    against phases 2 and 3k; 8 update batches of phase 3l's stream, each
    against a ``recount()``; load shedding at depth 4 with a 1 ms deadline;
+3o. the sharded lanes: (a) on a world-1 NCCL group (``make_mesh((1,),
+   ("data",))``), ``TriangleCounter(rmat_graph(18, 16, seed=1),
+   algorithm="intersection_distributed", mesh=mesh)`` against 82,629,122
+   and the single-card lane (warm ``count()`` medians printed side by
+   side, the single-card lane timed before and after), ``TriangleCounter(g,
+   algorithm="edge", mesh=mesh)``'s ``edge_support()`` and
+   ``k_truss(128)`` against phase 3k's scipy oracles, coauthors-like with ``strategy="bitmap"`` against scipy and
+   ``algorithm="matrix_distributed"`` on orkut-like against 13,038,569 and
+   the single-card matrix lane; every sharded stage held against its plain
+   version (``sharded_path``); (b) P = 4 gloo ranks spawned on ``cuda:0``
+   (scale 17 when four prep peaks, reckoned from (a)'s, fit in free
+   memory, else scale 16): on every rank the sharded count and edge
+   support against the scipy oracles, coauthors-like forced to bitmap and
+   orkut-like through ``matrix_distributed``, with the rank's
+   ``shard_work``, resident bucket bytes (beside the single-card plan's
+   / P), peak memory and K1–K4 counters; a rank that fails fails the
+   script;
 3f. serving: gemma2-2b at its published width and depth (26 layers, bf16
    weights drawn from seed 0), batch 2, a 6144-token prompt (past the
    4096 window of the local layers) and 16 greedy tokens through
@@ -202,14 +220,15 @@ source, all started together), and runs, in order:
    nvidia-smi, and a last line ``{"ok": true, "device": {...}}``.
 
 The phases run in the order 1, 2, 3, 3b, 3c, 4, 3d, 4b, 3k, 3l, 3g–3j,
-3e, 3m, 3n, 3f, 4c, 5: phase 4 needs the earlier lanes' plans (about 40 GiB), so
+3e, 3m, 3n, 3o, 3f, 4c, 5: phase 4 needs the earlier lanes' plans (about 40 GiB), so
 the new lanes wait until it has released them (phase 4b holds the hash
 paths' stages and releases them before the edge and dynamic lanes, and the
 tiled phases free their pinned host memory before the next), and the
 serving slice runs once every graph plan is gone. The kernels line's K1–K4
 entries carry the tiled, batch, recount and served shapes under
-``tiled_path``, ``batch_path``, ``recount_path`` and ``serve_path``, and
-K1–K5 the chooser's launches under ``chooser_path``.
+``tiled_path``, ``batch_path``, ``recount_path``, ``serve_path`` and
+``sharded_path`` (with each gloo rank's launches), and K1–K5 the
+chooser's launches under ``chooser_path``.
 
 Any failed check raises, so the script exits non-zero and prints no last
 line. Without a CUDA device, or outside a checkout, it exits 2 at once.
@@ -234,6 +253,9 @@ SRC = ROOT / "src"
 
 EXPECTED_SCALE18 = 82_629_122
 EXPECTED_SCALE17 = 36_128_651
+# the forward scipy oracle of rmat_graph(19, 16, seed=1) (31 s of host time
+# a run, which phase 3h spends on scale 20 only)
+EXPECTED_SCALE19 = 187_666_186
 EXPECTED_ORKUT = 13_038_569
 EXPECTED_K512 = math.comb(512, 3)  # 22,238,720
 GRID_SIDE = 3000
@@ -1195,7 +1217,8 @@ def tiled_batch_phase(torch, np, dev, ctx) -> None:
     t0 = time.perf_counter()
     g = rmat_graph(scale, 16, seed=1)
     t_gen = time.perf_counter() - t0
-    oracle = triangle_count_forward_scipy(g)
+    oracle = EXPECTED_SCALE19 if scale == 19 else \
+        triangle_count_forward_scipy(g)
     t_oracle = time.perf_counter() - t0 - t_gen
     print(f"graph: n={g.n} m={g.m_undirected} max_degree={g.max_degree}; "
           f"host generation {t_gen:.2f} s, forward scipy oracle "
@@ -2097,6 +2120,351 @@ def triangle_service_phase(torch, np, dev, ctx) -> dict:
                 single=single_info, update_ms=update_ms, shed=reasons)
     print(json.dumps({"service": info}))
     return info
+
+
+SHARDED_RANKS = 4
+
+
+def sharded_rank(rank: int, world: int, store: str, spec: dict) -> None:
+    """Phase 3o (b): one of ``world`` gloo ranks on ``cuda:0``, spawned by
+    ``sharded_phase``. Runs the sharded lanes on ``spec``'s graphs and
+    writes ``rank<rank>.json`` to ``spec["out"]``; raises on any fault,
+    which fails the phase."""
+    import hashlib
+
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import TriangleCounter
+    from repro_torch.kernels.intersect import LAUNCHES, reset_launch_counts
+    from repro_torch.kernels.masked_spgemm import LAUNCHES as MS_LAUNCHES
+    from repro_torch.kernels.masked_spgemm import \
+        reset_launch_counts as reset_ms_launch_counts
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh((world,), ("data",))
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        reset_ms_launch_counts()
+        tc = TriangleCounter(spec["graph"], algorithm="intersection_distributed",
+                             mesh=mesh)
+        first = tc.count()
+        warm = [tc.count() for _ in range(3)]
+        del tc
+        torch.cuda.empty_cache()  # the four ranks share one card
+        su, sv, supp = TriangleCounter(spec["graph"], algorithm="edge",
+                                       mesh=mesh).edge_support()
+        support = hashlib.sha1(np.ascontiguousarray(
+            np.stack([su, sv, supp]), dtype=np.int64).tobytes()).hexdigest()
+        peak = torch.cuda.max_memory_allocated()
+        bitmap = TriangleCounter(spec["bitmap_graph"],
+                                 algorithm="intersection_distributed",
+                                 strategy="bitmap", mesh=mesh).count()
+        mat = TriangleCounter(spec["matrix_graph"],
+                              algorithm="matrix_distributed", mesh=mesh)
+        mfirst = mat.count()
+        mwarm = [mat.count() for _ in range(3)]
+        torch.cuda.synchronize()
+        out = dict(
+            rank=rank, shard=first.meta["shard"],
+            counts=[r.count for r in [first] + warm],
+            warm_s=[r.exec_seconds for r in warm],
+            prep_s=first.prep_seconds, support=support,
+            bitmap_count=bitmap.count,
+            matrix_counts=[r.count for r in [mfirst] + mwarm],
+            matrix_warm_s=[r.exec_seconds for r in mwarm],
+            launches=dict(LAUNCHES, **MS_LAUNCHES),
+            shard_work=list(first.meta["shard_work"]),
+            shard_valid=[list(v) for v in first.meta["shard_valid"]],
+            shard_bytes=first.meta["shard_bytes"],
+            tile_bytes=mfirst.meta["tile_bytes"],
+            tiles_per_shard=mfirst.meta["tiles_per_shard"],
+            peak_bytes=peak, device=str(torch.cuda.current_device()))
+        with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_phase(torch, np, dev, ctx) -> None:
+    """Phase 3o: the sharded lanes, (a) on a world-1 NCCL group in this
+    process and (b) on ``SHARDED_RANKS`` gloo ranks spawned on ``cuda:0``,
+    each against the scipy oracles and the single-card lanes. The K1–K4
+    entries gain ``sharded_path``."""
+    import shutil
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from repro_torch.core import (TriangleCounter, edge_support_forward_scipy,
+                                  triangle_count_scipy)
+    from repro_torch.graphs import load_dataset, rmat_graph
+    from repro_torch.kernels.intersect import LAUNCHES, reset_launch_counts
+    from repro_torch.kernels.masked_spgemm import LAUNCHES as MS_LAUNCHES
+    from repro_torch.kernels.masked_spgemm import (
+        masked_spgemm_gathered, masked_spgemm_gathered_chunked)
+    from repro_torch.kernels.masked_spgemm import \
+        reset_launch_counts as reset_ms_launch_counts
+    from repro_torch.launch.mesh import make_mesh
+
+    entries, k4 = ctx["entries"], ctx["k4"]
+    intersect_case = ctx["intersect_case"]
+    work = ROOT / "build" / "sharded"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+
+    def medians(xs):
+        return statistics.median(xs) * 1e3
+
+    # -- (a): one rank on a world-1 NCCL group ----------------------------
+    phase("phase 3o: sharded lanes on a world-1 NCCL group, TriangleCounter("
+          "rmat_graph(18, 16, seed=1), algorithm='intersection_distributed', "
+          "mesh=make_mesh((1,), ('data',)))")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(work / "nccl-store"), 1), rank=0, world_size=1)
+    print(f"process group: backend {dist.get_backend()}, world "
+          f"{dist.get_world_size()}")
+    g = ctx["scale18"]
+    orkut = load_dataset("orkut-like")
+    coauthors = load_dataset("coauthors-like")
+    coauthors_truth = triangle_count_scipy(coauthors)
+
+    single = TriangleCounter(g)
+    single_mat = TriangleCounter(orkut, algorithm="matrix")
+    check(single.count().count == EXPECTED_SCALE18
+          and single_mat.count().count == EXPECTED_ORKUT,
+          "the single-card intersection and matrix lanes again = "
+          "82,629,122 and 13,038,569")
+    mesh = make_mesh((1,), ("data",))
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    reset_ms_launch_counts()
+    tc = TriangleCounter(g, algorithm="intersection_distributed", mesh=mesh)
+    first = tc.count()
+    warm = [tc.count() for _ in range(5)]
+    count_peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    bitmap = TriangleCounter(coauthors, algorithm="intersection_distributed",
+                             strategy="bitmap", mesh=mesh)
+    bfirst = bitmap.count()
+    mat = TriangleCounter(orkut, algorithm="matrix_distributed", mesh=mesh)
+    mfirst = mat.count()
+    mwarm = [mat.count() for _ in range(5)]
+    launches = dict(LAUNCHES, **MS_LAUNCHES)
+    check(all(r.count == EXPECTED_SCALE18 for r in [first] + warm),
+          f"intersection_distributed count() = {first.count} every time, "
+          f"= the oracle and the single-card lane")
+    check(bfirst.count == coauthors_truth,
+          f"coauthors-like intersection_distributed strategy=bitmap = "
+          f"{bfirst.count} = scipy")
+    check(all(r.count == EXPECTED_ORKUT for r in [mfirst] + mwarm),
+          f"orkut-like matrix_distributed count() = {mfirst.count} every "
+          f"time, = the oracle and the single-card matrix lane")
+    # warm count() in turns (single, sharded), after the counted run; then
+    # the scalar all-reduce alone and the host read alone
+    turns = {k: [] for k in ("single", "sharded", "single_mat", "mat")}
+    for _ in range(15):
+        for key, s in (("single", single), ("sharded", tc),
+                       ("single_mat", single_mat), ("mat", mat)):
+            turns[key].append(s.count().exec_seconds)
+    x = torch.zeros((), dtype=torch.int64, device=dev)
+    reduce_s, read_s = [], []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        dist.all_reduce(x)
+        int(x)
+        reduce_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        int(x)
+        read_s.append(time.perf_counter() - t0)
+    world1 = dict(
+        count_ms=medians(turns["sharded"]), single_ms=medians(turns["single"]),
+        matrix_ms=medians(turns["mat"]),
+        single_matrix_ms=medians(turns["single_mat"]),
+        all_reduce_and_read_ms=medians(reduce_s), read_ms=medians(read_s),
+        count_peak_gib=count_peak)
+    m = first.meta
+    print(f"algorithm={first.algorithm} mesh={m['mesh']} "
+          f"buckets={m['bucket_shapes']} strategies={first.bucket_strategies} "
+          f"shard_valid={m['shard_valid']} shard_work={m['shard_work']} "
+          f"resident buckets {m['shard_bytes'] / 2**30:.2f} GiB (shared "
+          f"with the prep's, not copied, on one shard); prep_seconds="
+          f"{first.prep_seconds:.4f}; own peak {count_peak:.2f} GiB")
+    mm = mfirst.meta
+    print(f"orkut-like matrix_distributed: {mm['tiles_per_shard']} triples "
+          f"of B = {mm['block']}, prep {mfirst.prep_seconds:.4f} s")
+    print(f"warm count() in 15 turns, medians: scale 18 sharded "
+          f"{world1['count_ms']:.4f} ms against single-card "
+          f"{world1['single_ms']:.4f} ms; orkut-like matrix_distributed "
+          f"{world1['matrix_ms']:.4f} ms against {world1['single_matrix_ms']:.4f}"
+          f" ms; an int64 scalar all_reduce + int() {world1['all_reduce_and_read_ms']:.4f}"
+          f" ms, int() alone {world1['read_ms']:.4f} ms (medians of 50)")
+    shapes = {}
+    for plan in (tc.plan, bitmap.plan):
+        for st in plan.stages:
+            shapes.setdefault(st.strategy, []).append(
+                intersect_case(st.strategy, st))
+    (st,) = mat.plan.stages
+    l_b, u_b, a_b, li, ui, ai, order = st.args
+    k_out = masked_spgemm_gathered(l_b, u_b, a_b, li, ui, ai, order=order)
+    p_out = masked_spgemm_gathered_chunked(l_b, u_b, a_b, li, ui, ai)
+    torch.cuda.synchronize()
+    err = float((k_out - p_out).abs().max())
+    check(err == 0, f"K4 == plain on the sharded stage {st.shape_key}")
+    flush = ctx["flush"]
+    k_ms = time_ms(torch, lambda: masked_spgemm_gathered(
+        l_b, u_b, a_b, li, ui, ai, order=order), 5, flush)
+    p_ms = time_ms(torch, lambda: masked_spgemm_gathered_chunked(
+        l_b, u_b, a_b, li, ui, ai), 2, flush)
+    b_ms, b_by = spgemm_bound_ms(int(li.shape[0]), int(l_b.shape[1]),
+                                 spgemm_read_bytes(torch, st.args))
+    k4_shape = dict(shape=[int(li.shape[0]), int(l_b.shape[1]),
+                           int(l_b.shape[2])], ms=k_ms, plain_ms=p_ms,
+                    bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    print(f"  K4 sharded stage {k4_shape['shape']}: kernel {k_ms:.4f} ms, "
+          f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    # a CountResult holds its plan: drop the results with the plans
+    del (single, single_mat, tc, first, warm, bitmap, bfirst, mat, mfirst,
+         mwarm, st, l_b, u_b, a_b, li, ui, ai, order, k_out, p_out, x)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    reset_ms_launch_counts()
+    edge = TriangleCounter(g, algorithm="edge", mesh=mesh)
+    t0 = time.perf_counter()
+    got = edge.edge_support()
+    support_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    truss = edge.k_truss(K_TRUSS)
+    truss_s = time.perf_counter() - t0
+    rounds = edge.plan.meta["peel_rounds"]
+    edge_peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    for k, v in dict(LAUNCHES, **MS_LAUNCHES).items():
+        launches[k] += v
+    world1.update(edge_support_s=support_s, k_truss_s=truss_s,
+                  edge_peak_gib=edge_peak)
+    print(f"edge_support() (sharded edge lane, one (mk,) all-reduce) "
+          f"{support_s:.4f} s; k_truss({K_TRUSS}) {truss.m_undirected} edges, "
+          f"{rounds} rounds, {truss_s:.3f} s; own peak {edge_peak:.2f} GiB")
+    print(f"launches over the world-1 sharded path: {launches}")
+    want = ctx["scale18_support"]
+    check(all(a.dtype == b.dtype and np.array_equal(a, b)
+              for a, b in zip(got, want)),
+          "the sharded edge_support() = edge_support_forward_scipy, array "
+          "for array")
+    want_truss = ctx["scale18_truss"]
+    check(np.array_equal(truss.row_ptr, want_truss.row_ptr)
+          and np.array_equal(truss.col_idx, want_truss.col_idx),
+          f"the sharded k_truss({K_TRUSS}) = phase 3k's scipy peel")
+    check(all(launches[k] > 0 for k in ("broadcast", "probe", "bitmap"))
+          and launches["masked_spgemm_wgmma"] > 0,
+          "K1, K2, K3 and K4 launched on the sharded path")
+    del edge, got, truss
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (b): SHARDED_RANKS gloo ranks spawned on cuda:0 ------------------
+    # a rank preps the whole graph: its peak is about the world-1 peak at
+    # half the scale, beside its CUDA context
+    free = torch.cuda.mem_get_info()[0]
+    per_rank = max(count_peak, edge_peak) * 2**30 / 2 + (1 << 30)
+    scale = 17 if SHARDED_RANKS * per_rank < free - (4 << 30) else 16
+    phase(f"phase 3o: {SHARDED_RANKS} gloo ranks on cuda:0, R-MAT scale "
+          f"{scale} (four prep peaks reckoned at {per_rank / 2**30:.2f} GiB "
+          f"each from (a)'s {max(count_peak, edge_peak):.2f} GiB at scale "
+          f"18, {free / 2**30:.2f} GiB free)")
+    g = rmat_graph(scale, 16, seed=1)
+    t0 = time.perf_counter()
+    oracle = edge_support_forward_scipy(g)
+    truth = int(oracle[2].sum()) // 3
+    digest = __import__("hashlib").sha1(np.ascontiguousarray(
+        np.stack(oracle), dtype=np.int64).tobytes()).hexdigest()
+    print(f"edge_support_forward_scipy {time.perf_counter() - t0:.2f} s: "
+          f"{truth} triangles")
+    check(scale != 17 or truth == EXPECTED_SCALE17,
+          f"the scipy supports sum to 3 × {truth}")
+    whole = TriangleCounter(g)
+    whole_bytes = sum(st.args[0].numel() * 8 for st in whole.plan.stages)
+    check(whole.count().count == truth, "the single-card lane = scipy")
+    del whole
+    spec = dict(graph=g, bitmap_graph=coauthors, matrix_graph=orkut,
+                out=str(work))
+    t0 = time.perf_counter()
+    procs = mp.start_processes(
+        sharded_rank, args=(SHARDED_RANKS, str(work / "gloo-store"), spec),
+        nprocs=SHARDED_RANKS, join=False, start_method="spawn")
+    deadline = time.monotonic() + 600
+    while not procs.join(timeout=5):  # a failed rank raises here
+        if time.monotonic() > deadline:
+            for p in procs.processes:
+                p.kill()
+            raise RuntimeError("the gloo ranks did not finish in 600 s")
+    ranks_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(SHARDED_RANKS):
+        with open(work / f"rank{r}.json") as f:
+            ranks.append(json.load(f))
+    print(f"{SHARDED_RANKS} ranks spawned, run and joined in {ranks_s:.2f} s")
+    for r in ranks:
+        print(f"  rank {r['rank']} (shard {r['shard']}, cuda:{r['device']}): "
+              f"counts {r['counts']}, warm count() "
+              f"{[round(x * 1e3, 3) for x in r['warm_s']]} ms, prep "
+              f"{r['prep_s']:.3f} s, shard_work {r['shard_work']}, "
+              f"resident buckets {r['shard_bytes'] / 2**20:.2f} MiB (single-"
+              f"card plan {whole_bytes / 2**20:.2f} MiB / {SHARDED_RANKS} = "
+              f"{whole_bytes / SHARDED_RANKS / 2**20:.2f} MiB), peak "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB; orkut-like "
+              f"{r['tiles_per_shard']} triples a shard, tiles "
+              f"{r['tile_bytes'] / 2**20:.2f} MiB, warm count() "
+              f"{[round(x * 1e3, 3) for x in r['matrix_warm_s']]} ms; "
+              f"launches {r['launches']}")
+    check(sorted(r["shard"] for r in ranks) == list(range(SHARDED_RANKS)),
+          "each rank holds its own shard")
+    check(all(r["counts"] == [truth] * 4 and r["support"] == digest
+              and r["bitmap_count"] == coauthors_truth
+              and r["matrix_counts"] == [EXPECTED_ORKUT] * 4 for r in ranks),
+          f"on every rank: count() = {truth} every time, edge_support() = "
+          f"scipy, coauthors-like bitmap = scipy, orkut-like matrix = "
+          f"13,038,569")
+    check(all(0 < r["shard_bytes"] <= whole_bytes / SHARDED_RANKS * 1.25
+              for r in ranks),
+          "each rank's resident buckets are about 1/P of the single-card "
+          "plan's")
+    check(all(all(r["launches"][k] > 0 for k in
+                  ("broadcast", "probe", "bitmap", "masked_spgemm_wgmma"))
+              for r in ranks),
+          "K1, K2, K3 and K4 launched in every rank process")
+    for strat in ("broadcast", "probe", "bitmap"):
+        entry = entries[strat]
+        entry["sharded_path"] = dict(
+            path="phase 3o: intersection_distributed on a world-1 NCCL group "
+                 "(R-MAT scale 18; coauthors-like forced to bitmap), and on "
+                 f"{SHARDED_RANKS} gloo ranks on cuda:0 (R-MAT scale {scale})",
+            launches=launches[strat],
+            rank_launches=[r["launches"][strat] for r in ranks],
+            shapes=shapes.get(strat, []))
+        entry["max_abs_err"] = max([entry["max_abs_err"]]
+                                   + [x["max_abs_err"] for x in
+                                      shapes.get(strat, [])])
+    k4["sharded_path"] = dict(
+        path="phase 3o: matrix_distributed on orkut-like, world-1 NCCL and "
+             f"{SHARDED_RANKS} gloo ranks",
+        launches=launches["masked_spgemm"] + launches["masked_spgemm_wgmma"],
+        rank_launches=[r["launches"]["masked_spgemm"]
+                       + r["launches"]["masked_spgemm_wgmma"] for r in ranks],
+        shapes=[k4_shape], world1=world1)
+    k4["max_abs_err"] = max(k4["max_abs_err"], err)
+    shutil.rmtree(work, ignore_errors=True)
 
 
 def serve_phase(torch, np, dev, get_config, get_model, greedy_generate, fa):
@@ -3412,7 +3780,7 @@ def main() -> int:
                       f"{b_ms:.4f} ms ({b_by})" + probe_line(shape), flush=True)
                 bfs_wide.append(shape)
                 del u_, v_
-        del s, c
+        del s, c, st  # st would keep the last stage's rows (up to 16 GiB)
         gc.collect()
         torch.cuda.empty_cache()
     check(bool(bfs_wide), "the bfs lane gave K2 a W ≥ 8192 bucket")
@@ -3422,6 +3790,9 @@ def main() -> int:
     chooser = chooser_phase(torch, np, dev, dict(analogues=analogues,
                                                  truths=truths))
     service = triangle_service_phase(torch, np, dev, service_ctx)
+    sharded_phase(torch, np, dev, dict(
+        service_ctx, flush=flush,
+        k4=next(x for x in report if x["name"] == "masked_spgemm")))
     del service_ctx
     counters_of = {KERNELS[s]["name"]: (s,) for s in KERNELS}
     counters_of.update(masked_spgemm=("masked_spgemm", "masked_spgemm_wgmma"),

@@ -4,7 +4,9 @@ lanes (intersection, subgraph, matrix, hash, bfs), the edge lane (edge
 support, k-truss, truss decomposition: ``TrussPlan``), the dynamic lane
 (``DynamicTriangleCounter`` / ``DynamicPlan``), the host listing oracles,
 front door, the measured ``algorithm="auto"`` chooser (calibration tables,
-``CountOptions(chooser="measured")``) and the deprecated one-shot
+``CountOptions(chooser="measured")``), the sharded lanes over a
+``torch.distributed`` ``DeviceMesh`` (``"intersection_distributed"``,
+``"matrix_distributed"``, sharded edge support) and the deprecated one-shot
 ``triangle_count_*`` shims."""
 
 from repro_torch.core.options import CHOOSERS, CountOptions, DEFAULT_WIDTHS
@@ -16,6 +18,7 @@ from repro_torch.core.registry import (
     set_auto_chooser,
 )
 from repro_torch.core.engine import (
+    DISTRIBUTED_ALGORITHMS,
     STRATEGIES,
     DynamicPlan,
     GraphBatch,
@@ -26,6 +29,7 @@ from repro_torch.core.engine import (
     clear_caches,
     clear_executable_cache,
     executable_cache_info,
+    mesh_cache_component,
     plan_bfs_count,
     plan_dynamic_count,
     plan_edge_support,
@@ -72,6 +76,10 @@ from repro_torch.core.tc_intersection import (
     triangle_count_intersection,
 )
 from repro_torch.core.tc_matrix import triangle_count_matrix
+from repro_torch.core.distributed import (
+    triangle_count_intersection_distributed,
+    triangle_count_matrix_distributed,
+)
 from repro_torch.core.tc_subgraph import (
     subgraph_match_triangle,
     triangle_count_subgraph,
@@ -94,6 +102,7 @@ __all__ = [
     "CountResult",
     "CounterSession",
     "DEFAULT_WIDTHS",
+    "DISTRIBUTED_ALGORITHMS",
     "DynamicPlan",
     "DynamicTriangleCounter",
     "EdgeUpdate",
@@ -126,6 +135,7 @@ __all__ = [
     "k_truss",
     "k_truss_forward_scipy",
     "load_table",
+    "mesh_cache_component",
     "normalize_edge_updates",
     "peel_to_two_core",
     "plan_bfs_count",
@@ -147,7 +157,9 @@ __all__ = [
     "triangle_count_forward_cpu",
     "triangle_count_forward_scipy",
     "triangle_count_intersection",
+    "triangle_count_intersection_distributed",
     "triangle_count_matrix",
+    "triangle_count_matrix_distributed",
     "triangle_count_scipy",
     "triangle_count_subgraph",
     "triangles_per_vertex",

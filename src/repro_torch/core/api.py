@@ -16,6 +16,9 @@ The port of ``repro.core.api``:
     dc.apply_updates([(0, 1), (2, 3, False)])  # CountResult, kept exact
     dc.recount(), dc.snapshot()
 
+    mesh = make_mesh((world,), ("data",))    # repro_torch.launch.mesh
+    TriangleCounter(g, mesh=mesh).count()    # auto → a sharded lane
+
 A session runs on the CUDA device unless it is given another
 (``device="cpu"`` runs the plain torch versions of the kernels). It owns
 one plan, built lazily through the algorithm registry, so every
@@ -39,6 +42,7 @@ import torch
 from repro_torch.core import registry
 from repro_torch.core.engine import (
     GraphBatch,
+    _check_mesh_device,
     executable_cache_info,
     plan_triangle_count,
 )
@@ -135,11 +139,21 @@ class CounterSession:
       device: where the plan lives and the kernels run. None means the
         CUDA device; without a card that raises ``RuntimeError`` (pass
         ``device="cpu"``).
+      mesh: a ``torch.distributed`` ``DeviceMesh`` (``launch.mesh``), its
+        device type the session's: the sharded lanes deal their work over
+        it, the edge lane shards its supports, and ``algorithm="auto"``
+        promotes its pick to a sharded lane when it has more than one
+        rank. Every rank runs the same session on the same graph. The
+        other lanes ignore it.
       **overrides: ``CountOptions`` field overrides.
+
+    Raises:
+      ValueError: a mesh whose device type is not the session's.
     """
 
     def __init__(self, g: Graph, options: Optional[CountOptions] = None,
-                 *, device: Union[None, str, torch.device] = None, **overrides):
+                 *, device: Union[None, str, torch.device] = None, mesh=None,
+                 **overrides):
         if options is None:
             options = CountOptions(**overrides)
         elif overrides:
@@ -148,7 +162,11 @@ class CounterSession:
             raise TypeError(
                 f"options must be a CountOptions, got {type(options).__name__}"
             )
+        if mesh is not None:
+            _check_mesh_device(mesh, torch.device(
+                "cuda" if device is None else device))
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.graph = g
         self.options = options
         self.algorithm = self._resolve_algorithm()
@@ -163,18 +181,19 @@ class CounterSession:
         """Resolve ``algorithm="auto"`` for ``g`` per ``options.chooser``:
         "measured" consults the calibration table (``core.calibrate``, the
         heuristic when there is none), "heuristic" the registry's
-        chooser."""
+        chooser; either promotes its pick under the session's mesh."""
         if self.options.chooser == "measured":
             from repro_torch.core.calibrate import choose_measured
-            return choose_measured(g)
-        return registry.choose_algorithm(g)
+            return choose_measured(g, mesh=self.mesh)
+        return registry.choose_algorithm(g, mesh=self.mesh)
 
     @property
     def plan(self):
         """The session's plan, built on first access via the registry."""
         if self._plan is None:
             planner = registry.get_algorithm(self.algorithm)
-            self._plan = planner(self.graph, self.options, device=self.device)
+            self._plan = planner(self.graph, self.options, device=self.device,
+                                 mesh=self.mesh)
         return self._plan
 
     def count(self) -> CountResult:
@@ -223,10 +242,12 @@ class TriangleCounter(CounterSession):
     plan (or a memoized sidecar plan of the lane that has them)."""
 
     def __init__(self, g: Graph, options: Optional[CountOptions] = None,
-                 *, device: Union[None, str, torch.device] = None, **overrides):
-        super().__init__(g, options, device=device, **overrides)
+                 *, device: Union[None, str, torch.device] = None, mesh=None,
+                 **overrides):
+        super().__init__(g, options, device=device, mesh=mesh, **overrides)
         self._vertex_counts: Optional[np.ndarray] = None
         self._edge_sidecar = None
+        self._warned_mesh_fallback = False
 
     def count_many(self, graphs: Iterable[Graph],
                    *, batch_size: int = 8) -> List[CountResult]:
@@ -241,6 +262,10 @@ class TriangleCounter(CounterSession):
         cached batch launch. A chunk with a single batchable graph counts
         it in a plain session; graphs outside the regime get per-graph
         sessions, and the session's own graph reuses the session plan.
+        Under a mesh of more than one rank, ``auto`` promotes to the
+        sharded lanes, which do not batch: each such graph is counted in a
+        sharded session of its own, and the first one warns
+        (``UserWarning``) once a session.
 
         Results come back in input order. Batched results share their
         ``GraphBatch`` as ``plan``, and their ``prep_seconds`` /
@@ -283,12 +308,20 @@ class TriangleCounter(CounterSession):
             if self._batchable(lane):
                 batchable.append((pos, g))
             else:
+                if self.mesh is not None and not self._warned_mesh_fallback:
+                    self._warned_mesh_fallback = True
+                    warnings.warn(
+                        f"count_many: lane {lane!r} under a mesh is not "
+                        f"batchable; graph {g.name!r} and every other such "
+                        f"graph are counted in sessions of their own, not "
+                        f"in one stacked launch", UserWarning, stacklevel=4)
                 results[pos] = TriangleCounter(g, self.options,
-                                               device=self.device).count()
+                                               device=self.device,
+                                               mesh=self.mesh).count()
         if len(batchable) == 1:  # nothing to stack; a plain session is cheaper
             pos, g = batchable[0]
-            results[pos] = TriangleCounter(g, self.options,
-                                           device=self.device).count()
+            results[pos] = TriangleCounter(g, self.options, device=self.device,
+                                           mesh=self.mesh).count()
         elif batchable:
             opts = self.options if self.options.algorithm == "intersection" \
                 else self.options.replace(algorithm="intersection")
@@ -316,13 +349,14 @@ class TriangleCounter(CounterSession):
     def _edge_plan(self):
         """The session's edge-lane ``TrussPlan``: the session plan itself
         when ``algorithm="edge"``, else a sidecar built once from the same
-        options on the same device."""
+        options on the same device and mesh (sharded supports under a
+        mesh)."""
         if self.algorithm == "edge":
             return self.plan
         if self._edge_sidecar is None:
             planner = registry.get_algorithm("edge")
             self._edge_sidecar = planner(self.graph, self.options,
-                                         device=self.device)
+                                         device=self.device, mesh=self.mesh)
         return self._edge_sidecar
 
     def edge_support(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -407,10 +407,9 @@ def choose_measured(g, table: Optional[CalibrationTable] = None, *,
 
     The exact bin's fastest lane, else the nearest bin's; with no table, an
     empty one or a lane name that is not registered, the heuristic
-    ``registry._default_chooser``. The port has no sharded lanes yet
-    (ROADMAP item 14), so ``mesh`` is taken for the reference's signature
-    and the pick is returned as it is, as the reference returns it without
-    a mesh. Always a registered lane.
+    ``registry._default_chooser``. Under a ``mesh`` of more than one rank
+    the pick is promoted to its sharded lane
+    (``registry._promote_distributed``). Always a registered lane.
     """
     table = table if table is not None else get_default_table()
     lane = None
@@ -420,7 +419,7 @@ def choose_measured(g, table: Optional[CalibrationTable] = None, *,
             lane = None
     if lane is None:
         lane = registry._default_chooser(g)
-    return lane
+    return registry._promote_distributed(lane, mesh)
 
 
 def install_measured_chooser(table: Optional[CalibrationTable] = None

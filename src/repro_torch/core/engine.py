@@ -51,6 +51,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.graphs.formats import (
     Graph,
@@ -64,12 +65,21 @@ from repro_torch.graphs.device import (
     DeviceCSR,
     DeviceGraph,
     ShapePolicy,
+    ShardedDeviceCSR,
+    deal_shard,
     dynamic_update_step,
     edge_key_dtype,
     edge_key_sentinel,
     next_pow2,
     resolve_device,
     resolve_edge_key_mode,
+    shard_valid_counts,
+)
+from repro_torch.launch.mesh import (
+    mesh_axes,
+    mesh_ranks,
+    mesh_shard_index,
+    world_mesh,
 )
 from repro_torch.core import prep
 from repro_torch.core.options import BACKENDS, DEFAULT_WIDTHS
@@ -102,6 +112,7 @@ from repro_torch.kernels.masked_spgemm.ops import masked_spgemm_gathered_counts
 __all__ = [
     "ALGORITHMS",
     "BatchLaunch",
+    "DISTRIBUTED_ALGORITHMS",
     "DeltaLaunch",
     "DynamicPlan",
     "DynamicStepLaunch",
@@ -121,6 +132,8 @@ __all__ = [
     "executable_cache_info",
     "get_batch_executable",
     "get_executable",
+    "mesh_cache_component",
+    "mesh_group",
     "plan_bfs_count",
     "plan_dynamic_count",
     "plan_edge_support",
@@ -228,6 +241,49 @@ _EXECUTABLE_CACHE = _BoundedLRU(512)
 
 #: The lanes ``plan_triangle_count`` plans.
 ALGORITHMS = ("intersection", "matrix", "subgraph", "hash", "bfs")
+
+#: The sharded lanes ``plan_triangle_count(..., mesh=)`` plans: each rank of
+#: a ``DeviceMesh`` holds its shard of the dealt work, launches its kernels
+#: on it, and one all-reduce over the mesh's ranks gives the count.
+DISTRIBUTED_ALGORITHMS = ("intersection_distributed", "matrix_distributed")
+
+
+def mesh_cache_component(mesh) -> tuple:
+    """The mesh's identity in cache keys: ``(dim names, mesh shape, flat
+    ranks)``, the reference's ``(axis names, shape, flat device ids)``.
+    Plans over meshes with equal components share cached launches; a
+    change of shard layout ((4,) → (2, 2)) misses once."""
+    return (mesh_axes(mesh), tuple(int(s) for s in mesh.mesh.shape),
+            mesh_ranks(mesh))
+
+
+_MESH_GROUPS: Dict[tuple, Any] = {}
+_MESH_GROUPS_LOCK = threading.Lock()
+
+
+def mesh_group(mesh):
+    """The process group of all the mesh's ranks, which a sharded count
+    reduces over in ONE all-reduce whatever the mesh's rank: the default
+    group when the mesh spans the world, else a group made once by
+    ``dist.new_group`` (collective over the mesh's ranks) and cached by
+    ``mesh_cache_component``."""
+    ranks = mesh_ranks(mesh)
+    if sorted(ranks) == list(range(dist.get_world_size())):
+        return dist.group.WORLD
+    key = mesh_cache_component(mesh)
+    with _MESH_GROUPS_LOCK:
+        group = _MESH_GROUPS.get(key)
+        if group is None:
+            group = _MESH_GROUPS[key] = dist.new_group(
+                list(ranks), use_local_synchronization=True)
+    return group
+
+
+def _check_mesh_device(mesh, device: torch.device) -> None:
+    """A mesh's device type must be the plan's or the session's."""
+    if mesh.device_type != device.type:
+        raise ValueError(f"the mesh's device type {mesh.device_type!r} is "
+                         f"not that of the device {str(device)!r}")
 
 # u elements the per-vertex stage handles per row chunk (bounds its
 # (rows, W) mask and int64 index transients on the largest buckets)
@@ -450,7 +506,7 @@ class DeltaLaunch:
 
 def get_executable(algorithm: str, backend: str, shape_key: tuple, *,
                    strategy: Optional[str] = None,
-                   bitmap_bits: Optional[int] = None) -> Callable:
+                   bitmap_bits: Optional[int] = None, mesh=None) -> Callable:
     """Fetch (or build) the cached launch configuration for one work unit.
 
     Args:
@@ -465,35 +521,46 @@ def get_executable(algorithm: str, backend: str, shape_key: tuple, *,
         the peel knobs ride in the key, as in the reference), or the
         dynamic lane's "dynamic_step" (``(capacity, update rows, n + 1,
         width)``) and "delta" (``(update rows, n + 1, *bounds)``), each
-        with a trailing ``"wide"`` in the wide key mode.
+        with a trailing ``"wide"`` in the wide key mode; or a sharded
+        stage, "intersection_distributed" (``(rows_per_shard, W,
+        chunk)``), "matrix_distributed" (``(tiles_per_shard, B, B)``) or
+        "edge_distributed" (``(rows_per_shard, W, mk, n + 1, *peel
+        knobs)``), which bind the same launches as their single-card
+        stages and need ``mesh``.
       backend: "kernel" | "ref".
       shape_key: the work unit's array shape.
       strategy: the resolved set-intersection strategy ("intersection"),
         the resolved mask strategy ("edge"), or the dynamic session's
         strategy, resolved per class ("delta").
       bitmap_bits: the bitmap capacity when strategy="bitmap".
+      mesh: the ``DeviceMesh`` of a sharded stage; its
+        ``mesh_cache_component`` is appended to the key.
 
     Returns:
       The entry cached under ``(algorithm, strategy, backend, bitmap_bits,
-      shape_key)``; plans over same-shaped buckets share it.
+      shape_key)`` (and the mesh component); plans over same-shaped
+      buckets share it.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
-    if algorithm in ("intersection", "edge") and strategy not in STRATEGIES:
+    if algorithm.endswith("_distributed") and mesh is None:
+        raise ValueError(f"algorithm {algorithm!r} needs a mesh; pass mesh=")
+    if algorithm in ("intersection", "edge", "intersection_distributed",
+                     "edge_distributed") and strategy not in STRATEGIES:
         raise ValueError(f"unresolved strategy {strategy!r}; "
                          f"expected one of {STRATEGIES}")
     # the wide key mode's trailing marker keeps the two key dtypes apart
     dims = tuple(shape_key[:-1]) if shape_key and shape_key[-1] == "wide" \
         else tuple(shape_key)
-    if algorithm == "intersection":
+    if algorithm in ("intersection", "intersection_distributed"):
         builder = functools.partial(IntersectLaunch, strategy, backend, bitmap_bits)
-    elif algorithm == "matrix":
+    elif algorithm in ("matrix", "matrix_distributed"):
         builder = functools.partial(MatrixLaunch, backend)
     elif algorithm == "hash":
         builder = functools.partial(HashLaunch, backend, int(shape_key[2]))
     elif algorithm == "vertex":
         builder = functools.partial(VertexLaunch, int(shape_key[2]), int(shape_key[1]))
-    elif algorithm == "edge":
+    elif algorithm in ("edge", "edge_distributed"):
         builder = functools.partial(EdgeLaunch, strategy, bitmap_bits,
                                     int(shape_key[1]), int(shape_key[2]))
     elif algorithm == "dynamic_step":
@@ -507,6 +574,8 @@ def get_executable(algorithm: str, backend: str, shape_key: tuple, *,
     else:
         raise ValueError(f"unknown algorithm {algorithm!r}")
     key = (algorithm, strategy, backend, bitmap_bits, tuple(shape_key))
+    if mesh is not None:
+        key = key + (mesh_cache_component(mesh),)
     return _EXECUTABLE_CACHE.get_or_build(key, builder)
 
 
@@ -769,10 +838,13 @@ class TrianglePlan:
     meta: Dict[str, Any]
     prep_seconds: float
     executions: int = 0
+    group: Any = None  # the mesh's process group (sharded lanes)
 
     def count(self) -> int:
         """Exact triangle count: every stage's kernel, summed on the
-        device in int64, with one host sync.
+        device in int64, with one host sync. On a sharded lane every rank
+        sums its own stages (none on a shard without rows) and joins ONE
+        all-reduce over the mesh's ranks before the sync.
 
         Raises:
           RuntimeError: the full variant's total is not a multiple of 6
@@ -781,6 +853,8 @@ class TrianglePlan:
         total = torch.zeros((), dtype=torch.int64, device=self.device)
         for st in self.stages:
             total += st.run()
+        if self.group is not None:
+            dist.all_reduce(total, group=self.group)
         total = int(total)
         if total % self.divisor:
             raise RuntimeError(
@@ -1230,6 +1304,118 @@ def _plan_bfs(g: Graph, backend: str, widths: Sequence[int], strategy: str,
     return stages, 1, meta
 
 
+def _mesh_meta(mesh) -> dict:
+    return dict(mesh_axes=mesh_axes(mesh),
+                mesh_shape=tuple(int(s) for s in mesh.mesh.shape),
+                num_shards=int(mesh.size()))
+
+
+def _shard_stages(sharded: ShardedDeviceCSR, backend: str, strategy: str,
+                  bitmap_bits: Optional[int], mesh) -> Tuple[list, list]:
+    """Bind each dealt bucket to its cached sharded launch, keyed by the
+    per-shard shape ``(rows_per_shard, W, chunk)`` and the mesh. A stage
+    reads its shard's first ``valid`` rows only, so the dealt padding is
+    never launched; a shard without rows in a bucket gets no stage (it
+    still joins the count's all-reduce). Returns the stages and every
+    bucket's ``(shape_key, strategy)``."""
+    id_range = sharded.n + 2  # real ids and the in-row sentinels n, n + 1
+    stages, specs = [], []
+    for b in sharded.buckets:
+        strat, bits = _resolve_bucket_strategy(b.width, id_range, strategy,
+                                               bitmap_bits)
+        shape_key = b.shape + (b.chunk,)
+        specs.append((shape_key, strat))
+        fn = get_executable("intersection_distributed", backend, shape_key,
+                            strategy=strat, bitmap_bits=bits, mesh=mesh)
+        if b.valid:
+            stages.append(_Stage(
+                executable=fn,
+                args=(b.u_lists[:b.valid], b.v_lists[:b.valid]),
+                shape_key=shape_key, strategy=strat, bitmap_bits=bits))
+    return stages, specs
+
+
+def _plan_intersection_distributed(
+        g: Graph, mesh, variant: str, backend: str, widths: Sequence[int],
+        strategy: str, bitmap_bits: Optional[int], prep_backend: str,
+        shape_policy: Optional[ShapePolicy], device: torch.device,
+) -> Tuple[List[_Stage], int, dict]:
+    """The intersection lane over a ``ShardedDeviceCSR``: every rank preps
+    the whole graph, deals each degree bucket round-robin over the mesh
+    and keeps its shard's rows; its stages launch K1/K2/K3 on them, and
+    ``TrianglePlan.count()`` all-reduces the shards' int64 partials once.
+    The bucket strategies resolve as on the single-card lane."""
+    policy = shape_policy if shape_policy is not None else DEFAULT_SHAPE_POLICY
+    sharded = ShardedDeviceCSR.from_graph(
+        g, mesh, device=device, variant=variant, widths=widths,
+        policy=policy, prep_backend=prep_backend)
+    stages, specs = _shard_stages(sharded, backend, strategy, bitmap_bits,
+                                  mesh)
+    meta = dict(
+        variant=variant,
+        widths=tuple(widths),
+        strategy=strategy,
+        prep_backend=prep_backend,
+        shape_policy=policy.key(),
+        core_backend=backend,
+        bucket_shapes=[k for k, _ in specs],
+        bucket_strategies=[(k[1], st) for k, st in specs],
+        bucket_edges=[b.edges for b in sharded.buckets],
+        edges=sharded.edges,
+        **_mesh_meta(mesh),
+        rows_per_shard=[b.rows_per_shard for b in sharded.buckets],
+        shard_valid=[b.shard_rows for b in sharded.buckets],
+        shard_work=sharded.shard_work(),
+        shard=sharded.shard,
+        shard_bytes=sharded.nbytes,
+    )
+    return stages, (6 if variant == "full" else 1), meta
+
+
+def _plan_matrix_distributed(g: Graph, mesh, block, permute: bool,
+                             backend: str, device: torch.device,
+                             ) -> Tuple[List[_Stage], int, dict]:
+    """The matrix lane over the mesh: the host's heavy-first tile triples
+    dealt round-robin (every shard an equal mix of dense and sparse
+    triples). Each rank holds the distinct tiles its triples name, with
+    re-based indices (``TileSchedule.shard``), and its one stage launches
+    K4 on its triples only; ``TrianglePlan.count()`` all-reduces."""
+    if block == "auto":
+        block = prep.choose_block(g)
+    t0 = time.perf_counter()
+    sched = prep.tile_schedule(g, block=block, permute=permute)
+    t1 = time.perf_counter()
+    ndev, shard = int(mesh.size()), mesh_shard_index(mesh)
+    t = sched.num_triples
+    tiles_ps = -(-t // ndev) if t else 0
+    valid = shard_valid_counts(t, ndev)
+    stages, tile_bytes = [], 0
+    if t:
+        shape_key = (tiles_ps, block, block)
+        fn = get_executable("matrix_distributed", backend, shape_key,
+                            mesh=mesh)
+        if valid[shard]:
+            l_blocks, u_blocks, *index = sched.shard(shard, ndev, device)
+            args = (l_blocks, u_blocks, u_blocks, *index)
+            tile_bytes = sum(x.numel() * x.element_size()
+                             for x in (l_blocks, u_blocks, *index))
+            stages.append(_Stage(executable=fn, args=args,
+                                 shape_key=shape_key))
+    meta = dict(
+        permute=permute,
+        schedule_seconds=t1 - t0,
+        upload_seconds=time.perf_counter() - t1,
+        tile_bytes=tile_bytes,
+        **sched.stats,
+        **_mesh_meta(mesh),
+        tiles_per_shard=tiles_ps,
+        shard_valid=[tuple(int(x) for x in valid)],
+        shard_work=tuple(int(x) for x in valid),
+        shard=shard,
+    )
+    return stages, 1, meta
+
+
 def plan_triangle_count(
     g: Graph,
     algorithm: str = "intersection",
@@ -1245,6 +1431,7 @@ def plan_triangle_count(
     shape_policy: Optional[ShapePolicy] = None,
     max_device_bytes: Optional[int] = None,
     device: Union[None, str, torch.device] = None,
+    mesh=None,
 ) -> TrianglePlan:
     """Run the prep stage once and return a device-resident ``TrianglePlan``.
 
@@ -1252,7 +1439,11 @@ def plan_triangle_count(
       g: the input ``Graph`` (undirected simple CSR).
       algorithm: "intersection" | "subgraph" | "matrix" | "hash" (the
         TRUST-style per-vertex hash lane) | "bfs" (level-ordered wedge
-        closure); ``ALGORITHMS``.
+        closure); ``ALGORITHMS``; or a sharded lane,
+        "intersection_distributed" | "matrix_distributed"
+        (``DISTRIBUTED_ALGORITHMS``: the degree buckets or the heavy-first
+        tile triples dealt round-robin over ``mesh``, each rank launching
+        its shard, one all-reduce a count).
       backend: "kernel" | "ref" per-stage execution path.
       variant: intersection lane only — "filtered" (forward algorithm) or
         "full" (every directed edge, each triangle found 6×).
@@ -1274,21 +1465,35 @@ def plan_triangle_count(
         (pinned on a CUDA device) and streams through one launch cached at
         a pow2 chunk shape at ``count()`` time (``_TiledStage``); the
         counts equal the resident plan's. None plans everything resident.
-        The hash and bfs lanes take no budget, as in the reference.
+        The hash and bfs lanes take no budget, as in the reference, nor do
+        the sharded lanes: the deal already divides the working set.
       device: where the buckets live and the kernels run; None means the
         CUDA device (see ``resolve_device``).
+      mesh: the ``torch.distributed`` ``DeviceMesh`` of a sharded lane
+        (``launch.mesh.make_mesh``), whose device type must be the
+        plan's; None there takes the 1-D ``("data",)`` mesh over the
+        default process group's world. Every rank of the mesh plans the
+        same graph, in the same order. The single-card lanes ignore it.
 
     Raises:
-      ValueError: unknown algorithm or backend.
+      ValueError: unknown algorithm or backend, or a mesh whose device
+        type is not the plan's.
       RuntimeError: ``device`` is None or CUDA and no card is present; on a
         CUDA device, host memory that cannot be pinned.
+      ProcessGroupNotInitializedError: a sharded lane without a mesh and
+        without an initialised process group.
     """
-    if algorithm not in ALGORITHMS:
+    if algorithm not in ALGORITHMS + DISTRIBUTED_ALGORITHMS:
         raise ValueError(f"unknown algorithm {algorithm!r}; expected one of "
-                         f"{ALGORITHMS}")
+                         f"{ALGORITHMS + DISTRIBUTED_ALGORITHMS}")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
     device = resolve_device(device)
+    group = None
+    if algorithm in DISTRIBUTED_ALGORITHMS:
+        mesh = world_mesh(device.type) if mesh is None else mesh
+        _check_mesh_device(mesh, device)
+        group = mesh_group(mesh)
     t0 = time.perf_counter()
     if algorithm == "intersection":
         stages, divisor, meta = _plan_intersection(
@@ -1306,15 +1511,24 @@ def plan_triangle_count(
     elif algorithm == "hash":
         stages, divisor, meta = _plan_hash(g, backend, widths, prep_backend,
                                            shape_policy, device)
-    else:
+    elif algorithm == "bfs":
         stages, divisor, meta = _plan_bfs(g, backend, widths, strategy,
                                           bitmap_bits, shape_policy, device)
+    elif algorithm == "intersection_distributed":
+        stages, divisor, meta = _plan_intersection_distributed(
+            g, mesh, variant, backend, widths, strategy, bitmap_bits,
+            prep_backend, shape_policy, device)
+    else:
+        stages, divisor, meta = _plan_matrix_distributed(
+            g, mesh, block, permute, backend, device)
+    if group is not None:
+        meta["mesh"] = mesh_cache_component(mesh)
     meta["graph"] = g.name
     meta["n"], meta["m"] = g.n, g.m_undirected
     meta["device"] = str(device)
     plan = TrianglePlan(algorithm=algorithm, backend=backend, device=device,
                         stages=stages, divisor=divisor, meta=meta,
-                        prep_seconds=0.0)
+                        prep_seconds=0.0, group=group)
     plan.synchronize()
     plan.prep_seconds = time.perf_counter() - t0
     return plan
@@ -1364,18 +1578,19 @@ def plan_bfs_count(
     )
 
 
-def _intersection_planner(g: Graph, options, *, device):
-    """Registry planner: CountOptions → intersection-lane TrianglePlan."""
+def _intersection_planner(g: Graph, options, *, device, mesh=None):
+    """Registry planner: CountOptions → intersection-lane TrianglePlan (a
+    mesh is ignored, as on every single-card lane)."""
     return plan_triangle_count(g, "intersection", device=device,
                                **options.plan_kwargs("intersection"))
 
 
-def _hash_planner(g: Graph, options, *, device):
+def _hash_planner(g: Graph, options, *, device, mesh=None):
     """Registry planner: CountOptions → hash-lane TrianglePlan."""
     return plan_hash_count(g, device=device, **options.plan_kwargs("hash"))
 
 
-def _bfs_planner(g: Graph, options, *, device):
+def _bfs_planner(g: Graph, options, *, device, mesh=None):
     """Registry planner: CountOptions → bfs-lane TrianglePlan."""
     return plan_bfs_count(g, device=device, **options.plan_kwargs("bfs"))
 
@@ -1406,11 +1621,18 @@ class _EdgeStage:
 def _edge_stages(g: Union[Graph, DeviceGraph], *, widths: Sequence[int],
                  strategy: str, bitmap_bits: Optional[int], prep_backend: str,
                  policy: ShapePolicy, peel_key: tuple, key_mode: str,
-                 device: torch.device):
+                 device: torch.device, mesh=None):
     """One graph's edge-support stages: the filtered buckets, the sorted
     edge keys with the slot permutation and the forward row_ptr, and each
     bucket bound to its cached edge launch. A host graph is uploaded once:
     the buckets and the keys share its forward orientation.
+
+    With ``mesh``, each bucket's rows (and their endpoints) are dealt
+    round-robin over the mesh's shards and this rank keeps its shard's
+    real rows: its stage adds their matches into the full (mk,) slot
+    vector (``EdgeLaunch``, cached as "edge_distributed" under the mesh),
+    and ``TrussPlan`` all-reduces that vector once a support. A shard
+    without rows in a bucket gets no stage.
 
     Returns (stages, edge_keys, perm, m_edges, meta): ``edge_keys`` is the
     (mk,) sorted key array whose first ``m_edges`` entries are the real
@@ -1435,25 +1657,50 @@ def _edge_stages(g: Union[Graph, DeviceGraph], *, widths: Sequence[int],
         row_ptr = torch.from_numpy(row_ptr_h).to(device)
     mk, n1 = int(keys.shape[0]), n + 1
     id_range = n + 2  # real ids and the in-row sentinels n (u) and n+1 (v)
-    stages = []
+    bucket_edges = [b.edges for b in buckets]
+    if mesh is not None:
+        ndev, shard = int(mesh.size()), mesh_shard_index(mesh)
+    stages, specs = [], []
     for b in buckets:
         strat, bits = _resolve_bucket_strategy(b.width, id_range, strategy,
                                                bitmap_bits,
                                                resolve_mask_strategy)
-        shape_key = b.shape + (mk, n1) + tuple(peel_key)
-        stages.append(_EdgeStage(
-            executable=get_executable("edge", "kernel", shape_key,
-                                      strategy=strat, bitmap_bits=bits),
-            args=(b.u_lists, b.v_lists, b.src, b.dst, row_ptr),
-            shape_key=shape_key,
-            strategy=strat,
-        ))
+        if mesh is None:
+            shape_key = b.shape + (mk, n1) + tuple(peel_key)
+            specs.append((shape_key, strat))
+            stages.append(_EdgeStage(
+                executable=get_executable("edge", "kernel", shape_key,
+                                          strategy=strat, bitmap_bits=bits),
+                args=(b.u_lists, b.v_lists, b.src, b.dst, row_ptr),
+                shape_key=shape_key,
+                strategy=strat,
+            ))
+            continue
+        rows = policy.round_edges(-(-b.edges // ndev))
+        shape_key = (rows, b.width, mk, n1) + tuple(peel_key)
+        specs.append((shape_key, strat))
+        fn = get_executable("edge_distributed", "kernel", shape_key,
+                            strategy=strat, bitmap_bits=bits, mesh=mesh)
+        valid = int(shard_valid_counts(b.edges, ndev)[shard])
+        if valid:
+            stages.append(_EdgeStage(
+                executable=fn,
+                args=tuple(deal_shard(x, ndev, valid, shard, fill=f) for x, f
+                           in ((b.u_lists, -1), (b.v_lists, -2), (b.src, 0),
+                               (b.dst, 0))) + (row_ptr,),
+                shape_key=shape_key,
+                strategy=strat,
+            ))
+    del buckets  # a rank keeps its shard's rows only
     meta = dict(
-        bucket_shapes=[s.shape_key[:2] for s in stages],
-        bucket_strategies=[(s.shape_key[1], s.strategy) for s in stages],
-        bucket_edges=[b.edges for b in buckets],
+        bucket_shapes=[k[:2] for k, _ in specs],
+        bucket_strategies=[(k[1], st) for k, st in specs],
+        bucket_edges=bucket_edges,
         key_mode=mode,
     )
+    if mesh is not None:
+        meta.update(mesh=mesh_cache_component(mesh), num_shards=ndev,
+                    shard=shard)
     return stages, keys, perm, m_edges, meta
 
 
@@ -1470,6 +1717,12 @@ class TrussPlan:
     rounds whose rounded shapes collide reuse cached launches. The host
     enumeration in ``repro_torch.core.listing`` is never called. Build via
     ``plan_edge_support``.
+
+    With a ``mesh`` the stages are the rank's shard of each bucket, and
+    every support (each ``support()``, ``count()`` and peel round) sums
+    them and all-reduces the (mk,) vector once over the mesh's ranks, so
+    every rank holds the whole support and peels alike; each round
+    re-deals the survivor graph over the same mesh.
     """
 
     graph: Graph
@@ -1489,18 +1742,22 @@ class TrussPlan:
     device: torch.device
     executions: int = 0
     key_mode: str = "int32"  # the resolved packed-key mode (int32 | wide)
+    mesh: Any = None   # the DeviceMesh of sharded stages
+    group: Any = None  # its process group
 
     algorithm: str = "edge"
 
-    @staticmethod
-    def _run_stages(stages: List[_EdgeStage], keys: torch.Tensor,
+    def _run_stages(self, stages: List[_EdgeStage], keys: torch.Tensor,
                     perm: torch.Tensor) -> torch.Tensor:
-        """The stages' slot-ordered supports summed in int64, reordered
-        into key order (one gather)."""
+        """The stages' slot-ordered supports summed in int64 (and, sharded,
+        all-reduced once over the mesh), reordered into key order (one
+        gather)."""
         total = torch.zeros(keys.shape[0], dtype=torch.int64,
                             device=keys.device)
         for st in stages:
             total += st.executable(*st.args)
+        if self.group is not None:
+            dist.all_reduce(total, group=self.group)
         return total[perm.long()]
 
     def support(self) -> np.ndarray:
@@ -1548,7 +1805,7 @@ class TrussPlan:
                   bitmap_bits=self.bitmap_bits,
                   prep_backend=self.prep_backend, policy=self.policy,
                   peel_key=(self.max_peel_iters, self.peel_early_exit),
-                  key_mode=self.key_mode, device=self.device)
+                  key_mode=self.key_mode, device=self.device, mesh=self.mesh)
         if start is None:
             stages, keys, perm, m_cur = (self.stages, self.edge_keys,
                                          self.perm, self.m_edges)
@@ -1665,6 +1922,7 @@ def plan_edge_support(
     peel_early_exit: bool = True,
     key_mode: str = "auto",
     device: Union[None, str, torch.device] = None,
+    mesh=None,
 ) -> TrussPlan:
     """Run the edge lane's prep once and return a replayable ``TrussPlan``.
 
@@ -1688,13 +1946,16 @@ def plan_edge_support(
       key_mode: "auto" | "int32" | "wide"
         (``graphs.device.resolve_edge_key_mode``).
       device: where the plan lives; None means the CUDA device.
-
-    The reference's ``mesh`` argument (sharded edge support) is not taken:
-    the sharded lanes are ROADMAP.md Queue 1 item 14.
+      mesh: an optional ``DeviceMesh`` (device type the plan's): each
+        bucket's rows are dealt round-robin over its ranks, each rank adds
+        its shard's matches into the (mk,) slot vector, and one vector
+        all-reduce a support combines them; peel rounds re-deal the
+        survivor graph over the same mesh. Every rank of the mesh plans
+        the same graph. None keeps the single-card stages.
 
     Raises:
-      ValueError: ``max_peel_iters`` < 1, or a ``bitmap_bits`` that cannot
-        cover the id range.
+      ValueError: ``max_peel_iters`` < 1, a ``bitmap_bits`` that cannot
+        cover the id range, or a mesh whose device type is not the plan's.
       GraphTooLargeError: the key mode cannot represent the graph.
       RuntimeError: ``device`` is None or CUDA and no card is present.
     """
@@ -1704,12 +1965,16 @@ def plan_edge_support(
     if max_peel_iters < 1:
         raise ValueError(f"max_peel_iters must be ≥ 1, got {max_peel_iters}")
     device = resolve_device(device)
+    group = None
+    if mesh is not None:
+        _check_mesh_device(mesh, device)
+        group = mesh_group(mesh)
     t0 = time.perf_counter()
     stages, keys, perm, m_edges, bucket_meta = _edge_stages(
         g, widths=tuple(widths), strategy=strategy, bitmap_bits=bitmap_bits,
         prep_backend=prep_backend, policy=policy,
         peel_key=(max_peel_iters, peel_early_exit), key_mode=key_mode,
-        device=device,
+        device=device, mesh=mesh,
     )
     meta = dict(
         graph=g.name,
@@ -1731,16 +1996,18 @@ def plan_edge_support(
         prep_backend=prep_backend, policy=policy,
         max_peel_iters=max_peel_iters, peel_early_exit=peel_early_exit,
         meta=meta, prep_seconds=0.0, device=device,
-        key_mode=bucket_meta["key_mode"],
+        key_mode=bucket_meta["key_mode"], mesh=mesh, group=group,
     )
     plan.synchronize()
     plan.prep_seconds = time.perf_counter() - t0
     return plan
 
 
-def _edge_planner(g: Graph, options, *, device):
-    """Registry planner: CountOptions → edge-lane TrussPlan."""
-    return plan_edge_support(g, device=device, **options.plan_kwargs("edge"))
+def _edge_planner(g: Graph, options, *, device, mesh=None):
+    """Registry planner: CountOptions → edge-lane TrussPlan (its support
+    stages sharded over ``mesh`` when the session carries one)."""
+    return plan_edge_support(g, device=device, mesh=mesh,
+                             **options.plan_kwargs("edge"))
 
 
 register_algorithm("edge", _edge_planner)
@@ -2115,7 +2382,7 @@ def plan_dynamic_count(
         recount_interval=recount_interval, key_mode=key_mode, device=device)
 
 
-def _dynamic_planner(g: Graph, options, *, device):
+def _dynamic_planner(g: Graph, options, *, device, mesh=None):
     """Registry planner: CountOptions → dynamic-lane DynamicPlan."""
     return plan_dynamic_count(g, device=device,
                               **options.plan_kwargs("dynamic"))

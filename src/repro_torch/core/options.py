@@ -281,8 +281,18 @@ class CountOptions:
             return dict(backend=self.backend, widths=self.widths,
                         strategy=self.strategy, bitmap_bits=self.bitmap_bits,
                         shape_policy=self.shape_policy)
+        if lane == "intersection_distributed":
+            return dict(variant=self.variant, backend=self.backend,
+                        widths=self.widths, strategy=self.strategy,
+                        bitmap_bits=self.bitmap_bits,
+                        prep_backend=self.prep_backend,
+                        shape_policy=self.shape_policy)
+        if lane == "matrix_distributed":
+            return dict(backend=self.backend, block=self.block,
+                        permute=self.permute)
+        lanes = ("bfs", "dynamic", "edge", "hash", "intersection",
+                 "intersection_distributed", "matrix", "matrix_distributed",
+                 "subgraph")
         raise ValueError(
-            f"unknown engine lane {lane!r}; expected one of "
-            f"('bfs', 'dynamic', 'edge', 'hash', 'intersection', 'matrix', "
-            f"'subgraph')"
+            f"unknown engine lane {lane!r}; expected one of {lanes}"
         )

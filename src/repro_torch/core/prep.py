@@ -652,18 +652,43 @@ class TileSchedule:
         u_all = torch.from_numpy(self.u_blocks).to(dtype)
         out = []
         for s in range(0, self.num_triples, rows):
-            li, ui, ai = (x[s:s + rows] for x in
-                          (self.l_index, self.u_index, self.a_index))
-            l_keep, l_re = np.unique(li, return_inverse=True)
-            u_keep, ua_re = np.unique(np.concatenate([ui, ai]),
-                                      return_inverse=True)
-            index = [torch.from_numpy(x.reshape(-1).astype(np.int32)) for x in
-                     (l_re, ua_re[:len(ui)], ua_re[len(ui):])]
+            l_keep, u_keep, index = self._rebase(slice(s, s + rows))
+            index = [torch.from_numpy(x) for x in index]
             chunk = (l_all.index_select(0, torch.from_numpy(l_keep)),
                      u_all.index_select(0, torch.from_numpy(u_keep)),
                      *index, launch_order(index[0], index[2]))
             out.append(tuple(x.pin_memory() for x in chunk) if pin else chunk)
         return out
+
+    def shard(self, shard: int, num_shards: int,
+              device: Union[str, torch.device]) -> Tuple[torch.Tensor, ...]:
+        """Shard ``shard``'s triples of the round-robin deal (triples
+        ``shard``, ``shard + P``, ... of the heavy-first order) in the
+        gathered form on ``device``: ``(l_tiles, u_tiles, l_index, u_index,
+        a_index, order)``, the distinct tiles its triples name (float32 on
+        the host, converted to ``tile_dtype`` on the device) and its indices
+        re-based onto them, as ``host_chunks`` cuts a chunk."""
+        dev = torch.device(device)
+        l_keep, u_keep, index = self._rebase(
+            slice(int(shard), None, int(num_shards)))
+        index = [torch.from_numpy(x).to(dev) for x in index]
+        tiles = [torch.from_numpy(a[keep]).to(dev).to(self.tile_dtype)
+                 for a, keep in ((self.l_blocks, l_keep),
+                                 (self.u_blocks, u_keep))]
+        return (*tiles, *index, launch_order(index[0], index[2]))
+
+    def _rebase(self, sel: slice) -> tuple:
+        """The distinct L tiles and U-or-A tiles that the triples ``sel``
+        name, and their indices re-based onto them as int32 vectors:
+        ``(l_keep, u_keep, [l_index, u_index, a_index])``."""
+        li, ui, ai = (x[sel] for x in (self.l_index, self.u_index,
+                                        self.a_index))
+        l_keep, l_re = np.unique(li, return_inverse=True)
+        u_keep, ua_re = np.unique(np.concatenate([ui, ai]),
+                                  return_inverse=True)
+        index = [x.reshape(-1).astype(np.int32) for x in
+                 (l_re, ua_re[:len(ui)], ua_re[len(ui):])]
+        return l_keep, u_keep, index
 
 
 def tile_schedule(g: Graph, block: int = 128,

@@ -1,26 +1,33 @@
 """Algorithm registry + the cross-lane ``algorithm="auto"`` chooser.
 
 The port of ``repro.core.registry``. Each lane registers a planner —
-``planner(g, options, *, device) -> plan`` where the plan exposes
-``count()``, ``meta`` and ``prep_seconds`` — and the facade
-(``repro_torch.core.api.TriangleCounter``) looks lanes up by name.
+``planner(g, options, *, device, mesh=None) -> plan`` where the plan
+exposes ``count()``, ``meta`` and ``prep_seconds`` — and the facade
+(``repro_torch.core.api.TriangleCounter``) looks lanes up by name. The
+single-card planners ignore ``mesh``.
 
 The builtin lanes are the paper's three formulations, ``"intersection"``
 (``core.engine``), ``"subgraph"`` (``core.tc_subgraph``) and ``"matrix"``
 (``core.tc_matrix``), the TRUST-style ``"hash"`` and level-ordered
 ``"bfs"`` lanes, the ``"edge"`` lane (edge support, k-truss) and the
-``"dynamic"`` lane (``core.engine``). The default chooser is the
-reference's heuristic unchanged, so ``auto`` resolves on every graph and
-never picks hash, bfs, edge or dynamic: those run when they are asked for
-by name, or when a chooser installed with ``set_auto_chooser`` (such as
-``core.calibrate.install_measured_chooser``) picks them.
+``"dynamic"`` lane (``core.engine``), and the sharded
+``"intersection_distributed"`` / ``"matrix_distributed"`` lanes
+(``core.distributed``). The default chooser is the reference's heuristic
+unchanged, so ``auto`` resolves on every graph and never picks hash, bfs,
+edge or dynamic: those run when they are asked for by name, or when a
+chooser installed with ``set_auto_chooser`` (such as
+``core.calibrate.install_measured_chooser``) picks them. With a mesh of
+more than one rank, ``choose_algorithm(g, mesh=)`` promotes the pick to
+its sharded lane.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import dataclasses
+from typing import Any, Callable, Dict, Optional
 
 __all__ = [
+    "OneShotPlan",
     "available_algorithms",
     "choose_algorithm",
     "get_algorithm",
@@ -37,7 +44,8 @@ def register_algorithm(name: str, planner: Callable, *,
 
     Args:
       name: lane name ``CountOptions(algorithm=...)`` selects.
-      planner: ``planner(g, options, *, device)`` returning a plan.
+      planner: ``planner(g, options, *, device, mesh=None)`` returning a
+        plan.
       overwrite: allow replacing an existing registration.
     """
     if not name or not isinstance(name, str):
@@ -53,6 +61,7 @@ def register_algorithm(name: str, planner: Callable, *,
 def _ensure_builtin() -> None:
     """Import the builtin lane modules so their registrations have run."""
     import repro_torch.core.engine  # noqa: F401  (intersection, hash, bfs, edge, dynamic)
+    import repro_torch.core.distributed  # noqa: F401  (the *_distributed lanes)
     import repro_torch.core.tc_matrix  # noqa: F401  (registers "matrix")
     import repro_torch.core.tc_subgraph  # noqa: F401  (registers "subgraph")
 
@@ -74,6 +83,25 @@ def available_algorithms() -> tuple:
     return tuple(sorted(_REGISTRY))
 
 
+@dataclasses.dataclass
+class OneShotPlan:
+    """The plan surface the facade consumes (``count()``, ``meta``,
+    ``prep_seconds``, ``executions``) around a callable that counts from
+    scratch on every ``count()``: an adapter for lanes without a
+    prepared plan, as in the reference."""
+
+    fn: Callable[[], int]
+    algorithm: str
+    meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    prep_seconds: float = 0.0
+    executions: int = 0
+
+    def count(self) -> int:
+        out = int(self.fn())
+        self.executions += 1
+        return out
+
+
 # The reference's thresholds: mesh-like graphs sit at max degree ≤ 10 with
 # skew (max/avg degree) ≤ ~2, scale-free R-MAT graphs at skew ≥ 12, and only
 # dense complete-graph fixtures reach density ≥ 0.25.
@@ -90,6 +118,9 @@ def _default_chooser(g) -> str:
        n ≤ 512);
     2. **subgraph** when it is mesh-like (max degree ≤ 12 and skew ≤ 3);
     3. **intersection** otherwise — the paper's overall winner (Fig. 5).
+
+    It names the formulation only; ``choose_algorithm(g, mesh=)`` promotes
+    it to a sharded lane afterwards (``_promote_distributed``).
     """
     n, m, dmax = g.n, g.m_undirected, g.max_degree
     if n < 3 or m == 0:
@@ -107,14 +138,33 @@ def _default_chooser(g) -> str:
 _CHOOSER: Callable = _default_chooser
 
 
-def choose_algorithm(g) -> str:
+def _promote_distributed(lane: str, mesh) -> str:
+    """A pick's sharded counterpart when ``mesh`` has more than one rank.
+
+    No mesh, or a mesh of one rank, leaves the pick as it is. "matrix"
+    becomes "matrix_distributed"; every other lane (subgraph, hash and bfs
+    have no sharded form) becomes "intersection_distributed", the dealt
+    degree buckets, as in the reference. A sharded pick passes through.
+    """
+    if mesh is None or int(mesh.size()) <= 1:
+        return lane
+    if lane.endswith("_distributed"):
+        return lane
+    if lane == "matrix":
+        return "matrix_distributed"
+    return "intersection_distributed"
+
+
+def choose_algorithm(g, mesh=None) -> str:
     """Resolve ``algorithm="auto"`` for graph ``g`` through the current
-    chooser (``_default_chooser`` unless ``set_auto_chooser`` swapped it).
+    chooser (``_default_chooser`` unless ``set_auto_chooser`` swapped it),
+    promoted to its sharded lane under a ``mesh`` of more than one rank
+    (``_promote_distributed``).
 
     Raises:
       ValueError: the chooser named a lane that is not registered.
     """
-    lane = _CHOOSER(g)
+    lane = _promote_distributed(_CHOOSER(g), mesh)
     _ensure_builtin()
     if lane not in _REGISTRY:
         raise ValueError(

@@ -34,8 +34,9 @@ from repro_torch.core.registry import register_algorithm
 __all__ = ["build_tile_schedule", "choose_block", "triangle_count_matrix"]
 
 
-def _planner(g: Graph, options, *, device):
-    """Registry planner: CountOptions → matrix-lane TrianglePlan."""
+def _planner(g: Graph, options, *, device, mesh=None):
+    """Registry planner: CountOptions → matrix-lane TrianglePlan (a mesh
+    is ignored)."""
     return plan_triangle_count(g, "matrix", device=device,
                                **options.plan_kwargs("matrix"))
 

@@ -43,8 +43,9 @@ __all__ = ["peel_to_two_core", "subgraph_match_triangle",
            "triangle_count_subgraph"]
 
 
-def _planner(g: Graph, options, *, device):
-    """Registry planner: CountOptions → subgraph-lane TrianglePlan."""
+def _planner(g: Graph, options, *, device, mesh=None):
+    """Registry planner: CountOptions → subgraph-lane TrianglePlan (a mesh
+    is ignored)."""
     return plan_triangle_count(g, "subgraph", device=device,
                                **options.plan_kwargs("subgraph"))
 

@@ -5,7 +5,9 @@ forward orientation, padded neighbour gathers, the degree-class bucket
 layout, the 2-core peel and the BFS levels of the bfs lane (with its
 level orientation), the packed undirected-edge keys of the edge and
 dynamic lanes and the dynamic lane's in-place update step, as torch ops on
-an explicit ``torch.device``.
+an explicit ``torch.device``; and the round-robin deal of the buckets
+across a mesh's shards (``ShardedDeviceCSR``) that the sharded lanes
+hold, one shard a rank.
 
 Packed edge keys are ``lo·(n+1)+hi``: int32 while ``(n+1)² ≤ int32 max``
 (n ≤ 46,339), int64 ("wide") past it or when asked for, with the dtype's
@@ -31,7 +33,8 @@ them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple, Union
+import math
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -46,8 +49,12 @@ __all__ = [
     "EDGE_KEY_SENTINEL",
     "GraphTooLargeError",
     "ShapePolicy",
+    "ShardedBucket",
+    "ShardedDeviceCSR",
     "WIDE_EDGE_KEY_SENTINEL",
     "bfs_levels",
+    "deal_across_shards",
+    "deal_shard",
     "dynamic_update_step",
     "edge_key_dtype",
     "edge_key_sentinel",
@@ -56,6 +63,7 @@ __all__ = [
     "next_pow2",
     "resolve_device",
     "resolve_edge_key_mode",
+    "shard_valid_counts",
 ]
 
 #: Valid values for every ``key_mode`` parameter.
@@ -759,3 +767,193 @@ class DeviceGraph:
         return (f"DeviceGraph(name={self.name!r}, n={self.n}, "
                 f"m_undirected={self.m_undirected}, policy={self.policy}, "
                 f"device={self.device})")
+
+
+# ---------------------------------------------------------------------------
+# ShardedDeviceCSR: the (degree class × shard) edge partition
+# ---------------------------------------------------------------------------
+
+def shard_valid_counts(total: int, num_shards: int) -> np.ndarray:
+    """Real rows of each shard under the round-robin deal.
+
+    Row ``j`` goes to shard ``j % num_shards``, so shard ``s`` owns
+    ``ceil((total - s) / num_shards)`` real rows: the shards differ by at
+    most one row. Returns a (num_shards,) int32 array.
+    """
+    s = np.arange(int(num_shards), dtype=np.int64)
+    return np.maximum(0, (int(total) - s + num_shards - 1) // num_shards) \
+        .astype(np.int32)
+
+
+def deal_shard(arr: torch.Tensor, num_shards: int, rows: int, shard: int, *,
+               fill) -> torch.Tensor:
+    """Row ``shard`` of ``deal_across_shards``: the ``(rows, ...)`` block
+    whose position ``p`` holds input row ``p * num_shards + shard``, and
+    ``fill`` where that row does not exist. One strided copy on ``arr``'s
+    device; the other shards' rows are never materialised. With one shard
+    and no fill needed, the block is ``arr``'s leading rows, shared and
+    not copied (a world-1 mesh holds no second copy of its buckets)."""
+    if int(num_shards) == 1 and int(rows) <= arr.shape[0]:
+        return arr[: int(rows)]
+    taken = arr[int(shard)::int(num_shards)][: int(rows)]
+    out = torch.full((int(rows),) + tuple(arr.shape[1:]), fill,
+                     dtype=arr.dtype, device=arr.device)
+    out[: taken.shape[0]] = taken
+    return out
+
+
+def deal_across_shards(arr, num_shards: int, rows: int, *, fill) -> torch.Tensor:
+    """Round-robin deal of axis 0 into a ``(num_shards, rows, ...)`` stack,
+    as the reference deals it: shard ``s``, position ``p`` holds input row
+    ``p * num_shards + s``, and ``fill`` past the input's end. A
+    heavy-first schedule (the matrix lane's triples) or a bucket of rows of
+    one width so hands every shard an equal mix of heavy and light work.
+    The sharded lanes take one row of it on each rank (``deal_shard``)."""
+    arr = torch.as_tensor(arr)
+    return torch.stack([deal_shard(arr, num_shards, rows, s, fill=fill)
+                        for s in range(int(num_shards))])
+
+
+def _deal_chunk(rows: int) -> int:
+    """The reference's length-gating granularity of one sharded bucket: the
+    largest power of two ≤ 64 dividing ``rows`` (1 for ``rows`` ≤ 0). The
+    port launches each shard's real rows exactly; the chunk sets the rows a
+    shard is counted as dispatching (``ShardedBucket.dispatched_rows``) and
+    rides in the cache key, as in the reference."""
+    rows = int(rows)
+    if rows <= 0:
+        return 1
+    return math.gcd(rows, 64)
+
+
+@dataclasses.dataclass
+class ShardedBucket:
+    """One degree-class bucket dealt round-robin across a mesh's shards, as
+    one rank holds it.
+
+    ``u_lists`` / ``v_lists`` are this rank's ``(rows_per_shard, width)``
+    int32 rows, row ``[shard]`` of the reference's stack: the first
+    ``shard_rows[shard]`` are real, the rest whole-row padding (u = -1,
+    v = -2). ``shard_rows`` keeps every shard's real-row count on the host.
+    """
+
+    width: int
+    edges: int            # real rows over all shards
+    rows_per_shard: int   # the policy-rounded extent of each shard
+    chunk: int            # the reference's gating granularity
+    u_lists: torch.Tensor  # (rows_per_shard, width), this shard's
+    v_lists: torch.Tensor
+    shard_rows: Tuple[int, ...]
+    shard: int            # this rank's shard
+
+    @property
+    def num_shards(self) -> int:
+        return len(self.shard_rows)
+
+    @property
+    def valid(self) -> int:
+        """This shard's real rows: the rows its launches read."""
+        return self.shard_rows[self.shard]
+
+    @property
+    def shape(self) -> tuple:
+        """The per-shard shape ``(rows_per_shard, width)``."""
+        return (self.rows_per_shard, self.width)
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of this shard's u and v rows."""
+        return int(self.u_lists.numel() * 4 + self.v_lists.numel() * 4)
+
+    def dispatched_rows(self) -> Tuple[int, ...]:
+        """Each shard's real rows rounded up to the chunk, as the
+        reference's length-gated loop dispatches them."""
+        c = self.chunk
+        return tuple(int(-(-r // c) * c) if r else 0 for r in self.shard_rows)
+
+
+@dataclasses.dataclass
+class ShardedDeviceCSR:
+    """A graph's degree-class buckets dealt across a ``DeviceMesh``, as one
+    rank holds them.
+
+    Every rank preps the whole graph (the stable sorts make the buckets
+    equal on every rank), deals each bucket round-robin over the mesh's
+    flattened ranks (``deal_shard``) and keeps its own shard's rows only:
+    the shards' work differs by at most one row a bucket.
+    """
+
+    mesh: Any               # torch.distributed.device_mesh.DeviceMesh
+    variant: str
+    buckets: list           # List[ShardedBucket]
+    policy: ShapePolicy
+    n: int
+    edges: int              # real forward edges over all buckets
+    shard: int
+
+    @property
+    def num_shards(self) -> int:
+        return int(self.mesh.size())
+
+    def shard_work(self) -> Tuple[int, ...]:
+        """Dispatched rows of each shard, summed over the buckets (the
+        reference's ``meta["shard_work"]``)."""
+        work = np.zeros(self.num_shards, dtype=np.int64)
+        for b in self.buckets:
+            work += np.asarray(b.dispatched_rows(), dtype=np.int64)
+        return tuple(int(w) for w in work)
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of this rank's rows over all buckets."""
+        return sum(b.nbytes for b in self.buckets)
+
+    @classmethod
+    def from_buckets(cls, buckets, mesh, *, variant: str,
+                     policy: Optional[ShapePolicy] = None, n: int = 0,
+                     shard: Optional[int] = None) -> "ShardedDeviceCSR":
+        """Deal prepped ``DeviceBucket``s across ``mesh``'s shards and keep
+        shard ``shard`` (None: this rank's, ``mesh_shard_index``). Each
+        shard's extent is ``policy.round_edges(ceil(edges / P))``."""
+        from repro_torch.launch.mesh import mesh_shard_index
+
+        policy = policy if policy is not None else DEFAULT_SHAPE_POLICY
+        ndev = int(mesh.size())
+        shard = mesh_shard_index(mesh) if shard is None else int(shard)
+        out, total = [], 0
+        for b in buckets:
+            edges = int(b.edges)
+            total += edges
+            rows = policy.round_edges(-(-edges // ndev))
+            out.append(ShardedBucket(
+                width=int(b.width), edges=edges, rows_per_shard=int(rows),
+                chunk=_deal_chunk(rows),
+                u_lists=deal_shard(b.u_lists, ndev, rows, shard, fill=-1),
+                v_lists=deal_shard(b.v_lists, ndev, rows, shard, fill=-2),
+                shard_rows=tuple(int(x) for x in shard_valid_counts(edges, ndev)),
+                shard=shard,
+            ))
+        return cls(mesh=mesh, variant=variant, buckets=out, policy=policy,
+                   n=int(n), edges=total, shard=shard)
+
+    @classmethod
+    def from_graph(cls, g, mesh, *, device: Union[str, torch.device],
+                   variant: str = "filtered", widths=(8, 32, 128, 512),
+                   policy: Optional[ShapePolicy] = None,
+                   prep_backend: str = "device",
+                   shard: Optional[int] = None) -> "ShardedDeviceCSR":
+        """Prep ``g``'s degree-class buckets on ``device`` (the torch prep,
+        or the numpy one under ``prep_backend="host"``) and deal them."""
+        from repro_torch.core.engine import _buckets_for_plan  # imports this module
+
+        policy = policy if policy is not None else DEFAULT_SHAPE_POLICY
+        buckets = _buckets_for_plan(g, variant, widths, prep_backend, policy,
+                                    torch.device(device))
+        return cls.from_buckets(buckets, mesh, variant=variant, policy=policy,
+                                n=int(g.n), shard=shard)
+
+    def __repr__(self) -> str:
+        return (f"ShardedDeviceCSR(num_shards={self.num_shards}, "
+                f"shard={self.shard}, variant={self.variant!r}, "
+                f"edges={self.edges}, "
+                f"buckets={[(b.shape, b.chunk) for b in self.buckets]})")

@@ -171,14 +171,17 @@ def test_options_validate_like_reference(ref):
     assert a.replace(chooser="measured").plan_kwargs("intersection") == \
         a.plan_kwargs("intersection")
     assert a.plan_kwargs("intersection")["widths"] == (8, 32, 128, 512)
-    for lane in ("matrix", "subgraph", "hash", "bfs", "edge", "dynamic"):
+    for lane in ("matrix", "subgraph", "hash", "bfs", "edge", "dynamic",
+                 "intersection_distributed", "matrix_distributed"):
         # the reference's keys, less interpret
         want = set(ref.options.CountOptions().plan_kwargs(lane)) - {"interpret"}
         assert set(a.plan_kwargs(lane)) == want
     with pytest.raises(ValueError, match="unknown engine lane"):
-        a.plan_kwargs("intersection_distributed")
+        a.plan_kwargs("edge_distributed")
     assert available_algorithms() == ("bfs", "dynamic", "edge", "hash",
-                                      "intersection", "matrix", "subgraph")
+                                      "intersection",
+                                      "intersection_distributed", "matrix",
+                                      "matrix_distributed", "subgraph")
 
 
 def test_unported_surfaces_raise_not_implemented(ref):
@@ -228,7 +231,7 @@ def test_import_without_jax_or_reference():
             "repro_torch.kernels.intersect, repro_torch.kernels.masked_spgemm, "
             "repro_torch.kernels.hash_tc, repro_torch.kernels._build, "
             "repro_torch.serve, repro_torch.core.calibrate, "
-            "repro_torch.launch.roofline; "
+            "repro_torch.launch.roofline, repro_torch.launch.mesh; "
             "g = repro_torch.graphs.rmat_graph(6, 6, seed=2); "
             "svc = repro_torch.serve.TriangleService(device='cpu').start(); "
             "print(svc.count(g).count); svc.stop(); "
@@ -266,7 +269,7 @@ def test_ast_audit_no_jax_or_reference_imports():
 
 def test_front_door_names_match_reference(ref):
     """``repro_torch.core`` exports every name of ``repro.core`` but the
-    sharded lanes' (ROADMAP item 14) and the Pallas-only interpret knobs;
+    Pallas-only interpret knobs;
     ``repro_torch.serve`` exports exactly ``repro.serve``'s names."""
     import importlib
 
@@ -276,12 +279,7 @@ def test_front_door_names_match_reference(ref):
     ref_core = importlib.import_module("repro.core")
     ref_serve = importlib.import_module("repro.serve")
     missing = set(ref_core.__all__) - set(repro_torch.core.__all__)
-    assert missing == {
-        "DISTRIBUTED_ALGORITHMS", "mesh_cache_component",
-        "triangle_count_intersection_distributed",
-        "triangle_count_matrix_distributed",
-        "DEFAULT_INTERPRET", "resolve_interpret",
-    }
+    assert missing == {"DEFAULT_INTERPRET", "resolve_interpret"}
     assert all(hasattr(repro_torch.core, n) for n in repro_torch.core.__all__)
     assert repro_torch.serve.__all__ == ref_serve.__all__
     assert all(hasattr(repro_torch.serve, n)

@@ -204,7 +204,7 @@ def test_unregistered_lane_falls_back_to_heuristic(ref):
     g = rmat_graph(7, 6, seed=7)
     t = CalibrationTable(device="x")
     t.record(cal.feature_key(cal.graph_features(g)),
-             {"intersection_distributed": 1e-6}, "measured")
+             {"no-such-lane": 1e-6}, "measured")
     rt = ref.calibrate.CalibrationTable(device="x")
     rt.record(cal.feature_key(cal.graph_features(g)),
               {"no-such-lane": 1e-6}, "measured")

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain torch versions, on the card,
 the five lanes on the card against scipy, the dense LM's prefill
-through the flash kernel against its plain attention path, and the
-triangle service and the measured chooser on the card.
+through the flash kernel against its plain attention path, the
+triangle service and the measured chooser on the card, and the sharded
+lanes on a world-1 NCCL group and on 4 gloo ranks sharing the card.
 
 Marked ``cuda``: each test decides at run time whether a CUDA device is
 present and skips with a reason if not, so this file collects the same
@@ -10,6 +11,7 @@ tests everywhere. Run on a machine with an H100 (or any sm_90a card):
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
 
+import json
 import math
 
 import numpy as np
@@ -820,3 +822,64 @@ def test_measured_chooser_on_card_dominates(cuda):
         assert fresh <= 2.0 * t_best + 200e-6, (g.name, pick, fresh, t_best)
         tc = TriangleCounter(g, CountOptions(algorithm=pick))
         assert tc.count() == triangle_count_scipy(g)
+
+
+# -- the sharded lanes --------------------------------------------------------
+
+def test_sharded_lanes_on_world1_nccl_group(cuda, tmp_path):
+    """One NCCL rank on the card: each sharded lane equals scipy and the
+    single-card lane, and the sharded edge support the CPU's."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    g = load_dataset("coauthors-like")
+    truth = triangle_count_scipy(g)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1,), ("data",))
+        reset_launch_counts()
+        for strategy in ("auto", "probe", "broadcast", "bitmap"):
+            tc = TriangleCounter(g, algorithm="intersection_distributed",
+                                 strategy=strategy, mesh=mesh)
+            assert tc.count().count == truth
+            assert tc.count().meta["shard_valid"] == [
+                (e,) for e in tc.count().meta["bucket_edges"]]
+        assert all(LAUNCHES[s] > 0 for s in ("broadcast", "probe", "bitmap"))
+        for block in (32, 128):
+            assert TriangleCounter(g, algorithm="matrix_distributed",
+                                   block=block, mesh=mesh).count().count \
+                == TriangleCounter(g, algorithm="matrix",
+                                   block=block).count().count == truth
+        got = TriangleCounter(g, mesh=mesh).edge_support()
+        want = TriangleCounter(g, device="cpu").edge_support()
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_lanes_on_gloo_ranks_sharing_the_card(cuda, tmp_path):
+    """Four gloo ranks spawned on cuda:0: every rank's counts and supports
+    equal scipy's, and K1–K4 launch in every rank process."""
+    import hashlib
+
+    import torch.multiprocessing as mp
+
+    import torch_distributed_cases as cases
+    from repro_torch.core import edge_support_forward_scipy
+
+    g = load_dataset("coauthors-like")
+    truth = triangle_count_scipy(g)
+    support = hashlib.sha1(np.ascontiguousarray(np.stack(
+        edge_support_forward_scipy(g)), dtype=np.int64).tobytes()).hexdigest()
+    mp.start_processes(cases.card_rank, nprocs=4, start_method="spawn",
+                       args=(4, str(tmp_path / "store"), str(tmp_path)))
+    for r in range(4):
+        out = json.loads((tmp_path / f"rank{r}.json").read_text())
+        assert set(out["counts"].values()) == {truth}, out
+        assert out["support"] == support
+        assert all(out["launches"][k] > 0 for k in
+                   ("broadcast", "probe", "bitmap", "masked_spgemm",
+                    "masked_spgemm_wgmma")), out["launches"]
