@@ -206,9 +206,9 @@ source, all started together), and runs, in order:
    the row check, to 4 bits fail it in the late rows), timed
    beside its bound (achieved TFLOP/s and the bound's share printed) and
    the plain version's time, per prefill beside the time before the
-   tensor-core redesign; the build's registers and spills of the six
-   16-bit instances (none may spill) and the HGMMA instructions in the
-   library's SASS (there must be some);
+   tensor-core redesign; the build's registers and spills of the twelve
+   16-bit instances (six with the prefix mask; none may spill) and the
+   HGMMA instructions in the library's SASS (there must be some);
    the library call at the two layer shapes, ``torch.compile`` of
    ``flex_attention`` with the softcap as its ``score_mod``, the causal and
    window mask as its ``block_mask`` and ``enable_gqa=True`` (the same
@@ -216,19 +216,54 @@ source, all started together), and runs, in order:
    timed; both held again where the softcap binds (queries scaled by 8);
    and, as a labelled yardstick, the kernel without a softcap beside
    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``;
+   then K6 with the VLM's bidirectional prefix: paligemma-3b's layer
+   shape (2, 512, 8/1, 256) bf16 with P = 256 (timed beside its bound and
+   ``flex_attention`` with the prefix in its ``mask_mod``, which must
+   differ from the attention without it), ragged fp32 and fp16 cases with
+   P off the tiles, P = S and P > S (every key visible) and a window
+   beside the prefix, each within ``flash_within_tolerance`` and, 16-bit,
+   ``flash_row_rms``;
+3p. the int8 KV cache: qwen1.5-32b at its published width and depth (64
+   layers, MHA 40/40, 64.2 GiB of bf16 weights from seed 0, its config's
+   ``kv_cache_dtype="int8"``), batch 2, a 512-token prompt and 16 greedy
+   tokens with K6's counter read around them (64 launches); the peak
+   reckoned before the run and measured after it (under 79 GiB); prefill
+   seconds, decode ms per token, ``torch.profiler`` over one of each;
+   ``quantize_kv`` of layer 0's k and v on the card against the CPU's and
+   the prefill's cache, bit for bit; teacher-forced against the chunked
+   plain attention (and the plain path against itself with 128-key
+   chunks), every quantisation of those runs within one step of its bf16
+   value;
+3q. MoE: arctic-480b (2 of 35 layers; 128 experts, top-2, dense residual)
+   and dbrx-132b (8 of 40 layers; 16 experts, top-4) at their published
+   widths, batch 2, a 256-token prompt (capacity 5 and 80) and 8 greedy
+   tokens with K6's counter read (2 and 8 launches), the weights drawn in
+   place a few experts at a time; one full-width ``moe`` layer against the
+   reference's formula written out in fp32 einsums on the same weights
+   (the same experts and kept slots, each row within 2⁻⁵ relative RMS, the
+   aux loss), both timed;
+3r. the VLM: paligemma-3b at its published width and depth (18 layers,
+   MQA 8/1 at head_dim 256), batch 2, 256 patch tokens of width 1152 from
+   seed 2 as a bidirectional prefix, a 256-token prompt and 16 greedy
+   tokens: 18 K6 launches a prefill, each with ``prefix_len = 256``;
+   teacher-forced against the chunked plain attention; the prefill again
+   with fp32 weights, kernel and plain logits and caches within 1e-3;
 5. a ``{"kernels": [...]}`` line, the card's name and power limit from
    nvidia-smi, and a last line ``{"ok": true, "device": {...}}``.
 
 The phases run in the order 1, 2, 3, 3b, 3c, 4, 3d, 4b, 3k, 3l, 3g–3j,
-3e, 3m, 3n, 3o, 3f, 4c, 5: phase 4 needs the earlier lanes' plans (about 40 GiB), so
+3e, 3m, 3n, 3o, 3f, 4c, 3p, 3q, 3r, 5 (each of 3p–3r frees its model
+before the next): phase 4 needs the earlier lanes' plans (about 40 GiB), so
 the new lanes wait until it has released them (phase 4b holds the hash
 paths' stages and releases them before the edge and dynamic lanes, and the
 tiled phases free their pinned host memory before the next), and the
 serving slice runs once every graph plan is gone. The kernels line's K1–K4
 entries carry the tiled, batch, recount and served shapes under
 ``tiled_path``, ``batch_path``, ``recount_path``, ``serve_path`` and
-``sharded_path`` (with each gloo rank's launches), and K1–K5 the
-chooser's launches under ``chooser_path``.
+``sharded_path`` (with each gloo rank's launches), K1–K5 the
+chooser's launches under ``chooser_path``, and K6 its launches on the
+int8, MoE and VLM serving paths under ``serve_paths`` (their runs under
+``lm_serving``) and its prefix shapes under ``prefix_shapes``.
 
 Any failed check raises, so the script exits non-zero and prints no last
 line. Without a CUDA device, or outside a checkout, it exits 2 at once.
@@ -298,6 +333,36 @@ SERVE_FP32_TOL = 1e-3
 # 700.00 W); printed beside the new time, and in no record of this run
 K6_EARLIER_MS = 328.678
 MARGIN_FACTOR = 10.0
+# phases 3p–3r: the rest of TransformerLM at published widths on one card
+INT8_ARCH = "qwen1.5-32b"  # 64 layers, its config's int8 KV cache
+INT8_BATCH, INT8_PROMPT, INT8_STEPS = 2, 512, 16
+# arctic-480b and dbrx-132b at their published widths, cut in depth to fit
+# one 80 GB card: (arch, layers kept); 25.35 GiB a layer of arctic's and
+# 6.07 GiB of dbrx's in bf16
+MOE_RUNS = (("arctic-480b", 2), ("dbrx-132b", 8))
+MOE_BATCH, MOE_PROMPT, MOE_STEPS = 2, 256, 8
+VLM_ARCH = "paligemma-3b"  # 18 layers, MQA 8/1 at head_dim 256
+VLM_BATCH, VLM_PATCHES, VLM_PROMPT, VLM_STEPS = 2, 256, 256, 16
+DEVICE_PEAK_LIMIT = 79 * 2**30  # a serving run's reckoned and measured peak
+# a full-width moe layer in bf16 against the plain formula in fp32 on the
+# same weights and input: the port rounds the expert products, the gated
+# activation, the expert outputs, the gates and the sums to bf16 (2^-9
+# relative each); a wrong expert or slot errs by the row's own size
+MOE_ROW_RMS_TOL = 2.0 ** -5
+# the kernel path's last-position logits against the plain path's,
+# teacher-forced (as SERVE_LOGIT_TOL in 3f): about twice the plain path's
+# own difference with 128-key chunks, which phases 3p and 3r print (0.151
+# for qwen1.5-32b, where int8 quantisation flips carry it through 64
+# layers, and 0.094 for paligemma-3b; NVIDIA H100 80GB HBM3, 700 W)
+INT8_LOGIT_TOL = 0.35
+VLM_LOGIT_TOL = 0.2
+# arctic-480b and dbrx-132b, teacher-forced as above: the limit is this
+# factor times the larger of two floors measured in the same run, the
+# plain path against itself with 128-key chunks and the plain path with
+# K6's bf16 rounding of the softmax weights against the plain path (in two
+# layers the second dominates: arctic-480b's kernel path differed by 2.09x
+# the first alone; NVIDIA H100 80GB HBM3, 700 W)
+MOE_FLOOR_FACTOR = 2.0
 KERNELS = {
     "broadcast": dict(
         name="intersect_broadcast", plain="intersect_counts_broadcast",
@@ -494,16 +559,23 @@ def hash_ragged(np, rng, e: int, w: int, n: int):
     return nbrs, src, cand
 
 
-def flash_pairs(np, s: int, t: int, causal: bool, window) -> int:
+def flash_pairs(np, s: int, t: int, causal: bool, window,
+                prefix: int = 0) -> int:
     """Unmasked (query, key) pairs of one (batch, q head): query i keeps
-    keys j with (not causal or j <= i) and i - j < window."""
+    keys j with (not causal or j <= i) and i - j < window, and every key
+    j < prefix (the bidirectional prefix)."""
     i = np.arange(s, dtype=np.int64)
     lo = np.zeros_like(i) if window is None else np.maximum(0, i - window + 1)
     hi = np.minimum(t - 1, i) if causal else np.full_like(i, t - 1)
-    return int(np.maximum(0, hi - lo + 1).sum())
+    n = np.maximum(0, hi - lo + 1)
+    p = min(prefix, t)
+    if p:  # the prefix keys outside [lo, hi]
+        n = n + p - np.where(hi >= lo,
+                             np.maximum(0, np.minimum(hi, p - 1) - lo + 1), 0)
+    return int(n.sum())
 
 
-def flash_bound_ms(np, q, k, causal: bool, window) -> dict:
+def flash_bound_ms(np, q, k, causal: bool, window, prefix: int = 0) -> dict:
     """Least time for one attention call: read q, k, v once and write the
     output, against 4·hd flops per unmasked pair per q head at the input
     type's peak (bf16 / fp16: the dense tensor-core rate; fp32: the CUDA
@@ -511,7 +583,7 @@ def flash_bound_ms(np, q, k, causal: bool, window) -> dict:
     arithmetic runs at."""
     b, s, hq, hd = q.shape
     t, hkv = k.shape[1], k.shape[2]
-    pairs = flash_pairs(np, s, t, causal, window)
+    pairs = flash_pairs(np, s, t, causal, window, prefix)
     flops = 4 * hd * pairs * b * hq
     rate = ALU_FLOPS_PER_S if q.dtype.itemsize == 4 else TENSOR_OPS_PER_S
     t_ops = flops / rate * 1e3
@@ -562,11 +634,13 @@ def wgmma_build_facts(lib: Path, entry_re: str, label) -> dict:
 
 
 def flash_build_facts(lib: Path) -> dict:
-    """K6's tensor-core instances, one per 16-bit type and head dim."""
+    """K6's tensor-core instances, one per 16-bit type, head dim and prefix
+    mask (without, with)."""
     return wgmma_build_facts(
-        lib, r"flash_fwd_wgmma_kernelI(13__nv_bfloat16|6__half)Li(\d+)E",
+        lib, r"flash_fwd_wgmma_kernelI(13__nv_bfloat16|6__half)Li(\d+)ELb([01])E",
         lambda h: f"flash_fwd_wgmma_kernel<"
-                  f"{'bf16' if 'bfloat' in h[1] else 'fp16'}, {h[2]}>")
+                  f"{'bf16' if 'bfloat' in h[1] else 'fp16'}, {h[2]}, "
+                  f"prefix {'true' if h[3] == '1' else 'false'}>")
 
 
 def spgemm_build_facts(lib: Path) -> dict:
@@ -610,20 +684,25 @@ def rounded_weight_attention(torch, q, k, v, window, cap, bits: int):
     return out.reshape(b, s, hq, hd).to(q.dtype)
 
 
-def flex_library(torch, flex, create_block_mask, q, k, v, window, cap):
+def flex_library(torch, flex, create_block_mask, q, k, v, window, cap,
+                 prefix_len: int = 0):
     """The library call for K6: one compiled ``flex_attention`` on the
     (B, H, S, hd) views, the softcap as its ``score_mod`` (flex scales the
     logits by 1/sqrt(hd) before it, as the kernel does), the causal and
-    window mask as its ``block_mask`` and ``enable_gqa=True`` (q head h
-    reads kv head h // G, as the kernel does). The port never calls it.
-    Returns (call, seconds to build the block mask), the mask built once as
-    a model would build it once a prefill."""
+    window mask, with the bidirectional prefix, as its ``block_mask`` and
+    ``enable_gqa=True`` (q head h reads kv head h // G, as the kernel
+    does). The port never calls it. Returns (call, seconds to build the
+    block mask), the mask built once as a model would build it once a
+    prefill."""
     def mask(b, h, qi, ki):
         ok = qi >= ki
-        return ok if window is None else ok & (qi - ki < window)
+        ok = ok if window is None else ok & (qi - ki < window)
+        return (ok | (ki < prefix_len)) if prefix_len else ok
 
-    def score_mod(score, b, h, qi, ki):
+    def softcap(score, b, h, qi, ki):
         return torch.tanh(score / cap) * cap
+
+    score_mod = None if cap is None else softcap
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2476,10 +2555,12 @@ def serve_phase(torch, np, dev, get_config, get_model, greedy_generate, fa):
           and torch.get_float32_matmul_precision() == "highest",
           "TF32 off for fp32 matmuls (the fp32 unembedding)")
     cfg = get_config(SERVE_ARCH)
-    held = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
+    model, held, weights = new_lm_model(torch, dev, get_model, cfg,
+                                        torch.bfloat16)
+    reckoned = lm_peak_reckoning(cfg, weights, SERVE_BATCH, SERVE_PROMPT,
+                                 SERVE_MAX_LEN)
+    print(f"reckoned peak before the run: {reckon_line(reckoned)}")
     t0 = time.perf_counter()
-    model = get_model(cfg, device=dev, dtype=torch.bfloat16)
     model.init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
@@ -2496,186 +2577,18 @@ def serve_phase(torch, np, dev, get_config, get_model, greedy_generate, fa):
           + (cfg.padded_vocab - cfg.vocab) * cfg.d_model,
           "parameter count = param_count() + post-norm scales")
     gen = torch.Generator(device=dev).manual_seed(1)
-    prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
-                            generator=gen, device=dev)
-    batch = {"tokens": prompts}
-    kw = dict(steps=SERVE_STEPS, max_len=SERVE_MAX_LEN)
-
-    # the main path: one greedy_generate with K6's counter read around it
-    fa.reset_launch_counts()
-    t0 = time.perf_counter()
-    toks = greedy_generate(model, cfg, batch, **kw)
-    toks_host = toks.cpu()
-    first_s = time.perf_counter() - t0
-    launches = fa.LAUNCHES["flash_attention"]
-    print(f"first greedy_generate {first_s:.3f} s; flash_attention launches "
-          f"{launches}; tokens (first sequence) {toks_host[0].tolist()}; the "
-          f"prompts' last tokens {prompts[:, -1].tolist()}")
-    check(launches == cfg.num_layers,
-          f"{launches} flash_attention launches = one a layer of one prefill")
-    check(tuple(toks.shape) == (SERVE_BATCH, SERVE_STEPS)
-          and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
-          f"tokens {tuple(toks.shape)} in [0, vocab)")
-
-    def timed(fn, reps=3):
-        fn()  # warm-up
-        out = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            out.append(time.perf_counter() - t0)
-        return out
-
-    def prefill_only():
-        logits, _ = model.prefill(batch, SERVE_MAX_LEN)
-        del logits
-
-    logits, cache = model.prefill(batch, SERVE_MAX_LEN)
-    del logits
-    tok0 = toks[:, :1]
-
-    def decode_only():
-        cache["pos"] = SERVE_PROMPT
-        tok = tok0
-        for _ in range(SERVE_STEPS):
-            lg, _ = model.decode_step(cache, tok)
-            tok = torch.argmax(lg[:, -1:], dim=-1)
-
-    def one_decode_step():
-        cache["pos"] = SERVE_PROMPT
-        model.decode_step(cache, tok0)
-
-    prefill_s = timed(prefill_only)
-    decode_s = timed(decode_only)
-    generate_s = timed(lambda: greedy_generate(model, cfg, batch, **kw))
-    pre, dec, gen_s = (statistics.median(x) for x in
-                       (prefill_s, decode_s, generate_s))
-    ms_per_token = dec / SERVE_STEPS * 1e3
-    print(f"prefill seconds {[round(x, 4) for x in prefill_s]} (median "
-          f"{pre:.4f}; {SERVE_BATCH * SERVE_PROMPT / pre:.0f} prompt tokens/s)")
-    print(f"decode ms per token {[round(x / SERVE_STEPS * 1e3, 3) for x in decode_s]} "
-          f"(median {ms_per_token:.3f}; {SERVE_BATCH / (dec / SERVE_STEPS):.1f} "
-          f"generated tokens/s over the batch while decoding)")
-    print(f"greedy_generate seconds {[round(x, 4) for x in generate_s]} "
-          f"(median {gen_s:.4f}; {SERVE_BATCH * SERVE_STEPS / gen_s:.2f} "
-          f"generated tokens/s end to end, prefill included)")
-    print(f"memory: weights {n_params * 2 / 1e9:.2f} GB, KV cache "
-          f"{2 * cfg.num_layers * SERVE_BATCH * SERVE_MAX_LEN * cfg.kv_heads * cfg.head_dim * 2 / 1e9:.2f} GB, "
-          f"prefill logits {SERVE_BATCH * SERVE_PROMPT * cfg.padded_vocab * 4 / 1e9:.2f} GB; "
-          f"{peak_memory(torch, held)}")
-
-    def forced(backend):
-        """Last-position logits of the prefill and of every decode step,
-        teacher-forced on the kernel path's tokens: (B, steps + 1, V)."""
-        model.attn_backend = backend
-        logits, cache = model.prefill(batch, SERVE_MAX_LEN)
-        rows = [logits[:, -1].clone()]
-        del logits
-        for i in range(SERVE_STEPS):
-            lg, cache = model.decode_step(cache, toks[:, i:i + 1])
-            rows.append(lg[:, -1])
-        model.attn_backend = "kernel"
-        return torch.stack(rows, dim=1)
-
-    prof = {"prefill": device_profile(torch, prefill_only),
-            "decode step": device_profile(torch, one_decode_step)}
-    for what, rec in prof.items():
-        if rec["kernels"] == 0:
-            print(f"profile of one {what}: the profiler recorded no device "
-                  f"time (idle share not measured)")
-            continue
-        top = sorted(rec["by_name"].items(), key=lambda kv: -kv[1])[:5]
-        print(f"profile of one {what} (torch.profiler, its own overhead "
-              f"included in the wall time): wall {rec['wall_s'] * 1e3:.3f} ms, "
-              f"device busy {rec['busy_s'] * 1e3:.3f} ms over {rec['kernels']} "
-              f"kernels and copies, idle share {rec['idle_share']:.3f}; top: "
-              + "; ".join(f"{n[:60]} {t * 1e3:.3f} ms" for n, t in top))
-    fa.reset_launch_counts()
-    k_rows = forced("kernel")
-    check(fa.LAUNCHES["flash_attention"] == cfg.num_layers,
-          "teacher-forced kernel run: one launch a layer")
-    check(torch.equal(torch.argmax(k_rows[:, :SERVE_STEPS], dim=-1), toks),
-          "the kernel path's teacher-forced argmaxes are its greedy tokens")
-    fa.reset_launch_counts()
-    p_rows = forced("chunked")
-    check(fa.LAUNCHES["flash_attention"] == 0,
-          "the plain run launches no flash_attention")
-    check(bool(torch.isfinite(k_rows).all() and torch.isfinite(p_rows).all()),
-          "logits finite on both paths")
-    diff = (k_rows - p_rows).abs()
-    max_diff = float(diff.max())
-    top2 = torch.topk(p_rows[:, :SERVE_STEPS], 2, dim=-1).values
-    margin = top2[..., 0] - top2[..., 1]
-    covered = margin > MARGIN_FACTOR * max_diff
-    p_toks = torch.argmax(p_rows[:, :SERVE_STEPS], dim=-1)
-    agree = (p_toks == toks)
-    print(f"kernel vs plain attention, last-position logits over "
-          f"{SERVE_STEPS + 1} positions x {SERVE_BATCH}: max |Δ| "
-          f"{max_diff:.6f} (per position {[round(float(x), 5) for x in diff.amax(dim=(0, 2))]}); "
-          f"logit range [{float(p_rows.min()):.3f}, {float(p_rows.max()):.3f}]")
-    print(f"top-2 margins of the plain path: min {float(margin.min()):.5f}, "
-          f"median {float(margin.median()):.5f}; {int(covered.sum())} of "
-          f"{covered.numel()} positions covered by margin > "
-          f"{MARGIN_FACTOR:g} × max |Δ|; tokens equal at {int(agree.sum())} "
-          f"of {agree.numel()}")
-    check(max_diff <= SERVE_LOGIT_TOL,
-          f"kernel and plain logits within {SERVE_LOGIT_TOL} (max |Δ| "
-          f"{max_diff:.6f})")
-    check(bool(agree[covered].all()),
-          f"greedy tokens equal at all {int(covered.sum())} covered positions")
-
-    # the bf16 model's own rounding floor: the plain path against itself
-    # with the keys cut into 512-key chunks instead of 1024
-    from repro_torch.models import layers as L
-    chunk_1024 = L.attention
-    L.attention = functools.partial(chunk_1024, chunk=512)
-    try:
-        floor = float((forced("chunked") - p_rows).abs().max())
-    finally:
-        L.attention = chunk_1024
-    print(f"the plain path against itself with 512-key chunks: max |Δ| "
-          f"{floor:.6f} (the bf16 model's rounding floor, beside the kernel's "
-          f"{max_diff:.6f})")
-    del model, cache, k_rows, p_rows, toks
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # the same prefill with fp32 weights: kernel and plain attention compute
-    # the same function, so only the order of fp32 sums separates them
-    model = get_model(cfg, device=dev, dtype=torch.float32)
-    model.init(torch.Generator(device=dev).manual_seed(0))
-    fa.reset_launch_counts()
-    runs = []
-    for backend in ("kernel", "chunked"):
-        model.attn_backend = backend
-        logits, cache = model.prefill(batch, SERVE_MAX_LEN)
-        runs.append((logits[:, -1].clone(), cache["k"], cache["v"]))
-        del logits, cache
-    fp32_diff = max(float((a - b).abs().max()) for a, b in zip(*runs))
-    print(f"fp32 weights, kernel vs plain attention: max |Δ| {fp32_diff:.3e} "
-          f"over the last-position logits and the "
-          f"{tuple(runs[0][1].shape)} k and v caches")
-    check(fa.LAUNCHES["flash_attention"] == cfg.num_layers,
-          "fp32 prefill: one flash_attention launch a layer")
-    check(fp32_diff <= SERVE_FP32_TOL,
-          f"fp32 kernel and plain prefill within {SERVE_FP32_TOL}")
-    del model, runs, prompts, batch
-    gc.collect()
-    torch.cuda.empty_cache()
-    k6_dev = sum(t for n, t in prof["prefill"]["by_name"].items()
-                 if "flash_fwd" in n)
-    return dict(launches=launches, prefill_s=pre, decode_ms_per_token=ms_per_token,
-                generate_s=gen_s, logits_max_abs_diff=max_diff,
-                prefill_device_busy_s=prof["prefill"]["busy_s"],
-                prefill_k6_device_s=k6_dev, bf16_floor_max_abs_diff=floor,
-                fp32_max_abs_diff=fp32_diff,
-                prefill_idle_share=prof["prefill"]["idle_share"],
-                decode_step_device_busy_s=prof["decode step"]["busy_s"],
-                decode_step_device_ops=prof["decode step"]["kernels"],
-                decode_step_idle_share=prof["decode step"]["idle_share"],
-                covered=int(covered.sum()), positions=covered.numel(),
+    batch = {"tokens": torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                                     generator=gen, device=dev)}
+    run = lm_serve_run(torch, model, cfg, batch, SERVE_STEPS, SERVE_MAX_LEN,
+                       fa, greedy_generate, held, reckoned)
+    forced = forced_against_plain(torch, model, batch, run.pop("toks"),
+                                  SERVE_MAX_LEN, fa, SERVE_LOGIT_TOL, cfg.name,
+                                  floor_chunk=512)
+    del model
+    drop_model(torch)
+    fp32 = fp32_against_plain(torch, dev, get_model, cfg, batch, SERVE_MAX_LEN,
+                              fa, [-1])
+    return dict(run, **forced, fp32_max_abs_diff=fp32,
                 windows={cfg.sliding_window: local_layers,
                          None: cfg.num_layers - local_layers})
 
@@ -2704,8 +2617,11 @@ def device_profile(torch, fn) -> dict:
                 idle_share=(1.0 - busy / wall) if n else None)
 
 
-def flash_phase(torch, np, dev, fa, flush, serve) -> dict:
-    """Phase 4c: K6 against its plain version, timed beside its bound."""
+def flash_phase(torch, np, dev, fa, flush, serve, lm_layers: dict) -> dict:
+    """Phase 4c: K6 against its plain version, timed beside its bound, at
+    the layer shapes of every serving path (``lm_layers``: K6's launches a
+    prefill of each model that phases 3p–3r serve), with and without the
+    VLM's bidirectional prefix."""
     phase("phase 4c: flash-attention kernel against its plain torch version")
     import torch.nn.functional as F
     from repro_torch.kernels import _build
@@ -2715,12 +2631,14 @@ def flash_phase(torch, np, dev, fa, flush, serve) -> dict:
     flex = torch.compile(flex_attention)
 
     def case(label, b, s, hq, hkv, hd, dtype, window, cap, per_prefill,
-             library=False):
-        gen = torch.Generator(device=dev).manual_seed(s + hq + hd)
+             library=False, prefix=0):
+        gen = torch.Generator(device=dev).manual_seed(s + hq + hd + prefix)
         q = torch.randn(b, s, hq, hd, generator=gen, device=dev).to(dtype)
         k = torch.randn(b, s, hkv, hd, generator=gen, device=dev).to(dtype)
         v = torch.randn(b, s, hkv, hd, generator=gen, device=dev).to(dtype)
         kw = dict(causal=True, window=window, cap=cap)
+        if prefix:
+            kw["prefix_len"] = prefix
         k_out = fa.flash_attention_kernel(q, k, v, **kw)
         p_out = fa.flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -2743,7 +2661,7 @@ def flash_phase(torch, np, dev, fa, flush, serve) -> dict:
                        5, flush)
         p_ms = time_ms(torch, lambda: fa.flash_attention_ref(q, k, v, **kw),
                        3, flush)
-        bound = flash_bound_ms(np, q, k, True, window)
+        bound = flash_bound_ms(np, q, k, True, window, prefix)
         tflops = bound["flops"] / (k_ms * 1e-3) / 1e12
         print(f"  flash_attention {label}: kernel {k_ms:.4f} ms "
               f"({tflops:.1f} TFLOP/s, {bound['bound_ms'] / k_ms * 100:.1f} % "
@@ -2754,19 +2672,25 @@ def flash_phase(torch, np, dev, fa, flush, serve) -> dict:
               f"{bound['fp32_alu_ms']:.4f} ms)", flush=True)
         rec = dict(label=label, shape=[b, s, hq, hkv, hd],
                    dtype=str(dtype).replace("torch.", ""), window=window,
-                   cap=cap, ms=k_ms, plain_ms=p_ms, max_abs_err=err,
+                   cap=cap, prefix_len=prefix, ms=k_ms, plain_ms=p_ms, max_abs_err=err,
                    row_rms=rows,
                    tflops=tflops, bound_share=bound["bound_ms"] / k_ms,
                    launches_per_prefill=per_prefill, **bound)
         if library:
             lib, mask_s = flex_library(torch, flex, create_block_mask, q, k,
-                                       v, window, cap)
+                                       v, window, cap, prefix)
             t0 = time.perf_counter()
             l_out = lib()
             torch.cuda.synchronize()
             first_s = time.perf_counter() - t0
             ok, l_err = fa.flash_within_tolerance(
                 l_out, fa.flash_attention_ref(q, k, v, **kw), q, k, v, **kw)
+            if prefix:  # the library's mask must hold the prefix too
+                check(not fa.flash_within_tolerance(l_out, fa.flash_attention_ref(
+                    q, k, v, causal=True, window=window, cap=cap), q, k, v,
+                    causal=True, window=window, cap=cap)[0],
+                    f"library flex_attention at {label} differs from the "
+                    f"attention without the prefix")
             check(ok, f"library flex_attention == plain within one rounding "
                       f"step and its bf16 weights' slack at {label} (max |Δ| "
                       f"{l_err})")
@@ -2796,6 +2720,52 @@ def flash_phase(torch, np, dev, fa, flush, serve) -> dict:
                    20, 128, torch.float32, None, None, 0)[0],
               case("minicpm-2b heads (1, 777, 36/36, 64) fp32", 1, 777, 36, 36,
                    64, torch.float32, None, None, 0)[0]]
+
+    # the layer shapes of phases 3p and 3q, at the group widths they give the
+    # tensor-core kernel: qwen1.5-32b G = 1, dbrx-132b G = 6, arctic-480b
+    # G = 7 (head_dim 128, no window, no softcap)
+    gqa_cases = [
+        case(f"{arch} layer ({b_}, {s_}, {hq}/{hkv}, 128) bf16", b_, s_, hq,
+             hkv, 128, torch.bfloat16, None, None, lm_layers[arch])[0]
+        for arch, b_, s_, hq, hkv in (
+            (INT8_ARCH, INT8_BATCH, INT8_PROMPT, 40, 40),
+            ("arctic-480b", MOE_BATCH, MOE_PROMPT, 56, 8),
+            ("dbrx-132b", MOE_BATCH, MOE_PROMPT, 48, 8))]
+    for r in gqa_cases:
+        print(f"K6 per prefill of {r['label']}: "
+              f"{r['ms'] * r['launches_per_prefill']:.3f} ms over "
+              f"{r['launches_per_prefill']} launches; bound "
+              f"{r['bound_ms'] * r['launches_per_prefill']:.3f} ms; plain "
+              f"{r['plain_ms'] * r['launches_per_prefill']:.3f} ms", flush=True)
+
+    # the VLM's bidirectional prefix: paligemma-3b's layer shape (multi-query,
+    # G = 8, timed beside its bound and flex_attention with the prefix in its
+    # mask), then P off the tiles, P >= S (every key visible) and a window
+    # beside the prefix (two intervals of valid keys a row)
+    vb, vp, vs = VLM_BATCH, VLM_PATCHES, VLM_PATCHES + VLM_PROMPT
+    prefix_cases = [
+        case(f"paligemma-3b layer ({vb}, {vs}, 8/1, 256) bf16, prefix {vp}",
+             vb, vs, 8, 1, 256, torch.bfloat16, None, None, lm_layers[VLM_ARCH],
+             library=True, prefix=vp)[0],
+        case("(1, 333, 4/2, 64) fp32, prefix 100", 1, 333, 4, 2, 64,
+             torch.float32, None, None, 0, prefix=100)[0],
+        case("(1, 200, 8/1, 128) fp32, window 16, cap 50, prefix 47", 1, 200,
+             8, 1, 128, torch.float32, 16, 50.0, 0, prefix=47)[0],
+        case("(1, 257, 10/2, 128) fp16, cap 30, prefix 65", 1, 257, 10, 2,
+             128, torch.float16, None, 30.0, 0, prefix=65)[0],
+        case("(1, 100, 4/2, 64) bf16, prefix 100 = S", 1, 100, 4, 2, 64,
+             torch.bfloat16, None, None, 0, prefix=100)[0],
+        case("(1, 100, 4/2, 64) fp32, window 8, prefix 300 > S", 1, 100, 4, 2,
+             64, torch.float32, 8, None, 0, prefix=300)[0],
+        case("(1, 700, 8/1, 256) bf16, window 64, cap 50, prefix 130", 1, 700,
+             8, 1, 256, torch.bfloat16, 64, 50.0, 0, prefix=130)[0],
+    ]
+    vlm_shape, vlm_layers = prefix_cases[0], lm_layers[VLM_ARCH]
+    print(f"K6 per paligemma-3b prefill: {vlm_shape['ms'] * vlm_layers:.3f} ms "
+          f"over {vlm_layers} launches; bound "
+          f"{vlm_shape['bound_ms'] * vlm_layers:.3f} ms; plain "
+          f"{vlm_shape['plain_ms'] * vlm_layers:.3f} ms; library flex_attention "
+          f"{vlm_shape['library_ms'] * vlm_layers:.3f} ms", flush=True)
 
     # planted controls at the global layer's inputs: the plain arithmetic
     # with the weights rounded to bf16's 8 significant bits must pass the
@@ -2889,10 +2859,11 @@ def flash_phase(torch, np, dev, fa, flush, serve) -> dict:
     for inst in build["instances"]:
         print(f"  build: {inst}")
     print(f"  build: {build['hgmma']} HGMMA instructions in the library's SASS")
-    check(len(build["instances"]) == 6 and all(
+    check(len(build["instances"]) == 12 and all(
         i.get("spill_stores") == 0 and i.get("spill_loads") == 0
         for i in build["instances"]),
-        "ptxas: the six 16-bit K6 instances compile without spills")
+        "ptxas: the twelve 16-bit K6 instances (six with the prefix mask) "
+        "compile without spills")
     check(build["hgmma"] > 0, f"the library holds {build['hgmma']} HGMMA "
                               f"(wgmma) instructions: the tensor cores run K6")
     return dict(
@@ -2908,7 +2879,8 @@ def flash_phase(torch, np, dev, fa, flush, serve) -> dict:
                   "|v| (P rounded to the input type before P·V) + 1e-4; "
                   "and each bf16 (fp16) row's relative RMS error against "
                   "the fp32 plain version (flash_row_rms) <= 2^-7 (2^-10)",
-        max_abs_err=max(r["max_abs_err"] for r in path + ragged),
+        max_abs_err=max(r["max_abs_err"]
+                        for r in path + ragged + gqa_cases + prefix_cases),
         ms=k6_prefill_ms, plain_ms=per_prefill("plain_ms"),
         design="bf16 / fp16: flash_fwd_wgmma_kernel, 3 warpgroups (1 TMA "
                "producer thread, 2 consumers of 64 rows), 128 (query, head) "
@@ -2938,7 +2910,630 @@ def flash_phase(torch, np, dev, fa, flush, serve) -> dict:
         yardstick_max_abs_diff=y_diff,
         prefill_share=k6_prefill_ms / 1e3 / serve["prefill_s"],
         serving=serve, shapes=path, ragged=ragged,
-        row_rms_controls=controls)
+        row_rms_controls=controls, serve_shapes=gqa_cases,
+        prefix_shapes=prefix_cases)
+
+
+def lm_peak_reckoning(cfg, weight_bytes: int, b: int, positions: int,
+                      max_len: int) -> dict:
+    """A serving run's device peak, reckoned before it runs: the weights,
+    the fp32 copy of the embedding that the unembedding makes, the
+    prefill's fp32 logits (every position), the KV cache (int8 with bf16
+    scales, or the weights' type) and a layer's widest fp32 temporaries
+    (three (B, positions, ff) for the gated MLP, or three (E, B·C, ff) for
+    the experts)."""
+    vp, d = cfg.padded_vocab, cfg.d_model
+    kv = 2 * cfg.num_layers * b * max_len * cfg.kv_heads * cfg.head_dim
+    cache = kv + kv // cfg.head_dim * 2 if cfg.kv_cache_dtype == "int8" \
+        else kv * 2
+    if cfg.family == "moe":
+        cap = max(1, int(positions * cfg.top_k / cfg.num_experts
+                         * cfg.moe_capacity_factor))
+        act = 3 * 4 * max(cfg.num_experts * b * cap * cfg.d_ff,
+                          b * positions * cfg.dense_residual_ff)
+    else:
+        act = 3 * 4 * b * positions * cfg.d_ff
+    parts = dict(weights=weight_bytes, embed_fp32=vp * d * 4,
+                 logits_fp32=b * positions * vp * 4, kv_cache=cache,
+                 activations=act)
+    parts["total"] = sum(parts.values())
+    return parts
+
+
+def reckon_line(parts: dict) -> str:
+    return ", ".join(f"{k} {v / 2**30:.2f} GiB" for k, v in parts.items())
+
+
+def teacher_forced(torch, model, batch, toks, max_len: int, backend: str):
+    """Last-position logits of the prefill and of every decode step, fed
+    ``toks`` (the kernel path's greedy tokens), with ``backend`` for the
+    prefill's attention: (B, steps + 1, V)."""
+    model.attn_backend = backend
+    try:
+        logits, cache = model.prefill(batch, max_len)
+        rows = [logits[:, -1].clone()]
+        del logits
+        for i in range(toks.shape[1]):
+            lg, cache = model.decode_step(cache, toks[:, i:i + 1])
+            rows.append(lg[:, -1])
+    finally:
+        model.attn_backend = "kernel"
+    return torch.stack(rows, dim=1)
+
+
+def lm_serve_run(torch, model, cfg, batch, steps: int, max_len: int, fa,
+                 greedy_generate, held: int, reckoned: dict) -> dict:
+    """One model's main path: ``greedy_generate`` with K6's counter set to
+    0 just before it and read just after (one launch a layer), then
+    prefill seconds, decode ms per token and the whole generation (medians
+    of 3 after a warm-up), ``torch.profiler`` over one prefill and one
+    decode step, and the run's own peak against the reckoned one."""
+    b = batch["tokens"].shape[0]
+    positions = batch["tokens"].shape[1] + (
+        batch["patches"].shape[1] if "patches" in batch else 0)
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks = greedy_generate(model, cfg, batch, steps=steps, max_len=max_len)
+    toks_host = toks.cpu()
+    first_s = time.perf_counter() - t0
+    launches = fa.LAUNCHES["flash_attention"]
+    print(f"first greedy_generate {first_s:.3f} s; flash_attention launches "
+          f"{launches}; tokens (first sequence) {toks_host[0].tolist()}")
+    check(launches == cfg.num_layers,
+          f"{launches} flash_attention launches = one a layer of one prefill")
+    check(tuple(toks.shape) == (b, steps) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab, f"tokens {tuple(toks.shape)} in "
+                                           f"[0, vocab)")
+
+    def timed(fn, reps=3):
+        fn()  # warm-up
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return out
+
+    def prefill_only():
+        logits, _ = model.prefill(batch, max_len)
+        del logits
+
+    logits, cache = model.prefill(batch, max_len)
+    check(tuple(logits.shape) == (b, positions, cfg.padded_vocab)
+          and cache["pos"] == positions,
+          f"prefill logits {tuple(logits.shape)} over all {positions} "
+          f"positions, cache pos {cache['pos']}")
+    del logits
+    tok0 = toks[:, :1]
+
+    def decode_only():
+        cache["pos"] = positions
+        tok = tok0
+        for _ in range(steps):
+            lg, _ = model.decode_step(cache, tok)
+            tok = torch.argmax(lg[:, -1:], dim=-1)
+
+    def one_decode_step():
+        cache["pos"] = positions
+        model.decode_step(cache, tok0)
+
+    prefill_s = timed(prefill_only)
+    decode_s = timed(decode_only)
+    generate_s = timed(lambda: greedy_generate(model, cfg, batch, steps=steps,
+                                               max_len=max_len))
+    pre, dec, gen_s = (statistics.median(x) for x in
+                       (prefill_s, decode_s, generate_s))
+    ms_per_token = dec / steps * 1e3
+    print(f"prefill seconds {[round(x, 4) for x in prefill_s]} (median "
+          f"{pre:.4f}; {b * positions / pre:.0f} prefill positions/s)")
+    print(f"decode ms per token {[round(x / steps * 1e3, 3) for x in decode_s]}"
+          f" (median {ms_per_token:.3f}; {b / (dec / steps):.1f} generated "
+          f"tokens/s over the batch while decoding)")
+    print(f"greedy_generate seconds {[round(x, 4) for x in generate_s]} "
+          f"(median {gen_s:.4f}; {b * steps / gen_s:.2f} generated tokens/s "
+          f"end to end, prefill included)")
+    prof = {"prefill": device_profile(torch, prefill_only),
+            "decode step": device_profile(torch, one_decode_step)}
+    for what, rec in prof.items():
+        if rec["kernels"] == 0:
+            print(f"profile of one {what}: the profiler recorded no device "
+                  f"time (idle share not measured)")
+            continue
+        top = sorted(rec["by_name"].items(), key=lambda kv: -kv[1])[:6]
+        print(f"profile of one {what} (torch.profiler): wall "
+              f"{rec['wall_s'] * 1e3:.3f} ms, device busy "
+              f"{rec['busy_s'] * 1e3:.3f} ms over {rec['kernels']} kernels and "
+              f"copies, idle share {rec['idle_share']:.3f}; top: "
+              + "; ".join(f"{n[:60]} {t * 1e3:.3f} ms" for n, t in top))
+    del cache
+    peak = torch.cuda.max_memory_allocated() - held
+    print(f"own peak {peak / 2**30:.2f} GiB against the reckoned "
+          f"{reckoned['total'] / 2**30:.2f} GiB; {peak_memory(torch, held)}")
+    check(peak < DEVICE_PEAK_LIMIT,
+          f"own peak {peak / 2**30:.2f} GiB < {DEVICE_PEAK_LIMIT / 2**30:.0f} GiB")
+    k6 = sum(t for n, t in prof["prefill"]["by_name"].items()
+             if "flash_fwd" in n)
+    return dict(launches=launches, toks=toks, prefill_s=pre,
+                decode_ms_per_token=ms_per_token, generate_s=gen_s,
+                own_peak_gib=peak / 2**30,
+                reckoned_peak_gib=reckoned["total"] / 2**30,
+                prefill_device_busy_s=prof["prefill"]["busy_s"],
+                prefill_k6_device_s=k6,
+                prefill_idle_share=prof["prefill"]["idle_share"],
+                decode_step_device_busy_s=prof["decode step"]["busy_s"],
+                decode_step_device_ops=prof["decode step"]["kernels"],
+                decode_step_idle_share=prof["decode step"]["idle_share"],
+                prefill_top=sorted(prof["prefill"]["by_name"].items(),
+                                   key=lambda kv: -kv[1])[:6])
+
+
+def contract_held_calls(torch, fa, kernel_call, calls: list):
+    """``kernel_call`` (the model's K6 entry) with each call's output held
+    to K6's contract against the plain version on the call's own inputs:
+    ``flash_within_tolerance`` and, for 16-bit inputs, ``flash_row_rms``
+    within ``ROW_RMS_BOUND``; appends (within, max |Δ|, max row RMS, its
+    bound) to ``calls``."""
+    def held(q, k, v, **kw):
+        out = kernel_call(q, k, v, **kw)
+        kw.pop("backend", None)
+        ok, err = fa.flash_within_tolerance(
+            out, fa.flash_attention_ref(q, k, v, **kw), q, k, v, **kw)
+        rms, bound = 0.0, 0.0
+        if q.dtype != torch.float32:
+            rms = float(fa.flash_row_rms(out, q, k, v, **kw).max())
+            bound = fa.ROW_RMS_BOUND[q.dtype]
+        calls.append((ok and rms <= bound, err, rms, bound))
+        return out
+    return held
+
+
+def p_rounded_attention(torch, q, k, v, *, window, cap, prefix_len=0,
+                        backend="chunked"):
+    """The model's prefill attention as the plain arithmetic with K6's one
+    extra rounding, the softmax weights rounded to bf16's 8 significant
+    bits before ·v (``rounded_weight_attention``); causal, no prefix."""
+    from repro_torch.models.layers import NO_WINDOW
+
+    if prefix_len:
+        raise ValueError("the rounded-weight attention takes no prefix")
+    return rounded_weight_attention(
+        torch, q, k, v, None if window >= NO_WINDOW else window, cap, 8)
+
+
+def forced_against_plain(torch, model, batch, toks, max_len: int, fa,
+                         tol, label: str, floor_chunk: int = 128,
+                         floor_factor=None) -> dict:
+    """The kernel path teacher-forced on its greedy tokens against the
+    chunked plain attention (last-position logits of the prefill and of
+    every decode step): every K6 call of the kernel run within K6's
+    contract on its own inputs (``contract_held_calls``); max |Δ| within
+    ``tol``; and the greedy tokens equal wherever the plain path's top-2
+    margin exceeds ``MARGIN_FACTOR`` × that |Δ|. Beside it the plain path
+    against itself with ``floor_chunk``-key chunks in place of 1024 (the
+    bf16 model's rounding floor). With ``floor_factor``, the limit is that
+    factor times the larger of this floor and a second one: the plain path
+    with K6's rounding of the softmax weights against the plain path."""
+    from repro_torch.models import layers as L
+
+    steps = toks.shape[1]
+    fa.reset_launch_counts()
+    kernel_call, calls = L.flash_attention, []
+    L.flash_attention = contract_held_calls(torch, fa, kernel_call, calls)
+    try:
+        k_rows = teacher_forced(torch, model, batch, toks, max_len, "kernel")
+    finally:
+        L.flash_attention = kernel_call
+    check(fa.LAUNCHES["flash_attention"] == model.cfg.num_layers,
+          f"{label}: teacher-forced kernel run, one launch a layer")
+    print(f"{label}, each K6 call of the teacher-forced prefill against the "
+          f"plain version on its own inputs: max |Δ| "
+          f"{max(c[1] for c in calls):.6f}, row RMS max "
+          f"{max(c[2] for c in calls):.4e} (bound {calls[0][3]:.4e})")
+    check(len(calls) == model.cfg.num_layers and all(c[0] for c in calls),
+          f"{label}: all {len(calls)} K6 calls of the prefill within "
+          f"flash_within_tolerance and flash_row_rms on the model's inputs")
+    check(torch.equal(torch.argmax(k_rows[:, :steps], dim=-1), toks),
+          f"{label}: the kernel path's teacher-forced argmaxes are its greedy "
+          f"tokens")
+    fa.reset_launch_counts()
+    p_rows = teacher_forced(torch, model, batch, toks, max_len, "chunked")
+    check(fa.LAUNCHES["flash_attention"] == 0,
+          f"{label}: the plain run launches no flash_attention")
+    chunk_1024 = L.attention
+    L.attention = functools.partial(chunk_1024, chunk=floor_chunk)
+    try:
+        floor = float((teacher_forced(torch, model, batch, toks, max_len,
+                                      "chunked") - p_rows).abs().max())
+    finally:
+        L.attention = chunk_1024
+    check(bool(torch.isfinite(k_rows).all() and torch.isfinite(p_rows).all()),
+          f"{label}: logits finite on both paths")
+    round_floor = None
+    if floor_factor is not None:
+        L.attention = functools.partial(p_rounded_attention, torch)
+        try:
+            round_floor = float((teacher_forced(
+                torch, model, batch, toks, max_len, "chunked")
+                - p_rows).abs().max())
+        finally:
+            L.attention = chunk_1024
+        print(f"{label}: the plain path with the softmax weights rounded to "
+              f"bf16 before ·v (K6's one extra rounding) against the plain "
+              f"path: {round_floor:.6f}")
+        tol = floor_factor * max(floor, round_floor)
+    diff = (k_rows - p_rows).abs()
+    max_diff = float(diff.max())
+    top2 = torch.topk(p_rows[:, :steps], 2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    covered = margin > MARGIN_FACTOR * max_diff
+    agree = torch.argmax(p_rows[:, :steps], dim=-1) == toks
+    print(f"{label}, kernel vs plain attention, last-position logits over "
+          f"{steps + 1} positions x {toks.shape[0]}: max |Δ| {max_diff:.6f} "
+          f"(per position {[round(float(x), 5) for x in diff.amax(dim=(0, 2))]});"
+          f" the plain path against itself with {floor_chunk}-key chunks "
+          f"{floor:.6f}; "
+          f"logit range [{float(p_rows.min()):.3f}, {float(p_rows.max()):.3f}]")
+    print(f"{label}, top-2 margins of the plain path: min "
+          f"{float(margin.min()):.5f}, median {float(margin.median()):.5f}; "
+          f"{int(covered.sum())} of {covered.numel()} positions covered; "
+          f"tokens equal at {int(agree.sum())} of {agree.numel()}")
+    check(max_diff <= tol, f"{label}: kernel and plain logits within {tol} "
+                           f"(max |Δ| {max_diff:.6f})")
+    check(bool(agree[covered].all()),
+          f"{label}: greedy tokens equal at all {int(covered.sum())} covered "
+          f"positions")
+    return dict(logits_max_abs_diff=max_diff, bf16_floor_max_abs_diff=floor,
+                p_rounding_floor_max_abs_diff=round_floor,
+                k6_calls_max_abs_err=max(c[1] for c in calls),
+                k6_calls_row_rms_max=max(c[2] for c in calls),
+                covered=int(covered.sum()), positions=covered.numel(),
+                tolerance=tol)
+
+
+def fp32_against_plain(torch, dev, get_model, cfg, batch, max_len: int, fa,
+                       positions) -> float:
+    """The prefill again with fp32 weights (from seed 0): kernel and plain
+    attention compute the same function, so only the order of fp32 sums
+    separates them. Returns the max |Δ| over the logits at ``positions``
+    and the k and v caches, checked against ``SERVE_FP32_TOL``, with one
+    launch a layer."""
+    model = get_model(cfg, device=dev, dtype=torch.float32)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    batch = {k: x.float() if x.is_floating_point() else x
+             for k, x in batch.items()}
+    fa.reset_launch_counts()
+    runs = []
+    for backend in ("kernel", "chunked"):
+        model.attn_backend = backend
+        logits, cache = model.prefill(batch, max_len)
+        runs.append([logits[:, p].clone() for p in positions]
+                    + [cache["k"], cache["v"]])
+        del logits, cache
+    diff = max(float((a - b).abs().max()) for a, b in zip(*runs))
+    print(f"fp32 weights, kernel vs plain attention: max |Δ| {diff:.3e} over "
+          f"the logits at positions {positions} and the "
+          f"{tuple(runs[0][-1].shape)} k and v caches")
+    check(fa.LAUNCHES["flash_attention"] == cfg.num_layers,
+          "fp32 prefill: one flash_attention launch a layer")
+    check(diff <= SERVE_FP32_TOL,
+          f"fp32 kernel and plain prefill within {SERVE_FP32_TOL}")
+    del model, runs
+    drop_model(torch)
+    return diff
+
+
+def new_lm_model(torch, dev, get_model, cfg, dtype):
+    """Allocate ``cfg``'s model on the card, uninitialised, after a reset of
+    the peak: returns (model, the bytes earlier phases hold, the weights'
+    bytes), so the run's peak can be reckoned before the weights are
+    drawn."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = get_model(cfg, device=dev, dtype=dtype)
+    return model, held, torch.cuda.memory_allocated() - held
+
+
+def drop_model(torch) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def int8_phase(torch, np, dev, get_config, get_model, greedy_generate,
+               fa) -> dict:
+    """Phase 3p: qwen1.5-32b with its int8 KV cache, at its published width
+    and depth, through K6."""
+    from repro_torch.models import layers as L
+
+    cfg = get_config(INT8_ARCH)
+    b, s, steps = INT8_BATCH, INT8_PROMPT, INT8_STEPS
+    max_len = s + steps + 1
+    phase(f"phase 3p: int8 KV cache, serving {INT8_ARCH} ({cfg.num_layers} "
+          f"layers, heads {cfg.num_heads}/{cfg.kv_heads}), batch {b}, prompt "
+          f"{s}, {steps} greedy tokens")
+    check(cfg.kv_cache_dtype == "int8", f"{cfg.name} asks for the int8 cache")
+    model, held, weights = new_lm_model(torch, dev, get_model, cfg,
+                                        torch.bfloat16)
+    reckoned = lm_peak_reckoning(cfg, weights, b, s, max_len)
+    print(f"reckoned peak before the run: {reckon_line(reckoned)}")
+    check(reckoned["total"] < DEVICE_PEAK_LIMIT,
+          f"reckoned peak {reckoned['total'] / 2**30:.2f} GiB < "
+          f"{DEVICE_PEAK_LIMIT / 2**30:.0f} GiB")
+    t0 = time.perf_counter()
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{cfg.name}: {n_params:,} parameters ({weights / 2**30:.2f} GiB "
+          f"bf16), drawn in {time.perf_counter() - t0:.2f} s")
+    check(n_params == cfg.param_count() + 2 * cfg.kv_heads * cfg.head_dim
+          * cfg.num_layers + cfg.num_heads * cfg.head_dim * cfg.num_layers
+          + (cfg.padded_vocab - cfg.vocab) * cfg.d_model,
+          "parameter count = param_count() + the QKV biases and padded vocab")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                     device=dev)}
+    run = lm_serve_run(torch, model, cfg, batch, steps, max_len, fa,
+                       greedy_generate, held, reckoned)
+
+    # the quantizer on the card equals the CPU's, bit for bit, on layer 0's
+    # k and v, and the prefill caches exactly those
+    _, cache = model.prefill(batch, max_len)
+    x = model._embed_tokens(batch["tokens"])
+    p0 = model.blocks[0]
+    h = L.rmsnorm(p0["ln1"], x, cfg.norm_eps)
+    pos = torch.arange(s, device=dev)[None, :]
+    k = L.rope(L.dense(p0["attn"]["wk"], h).reshape(
+        b, s, cfg.kv_heads, cfg.head_dim), pos, cfg.rope_theta)
+    v = L.dense(p0["attn"]["wv"], h).reshape(b, s, cfg.kv_heads, cfg.head_dim)
+    for name, t in (("k", k), ("v", v)):
+        qc, sc = L.quantize_kv(t)
+        qh, sh = L.quantize_kv(t.cpu())
+        check(torch.equal(qc.cpu(), qh) and torch.equal(sc.cpu(), sh),
+              f"quantize_kv of layer 0's {name} {tuple(t.shape)} on the card = "
+              f"on the CPU, int8 values and bf16 scales bit for bit")
+        check(torch.equal(cache[name][0, :, :s], qc)
+              and torch.equal(cache[name + "_scale"][0, :, :s], sc),
+              f"the prefill's layer-0 {name} cache holds exactly those")
+    del cache, x, h, k, v
+
+    # every cached element within one quantisation step of the bf16 value
+    # it stores: each quantize_kv call of a teacher-forced kernel run (every
+    # layer of the prefill and of each decode step) is checked as it runs
+    quantize = L.quantize_kv
+    worst = []
+
+    def checked(t):
+        q, scale = quantize(t)
+        back = L.dequantize_kv(q, scale, torch.float32)
+        worst.append((back - t.float()).abs().div(
+            scale.float()[..., None]).amax())
+        return q, scale
+
+    L.quantize_kv = checked
+    try:
+        forced = forced_against_plain(torch, model, batch, run["toks"],
+                                      max_len, fa, INT8_LOGIT_TOL, cfg.name)
+    finally:
+        L.quantize_kv = quantize
+    steps_off = float(torch.stack(worst).max())
+    want_calls = 3 * 2 * cfg.num_layers * (1 + steps)
+    print(f"quantize_kv calls in the three teacher-forced runs {len(worst)} "
+          f"(2 a layer of the prefill and of each decode step); the largest "
+          f"|q·scale − x| over all of them {steps_off:.4f} quantisation steps")
+    check(len(worst) == want_calls and steps_off <= 1.0,
+          f"every cached element of all {want_calls} quantisations within "
+          f"one step of its bf16 value")
+    del model, batch, worst
+    drop_model(torch)
+    run.pop("toks")
+    return dict(run, **forced, arch=cfg.name, quant_steps_off=steps_off,
+                path=f"{cfg.name} greedy_generate, int8 KV cache: batch {b}, "
+                     f"prompt {s}, {steps} tokens (one prefill)")
+
+
+def moe_plain(torch, p, x, cfg, expert_chunk: int):
+    """The reference's MoE formula (``repro.models.layers.moe``) written out
+    with ``torch.einsum`` in fp32 on the same (bf16) weights and input,
+    independent of the port's ``moe``: routing, the one-hot dispatch and
+    combine, the expert products ``expert_chunk`` experts at a time (fp32
+    copies of that many only), arctic's dense residual. Returns (out fp32,
+    aux, idx, keep)."""
+    F = torch.nn.functional
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.top_k
+    cap = max(1, int(s * k / e * cfg.moe_capacity_factor))
+    probs = torch.softmax(x.float() @ p["router"], dim=-1)
+    gate_vals, idx = torch.topk(probs, k, dim=-1)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    onehot = F.one_hot(idx, e)
+    flat = onehot.reshape(b, s * k, e)
+    pos = torch.cumsum(flat, dim=1) - flat
+    pos = (pos * flat).sum(-1).reshape(b, s, k)
+    keep = pos < cap
+    oh_e = onehot.float()
+    oh_c = F.one_hot(torch.where(keep, pos, cap), cap + 1).float()[..., :cap]
+    disp = torch.einsum("bske,bskc->bsec", oh_e, oh_c)
+    comb = torch.einsum("bske,bskc,bsk->bsec", oh_e, oh_c, gate_vals)
+    ex_in = torch.einsum("bsec,bsd->becd", disp, x.float())
+    out = torch.zeros(b, s, d, dtype=torch.float32, device=x.device)
+    for e0 in range(0, e, expert_chunk):
+        sl = slice(e0, e0 + expert_chunk)
+        wi, wg, wo = (p[n][sl].float() for n in ("wi", "wg", "wo"))
+        h = torch.einsum("becd,edf->becf", ex_in[:, sl], wi)
+        g = torch.einsum("becd,edf->becf", ex_in[:, sl], wg)
+        ex_out = torch.einsum("becf,efd->becd", F.silu(g) * h, wo)
+        out += torch.einsum("bsec,becd->bsd", comb[:, :, sl], ex_out)
+        del wi, wg, wo, h, g, ex_out
+    if "dense" in p:
+        dm = p["dense"]
+        hd = x.float() @ dm["wi"]["w"].float()
+        gd = x.float() @ dm["wg"]["w"].float()
+        out += (F.silu(gd) * hd) @ dm["wo"]["w"].float()
+    density = flat.float().mean(dim=(0, 1))
+    aux = e * torch.sum(density * probs.mean(dim=(0, 1)))
+    return out, aux, idx, keep
+
+
+def moe_phase(torch, np, dev, get_config, get_model, greedy_generate, fa,
+              flush) -> list:
+    """Phase 3q: arctic-480b and dbrx-132b at their published widths, cut in
+    depth to fit one card, through K6; one full-width ``moe`` layer held
+    against the plain one-hot formula."""
+    from repro_torch.models import layers as L
+
+    out = []
+    for arch, layers in MOE_RUNS:
+        full = get_config(arch)
+        cfg = full.replace(num_layers=layers)
+        b, s, steps = MOE_BATCH, MOE_PROMPT, MOE_STEPS
+        max_len = s + steps + 1
+        cap = max(1, int(s * cfg.top_k / cfg.num_experts
+                         * cfg.moe_capacity_factor))
+        phase(f"phase 3q: MoE, serving {arch} at its published widths with "
+              f"{layers} of {full.num_layers} layers ({cfg.num_experts} "
+              f"experts, top-{cfg.top_k}, dense residual "
+              f"{cfg.dense_residual}), batch {b}, prompt {s} (capacity {cap}), "
+              f"{steps} greedy tokens")
+        model, held, weights = new_lm_model(torch, dev, get_model, cfg,
+                                            torch.bfloat16)
+        reckoned = lm_peak_reckoning(cfg, weights, b, s, max_len)
+        print(f"reckoned peak before the run: {reckon_line(reckoned)}")
+        check(reckoned["total"] < DEVICE_PEAK_LIMIT,
+              f"reckoned peak {reckoned['total'] / 2**30:.2f} GiB < "
+              f"{DEVICE_PEAK_LIMIT / 2**30:.0f} GiB")
+        t0 = time.perf_counter()
+        model.init(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"{cfg.name}: {n_params:,} parameters ({weights / 2**30:.2f} GiB "
+              f"bf16, the router fp32), drawn in "
+              f"{time.perf_counter() - t0:.2f} s (expert stacks "
+              f"{L.DRAW_ELEMS // (cfg.d_model * cfg.d_ff)} experts a draw)")
+        check(n_params == cfg.param_count()
+              + (cfg.padded_vocab - cfg.vocab) * cfg.d_model,
+              "parameter count = param_count() + the padded vocab")
+        gen = torch.Generator(device=dev).manual_seed(1)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                         device=dev)}
+        run = lm_serve_run(torch, model, cfg, batch, steps, max_len, fa,
+                           greedy_generate, held, reckoned)
+        forced = forced_against_plain(torch, model, batch, run.pop("toks"),
+                                      max_len, fa, None, cfg.name,
+                                      floor_factor=MOE_FLOOR_FACTOR)
+        del batch
+
+        # one full-width layer against the plain one-hot formula
+        p = model.blocks[0]["moe"]
+        x = torch.randn(b, s, cfg.d_model, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(3)
+                        ).bfloat16()
+        r = L.moe_route(p, x, cfg)
+        got, aux = L.moe(p, x, cfg)
+        want, want_aux, idx, keep = moe_plain(torch, p, x, cfg, 8)
+        torch.cuda.synchronize()
+        check(r["cap"] == cap and torch.equal(r["idx"], idx)
+              and torch.equal(r["keep"], keep),
+              f"{arch} moe: the same experts and kept slots as the plain "
+              f"formula (capacity {cap}, {int((~keep).sum())} of "
+              f"{keep.numel()} slots dropped)")
+        err = (got.float() - want)
+        rows = err.pow(2).mean(-1).sqrt() / want.pow(2).mean(-1).sqrt()
+        print(f"{arch} moe layer ({b}, {s}, {cfg.d_model}) bf16 against the "
+              f"plain fp32 formula: row relative RMS error median "
+              f"{float(rows.median()):.4e}, max {float(rows.max()):.4e} "
+              f"(bound {MOE_ROW_RMS_TOL:.4e}); max |Δ| "
+              f"{float(err.abs().max()):.4e} of values up to "
+              f"{float(want.abs().max()):.4e}; aux {float(aux):.6f} against "
+              f"{float(want_aux):.6f}")
+        check(float(rows.max()) <= MOE_ROW_RMS_TOL,
+              f"{arch} moe rows within {MOE_ROW_RMS_TOL} relative RMS of the "
+              f"plain formula")
+        check(abs(float(aux) - float(want_aux)) <= 1e-6 * max(
+            1.0, abs(float(want_aux))), f"{arch} moe aux = the plain formula's")
+        moe_ms = time_ms(torch, lambda: L.moe(p, x, cfg), 5, flush)
+        plain_ms = time_ms(torch, lambda: moe_plain(torch, p, x, cfg, 8), 2,
+                           flush)
+        bytes_ = 3 * cfg.num_experts * cfg.d_model * cfg.d_ff * 2
+        print(f"{arch} moe layer: {moe_ms:.4f} ms (reads {bytes_ / 1e9:.2f} GB "
+              f"of expert weights: {bytes_ / HBM_BYTES_PER_S * 1e3:.4f} ms at "
+              f"the HBM rate); plain fp32 formula {plain_ms:.4f} ms")
+        del model, p, x, got, want, r, err, rows
+        drop_model(torch)
+        out.append(dict(run, **forced, arch=arch, layers=layers,
+                        full_layers=full.num_layers, capacity=cap,
+                        moe_layer_ms=moe_ms, moe_plain_ms=plain_ms,
+                        moe_weight_read_ms=bytes_ / HBM_BYTES_PER_S * 1e3,
+                        path=f"{arch} ({layers} of {full.num_layers} layers) "
+                             f"greedy_generate: batch {b}, prompt {s}, "
+                             f"{steps} tokens (one prefill)"))
+    return out
+
+
+def vlm_phase(torch, np, dev, get_config, get_model, greedy_generate,
+              fa) -> dict:
+    """Phase 3r: paligemma-3b at its published width and depth, its image
+    prefix attended bidirectionally through K6."""
+    from repro_torch.models import layers as L
+
+    cfg = get_config(VLM_ARCH)
+    b, s, steps, pl = VLM_BATCH, VLM_PROMPT, VLM_STEPS, VLM_PATCHES
+    max_len = pl + s + steps + 1
+    phase(f"phase 3r: VLM, serving {VLM_ARCH} ({cfg.num_layers} layers, heads "
+          f"{cfg.num_heads}/{cfg.kv_heads} x {cfg.head_dim}), batch {b}, "
+          f"{pl} patch tokens of width {cfg.vision_dim}, prompt {s}, {steps} "
+          f"greedy tokens")
+    check(cfg.vision_tokens == pl, f"{pl} patch tokens, as the config's")
+    model, held, weights = new_lm_model(torch, dev, get_model, cfg,
+                                        torch.bfloat16)
+    reckoned = lm_peak_reckoning(cfg, weights, b, pl + s, max_len)
+    print(f"reckoned peak before the run: {reckon_line(reckoned)}")
+    check(reckoned["total"] < DEVICE_PEAK_LIMIT,
+          f"reckoned peak {reckoned['total'] / 2**30:.2f} GiB < "
+          f"{DEVICE_PEAK_LIMIT / 2**30:.0f} GiB")
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{cfg.name}: {n_params:,} parameters ({weights / 2**30:.2f} GiB)")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                     device=dev),
+             "patches": torch.randn(
+                 b, pl, cfg.vision_dim, device=dev,
+                 generator=torch.Generator(device=dev).manual_seed(2)
+             ).bfloat16()}
+    kernel_call = L.flash_attention
+    prefixes = []
+
+    def spy(*args, **kw):  # what prefix each K6 call of the prefill gets
+        prefixes.append(kw.get("prefix_len", 0))
+        return kernel_call(*args, **kw)
+
+    L.flash_attention = spy
+    try:
+        fa.reset_launch_counts()
+        model.prefill(batch, max_len)
+        torch.cuda.synchronize()
+        spied = fa.LAUNCHES["flash_attention"]
+    finally:
+        L.flash_attention = kernel_call
+    check(spied == cfg.num_layers and prefixes == [pl] * cfg.num_layers,
+          f"one prefill: {spied} flash_attention launches, each with "
+          f"prefix_len {sorted(set(prefixes))}")
+    run = lm_serve_run(torch, model, cfg, batch, steps, max_len, fa,
+                       greedy_generate, held, reckoned)
+    forced = forced_against_plain(torch, model, batch, run.pop("toks"),
+                                  max_len, fa, VLM_LOGIT_TOL, cfg.name)
+    del model
+    drop_model(torch)
+    fp32_diff = fp32_against_plain(torch, dev, get_model, cfg, batch, max_len,
+                                   fa, [pl - 1, -1])
+    return dict(run, **forced, arch=cfg.name, fp32_max_abs_diff=fp32_diff,
+                prefix_len=pl,
+                path=f"{cfg.name} greedy_generate: batch {b}, {pl} patch "
+                     f"tokens (prefix_len {pl}), prompt {s}, {steps} tokens "
+                     f"(one prefill)")
 
 
 def main() -> int:
@@ -3805,7 +4400,26 @@ def main() -> int:
                 launches=sum(chooser["launches"][k] for k in keys))
     serve = serve_phase(torch, np, dev, get_config, get_model, greedy_generate,
                         fa)
-    report.append(flash_phase(torch, np, dev, fa, flush, serve))
+    lm_layers = {arch: get_config(arch).num_layers
+                 for arch in (INT8_ARCH, VLM_ARCH)}
+    lm_layers.update(MOE_RUNS)
+    k6 = flash_phase(torch, np, dev, fa, flush, serve, lm_layers)
+    report.append(k6)
+    lm_args = (torch, np, dev, get_config, get_model, greedy_generate, fa)
+    int8 = int8_phase(*lm_args)
+    moe = moe_phase(*lm_args, flush)
+    vlm = vlm_phase(*lm_args)
+    # K6's launches on each serving path of this slice, each read around
+    # its own greedy_generate
+    k6["serve_paths"] = [
+        dict(path=r["path"], launches=r["launches"], prefill_s=r["prefill_s"],
+             decode_ms_per_token=r["decode_ms_per_token"],
+             own_peak_gib=r["own_peak_gib"]) for r in [int8, *moe, vlm]]
+    k6["lm_serving"] = dict(int8=int8, moe=moe, vlm=vlm)
+    check([r["launches"] for r in [int8, *moe, vlm]]
+          == [r["launches_per_prefill"] for r in
+              k6["serve_shapes"] + k6["prefix_shapes"][:1]],
+          "phase 4c's layer shapes cover every launch of the 3p–3r prefills")
     for entry in report:
         entry.update(max_abs_diff=entry["max_abs_err"], kernel_ms=entry["ms"])
 

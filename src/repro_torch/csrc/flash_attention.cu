@@ -9,12 +9,14 @@
 // for q (B, S, Hq, hd) against k, v (B, T, Hkv, hd), G = Hq / Hkv (q head h
 // reads kv head h / G: contiguous groups); the output is in q's type.
 // softcap(x) = tanh(x / cap) * cap when cap is given. The mask is the TPU
-// kernel's: key t is valid for query s when (!causal || s - t >= 0) &&
-// s - t < window; masked logits are the finite -1e30 and the running max
-// starts at -1e30, as in the TPU kernel, so a tile whose keys are all masked
-// for a row adds p = 1 entries that the first valid key's alpha =
-// exp(-1e30 - m) = 0 wipes exactly, and a row with no valid key at all
-// averages v over all T keys, as the materialised softmax does. Keys past T
+// kernel's, widened by a bidirectional prefix: key t is valid for query s
+// when ((!causal || s - t >= 0) && s - t < window) || t < prefix (the VLM's
+// image tokens, which every query sees; prefix = 0 is the TPU kernel's
+// mask exactly, and prefix <= T); masked logits are the finite -1e30 and
+// the running max starts at -1e30, as in the TPU kernel, so a tile whose
+// keys are all masked for a row adds p = 1 entries that the first valid
+// key's alpha = exp(-1e30 - m) = 0 wipes exactly, and a row with no valid
+// key at all averages v over all T keys, as the materialised softmax does. Keys past T
 // (the ragged tail of the last tile) take -INFINITY: they never count. The
 // output is acc / max(l, 1e-30).
 //
@@ -60,7 +62,11 @@
 // Both visit only the tiles that hold a valid key for some row of the block:
 // tiles wholly past the causal diagonal or wholly before the window are
 // skipped, which is exact (see above). A block that holds a row with no
-// valid key visits every tile, so such rows average all T keys. Blocks run
+// valid key visits every tile, so such rows average all T keys. With a
+// prefix every block starts at key 0 and reads at least the prefix's
+// tiles; with a window too, the valid keys [0, prefix) and [s - window + 1,
+// s] are two intervals, and the tiles between them, wholly masked for a
+// row, add exactly 0 once key 0 has set its running max. Blocks run
 // heaviest-first (the causal diagonal's last rows first). Any S and T are
 // taken; tail rows and keys are masked. hd is a compile-time 64, 128 or 256.
 //
@@ -89,10 +95,12 @@ __device__ __forceinline__ int64_t max64(int64_t a, int64_t b) {
 }
 
 // The keys [begin, end) that a block of `rows` rows from r0 must visit;
-// begin is a multiple of `keys` (the tile).
+// begin is a multiple of `keys` (the tile). The instance without the prefix
+// mask is the code that ran before the prefix existed.
+template <bool kPrefix>
 __device__ __forceinline__ void key_range(int64_t r0, int rows, int64_t n_rows,
                                           int G, int T, int causal, int window,
-                                          int keys, int64_t* begin,
+                                          int prefix, int keys, int64_t* begin,
                                           int64_t* end) {
   const int64_t s_lo = r0 / G;
   const int64_t s_hi = min64(n_rows - 1, r0 + rows - 1) / G;
@@ -101,6 +109,10 @@ __device__ __forceinline__ void key_range(int64_t r0, int rows, int64_t n_rows,
   if (s_hi - window + 1 > (int64_t)T - 1) {  // a row with no valid key
     k_begin = 0;
     k_end = T;
+  }
+  if constexpr (kPrefix) {  // every row sees [0, prefix)
+    k_begin = 0;
+    k_end = max64(k_end, prefix);
   }
   *begin = (k_begin / keys) * keys;
   *end = k_end;
@@ -143,12 +155,12 @@ struct Smem {
   static constexpr size_t kBytes = sizeof(float) * kFloats;
 };
 
-template <int HD>
+template <int HD, bool kPrefix>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out, int S,
-                 int T_, int Hq, int Hkv, int causal, int window, float scale,
-                 int has_cap, float cap) {
+                 int T_, int Hq, int Hkv, int causal, int window, int prefix,
+                 float scale, int has_cap, float cap) {
   using L = Smem<HD>;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;             // [kRows][kLdQK]
@@ -176,7 +188,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   };
 
   int64_t k_begin, k_end;  // keys this block must visit
-  key_range(r0, kRows, n_rows, G, T_, causal, window, kKeys, &k_begin, &k_end);
+  key_range<kPrefix>(r0, kRows, n_rows, G, T_, causal, window, prefix, kKeys,
+                     &k_begin, &k_end);
 
   stage_rows<HD>(Qs, L::kLdQK, kRows, [&](int r) -> const float* {
     return r0 + r < n_rows ? q + row_off(r) : nullptr;
@@ -244,7 +257,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
           float x = s_acc[i][j] * scale;
           if (has_cap) x = tanhf(x / cap) * cap;
           const int64_t qk = qpos1[i] - key;
-          const bool ok = (!causal || qk >= 0) && qk < window;
+          bool ok = (!causal || qk >= 0) && qk < window;
+          if constexpr (kPrefix) ok = ok || key < prefix;
           Pt[c * L::kLdP + ty + 8 * i] = key >= T_ ? -INFINITY : (ok ? x : kMasked);
         }
       }
@@ -319,25 +333,25 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int HD>
+template <int HD, bool kPrefix>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int T_, int Hq, int Hkv, int causal, int window, float scale,
-           int has_cap, float cap, cudaStream_t stream) {
+           int S, int T_, int Hq, int Hkv, int causal, int window, int prefix,
+           float scale, int has_cap, float cap, cudaStream_t stream) {
   constexpr size_t bytes = Smem<HD>::kBytes;
   static bool configured = false;  // once per instance
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
+        flash_fwd_kernel<HD, kPrefix>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   const int64_t n_rows = (int64_t)S * (Hq / Hkv);
   const dim3 grid((unsigned)((n_rows + kRows - 1) / kRows), (unsigned)(B * Hkv));
-  flash_fwd_kernel<HD><<<grid, kThreads, bytes, stream>>>(
+  flash_fwd_kernel<HD, kPrefix><<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), S, T_, Hq, Hkv,
-      causal, window, scale, has_cap, cap);
+      causal, window, prefix, scale, has_cap, cap);
   return (int)cudaGetLastError();
 }
 
@@ -583,13 +597,13 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kPrefix>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
                        const T* __restrict__ q, T* __restrict__ out, int S,
                        int T_, int Hq, int Hkv, int causal, int window,
-                       float scale, int has_cap, float cap) {
+                       int prefix, float scale, int has_cap, float cap) {
   using L = Smem<HD>;
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the slabs to it
@@ -607,7 +621,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
   const int64_t n_rows = (int64_t)S * G;
   const int64_t r0 = (int64_t)(gridDim.x - 1 - blockIdx.x) * kRows;  // heavy first
   int64_t k_begin, k_end;
-  key_range(r0, kRows, n_rows, G, T_, causal, window, kKeys, &k_begin, &k_end);
+  key_range<kPrefix>(r0, kRows, n_rows, G, T_, causal, window, prefix, kKeys,
+                     &k_begin, &k_end);
   const int n_tiles = (int)((k_end - k_begin + kKeys - 1) / kKeys);
 
   if (threadIdx.x == 0) {
@@ -677,7 +692,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
   }
 
   // a thread's two rows: 16 * warp + lane / 4 and 8 more; their valid keys
-  // [lo, hi] (the mask), their out offsets
+  // [lo, hi] (the mask, with [0, prefix) besides), their out offsets
   int lo[2], hi[2];
   int64_t off[2];
   bool real[2];
@@ -730,8 +745,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
       const int key = kt + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
       float x = s_acc[j] * scale;
       if (has_cap) x = tanhf(x * inv_cap) * cap;
-      x = (key >= lo[h] && key <= hi[h]) ? x
-          : (key >= T_ ? -INFINITY : kMasked);
+      if constexpr (kPrefix)
+        x = ((key >= lo[h] && key <= hi[h]) || key < prefix)
+                ? x : (key >= T_ ? -INFINITY : kMasked);
+      else
+        x = (key >= lo[h] && key <= hi[h]) ? x
+            : (key >= T_ ? -INFINITY : kMasked);
       s_acc[j] = x;
       m_tile[h] = fmaxf(m_tile[h], x);
     }
@@ -852,15 +871,16 @@ int kv_tensor_map(CUtensorMap* map, const void* ptr, int B, int T_, int Hkv) {
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kPrefix>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B,
                  int S, int T_, int Hq, int Hkv, int causal, int window,
-                 float scale, int has_cap, float cap, cudaStream_t stream) {
+                 int prefix, float scale, int has_cap, float cap,
+                 cudaStream_t stream) {
   constexpr size_t bytes = hopper::Smem<HD>::kBytes;
   static bool configured = false;  // once per instance
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        hopper::flash_fwd_wgmma_kernel<T, HD>,
+        hopper::flash_fwd_wgmma_kernel<T, HD, kPrefix>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
     configured = true;
@@ -872,53 +892,73 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B,
   const int64_t n_rows = (int64_t)S * (Hq / Hkv);
   const dim3 grid((unsigned)((n_rows + hopper::kRows - 1) / hopper::kRows),
                   (unsigned)(B * Hkv));
-  hopper::flash_fwd_wgmma_kernel<T, HD><<<grid, hopper::kThreads, bytes, stream>>>(
+  hopper::flash_fwd_wgmma_kernel<T, HD, kPrefix>
+      <<<grid, hopper::kThreads, bytes, stream>>>(
       tm_k, tm_v, static_cast<const T*>(q), static_cast<T*>(out), S, T_, Hq,
-      Hkv, causal, window, scale, has_cap, cap);
+      Hkv, causal, window, prefix, scale, has_cap, cap);
   return (int)cudaGetLastError();
+}
+
+// One instance of each kernel with the prefix mask and one without, so a
+// launch without a prefix runs the code it ran before the prefix existed.
+template <int HD, bool kPrefix>
+int launch_typed(int dtype, const void* q, const void* k, const void* v,
+                 void* out, int B, int S, int T_, int Hq, int Hkv, int causal,
+                 int window, int prefix, float scale, int has_cap, float cap,
+                 cudaStream_t s) {
+  switch (dtype) {
+    case 0:
+      return fp32::launch<HD, kPrefix>(q, k, v, out, B, S, T_, Hq, Hkv,
+                                       causal, window, prefix, scale, has_cap,
+                                       cap, s);
+    case 1:
+      return launch_wgmma<__nv_bfloat16, HD, kPrefix>(
+          q, k, v, out, B, S, T_, Hq, Hkv, causal, window, prefix, scale,
+          has_cap, cap, s);
+    case 2:
+      return launch_wgmma<__half, HD, kPrefix>(
+          q, k, v, out, B, S, T_, Hq, Hkv, causal, window, prefix, scale,
+          has_cap, cap, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int HD>
 int launch(int dtype, const void* q, const void* k, const void* v, void* out,
            int B, int S, int T_, int Hq, int Hkv, int causal, int window,
-           float scale, int has_cap, float cap, cudaStream_t s) {
-  switch (dtype) {
-    case 0:
-      return fp32::launch<HD>(q, k, v, out, B, S, T_, Hq, Hkv, causal,
-                              window, scale, has_cap, cap, s);
-    case 1:
-      return launch_wgmma<__nv_bfloat16, HD>(q, k, v, out, B, S, T_, Hq, Hkv,
-                                             causal, window, scale, has_cap,
-                                             cap, s);
-    case 2:
-      return launch_wgmma<__half, HD>(q, k, v, out, B, S, T_, Hq, Hkv, causal,
-                                      window, scale, has_cap, cap, s);
-  }
-  return (int)cudaErrorInvalidValue;
+           int prefix, float scale, int has_cap, float cap, cudaStream_t s) {
+  if (prefix > 0)
+    return launch_typed<HD, true>(dtype, q, k, v, out, B, S, T_, Hq, Hkv,
+                                  causal, window, prefix, scale, has_cap, cap,
+                                  s);
+  return launch_typed<HD, false>(dtype, q, k, v, out, B, S, T_, Hq, Hkv,
+                                 causal, window, 0, scale, has_cap, cap, s);
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16, 2 float16 (q, k, v and out alike).
+// dtype: 0 float32, 1 bfloat16, 2 float16 (q, k, v and out alike). Keys
+// below prefix (0 <= prefix <= T; 0: none) are valid for every query.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* out, int dtype, int B, int S, int T,
                                    int Hq, int Hkv, int hd, int causal,
-                                   int window, float scale, int has_cap,
-                                   float cap, void* stream) {
+                                   int window, int prefix, float scale,
+                                   int has_cap, float cap, void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  if (T <= 0 || Hkv <= 0 || Hq % Hkv != 0 || window < 1 || B * Hkv > 65535)
+  if (T <= 0 || Hkv <= 0 || Hq % Hkv != 0 || window < 1 || prefix < 0 ||
+      prefix > T || B * Hkv > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 64:
       return launch<64>(dtype, q, k, v, out, B, S, T, Hq, Hkv, causal, window,
-                        scale, has_cap, cap, s);
+                        prefix, scale, has_cap, cap, s);
     case 128:
       return launch<128>(dtype, q, k, v, out, B, S, T, Hq, Hkv, causal, window,
-                         scale, has_cap, cap, s);
+                         prefix, scale, has_cap, cap, s);
     case 256:
       return launch<256>(dtype, q, k, v, out, B, S, T, Hq, Hkv, causal, window,
-                         scale, has_cap, cap, s);
+                         prefix, scale, has_cap, cap, s);
   }
   return (int)cudaErrorInvalidValue;
 }

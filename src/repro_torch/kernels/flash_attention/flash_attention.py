@@ -6,8 +6,10 @@ The port of ``repro.kernels.flash_attention.flash_attention``.
 ``_flash_kernel`` / ``flash_attention_pallas``: q (B, S, Hq, hd) against
 k, v (B, T, Hkv, hd), grouped-query heads (q head h reads kv head h // G),
 a causal and/or window mask with the kernel's rule
-``(q_pos - k_pos) < window``, an optional tanh softcap, output in q's
-dtype. Its plain version is ``flash_attention_ref`` (``ref.py``), which a
+``(q_pos - k_pos) < window``, keys below ``prefix_len`` valid for every
+query (the VLM's bidirectional prefix, which the Pallas kernel lacks and
+the reference's chunked path has), an optional tanh softcap, output in
+q's dtype. Its plain version is ``flash_attention_ref`` (``ref.py``), which a
 CPU tensor takes. The input type picks the kernel, with no fallback:
 
 - bf16 and fp16: ``flash_fwd_wgmma_kernel`` on Hopper's tensor cores
@@ -49,7 +51,7 @@ __all__ = [
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"flash_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                       _I, _I, _I, _F, _I, _F, _P)}
+                                       _I, _I, _I, _I, _F, _I, _F, _P)}
 
 #: Kernel launches since the last ``reset_launch_counts()``.
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
@@ -68,14 +70,16 @@ def reset_launch_counts() -> None:
 
 
 def check_flash_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       window: Optional[int]) -> None:
-    """Validate a (q, k, v, window) set for the kernel and its plain version.
+                       window: Optional[int], prefix_len: int = 0) -> None:
+    """Validate a (q, k, v, window, prefix_len) set for the kernel and its
+    plain version.
 
     Raises:
       ValueError: q not (B, S, Hq, hd) or k, v not (B, T, Hkv, hd) with
         Hkv dividing Hq; T = 0; dtypes that differ or are not fp32, bf16 or
         fp16; tensors on different devices; hd not in ``HEAD_DIMS``; a
-        window below 1; S, T or S·G past int32, or B·Hkv past 65535.
+        window below 1; a negative prefix_len; S, T or S·G past int32, or
+        B·Hkv past 65535.
     """
     if not all(isinstance(x, torch.Tensor) for x in (q, k, v)):
         raise ValueError("q, k and v must be torch tensors")
@@ -101,6 +105,8 @@ def check_flash_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{HEAD_DIMS}")
     if window is not None and window < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
+    if prefix_len < 0:
+        raise ValueError(f"prefix_len must be >= 0, got {prefix_len}")
     if max(s, t, s * (hq // hkv)) > _INT_MAX or b * hkv > 65535:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}: S, T and "
                          f"S·G must fit int32 and B·Hkv the grid (65535)")
@@ -117,7 +123,8 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            *, causal: bool = True,
                            window: Optional[int] = None,
-                           cap: Optional[float] = None) -> torch.Tensor:
+                           cap: Optional[float] = None,
+                           prefix_len: int = 0) -> torch.Tensor:
     """Forward attention: K6 on CUDA tensors, the plain version
     (``flash_attention_ref``) on CPU tensors.
 
@@ -127,6 +134,8 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       causal: mask keys after the query.
       window: keep keys with ``q_pos - k_pos < window`` (None: all).
       cap: tanh softcap of the scaled logits (None: none).
+      prefix_len: keys below it are valid for every query, whatever the
+        causal and window mask says (0: no prefix).
 
     Returns:
       (B, S, Hq, hd) in q's dtype.
@@ -136,11 +145,11 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         neither CPU nor CUDA.
       RuntimeError: the kernel did not build or launch.
     """
-    check_flash_inputs(q, k, v, window)
+    check_flash_inputs(q, k, v, window, prefix_len)
     dev = q.device
     if dev.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   cap=cap)
+                                   cap=cap, prefix_len=prefix_len)
     if dev.type != "cuda":
         raise ValueError(f"the flash_attention kernel takes CUDA tensors, got "
                          f"{dev}")
@@ -151,13 +160,14 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b == 0 or s == 0:
         return out
     win = _NO_WINDOW if window is None else min(int(window), _NO_WINDOW)
+    pre = min(int(prefix_len), t)  # a prefix past T holds every key
     lib = _build.load_library("flash_attention", _SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPES[q.dtype], b, s, t, hq, hkv, hd, int(bool(causal)), win,
-            1.0 / math.sqrt(hd), int(cap is not None),
+            pre, 1.0 / math.sqrt(hd), int(cap is not None),
             0.0 if cap is None else float(cap), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed with CUDA error "

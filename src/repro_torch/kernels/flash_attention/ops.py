@@ -33,11 +33,11 @@ BACKENDS = ("kernel", "ref")
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    cap: Optional[float] = None,
+                    cap: Optional[float] = None, prefix_len: int = 0,
                     backend: str = "kernel") -> torch.Tensor:
     """Attention of q (B, S, Hq, hd) over k, v (B, T, Hkv, hd) at positions
-    ``arange(S)`` and ``arange(T)``; see the module docstring for the
-    backends.
+    ``arange(S)`` and ``arange(T)``, keys below ``prefix_len`` valid for
+    every query; see the module docstring for the backends.
 
     Raises:
       ValueError: unknown backend, or bad inputs (``"kernel"``).
@@ -45,8 +45,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     if backend == "kernel":
         return flash_attention_kernel(q, k, v, causal=causal, window=window,
-                                      cap=cap)
+                                      cap=cap, prefix_len=prefix_len)
     if backend == "ref":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   cap=cap)
+                                   cap=cap, prefix_len=prefix_len)
     raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")

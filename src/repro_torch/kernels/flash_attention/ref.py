@@ -2,12 +2,15 @@
 
 The port of ``repro.kernels.flash_attention.ref``: materialised attention
 over the whole (S, T) logit plane in fp32, the ground truth the tiled
-kernel must match. Supports causal masking, a window and GQA via q-head
-grouping (q head h reads kv head h // G, contiguous groups).
+kernel must match. Supports causal masking, a window, a bidirectional
+prefix and GQA via q-head grouping (q head h reads kv head h // G,
+contiguous groups).
 
-The mask rule is the kernel's: ``(q_pos - k_pos) < window``, applied also
-when ``causal=False``. ``repro_torch.models.layers`` uses
-``|q_pos - k_pos| < window`` when not causal; the two differ only for a
+The mask rule is the kernel's: key k is valid for query q when
+``((not causal or q - k >= 0) and q - k < window) or k < prefix_len``,
+the window applied also when ``causal=False``. For a causal mask this is
+``repro_torch.models.layers._mask``'s rule; when not causal, ``layers``
+uses ``|q_pos - k_pos| < window``, and the two differ only for a
 non-causal finite window (ROADMAP R10).
 
 ``flash_within_tolerance`` is K6's numeric contract against this oracle,
@@ -49,10 +52,12 @@ def flash_attention_ref(
     causal: bool = True,
     window: Optional[int] = None,
     cap: Optional[float] = None,
+    prefix_len: int = 0,
 ) -> torch.Tensor:
     """(B, S, Hq, hd) attention output in q's dtype, fp32 arithmetic:
     logits = (q·k) / √hd, then ``tanh(·/cap)·cap``, the mask (-1e30), a
-    softmax over the keys and ``·v``."""
+    softmax over the keys and ``·v``. Keys below ``prefix_len`` are valid
+    for every query (the VLM's bidirectional prefix)."""
     b, s, hq, hd = q.shape
     t, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -68,6 +73,8 @@ def flash_attention_ref(
         valid &= qp >= kp
     if window is not None:
         valid &= (qp - kp) < window
+    if prefix_len:
+        valid |= kp < prefix_len
     logits = torch.where(valid[None, :, None, None, :], logits,
                          torch.tensor(-1e30, dtype=torch.float32,
                                       device=q.device))
@@ -86,6 +93,7 @@ def flash_within_tolerance(
     causal: bool = True,
     window: Optional[int] = None,
     cap: Optional[float] = None,
+    prefix_len: int = 0,
 ) -> Tuple[bool, float]:
     """Whether ``out`` (attention of q, k, v) agrees with ``want`` within
     K6's numeric contract, and the largest |out − want|.
@@ -104,7 +112,8 @@ def flash_within_tolerance(
     bound = _OUTPUT_STEP[q.dtype] * torch.maximum(o32.abs(), w32.abs()) + 1e-4
     if _WEIGHT_STEP[q.dtype]:
         bound = bound + _WEIGHT_STEP[q.dtype] * flash_attention_ref(
-            q, k, v.abs(), causal=causal, window=window, cap=cap).float()
+            q, k, v.abs(), causal=causal, window=window, cap=cap,
+            prefix_len=prefix_len).float()
     return bool((diff <= bound).all()), float(diff.max())
 
 
@@ -117,6 +126,7 @@ def flash_row_rms(
     causal: bool = True,
     window: Optional[int] = None,
     cap: Optional[float] = None,
+    prefix_len: int = 0,
 ) -> torch.Tensor:
     """(B, S, Hq) relative RMS error of each output row against the oracle
     in fp32: ``RMS(out − want) / RMS(want)`` over hd.
@@ -127,6 +137,7 @@ def flash_row_rms(
     it is held to ``ROW_RMS_BOUND``.
     """
     want = flash_attention_ref(q.float(), k.float(), v.float(),
-                               causal=causal, window=window, cap=cap)
+                               causal=causal, window=window, cap=cap,
+                               prefix_len=prefix_len)
     err = (out.float() - want).pow(2).mean(-1).sqrt()
     return err / want.pow(2).mean(-1).sqrt().clamp_min(1e-30)

@@ -5,12 +5,17 @@ The port of ``examples/serve_lm.py``, on the card by default, at the
 published configuration unless ``--reduced`` is given:
 
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch gemma2-2b
-    PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch gemma2-2b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch paligemma-3b \\
         --reduced --device cpu
 
-Weights and prompts are drawn from ``--seed`` (bf16 weights at full size,
-fp32 with ``--reduced``, as the reference's example runs). The dense family
-is served; the other families raise ``NotImplementedError``.
+Weights, prompts and the VLM's patch embeddings (B, vision_tokens,
+vision_dim) are drawn from ``--seed`` (bf16 weights at full size, fp32 with
+``--reduced``, as the reference's example runs). The dense, moe and vlm
+families are served (qwen1.5-32b with its config's int8 KV cache); the
+others raise ``NotImplementedError``. The cache holds the image prefix,
+the prompt and every generated token: ``max_len = vision_tokens +
+prompt_len + tokens + 1``, where the reference's example leaves out the
+prefix and its decode overwrites the cache's last slot (ROADMAP R12).
 """
 
 from __future__ import annotations
@@ -47,9 +52,15 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                             generator=gen, device=dev)
-    max_len = args.prompt_len + args.tokens + 1
+    batch = {"tokens": prompts}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn(
+            (args.batch, cfg.vision_tokens, cfg.vision_dim),
+            generator=torch.Generator(device=dev).manual_seed(args.seed + 2),
+            device=dev, dtype=torch.float32).to(dtype)
+    max_len = cfg.vision_tokens + args.prompt_len + args.tokens + 1
     t0 = time.perf_counter()
-    out = greedy_generate(model, cfg, {"tokens": prompts}, steps=args.tokens,
+    out = greedy_generate(model, cfg, batch, steps=args.tokens,
                           max_len=max_len)
     first = out[0].tolist()  # waits for the device
     dt = time.perf_counter() - t0
@@ -57,6 +68,9 @@ def main(argv=None) -> int:
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "CPU"
     print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len} "
           f"generated={args.tokens}/seq")
+    if cfg.family == "vlm":
+        print(f"image prefix: {cfg.vision_tokens} patch tokens of width "
+              f"{cfg.vision_dim}")
     print(f"output token ids (first sequence): {first}")
     print(f"{total} tokens in {dt:.2f}s = {total / dt:.1f} tok/s ({where}; "
           f"on a card the first call includes the kernel build)")

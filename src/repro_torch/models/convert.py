@@ -3,9 +3,12 @@
 ``params_from_jax`` turns the tree of ``repro.models.transformer.
 TransformerLM.init`` — given as numpy arrays, the layers stacked on a
 leading ``(L, ...)`` axis — into a ``TransformerLM`` state dict:
-``embed``, ``blocks.<i>.<path>`` for layer i's slice of each stacked leaf,
-and ``final_norm.scale``. The reference's ``(d_in, d_out)`` weight layout
-is kept: nothing is transposed. ``params_to_jax`` is its inverse.
+``embed``, ``blocks.<i>.<path>`` for layer i's slice of each stacked leaf
+(the MoE family's ``moe.router``, ``moe.wi`` / ``wg`` / ``wo`` and arctic's
+``moe.dense.*`` among them), ``final_norm.scale`` and the VLM's
+``vision_proj.w``. The reference's ``(d_in, d_out)`` weight layout is kept:
+nothing is transposed, and each leaf keeps its dtype (the MoE router is
+fp32 in a bf16 tree). ``params_to_jax`` is its inverse.
 """
 
 from __future__ import annotations
@@ -45,17 +48,22 @@ def params_from_jax(np_params: Mapping, cfg: ModelConfig
 
     Args:
       np_params: ``{"embed": (Vp, d), "layers": {...: (L, ...)},
-        "final_norm": {"scale": (d,)}}`` as numpy arrays (fp32, fp16 or
-        ml_dtypes bf16).
-      cfg: the model's config (its ``num_layers`` is checked).
+        "final_norm": {"scale": (d,)}[, "vision_proj": {"w": (Dv, d)}]}``
+        as numpy arrays (fp32, fp16 or ml_dtypes bf16).
+      cfg: the model's config (its ``num_layers`` and family are checked).
 
     Raises:
-      ValueError: a key the dense model does not have, or a stacked leaf
-        whose leading axis is not ``num_layers``.
+      ValueError: a top-level key the model does not have (``vision_proj``
+        outside the vlm family), or a stacked leaf whose leading axis is
+        not ``num_layers``.
     """
-    extra = set(np_params) - {"embed", "layers", "final_norm"}
+    known = {"embed", "layers", "final_norm"}
+    if cfg.family == "vlm":
+        known.add("vision_proj")
+    extra = set(np_params) - known
     if extra:
-        raise ValueError(f"keys {sorted(extra)} are not the dense model's")
+        raise ValueError(f"keys {sorted(extra)} are not the {cfg.family} "
+                         f"model's")
     out: Dict[str, torch.Tensor] = OrderedDict()
     out["embed"] = _tensor(np_params["embed"])
     for name, leaf in _flatten(np_params["layers"]):
@@ -65,8 +73,9 @@ def params_from_jax(np_params: Mapping, cfg: ModelConfig
                              f"not num_layers = {cfg.num_layers}")
         for i in range(cfg.num_layers):
             out[f"blocks.{i}.{name}"] = _tensor(arr[i])
-    for name, leaf in _flatten(np_params["final_norm"], "final_norm."):
-        out[name] = _tensor(leaf)
+    for top in ("final_norm", "vision_proj"):
+        for name, leaf in _flatten(np_params.get(top, {}), top + "."):
+            out[name] = _tensor(leaf)
     return out
 
 
@@ -86,8 +95,9 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor], cfg: ModelConfig
         if name.startswith("blocks."):
             _, i, path = name.split(".", 2)
             per_layer.setdefault(path, [None] * cfg.num_layers)[int(i)] = arr(t)
-        elif name.startswith("final_norm."):
-            tree["final_norm"][name.split(".", 1)[1]] = arr(t)
+        elif name.startswith(("final_norm.", "vision_proj.")):
+            top, leaf = name.split(".", 1)
+            tree.setdefault(top, {})[leaf] = arr(t)
     for path, leaves in per_layer.items():
         node = tree["layers"]
         *parents, leaf = path.split(".")

@@ -1,30 +1,39 @@
-"""Layer primitives of the dense transformer.
+"""Layer primitives of the decoder-only transformer (dense, MoE and VLM
+families).
 
-The port of ``repro.models.layers`` for the dense family. Parameters are
-``nn.ParameterDict`` / ``nn.ModuleDict`` trees with the reference's names
-and its ``(d_in, d_out)`` weight layout, so ``dense`` is ``x @ w`` as
-there; each ``*_init`` draws from a ``torch.Generator`` with the
-reference's distributions (He normal over ``d_in``, norm scales of zero).
+The port of ``repro.models.layers``. Parameters are ``nn.ParameterDict`` /
+``nn.ModuleDict`` trees (``ParamTree`` where a node holds arrays and
+sub-trees together, as the MoE block does) with the reference's names and
+its ``(d_in, d_out)`` weight layout, so ``dense`` is ``x @ w`` as there.
+Each parameter records the fan of its He-normal draw (``he_fan``; none for
+the zero-initialised norm scales and biases), so ``draw_`` can fill it in
+place with the reference's distribution; each ``*_init`` given a
+``torch.Generator`` draws at once.
 
 Attention has two paths. The plain one is the reference's chunked-KV
 online-softmax scan (``backend="chunked"``), which CPU tensors always take.
-On a CUDA tensor, ``attention`` runs the prefill case — no prefix, query
-and key positions ``arange(S)`` — through the flash kernel K6
-(``repro_torch.kernels.flash_attention.ops``), the counterpart of the Pallas
-kernel that the reference names as its drop-in MXU version. Any other case
-on a CUDA tensor (a bidirectional prefix, padded key positions, a
-non-causal finite window) raises ``NotImplementedError``; it never quietly
-takes the plain path. ``decode_attention`` is plain torch on every device.
+On a CUDA tensor, ``attention`` runs the prefill case — query and key
+positions ``arange(S)``, with or without the VLM's bidirectional prefix —
+through the flash kernel K6 (``repro_torch.kernels.flash_attention.ops``),
+the counterpart of the Pallas kernel that the reference names as its
+drop-in MXU version. Any other case on a CUDA tensor (padded or shifted
+key positions, a non-causal finite window) raises ``NotImplementedError``;
+it never quietly takes the plain path. ``decode_attention`` is plain torch
+on every device.
 
-``constrain`` (``repro.models.meshctx``) is a no-op without a mesh and is
-left out; ``moe``, ``quantize_kv`` and ``dequantize_kv`` are not ported yet
-and raise.
+``moe`` is the reference's grouped capacity-based top-k dispatch in plain
+torch (the reference has no Pallas kernel for it): the one-hot (B, S, E, C)
+dispatch and combine, and the three expert products as ``torch.bmm`` over
+the expert axis on the (E, d, ff) / (E, ff, d) weights in place.
+``quantize_kv`` / ``dequantize_kv`` are the int8 KV cache's symmetric
+per-head quantisation. ``constrain`` (``repro.models.meshctx``) is a no-op
+without a mesh and is left out.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Union
+from typing import Dict, Mapping, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -35,17 +44,20 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 __all__ = [
     "ATTENTION_BACKENDS",
     "NO_WINDOW",
+    "ParamTree",
     "attention",
     "decode_attention",
     "dense",
     "dense_init",
     "dequantize_kv",
+    "draw_",
     "init_attention_block",
     "init_mlp",
     "init_moe",
     "mask_padded_vocab",
     "mlp",
     "moe",
+    "moe_route",
     "quantize_kv",
     "rmsnorm",
     "rmsnorm_init",
@@ -59,24 +71,77 @@ NO_WINDOW = 1 << 30
 #: ``attention`` backends: K6 on CUDA tensors, or the chunked plain path.
 ATTENTION_BACKENDS = ("kernel", "chunked")
 
-_LATER = "not ported yet (ROADMAP Queue 1, item 15)"
+#: The most fp32 elements one draw of ``draw_`` holds (1 GiB): a larger
+#: leaf (an MoE expert stack) is drawn in slices of its leading axis.
+DRAW_ELEMS = 1 << 28
+
+
+def _param(x: torch.Tensor, fan: Optional[int] = None) -> nn.Parameter:
+    """A frozen parameter; ``fan`` is the fan of its He-normal draw (None:
+    it is initialised to zeros), which ``draw_`` reads."""
+    p = nn.Parameter(x, requires_grad=False)
+    p.he_fan = fan
+    return p
 
 
 def _he(gen: Optional[torch.Generator], shape, dtype,
-        fan_in: Optional[int] = None, device=None):
+        fan_in: Optional[int] = None, device=None) -> nn.Parameter:
     """He normal over ``fan_in`` (default ``shape[0]``), drawn in fp32 on
-    the generator's device and cast; with ``gen=None`` an uninitialised
-    tensor on ``device`` (structure to load weights into)."""
-    if gen is None:
-        return torch.empty(shape, dtype=dtype, device=device)
+    the generator's device and cast; with ``gen=None`` uninitialised on
+    ``device`` (structure to load weights into, or to ``draw_``)."""
     fan = fan_in if fan_in is not None else shape[0]
+    if gen is None:
+        return _param(torch.empty(shape, dtype=dtype, device=device), fan)
     x = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32) / math.sqrt(fan)
-    return x.to(dtype)
+    return _param(x.to(dtype), fan)
 
 
-def _param(x: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(x, requires_grad=False)
+def _zeros(shape, dtype, device) -> nn.Parameter:
+    return _param(torch.zeros(shape, dtype=dtype, device=device))
+
+
+@torch.no_grad()
+def draw_(p: torch.Tensor, gen: torch.Generator) -> None:
+    """Fill parameter ``p`` in place with its initial distribution: He
+    normal over its ``he_fan`` (drawn in fp32 on the generator's device and
+    cast, as ``_he`` draws), zeros without one. A leaf of up to
+    ``DRAW_ELEMS`` elements is drawn whole, which gives the values ``_he``
+    would; a larger one in slices of its leading axis, so the fp32
+    temporary stays one slice (an expert stack of 16.6 GiB in fp32 at
+    arctic-480b's width is drawn 7 experts at a time)."""
+    fan = getattr(p, "he_fan", None)
+    if fan is None:
+        p.zero_()
+        return
+    step = p.shape[0] if p.numel() <= DRAW_ELEMS else max(
+        1, DRAW_ELEMS // p[0].numel())
+    for i in range(0, p.shape[0], step):
+        part = p[i:i + step]
+        part.copy_(torch.randn(part.shape, generator=gen, device=gen.device,
+                               dtype=torch.float32) / math.sqrt(fan))
+
+
+class ParamTree(nn.Module):
+    """A node of the reference's parameter tree that holds arrays and
+    sub-trees together (the MoE block: ``router``, ``wi``, ``wg``, ``wo``
+    and arctic's ``dense`` MLP), indexed by name as the dict it ports."""
+
+    def __init__(self, params: Mapping[str, nn.Parameter],
+                 children: Optional[Mapping[str, nn.Module]] = None):
+        super().__init__()
+        for name, p in params.items():
+            self.register_parameter(name, p)
+        for name, m in (children or {}).items():
+            self.add_module(name, m)
+
+    def __getitem__(self, key: str):
+        if key in self._parameters:
+            return self._parameters[key]
+        return self._modules[key]
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
 
 
 def dense_init(gen: Optional[torch.Generator], d_in: int, d_out: int, *,
@@ -84,12 +149,10 @@ def dense_init(gen: Optional[torch.Generator], d_in: int, d_out: int, *,
                device=None) -> nn.ParameterDict:
     """``{"w": (d_in, d_out)[, "b": (d_out,) zeros]}``, drawn from ``gen``
     (``gen=None``: uninitialised on ``device``)."""
-    p = nn.ParameterDict(
-        {"w": _param(_he(gen, (d_in, d_out), dtype, device=device))})
+    p = nn.ParameterDict({"w": _he(gen, (d_in, d_out), dtype, device=device)})
     if bias:
-        p["b"] = _param(torch.zeros(
-            (d_out,), dtype=dtype,
-            device=gen.device if gen is not None else device))
+        p["b"] = _zeros((d_out,), dtype,
+                        gen.device if gen is not None else device)
     return p
 
 
@@ -103,8 +166,7 @@ def dense(p, x: torch.Tensor) -> torch.Tensor:
 def rmsnorm_init(d: int, dtype=torch.bfloat16,
                  device: Union[str, torch.device] = "cpu") -> nn.ParameterDict:
     # gemma-style (1 + scale)
-    return nn.ParameterDict(
-        {"scale": _param(torch.zeros((d,), dtype=dtype, device=device))})
+    return nn.ParameterDict({"scale": _zeros((d,), dtype, device)})
 
 
 def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -120,14 +182,28 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     return torch.tanh(x / cap) * cap
 
 
-def quantize_kv(x):
-    """The int8 KV cache is not ported yet."""
-    raise NotImplementedError(f"quantize_kv: the int8 KV cache is {_LATER}")
+def quantize_kv(x: torch.Tensor):
+    """Symmetric int8 over the head_dim axis. x: (..., hd) → (int8
+    (..., hd), scale (...,) bf16).
+
+    The scale is the fp32 abs-max over hd, floored at 1e-6, over 127; the
+    values are ``round(x / scale)`` (half to even, as ``jnp.round``; a
+    division, never a product with the reciprocal) clipped to ±127. The
+    scale is rounded to bf16 for storage only, after the division. Both
+    divisors are tensors: PyTorch's CUDA division by a Python number
+    multiplies by its reciprocal, which can differ in the last bit, so a
+    card would not give the CPU's (and the reference's) scales."""
+    xf = x.float()
+    amax = torch.clamp(xf.abs().amax(dim=-1), min=1e-6)
+    scale = amax / torch.full_like(amax, 127.0)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
 
 
-def dequantize_kv(q, scale, dtype=torch.bfloat16):
-    """The int8 KV cache is not ported yet."""
-    raise NotImplementedError(f"dequantize_kv: the int8 KV cache is {_LATER}")
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype=torch.bfloat16) -> torch.Tensor:
+    """``q·scale`` in fp32, cast to ``dtype``."""
+    return (q.float() * scale[..., None].float()).to(dtype)
 
 
 def mask_padded_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
@@ -239,17 +315,17 @@ def attention(
     ``backend="chunked"``, and every CPU tensor, takes the chunked-KV
     online-softmax scan: the KV axis in ``chunk``-sized tiles with a
     running (max, sumexp, out) accumulator, never the S×T logit matrix.
-    ``backend="kernel"`` on a CUDA tensor runs K6; it needs
-    ``prefix_len == 0``, ``S == T``, positions ``arange(S)`` and, when not
-    causal, no finite window (the kernel keeps ``q_pos - k_pos < window``,
-    this function ``|q_pos - k_pos| < window``). Positions left as ``None``
-    are ``arange`` by contract, which costs no device read; given ones are
-    checked with one device-to-host read each.
+    ``backend="kernel"`` on a CUDA tensor runs K6, a bidirectional
+    ``prefix_len`` included; it needs ``S == T``, positions ``arange(S)``
+    and, when not causal, no finite window (the kernel keeps
+    ``q_pos - k_pos < window``, this function ``|q_pos - k_pos| <
+    window``). Positions left as ``None`` are ``arange`` by contract, which
+    costs no device read; given ones are checked with one device-to-host
+    read each.
 
     Raises:
       NotImplementedError: ``backend="kernel"`` on a CUDA tensor in any
-        other case (a prefix, padded or shifted positions, a non-causal
-        window).
+        other case (padded or shifted positions, a non-causal window).
       ValueError: an unknown backend.
     """
     window = int(window)
@@ -265,18 +341,18 @@ def attention(
         return _attention_chunked(q, k, v, q_pos=q_pos, k_pos=k_pos,
                                   window=window, causal=causal,
                                   prefix_len=prefix_len, cap=cap, chunk=chunk)
-    if prefix_len or (not causal and window < NO_WINDOW) or s != t \
+    if (not causal and window < NO_WINDOW) or s != t \
             or (q_pos is not None and not _is_arange(q_pos, s)) \
             or (k_pos is not None and not _is_arange(k_pos, t)):
         raise NotImplementedError(
             f"attention on {q.device} runs the flash kernel only for a "
-            f"prefill: prefix_len == 0 (got {prefix_len}), q_pos == k_pos == "
-            f"arange(S), and a causal mask or no window (causal={causal}, "
-            f"window={window}); bidirectional prefixes and padded keys are "
-            f"{_LATER}")
+            f"prefill: q_pos == k_pos == arange(S), and a causal mask or no "
+            f"window (causal={causal}, window={window}); padded or shifted "
+            f"keys and a non-causal finite window (ROADMAP R10) have no "
+            f"kernel path")
     return flash_attention(
         q, k, v, causal=causal, window=None if window >= NO_WINDOW else window,
-        cap=cap, backend="kernel")
+        cap=cap, prefix_len=prefix_len, backend="kernel")
 
 
 def decode_attention(
@@ -352,11 +428,84 @@ def mlp(p, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     return dense(p["wo"], h)
 
 
-def init_moe(gen, cfg, dtype=torch.bfloat16):
-    """MoE (arctic, dbrx) is not ported yet."""
-    raise NotImplementedError(f"init_moe: the MoE family is {_LATER}")
+def init_moe(gen: Optional[torch.Generator], cfg, dtype=torch.bfloat16,
+             device=None) -> ParamTree:
+    """The MoE block: ``router`` (d, E) fp32 whatever ``dtype``, the expert
+    stacks ``wi`` / ``wg`` (E, d, ff) and ``wo`` (E, ff, d), and with
+    ``cfg.dense_residual`` arctic's parallel ``dense`` MLP. The reference's
+    fans: ``router``, ``wi`` and ``wg`` over their leading axis (d, E, E),
+    ``wo`` over ff."""
+    e, d, ff = cfg.num_experts, cfg.d_model, cfg.d_ff
+    kw = dict(device=device)
+    params = {"router": _he(gen, (d, e), torch.float32, **kw),
+              "wi": _he(gen, (e, d, ff), dtype, **kw),
+              "wg": _he(gen, (e, d, ff), dtype, **kw),
+              "wo": _he(gen, (e, ff, d), dtype, fan_in=ff, **kw)}
+    children = {}
+    if cfg.dense_residual:
+        children["dense"] = init_mlp(gen, d, cfg.dense_residual_ff,
+                                     dtype=dtype, device=device)
+    return ParamTree(params, children)
 
 
-def moe(p, x, cfg):
-    """MoE (arctic, dbrx) is not ported yet."""
-    raise NotImplementedError(f"moe: the MoE family is {_LATER}")
+def moe_route(p, x: torch.Tensor, cfg) -> Dict[str, object]:
+    """The router of ``moe`` for x (B, S, d): each token's top-k experts
+    and its rank in each one's queue, grouped per sequence.
+
+    Returns a dict: ``cap`` (int) = max(1, int(S·k/E·cf)); ``probs``
+    (B, S, E) fp32 softmax of ``x @ router``; ``gates`` (B, S, k), the top-k
+    probabilities renormalised; ``idx`` (B, S, k) their experts; ``flat``
+    (B, S·k, E) the one-hot slots, s-major then k-minor; ``pos`` (B, S, k)
+    the slot's rank among the earlier slots of its expert (an exclusive
+    cumsum over ``flat``); ``keep`` (B, S, k) = pos < cap (a slot past its
+    expert's capacity is dropped)."""
+    b, s, _ = x.shape
+    e, k = cfg.num_experts, cfg.top_k
+    cap = max(1, int(s * k / e * cfg.moe_capacity_factor))
+    probs = torch.softmax(x.float() @ p["router"], dim=-1)
+    gates, idx = torch.topk(probs, k, dim=-1)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    flat = F.one_hot(idx, e).reshape(b, s * k, e)
+    pos = torch.cumsum(flat, dim=1) - flat
+    pos = (pos * flat).sum(-1).reshape(b, s, k)
+    return dict(cap=cap, probs=probs, gates=gates, idx=idx, flat=flat,
+                pos=pos, keep=pos < cap)
+
+
+def moe(p, x: torch.Tensor, cfg):
+    """Grouped capacity-based top-k MoE (Mesh-TF/Switch dispatch). x:
+    (B, S, d). Returns (out (B, S, d), aux) with aux = E·Σ density·P, the
+    Switch load-balance loss.
+
+    Capacity is enforced within each sequence (``moe_route``); the
+    dispatch and combine one-hots (B, S, E, C) are in the activation dtype,
+    the combine carrying each kept slot's gate. The experts run as three
+    ``torch.bmm`` over the expert axis: (E, B·C, d) @ wi / wg (E, d, ff),
+    the gated SiLU in fp32, then @ wo (E, ff, d), the weights read where
+    they lie (never copied)."""
+    b, s, d = x.shape
+    e = cfg.num_experts
+    r = moe_route(p, x, cfg)
+    cap = r["cap"]
+    oh_e = F.one_hot(r["idx"], e).float()  # (B, S, k, E)
+    oh_c = F.one_hot(torch.where(r["keep"], r["pos"], cap),
+                     cap + 1).float()[..., :cap]  # (B, S, k, C)
+    disp = torch.einsum("bske,bskc->bsec", oh_e, oh_c).to(x.dtype)
+    comb = torch.einsum("bske,bskc,bsk->bsec", oh_e, oh_c,
+                        r["gates"]).to(x.dtype)
+    # (B, E·C, S) @ (B, S, d): slot (e, c) takes its token's row, or zeros
+    ex_in = torch.bmm(disp.reshape(b, s, e * cap).transpose(1, 2), x)
+    ex_in = ex_in.view(b, e, cap, d).transpose(0, 1).reshape(e, b * cap, d)
+    h = torch.bmm(ex_in, p["wi"])
+    gth = torch.bmm(ex_in, p["wg"])
+    h = (F.silu(gth.float()) * h.float()).to(x.dtype)
+    del gth
+    ex_out = torch.bmm(h, p["wo"])  # (E, B·C, d)
+    ex_out = ex_out.view(e, b, cap, d).transpose(0, 1).reshape(b, e * cap, d)
+    out = torch.bmm(comb.reshape(b, s, e * cap), ex_out)
+    if "dense" in p:
+        out = out + mlp(p["dense"], x)
+    density = r["flat"].float().mean(dim=(0, 1))
+    router_prob = r["probs"].mean(dim=(0, 1))
+    aux = e * torch.sum(density * router_prob)
+    return out, aux

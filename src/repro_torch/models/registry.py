@@ -1,9 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolution for configs and models.
 
 The port of ``repro.models.registry``. ``ARCHS`` keeps all ten names and
-``get_config`` / ``get_reduced_config`` resolve the dense family, whose
-configurations are ported (``repro_torch/configs/``). The other families
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+``get_config`` / ``get_reduced_config`` resolve the dense, moe and vlm
+families, whose configurations are ported (``repro_torch/configs/``) and
+which ``TransformerLM`` serves. The ssm, hybrid and encdec families raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -31,10 +32,7 @@ ARCHS = [
 # architectures of the families not yet ported, with their family
 _NOT_PORTED = {
     "mamba2-780m": "ssm",
-    "arctic-480b": "moe",
-    "dbrx-132b": "moe",
     "whisper-medium": "encdec",
-    "paligemma-3b": "vlm",
     "recurrentgemma-9b": "hybrid",
 }
 
@@ -42,7 +40,7 @@ _NOT_PORTED = {
 def _not_ported(what: str, family: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what}: the {family!r} family is not ported yet (ROADMAP Queue 1, "
-        f"item 15); the port serves the dense family")
+        f"item 15); the port serves the dense, moe and vlm families")
 
 
 def _module(arch: str):
@@ -55,12 +53,14 @@ def _module(arch: str):
 
 
 def get_config(arch: str) -> ModelConfig:
-    """The published configuration of ``arch`` (dense family only)."""
+    """The published configuration of ``arch`` (dense, moe and vlm
+    families)."""
     return _module(arch).CONFIG
 
 
 def get_reduced_config(arch: str) -> ModelConfig:
-    """The same-family scale-down of ``arch`` (dense family only)."""
+    """The same-family scale-down of ``arch`` (dense, moe and vlm
+    families)."""
     return _module(arch).REDUCED
 
 
@@ -69,12 +69,13 @@ def list_archs() -> List[str]:
 
 
 def get_model(cfg: ModelConfig, **kw):
-    """A ``TransformerLM`` for a dense config (``kw`` go to its
-    constructor); other families raise ``NotImplementedError``."""
-    if cfg.family == "dense":
+    """A ``TransformerLM`` for a dense, moe or vlm config (``kw`` go to its
+    constructor); the ssm, hybrid and encdec families raise
+    ``NotImplementedError``."""
+    if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.models.transformer import TransformerLM
 
         return TransformerLM(cfg, **kw)
-    if cfg.family in ("moe", "ssm", "hybrid", "encdec", "vlm"):
+    if cfg.family in ("ssm", "hybrid", "encdec"):
         raise _not_ported(cfg.name, cfg.family)
     raise ValueError(f"unknown family {cfg.family!r}")

@@ -1,20 +1,36 @@
-"""Decoder-only transformer for the dense family (gemma2, qwen1.5, minicpm).
+"""Decoder-only transformer covering the dense, MoE and VLM families
+(gemma2, qwen1.5, minicpm, arctic, dbrx, paligemma).
 
 The port of ``repro.models.transformer``. ``TransformerLM`` is an
 ``nn.Module`` holding its weights: ``embed`` (padded vocab × d_model, tied
 to the unembedding), a ``ModuleList`` of blocks (one ``ModuleDict`` a
-layer, named as the reference's per-layer tree) and ``final_norm``. Where
-the reference scans over stacked layers with the per-layer window as data,
+layer, named as the reference's per-layer tree: ``mlp``, or ``moe`` for the
+MoE family), ``final_norm`` and, for the VLM, ``vision_proj``. Where the
+reference scans over stacked layers with the per-layer window as data,
 each block here runs in a Python loop with its window a Python int
 (``_layer_windows``: gemma2 alternates local and global layers).
 
-Entry points: ``apply_train`` (the full causal forward, a forward only),
-``prefill`` (forward plus KV-cache emission) and ``decode_step`` (one token
-against the cache). The cache is updated in place, which the port may do
-where the reference returns a new one, and its ``pos`` is a host int, so a
-decode loop never syncs the host. Prefill attention runs through the flash
-kernel K6 on a card (``attn_backend="kernel"``) or through the chunked
+Entry points: ``apply_train`` (the full forward, a forward only, with the
+MoE load-balance aux summed over the layers), ``prefill`` (forward plus
+KV-cache emission) and ``decode_step`` (one token against the cache). The
+cache is updated in place, which the port may do where the reference
+returns a new one, and its ``pos`` is a host int, so a decode loop never
+syncs the host. With ``kv_cache_dtype="int8"`` (qwen1.5-32b) the cache
+holds int8 k and v with a bf16 scale per (layer, batch, position, kv
+head): ``prefill`` quantizes each layer's k and v after its attention,
+which reads them unquantized; ``decode_step`` quantizes the new token's
+before attending, so the token reads its own k and v back quantized, and
+dequantizes only the live slice that ``decode_attention`` reads. PaliGemma
+prepends ``vision_proj(patches)`` to the token embeddings as a prefix that
+every position attends to (prefix-bidirectional masking). Prefill
+attention runs through the flash kernel K6 on a card
+(``attn_backend="kernel"``, the prefix included) or through the chunked
 plain path (``attn_backend="chunked"``, and always on the CPU).
+
+A ``decode_step`` past the cache's last slot raises ``ValueError``, where
+the reference's ``dynamic_update_slice`` clamps the index and overwrites
+the last slot (ROADMAP R12); so does a ``prefill`` whose prefix and prompt
+exceed ``max_len``.
 """
 
 from __future__ import annotations
@@ -33,6 +49,10 @@ __all__ = ["TransformerLM"]
 
 _NO_WINDOW = L.NO_WINDOW
 
+#: The families this model serves; the others have models of their own.
+FAMILIES = ("dense", "moe", "vlm")
+KV_CACHE_DTYPES = ("bfloat16", "int8")
+
 
 def _layer_windows(cfg: ModelConfig) -> List[int]:
     """Per-layer attention window sizes; _NO_WINDOW = global attention."""
@@ -45,18 +65,23 @@ def _layer_windows(cfg: ModelConfig) -> List[int]:
 
 
 class TransformerLM(nn.Module):
-    """A dense decoder-only LM at ``cfg``'s shapes.
+    """A decoder-only LM at ``cfg``'s shapes (dense, moe or vlm family).
 
     Args:
-      cfg: a dense-family ``ModelConfig``.
+      cfg: a ``ModelConfig`` of the dense, moe or vlm family.
       device: where the weights live; None is the card (``RuntimeError``
         without one), ``"cpu"`` runs the plain paths.
-      dtype: the weights' (and activations') dtype.
+      dtype: the weights' (and activations') dtype; the MoE router stays
+        fp32, as in the reference.
       attn_backend: ``"kernel"`` (K6 for prefill attention on a card) or
         ``"chunked"`` (the plain path everywhere).
 
-    The weights are allocated uninitialised; ``init(generator)`` draws them,
-    or ``load_state_dict`` fills them (``convert.params_from_jax``).
+    The weights are allocated uninitialised; ``init(generator)`` draws them
+    in place, or ``load_state_dict`` fills them (``convert.params_from_jax``).
+
+    Raises:
+      NotImplementedError: the ssm, hybrid or encdec family.
+      ValueError: an unknown family, KV-cache dtype or attention backend.
     """
 
     def __init__(self, cfg: ModelConfig, *,
@@ -64,68 +89,72 @@ class TransformerLM(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  attn_backend: str = "kernel"):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family in ("ssm", "hybrid", "encdec"):
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family!r} family is not ported yet "
                 f"(ROADMAP Queue 1, item 15)")
-        if cfg.kv_cache_dtype != "bfloat16":
-            raise NotImplementedError(
-                f"{cfg.name}: kv_cache_dtype={cfg.kv_cache_dtype!r}; the int8 "
-                f"KV cache is not ported yet (ROADMAP Queue 1, item 15)")
+        if cfg.family not in FAMILIES:
+            raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
+        if cfg.kv_cache_dtype not in KV_CACHE_DTYPES:
+            raise ValueError(f"{cfg.name}: kv_cache_dtype="
+                             f"{cfg.kv_cache_dtype!r}; expected one of "
+                             f"{KV_CACHE_DTYPES}")
         if attn_backend not in L.ATTENTION_BACKENDS:
             raise ValueError(f"unknown attn_backend {attn_backend!r}; expected "
                              f"one of {L.ATTENTION_BACKENDS}")
         self.cfg = cfg
         self.attn_backend = attn_backend
         self.windows = _layer_windows(cfg)
+        self.quant = cfg.kv_cache_dtype == "int8"
         dev = resolve_device(device)
         self.embed = nn.Parameter(
             torch.empty((cfg.padded_vocab, cfg.d_model), dtype=dtype,
                         device=dev), requires_grad=False)
         self.blocks = nn.ModuleList(
-            [self._new_layer(None, dtype, dev) for _ in range(cfg.num_layers)])
+            [self._new_layer(dtype, dev) for _ in range(cfg.num_layers)])
         self.final_norm = L.rmsnorm_init(cfg.d_model, dtype, dev)
+        if cfg.family == "vlm":
+            self.vision_proj = L.dense_init(None, cfg.vision_dim, cfg.d_model,
+                                            dtype=dtype, device=dev)
 
     # ------------------------------------------------------------- params
 
-    def _new_layer(self, gen: Optional[torch.Generator], dtype,
-                   device) -> nn.ModuleDict:
-        """One layer's weights, drawn from ``gen`` in the reference's order
-        (``gen=None``: uninitialised on ``device``)."""
+    def _new_layer(self, dtype, device) -> nn.ModuleDict:
+        """One layer's weights, uninitialised on ``device``, named as the
+        reference's per-layer tree."""
         cfg = self.cfg
-        dev = gen.device if gen is not None else device
         p = nn.ModuleDict({
-            "ln1": L.rmsnorm_init(cfg.d_model, dtype, dev),
-            "attn": L.init_attention_block(gen, cfg, dtype, device=dev),
-            "ln2": L.rmsnorm_init(cfg.d_model, dtype, dev),
-            "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff,
-                              gated=(cfg.act == "silu"), dtype=dtype,
-                              device=dev),
+            "ln1": L.rmsnorm_init(cfg.d_model, dtype, device),
+            "attn": L.init_attention_block(None, cfg, dtype, device=device),
+            "ln2": L.rmsnorm_init(cfg.d_model, dtype, device),
         })
+        if cfg.family == "moe":
+            p["moe"] = L.init_moe(None, cfg, dtype, device=device)
+        else:
+            p["mlp"] = L.init_mlp(None, cfg.d_model, cfg.d_ff,
+                                  gated=(cfg.act == "silu"), dtype=dtype,
+                                  device=device)
         if cfg.post_norms:
-            p["ln1_post"] = L.rmsnorm_init(cfg.d_model, dtype, dev)
-            p["ln2_post"] = L.rmsnorm_init(cfg.d_model, dtype, dev)
+            p["ln1_post"] = L.rmsnorm_init(cfg.d_model, dtype, device)
+            p["ln2_post"] = L.rmsnorm_init(cfg.d_model, dtype, device)
         return p
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "TransformerLM":
         """Draw every weight from ``generator`` with the reference's
-        distributions: embed N(0, 0.02²), dense weights He normal over
-        d_in (``L.dense_init``), biases and norm scales zero. The draws run
-        on the generator's device, embed first, then layer by layer; each
-        layer is drawn whole and copied in, so the peak is one extra layer.
-        Returns ``self``."""
+        distributions: embed N(0, 0.02²), the other weights He normal over
+        their fans (``L.dense_init``, ``L.init_moe``), biases and norm
+        scales zero. The draws run on the generator's device, embed first,
+        then each parameter in place in order (``L.draw_``); an expert
+        stack is drawn a few experts at a time, so the peak is one
+        ``L.DRAW_ELEMS`` slice in fp32 beyond the weights. Returns
+        ``self``."""
         self.embed.copy_(torch.randn(self.embed.shape, generator=generator,
                                      device=generator.device,
                                      dtype=torch.float32) * 0.02)
-        for block in self.blocks:
-            new = self._new_layer(generator, self.embed.dtype, None)
-            for (name, p), (name2, q) in zip(block.named_parameters(),
-                                             new.named_parameters()):
-                assert name == name2, (name, name2)
-                p.copy_(q)
-            del new
-        self.final_norm["scale"].zero_()
+        for name, p in self.named_parameters():
+            if name != "embed":
+                L.draw_(p, generator)
         return self
 
     @property
@@ -134,12 +163,27 @@ class TransformerLM(nn.Module):
 
     # ------------------------------------------------------------ helpers
 
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         x = self.embed[tokens]
         if cfg.scale_embedding:
             x = (x.float() * math.sqrt(cfg.d_model)).to(x.dtype)
         return x
+
+    def _embed(self, tokens: torch.Tensor,
+               patches: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, int]:
+        """Token embeddings, with the VLM's projected patches prepended:
+        (x (B, P + S, d), prefix length P)."""
+        cfg = self.cfg
+        x = self._embed_tokens(tokens)
+        if cfg.family != "vlm":
+            return x, 0
+        if patches is None:
+            raise ValueError(f"{cfg.name}: the vlm family needs batch["
+                             f"'patches'] (B, P, {cfg.vision_dim})")
+        vis = L.dense(self.vision_proj, patches.to(x.dtype))
+        return torch.cat([vis, x], dim=1), int(patches.shape[1])
 
     def _unembed(self, x: torch.Tensor) -> torch.Tensor:
         """fp32 logits against ``embed.T``; the final softcap and the
@@ -151,11 +195,13 @@ class TransformerLM(nn.Module):
         return L.mask_padded_vocab(logits, cfg.vocab)
 
     def _layer_fwd(self, p, x: torch.Tensor, window: int, *,
-                   q_pos: torch.Tensor, cache=None, cur_pos: Optional[int] = None
+                   q_pos: torch.Tensor, prefix_len: int = 0, cache=None,
+                   cur_pos: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, Tuple[torch.Tensor, ...]]:
-        """One block. Returns (x, aux, (k, v)): k/v for cache emission. With
-        ``cache = (ck, cv)`` the new token's k/v are written at ``cur_pos``
-        in place and attention reads the cache."""
+        """One block. Returns (x, aux, (k, v)): k/v for cache emission.
+        With ``cache = (ck, cv)``, or ``(ck, cv, k_scale, v_scale)`` for
+        the int8 cache, the new token's k/v are written at ``cur_pos`` in
+        place (quantized first) and attention reads the cache."""
         cfg = self.cfg
         b, s, _ = x.shape
         hd, hq, hkv = cfg.head_dim, cfg.num_heads, cfg.kv_heads
@@ -166,26 +212,42 @@ class TransformerLM(nn.Module):
         q = L.rope(q, q_pos[None, :], cfg.rope_theta)
         k = L.rope(k, q_pos[None, :], cfg.rope_theta)
         if cache is not None:
-            ck, cv = cache
-            ck[:, cur_pos:cur_pos + s] = k
-            cv[:, cur_pos:cur_pos + s] = v
-            att = L.decode_attention(q, ck, cv, cur_pos=cur_pos, window=window,
-                                     cap=cfg.logit_softcap)
+            end = cur_pos + s
+            if self.quant:
+                ck, cv, ks, vs = cache
+                ck[:, cur_pos:end], ks[:, cur_pos:end] = L.quantize_kv(k)
+                cv[:, cur_pos:end], vs[:, cur_pos:end] = L.quantize_kv(v)
+                # only the keys decode_attention reads: the masked ones
+                # weigh exactly 0 in the reference's full-cache softmax
+                lo = max(0, cur_pos + 1 - window)
+                kd = L.dequantize_kv(ck[:, lo:end], ks[:, lo:end], k.dtype)
+                vd = L.dequantize_kv(cv[:, lo:end], vs[:, lo:end], v.dtype)
+                att = L.decode_attention(q, kd, vd, cur_pos=cur_pos - lo,
+                                         window=window, cap=cfg.logit_softcap)
+            else:
+                ck, cv = cache
+                ck[:, cur_pos:end] = k
+                cv[:, cur_pos:end] = v
+                att = L.decode_attention(q, ck, cv, cur_pos=cur_pos,
+                                         window=window, cap=cfg.logit_softcap)
         else:
             # q_pos is arange(S) here (prefill, apply_train): left as None,
             # the kernel path needs no device read to know it
             att = L.attention(q, k, v, window=window, cap=cfg.logit_softcap,
-                              backend=self.attn_backend)
+                              prefix_len=prefix_len, backend=self.attn_backend)
         att = L.dense(p["attn"]["wo"], att.reshape(b, s, hq * hd))
         if cfg.post_norms:
             att = L.rmsnorm(p["ln1_post"], att, cfg.norm_eps)
         x = x + att * cfg.residual_scale
         h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-        f = L.mlp(p["mlp"], h2, cfg.act)
+        if cfg.family == "moe":
+            f, aux = L.moe(p["moe"], h2, cfg)
+        else:
+            f = L.mlp(p["mlp"], h2, cfg.act)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.post_norms:
             f = L.rmsnorm(p["ln2_post"], f, cfg.norm_eps)
         x = x + f * cfg.residual_scale
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return x, aux, (k, v)
 
     # ----------------------------------------------------------- forwards
@@ -193,42 +255,71 @@ class TransformerLM(nn.Module):
     @torch.no_grad()
     def apply_train(self, batch: Dict[str, torch.Tensor]
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """batch: {tokens (B, S)} → (logits (B, S, padded vocab) fp32, aux).
-        A forward only: there is no backward and no remat."""
+        """batch: {tokens (B, S)[, patches (B, P, vision_dim)]} → (logits
+        (B, S, padded vocab) fp32, aux): the text positions only, as the
+        reference slices off the prefix; aux is the MoE load-balance loss
+        summed over the layers (0 for the other families). A forward only:
+        there is no backward and no remat."""
         cfg = self.cfg
-        x = self._embed(batch["tokens"])
+        x, prefix_len = self._embed(batch["tokens"], batch.get("patches"))
         q_pos = torch.arange(x.shape[1], device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for p, w in zip(self.blocks, self.windows):
-            x, a, _ = self._layer_fwd(p, x, w, q_pos=q_pos)
+            x, a, _ = self._layer_fwd(p, x, w, q_pos=q_pos,
+                                      prefix_len=prefix_len)
             aux = aux + a
-        x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
+        x = L.rmsnorm(self.final_norm, x[:, prefix_len:], cfg.norm_eps)
         return self._unembed(x), aux
 
     def init_cache(self, batch: int, max_len: int,
                    dtype: Optional[torch.dtype] = None) -> Dict[str, object]:
         """Zero (L, B, max_len, Hkv, hd) k and v caches (the weights' dtype
-        unless given) and ``pos = 0`` (a host int)."""
+        unless given; int8 with (L, B, max_len, Hkv) bf16 ``k_scale`` and
+        ``v_scale`` for ``kv_cache_dtype="int8"``) and ``pos = 0`` (a host
+        int)."""
         cfg = self.cfg
         shape = (cfg.num_layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
+        dev = self.device
+        if self.quant:
+            return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "k_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                           device=dev),
+                    "v_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                           device=dev),
+                    "pos": 0}
         dtype = self.embed.dtype if dtype is None else dtype
-        return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=dtype, device=self.device),
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev),
                 "pos": 0}
+
+    def _layer_cache(self, cache: Dict[str, object], i: int) -> tuple:
+        names = ("k", "v", "k_scale", "v_scale") if self.quant else ("k", "v")
+        return tuple(cache[n][i] for n in names)
 
     @torch.no_grad()
     def decode_step(self, cache: Dict[str, object], tokens: torch.Tensor
                     ) -> Tuple[torch.Tensor, Dict[str, object]]:
         """tokens (B, 1); cache from init_cache/prefill. One new token:
         returns (logits (B, 1, padded vocab) fp32, cache), the cache
-        updated in place and its ``pos`` advanced by one."""
+        updated in place and its ``pos`` advanced by one.
+
+        Raises:
+          ValueError: the cache is full (``pos`` = max_len), where the
+            reference would overwrite its last slot (ROADMAP R12).
+        """
         cfg = self.cfg
         pos = int(cache["pos"])
-        x = self._embed(tokens)
+        max_len = cache["k"].shape[2]
+        if pos >= max_len:
+            raise ValueError(f"decode at position {pos}: the cache holds "
+                             f"{max_len} slots (max_len must cover the "
+                             f"prefix, the prompt and every decoded token)")
+        x = self._embed_tokens(tokens)
         q_pos = torch.arange(pos, pos + 1, device=x.device)
         for i, (p, w) in enumerate(zip(self.blocks, self.windows)):
             x, _, _ = self._layer_fwd(p, x, w, q_pos=q_pos,
-                                      cache=(cache["k"][i], cache["v"][i]),
+                                      cache=self._layer_cache(cache, i),
                                       cur_pos=pos)
         cache["pos"] = pos + 1
         x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
@@ -237,19 +328,32 @@ class TransformerLM(nn.Module):
     @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor], max_len: int
                 ) -> Tuple[torch.Tensor, Dict[str, object]]:
-        """Full forward over the prompt, emitting the KV cache: returns
-        (logits (B, S, padded vocab) fp32, cache with ``pos = S``)."""
+        """Full forward over the prompt (after the VLM's prefix), emitting
+        the KV cache: returns (logits (B, P + S, padded vocab) fp32, every
+        position as in the reference, cache with ``pos = P + S``).
+
+        Raises:
+          ValueError: P + S > max_len.
+        """
         cfg = self.cfg
-        x = self._embed(batch["tokens"])
+        x, prefix_len = self._embed(batch["tokens"], batch.get("patches"))
         b, s, _ = x.shape
         if s > max_len:
-            raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
+            raise ValueError(f"prefix and prompt of {s} positions exceed "
+                             f"max_len {max_len}")
         q_pos = torch.arange(s, device=x.device)
         cache = self.init_cache(b, max_len, dtype=x.dtype)
         for i, (p, w) in enumerate(zip(self.blocks, self.windows)):
-            x, _, (k, v) = self._layer_fwd(p, x, w, q_pos=q_pos)
-            cache["k"][i, :, :s] = k
-            cache["v"][i, :, :s] = v
+            x, _, (k, v) = self._layer_fwd(p, x, w, q_pos=q_pos,
+                                           prefix_len=prefix_len)
+            if self.quant:  # per layer: never a stacked unquantized cache
+                cache["k"][i, :, :s], cache["k_scale"][i, :, :s] = \
+                    L.quantize_kv(k)
+                cache["v"][i, :, :s], cache["v_scale"][i, :, :s] = \
+                    L.quantize_kv(v)
+            else:
+                cache["k"][i, :, :s] = k
+                cache["v"][i, :, :s] = v
         cache["pos"] = s
         x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
         return self._unembed(x), cache

@@ -35,6 +35,13 @@ def greedy_generate(model, cfg: ModelConfig, prompt_batch: Dict[str, torch.Tenso
                     *, steps: int, max_len: int) -> torch.Tensor:
     """Prefill the prompt then greedy-decode ``steps`` tokens.
 
+    ``prompt_batch`` goes to ``model.prefill`` whole: ``{"tokens": (B, S)}``
+    and, for the vlm family, ``"patches"`` (B, P, vision_dim). ``max_len``
+    must hold the P + S prefilled positions and the ``steps`` decoded ones
+    (P + S + steps, or more): past the cache a ``decode_step`` raises
+    ``ValueError``, where the reference's clamped write would overwrite the
+    last slot (ROADMAP R12).
+
     Returns the (B, steps) tokens fed at each step, as the reference's scan
     emits them: the first is the argmax of the prefill's last position, and
     the argmax of the last decode step is dropped.

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain torch versions, on the card,
-the five lanes on the card against scipy, the dense LM's prefill
-through the flash kernel against its plain attention path, the
+the five lanes on the card against scipy, the LM's prefill (dense, moe,
+vlm with its prefix, the int8 cache) through the flash kernel against its
+plain attention path, the
 triangle service and the measured chooser on the card, and the sharded
 lanes on a world-1 NCCL group and on 4 gloo ranks sharing the card.
 
@@ -504,6 +505,11 @@ FLASH_CASES = [
     (1, 201, 267, 5, 1, 128, torch.float16, True, 50, None),
     (2, 150, 97, 10, 2, 256, torch.bfloat16, True, 40, 50.0),
     (2, 150, 97, 10, 2, 256, torch.float16, False, 20, 50.0),  # rows with no key
+    # the layer shapes of the served qwen1.5-32b (G = 1), dbrx-132b (G = 6)
+    # and arctic-480b (G = 7) prefills
+    (2, 512, 512, 40, 40, 128, torch.bfloat16, True, None, None),
+    (2, 256, 256, 48, 8, 128, torch.bfloat16, True, None, None),
+    (2, 256, 256, 56, 8, 128, torch.bfloat16, True, None, None),
 ]
 
 
@@ -532,6 +538,101 @@ def test_flash_kernel_equals_plain_version(cuda, b, s, t, hq, hkv, hd, dtype,
         rows = fa.flash_row_rms(got, q, k, v, causal=causal, window=window,
                                 cap=cap)
         assert float(rows.max()) <= fa.ROW_RMS_BOUND[dtype], float(rows.max())
+
+
+# K6 with a bidirectional prefix: (b, s, hq, hkv, hd, dtype, window, cap,
+# prefix), causal as the VLM's prefill
+FLASH_PREFIX_CASES = [
+    (2, 512, 8, 1, 256, torch.bfloat16, None, None, 256),  # paligemma layer
+    (1, 333, 4, 2, 64, torch.float32, None, None, 100),    # ragged, P % 32
+    (1, 200, 8, 1, 128, torch.float32, 16, 50.0, 47),      # window + prefix
+    (1, 100, 4, 2, 64, torch.bfloat16, None, None, 100),   # P = S
+    (1, 100, 4, 2, 64, torch.float32, 8, None, 300),       # P > S
+    (1, 700, 8, 1, 256, torch.bfloat16, 64, 50.0, 130),    # two intervals
+    (1, 257, 10, 2, 128, torch.float16, None, 30.0, 65),   # ragged, P % 64
+]
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,hd,dtype,window,cap,prefix",
+                         FLASH_PREFIX_CASES)
+def test_flash_kernel_with_prefix_equals_plain_version(cuda, b, s, hq, hkv,
+                                                       hd, dtype, window, cap,
+                                                       prefix):
+    gen = torch.Generator(device=cuda).manual_seed(s * 7 + prefix)
+    q = torch.randn(b, s, hq, hd, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(b, s, hkv, hd, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(b, s, hkv, hd, generator=gen, device=cuda).to(dtype)
+    kw = dict(causal=True, window=window, cap=cap, prefix_len=prefix)
+    fa.reset_launch_counts()
+    got = fa.flash_attention_kernel(q, k, v, **kw)
+    want = fa.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_attention": 1}
+    ok, err = fa.flash_within_tolerance(got, want, q, k, v, **kw)
+    assert ok, err
+    if dtype != torch.float32:
+        rows = fa.flash_row_rms(got, q, k, v, **kw)
+        assert float(rows.max()) <= fa.ROW_RMS_BOUND[dtype], float(rows.max())
+    # prefix_len = 0 is the kernel without a prefix, bit for bit
+    kw0 = dict(causal=True, window=window, cap=cap)
+    assert torch.equal(fa.flash_attention_kernel(q, k, v, prefix_len=0, **kw0),
+                       fa.flash_attention_kernel(q, k, v, **kw0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_kv_on_card_equals_cpu(cuda, dtype):
+    """The int8 quantizer on the card gives the CPU's values and scales bit
+    for bit (both divide; a division by a Python number on the card would
+    multiply by its reciprocal)."""
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = (torch.randn(2, 300, 8, 128, generator=gen, device=cuda)
+         * torch.rand(2, 300, 8, 1, generator=gen, device=cuda) * 9).to(dtype)
+    x[0, :5] = 0  # the 1e-6 floor
+    q, scale = L.quantize_kv(x)
+    qh, sh = L.quantize_kv(x.cpu())
+    assert torch.equal(q.cpu(), qh) and torch.equal(scale.cpu(), sh)
+    back = L.dequantize_kv(q, scale, torch.float32)
+    assert bool(((back - x.float()).abs() <= scale.float()[..., None]).all())
+
+
+@pytest.mark.parametrize("arch", ["paligemma-3b", "arctic-480b", "dbrx-132b",
+                                  "qwen1.5-32b"])
+def test_new_families_prefill_through_flash_kernel(cuda, arch):
+    """The vlm (prefix), moe and int8-cache models on the card: K6 once a
+    layer, logits and caches as the chunked plain path's (fp32 weights,
+    head_dim 64 for the kernel)."""
+    from repro_torch.models.registry import get_reduced_config
+    from repro_torch.models.transformer import TransformerLM
+
+    cfg = get_reduced_config(arch).replace(d_model=128, head_dim=64)
+    model = TransformerLM(cfg, device=cuda, dtype=torch.float32)
+    model.init(torch.Generator(device=cuda).manual_seed(0))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 40), device=cuda,
+                                     generator=gen)}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn(2, cfg.vision_tokens, cfg.vision_dim,
+                                       device=cuda, generator=gen)
+    max_len = cfg.vision_tokens + 48
+    fa.reset_launch_counts()
+    lk, ck = model.prefill(batch, max_len)
+    assert fa.LAUNCHES["flash_attention"] == cfg.num_layers
+    dk, _ = model.decode_step(ck, batch["tokens"][:, :1])
+    model.attn_backend = "chunked"
+    lp, cp = model.prefill(batch, max_len)
+    dp, _ = model.decode_step(cp, batch["tokens"][:, :1])
+    assert fa.LAUNCHES["flash_attention"] == cfg.num_layers
+    torch.testing.assert_close(lk, lp, rtol=1e-4, atol=1e-4)
+    if cfg.kv_cache_dtype == "int8":
+        # k and v that differ in their last bits may quantize one step apart
+        # (and the decode then reads that step), as against the reference
+        off = (ck["k"].int() - cp["k"].int()).abs()
+        assert int(off.max()) <= 1 and float((off > 0).float().mean()) <= 1e-3
+    else:
+        torch.testing.assert_close(ck["k"], cp["k"], rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(dk, dp, rtol=1e-4, atol=1e-4)
 
 
 def test_flash_kernel_checks_inputs(cuda):
@@ -567,9 +668,11 @@ def test_prefill_through_flash_kernel_matches_plain_path(cuda):
     torch.testing.assert_close(ck["k"], cp["k"], rtol=1e-4, atol=1e-4)
     pos = torch.arange(8, device=cuda)
     q = torch.zeros(1, 8, 4, 64, device=cuda)
-    with pytest.raises(NotImplementedError):
-        L.attention(q, q[:, :, :2], q[:, :, :2], q_pos=pos, k_pos=pos,
-                    prefix_len=3)
+    # a bidirectional prefix runs the kernel
+    fa.reset_launch_counts()
+    assert L.attention(q, q[:, :, :2], q[:, :, :2], q_pos=pos, k_pos=pos,
+                       prefix_len=3).shape == q.shape
+    assert fa.LAUNCHES["flash_attention"] == 1
     # given positions are checked; shifted ones are not the prefill case
     with pytest.raises(NotImplementedError):
         L.attention(q, q[:, :, :2], q[:, :, :2], q_pos=pos + 1, k_pos=pos + 1)

@@ -19,7 +19,9 @@ torch emulation of the tensor-core kernel's arithmetic (128-row blocks,
 input type before P·V, the exact tile-skip rule) against the reference's
 oracle, the Pallas kernel in interpret mode and the port's plain version,
 within one output rounding plus the bf16 (fp16) weights' slack; and the
-same bound rejecting an emulation that skips the alpha rescale.
+same bound rejecting an emulation that skips the alpha rescale. With the
+VLM's bidirectional prefix, the emulation (every block from key 0) against
+the port's plain version and the reference's ``layers.attention``.
 """
 
 import math
@@ -222,9 +224,10 @@ def test_non_cpu_requests_raise_without_a_card():
     with pytest.raises(ValueError, match="takes CUDA tensors"):
         fa.flash_attention_kernel(q, k, k)
     pos = torch.arange(8, device="meta")
+    # a bidirectional prefix is the kernel's case: it reaches the wrapper
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        port_layers.attention(q, k, k, prefix_len=2)
     # cases the kernel does not take raise before any device work
-    with pytest.raises(NotImplementedError, match="prefix_len"):
-        port_layers.attention(q, k, k, q_pos=pos, k_pos=pos, prefix_len=2)
     with pytest.raises(NotImplementedError, match="causal=False"):
         port_layers.attention(q, k, k, q_pos=pos, k_pos=pos, causal=False,
                               window=4)
@@ -264,11 +267,11 @@ def _round_bits(p, bits):
 
 
 def _emulate_wgmma_kernel(q, k, v, *, causal=True, window=None, cap=None,
-                          rescale=True, p_bits=None):
+                          prefix_len=0, rescale=True, p_bits=None):
     """The 16-bit kernel's arithmetic (``flash_fwd_wgmma_kernel``) in torch:
     blocks of ``WGMMA_ROWS`` (query, head) rows of one kv head, each
     visiting the ``WGMMA_KEYS``-key tiles of its key range (the kernel's
-    skip rule), fp32 logits and online softmax from the -1e30 sentinel
+    skip rule; with a prefix, from key 0 to at least its end), fp32 logits and online softmax from the -1e30 sentinel
     (-inf past T), P rounded to the input type before P·V, acc / max(l,
     1e-30) rounded once. Known faults: ``rescale=False`` drops the alpha
     rescale of the accumulator; ``p_bits`` rounds P to that many
@@ -277,6 +280,7 @@ def _emulate_wgmma_kernel(q, k, v, *, causal=True, window=None, cap=None,
     t, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     win = 1 << 30 if window is None else window
+    pre = min(prefix_len, t)
     rows_all, keys = WGMMA_ROWS, WGMMA_KEYS
     n_rows = s * g
     out = torch.empty(b, s, hq, hd, dtype=q.dtype)
@@ -291,7 +295,9 @@ def _emulate_wgmma_kernel(q, k, v, *, causal=True, window=None, cap=None,
                 s_lo, s_hi = r0 // g, min(n_rows - 1, r0 + rows_all - 1) // g
                 k_begin = max(0, s_lo - win + 1)
                 k_end = min(t, s_hi + 1) if causal else t
-                if s_hi - win + 1 > t - 1:  # a row with no valid key
+                if pre > 0:  # every row sees the prefix
+                    k_begin, k_end = 0, max(k_end, pre)
+                elif s_hi - win + 1 > t - 1:  # a row with no valid key
                     k_begin, k_end = 0, t
                 k_begin = k_begin // keys * keys
                 m = torch.full((rows.shape[0],), -1e30)
@@ -308,6 +314,7 @@ def _emulate_wgmma_kernel(q, k, v, *, causal=True, window=None, cap=None,
                         x = torch.tanh(x / cap) * cap
                     qk = spos[:, None] - kpos[None, :]
                     valid = (qk < win) & ((qk >= 0) if causal else True)
+                    valid = valid | (kpos[None, :] < pre)
                     x = torch.where(valid, x, torch.tensor(-1e30))
                     x = torch.where(kpos[None, :] >= t, -math.inf, x)
                     m_new = torch.maximum(m, x.amax(1))
@@ -461,6 +468,49 @@ def test_row_rms_rejects_coarse_weights(dtype):
                             q, k, v, **kw)
     # P rounded to 2⁻⁴ of itself: most rows, the late ones too, fail
     assert float(rows[:, s // 2:].median()) > fa.ROW_RMS_BOUND[dtype]
+
+
+# (b, s, hq, hkv, hd, window, prefix): causal, as the VLM's prefill
+PREFIX_SHAPES = [
+    (2, 100, 8, 1, 16, None, 40),     # G = 8 (paligemma's MQA), ragged
+    (1, 200, 4, 2, 32, None, 70),     # P not a multiple of the 64-key tile
+    (1, 160, 4, 1, 16, 24, 50),       # window and prefix: two intervals
+    (1, 300, 2, 1, 16, 16, 129),      # P past two tiles, a narrow window
+    (1, 60, 4, 2, 16, None, 60),      # P = S: every key visible
+    (1, 60, 4, 2, 16, 8, 500),        # P > S: every key visible
+]
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,hd,window,prefix", PREFIX_SHAPES)
+def test_wgmma_arithmetic_with_prefix_within_contract(lmref, b, s, hq, hkv,
+                                                      hd, window, prefix):
+    """The 16-bit kernel's arithmetic with a bidirectional prefix against
+    the port's plain version and the reference's ``layers.attention``
+    (whose causal mask with ``prefix_len`` is the kernel's rule), within
+    K6's contract and row bound."""
+    import jax.numpy as jnp
+
+    q, k, v = _torch16(_qkv(b, s, hq, hkv, hd, seed=s + prefix), torch.bfloat16)
+    kw = dict(causal=True, window=window, cap=50.0, prefix_len=prefix)
+    got = _emulate_wgmma_kernel(q, k, v, **kw)
+    plain = fa.flash_attention_ref(q, k, v, **kw)
+    ok, err = fa.flash_within_tolerance(got, plain, q, k, v, **kw)
+    assert ok, err
+    rows = fa.flash_row_rms(got, q, k, v, **kw)
+    assert float(rows.max()) <= fa.ROW_RMS_BOUND[torch.bfloat16]
+    jq, jk, jv = (jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v))
+    pos = jnp.arange(s)
+    want = lmref.layers.attention(
+        jq, jk, jv, q_pos=pos, k_pos=pos, causal=True, cap=50.0,
+        window=(1 << 30) if window is None else window, prefix_len=prefix)
+    want = torch.from_numpy(np.asarray(want, np.float32)).bfloat16()
+    ok, err = fa.flash_within_tolerance(got, want, q, k, v, **kw)
+    assert ok, err
+    # without the prefix the early rows differ: the prefix is not a no-op
+    if prefix < s or window is not None:
+        bare = fa.flash_attention_ref(q, k, v, causal=True, window=window,
+                                      cap=50.0)
+        assert float((bare.float() - plain.float()).abs().max()) > 0.05
 
 
 def test_emulation_tiles_fit_wgmma():

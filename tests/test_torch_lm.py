@@ -7,8 +7,10 @@ qwen1.5-4b (QKV bias) and minicpm-2b (residual scale) in fp32, loaded with
 the reference's own initial weights: prefill logits and KV cache, every
 ``decode_step``'s logits and ``greedy_generate``'s tokens against the
 reference's. Prefill plus decode agrees with ``apply_train``'s forward, as
-``tests/test_models_smoke.py`` checks it in JAX. Non-dense families and a
-missing card raise.
+``tests/test_models_smoke.py`` checks it in JAX. The ssm, hybrid and
+encdec families and a missing card raise; the moe and vlm families and the
+int8 KV cache build (their parity is in ``tests/test_torch_moe.py``,
+``test_torch_vlm.py`` and ``test_torch_kvint8.py``).
 
 Tolerances: layers 1e-5 (the same fp32 arithmetic); model logits and
 caches 2e-4 after four fp32 layers (reductions summed in another order,
@@ -32,6 +34,10 @@ from repro_torch.models.transformer import TransformerLM, _layer_windows
 from repro_torch.train.serve_step import greedy_generate, make_serve_fns
 
 DENSE = ["gemma2-2b", "qwen1.5-4b", "qwen1.5-32b", "minicpm-2b"]
+# the families TransformerLM serves, and the archs of those it does not
+PORTED = DENSE + ["arctic-480b", "dbrx-132b", "paligemma-3b"]
+UNPORTED = {"mamba2-780m": "ssm", "whisper-medium": "encdec",
+            "recurrentgemma-9b": "hybrid"}
 MODEL_TOL = dict(rtol=2e-4, atol=2e-4)
 CPU = "cpu"
 
@@ -55,7 +61,7 @@ def _port_model(lmref, arch, seed=0):
     return jmodel, jparams, model
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 @pytest.mark.parametrize("which", ["get_config", "get_reduced_config"])
 def test_configs_equal_reference(lmref, arch, which):
     port = getattr(registry, which)(arch)
@@ -73,31 +79,50 @@ def test_configs_equal_reference(lmref, arch, which):
 def test_registry_names_and_non_dense_families(lmref):
     assert registry.ARCHS == lmref.registry.ARCHS
     assert registry.list_archs() == lmref.registry.list_archs()
-    for arch in registry.ARCHS:
-        if arch in DENSE:
-            continue
-        family = lmref.registry.get_config(arch).family
+    assert sorted(PORTED + list(UNPORTED)) == sorted(registry.ARCHS)
+    for arch, family in UNPORTED.items():
+        assert lmref.registry.get_config(arch).family == family
         with pytest.raises(NotImplementedError, match=family):
             registry.get_config(arch)
         with pytest.raises(NotImplementedError, match="item 15"):
             registry.get_reduced_config(arch)
-    for family in ("moe", "ssm", "hybrid", "encdec", "vlm"):
+    for family in UNPORTED.values():
         cfg = registry.get_reduced_config("gemma2-2b").replace(family=family)
         with pytest.raises(NotImplementedError, match=family):
             registry.get_model(cfg, device=CPU)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="item 15"):
             TransformerLM(cfg, device=CPU)
     with pytest.raises(ValueError, match="unknown arch"):
         registry.get_config("gpt-2")
-    with pytest.raises(NotImplementedError, match="int8"):
-        TransformerLM(registry.get_config("qwen1.5-32b").replace(
-            num_layers=1, d_model=64, num_heads=4, kv_heads=4, d_ff=64,
-            vocab=256), device=CPU)
-    for fn in (lambda: L.moe(None, None, None), lambda: L.quantize_kv(None),
-               lambda: L.dequantize_kv(None, None),
-               lambda: L.init_moe(None, None)):
-        with pytest.raises(NotImplementedError):
-            fn()
+    with pytest.raises(ValueError, match="unknown family"):
+        registry.get_model(registry.get_reduced_config("gemma2-2b").replace(
+            family="rnn"), device=CPU)
+    with pytest.raises(ValueError, match="kv_cache_dtype"):
+        TransformerLM(registry.get_reduced_config("gemma2-2b").replace(
+            kv_cache_dtype="fp8"), device=CPU)
+    # the moe and vlm families and the int8 cache build where they raised
+    for arch in ("arctic-480b", "dbrx-132b", "paligemma-3b", "qwen1.5-32b"):
+        cfg = registry.get_reduced_config(arch)
+        model = registry.get_model(cfg, device=CPU, dtype=torch.float32)
+        assert isinstance(model, TransformerLM)
+        assert model.cfg.family == lmref.registry.get_config(arch).family
+        assert ("moe" in model.blocks[0]) == (cfg.family == "moe")
+        assert hasattr(model, "vision_proj") == (cfg.family == "vlm")
+    int8 = TransformerLM(registry.get_config("qwen1.5-32b").replace(
+        num_layers=1, d_model=64, num_heads=4, kv_heads=4, d_ff=64,
+        vocab=256), device=CPU)
+    cache = int8.init_cache(2, 5)
+    assert cache["k"].dtype == torch.int8
+    assert tuple(cache["k_scale"].shape) == (1, 2, 5, 4)
+    q, scale = L.quantize_kv(torch.tensor([[0.0, 2.0, -1.0]]))
+    assert q.tolist() == [[0, 127, -64]] and scale.dtype == torch.bfloat16
+    assert torch.allclose(L.dequantize_kv(q, scale, torch.float32),
+                          torch.tensor([[0.0, 2.0, -1.0]]), atol=2e-2)
+    moe_cfg = registry.get_reduced_config("dbrx-132b")
+    tree = L.init_moe(torch.Generator().manual_seed(0), moe_cfg,
+                      torch.float32)
+    out, aux = L.moe(tree, torch.ones(1, 3, moe_cfg.d_model), moe_cfg)
+    assert out.shape == (1, 3, moe_cfg.d_model) and float(aux) > 0
 
 
 def test_entry_points_default_to_the_card():
@@ -312,10 +337,12 @@ def test_lm_modules_import_and_serve_without_jax():
             "import repro_torch.models.registry, repro_torch.models.convert, "
             "repro_torch.kernels.flash_attention, repro_torch.train.serve_step; "
             "from repro_torch.launch import serve_lm; "
-            "serve_lm.main(['--arch', 'gemma2-2b', '--reduced', '--device', "
-            "'cpu', '--batch', '1', '--prompt-len', '20', '--tokens', '3'])")
+            "[serve_lm.main(['--arch', a, '--reduced', '--device', 'cpu', "
+            "'--batch', '1', '--prompt-len', '20', '--tokens', '3']) for a in "
+            "('gemma2-2b', 'qwen1.5-32b', 'arctic-480b', 'dbrx-132b', "
+            "'paligemma-3b')]")
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=root,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert "generated=3/seq" in out.stdout
+    assert out.stdout.count("generated=3/seq") == 5
