@@ -222,7 +222,15 @@ source, all started together), and runs, in order:
    differ from the attention without it), ragged fp32 and fp16 cases with
    P off the tiles, P = S and P > S (every key visible) and a window
    beside the prefix, each within ``flash_within_tolerance`` and, 16-bit,
-   ``flash_row_rms``;
+   ``flash_row_rms``; and every layer shape of 3p, 3q, 3s and 3u in bf16,
+   each held and timed as above beside ``flex_attention``: qwen1.5-32b
+   (2, 512, 40/40, 128), arctic-480b (2, 256, 56/8, 128), dbrx-132b
+   (2, 256, 48/8, 128), whisper-medium's encoder (4, 1500, 16/16, 64, not
+   causal), causal self-attention (4, 64), cross-attention (4, 64 against
+   1500 keys, not causal) and decode cross-attention (4, 1 against 1500),
+   these four also beside ``scaled_dot_product_attention`` (no window or
+   softcap: the same function), and recurrentgemma-9b's local attention
+   (2, 4096, 16/1, 256, window 2048);
 3p. the int8 KV cache: qwen1.5-32b at its published width and depth (64
    layers, MHA 40/40, 64.2 GiB of bf16 weights from seed 0, its config's
    ``kv_cache_dtype="int8"``), batch 2, a 512-token prompt and 16 greedy
@@ -248,12 +256,35 @@ source, all started together), and runs, in order:
    tokens: 18 K6 launches a prefill, each with ``prefix_len = 256``;
    teacher-forced against the chunked plain attention; the prefill again
    with fp32 weights, kernel and plain logits and caches within 1e-3;
-5. a ``{"kernels": [...]}`` line, the card's name and power limit from
+3s. encdec: whisper-medium at its published width and depth
+   (``WhisperModel``; 24 + 24 layers, d 1024, 16 heads of 64, 1500 frames),
+   batch 4, frames (4, 1500, 1024) from seed 2, a 64-token prompt and 32
+   greedy tokens: 72 K6 launches a prefill (24 encoder, 24 causal self,
+   24 cross-attention, the last two S = 64 against T = 64 and 1500) and 24
+   a decode step (the one-query cross-attention);
+3t. ssm: mamba2-780m (``MambaLM``; 48 layers, d 1536, 48 SSM heads of 64,
+   state 128, chunk 256), batch 2, a 4096-token prompt (16 chunks) and 32
+   greedy tokens: no kernel (the reference has none for the family);
+3u. hybrid: recurrentgemma-9b (``GriffinLM``; 38 layers, 26 RG-LRU and 12
+   local attention, d 4096, MQA 16/1 at head dim 256, window 2048, vocab
+   256,000), batch 2, a 4096-token prompt (the window cuts in prefill, the
+   ring wraps in decode) and 16 greedy tokens: 12 K6 launches a prefill;
+   each of 3s–3u with bf16 weights from seed 0, its peak reckoned before
+   the run and held to the reckoning after it, prefill seconds, decode ms
+   a token and ``torch.profiler`` over one of each; 3s and 3u
+   teacher-forced against the chunked plain attention (every K6 call of
+   the kernel run within K6's contract on its own inputs; the logits
+   within twice the larger of the plain path's 128-key-chunk floor and its
+   floor with K6's rounding of the softmax weights); each then with fp32
+   weights, ``decode_step`` after ``prefill(S - 1)`` against
+   ``prefill(S)``'s last logits within 1e-3;
+5. a ``{"lm_without_kernels": [...]}`` line (3t's run), a
+   ``{"kernels": [...]}`` line, the card's name and power limit from
    nvidia-smi, and a last line ``{"ok": true, "device": {...}}``.
 
 The phases run in the order 1, 2, 3, 3b, 3c, 4, 3d, 4b, 3k, 3l, 3g–3j,
-3e, 3m, 3n, 3o, 3f, 4c, 3p, 3q, 3r, 5 (each of 3p–3r frees its model
-before the next): phase 4 needs the earlier lanes' plans (about 40 GiB), so
+3e, 3m, 3n, 3o, 3f, 4c, 3p, 3q, 3r, 3s, 3t, 3u, 5 (each of 3p–3u frees
+its model before the next): phase 4 needs the earlier lanes' plans (about 40 GiB), so
 the new lanes wait until it has released them (phase 4b holds the hash
 paths' stages and releases them before the edge and dynamic lanes, and the
 tiled phases free their pinned host memory before the next), and the
@@ -262,8 +293,10 @@ entries carry the tiled, batch, recount and served shapes under
 ``tiled_path``, ``batch_path``, ``recount_path``, ``serve_path`` and
 ``sharded_path`` (with each gloo rank's launches), K1–K5 the
 chooser's launches under ``chooser_path``, and K6 its launches on the
-int8, MoE and VLM serving paths under ``serve_paths`` (their runs under
-``lm_serving``) and its prefix shapes under ``prefix_shapes``.
+int8, MoE, VLM, encdec and hybrid serving paths under ``serve_paths``
+(their runs under ``lm_serving``), its prefix shapes under
+``prefix_shapes`` and whisper's and the hybrid's layer shapes under
+``encdec_shapes`` and ``hybrid_shapes``.
 
 Any failed check raises, so the script exits non-zero and prints no last
 line. Without a CUDA device, or outside a checkout, it exits 2 at once.
@@ -356,13 +389,27 @@ MOE_ROW_RMS_TOL = 2.0 ** -5
 # layers, and 0.094 for paligemma-3b; NVIDIA H100 80GB HBM3, 700 W)
 INT8_LOGIT_TOL = 0.35
 VLM_LOGIT_TOL = 0.2
-# arctic-480b and dbrx-132b, teacher-forced as above: the limit is this
+# arctic-480b and dbrx-132b (3q), whisper-medium (3s) and
+# recurrentgemma-9b (3u), teacher-forced as above: the limit is this
 # factor times the larger of two floors measured in the same run, the
 # plain path against itself with 128-key chunks and the plain path with
 # K6's bf16 rounding of the softmax weights against the plain path (in two
 # layers the second dominates: arctic-480b's kernel path differed by 2.09x
 # the first alone; NVIDIA H100 80GB HBM3, 700 W)
-MOE_FLOOR_FACTOR = 2.0
+FLOOR_FACTOR = 2.0
+# phases 3s–3u: the encdec, ssm and hybrid families at their published
+# widths and depths, each with its own model class
+ENCDEC_ARCH = "whisper-medium"  # 24 + 24 layers, d 1024, 16 heads of 64
+ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_STEPS = 4, 64, 32
+SSM_ARCH = "mamba2-780m"  # 48 layers, d 1536, 48 SSM heads of 64, state 128
+SSM_BATCH, SSM_PROMPT, SSM_STEPS = 2, 4096, 32  # 16 chunks of 256
+HYBRID_ARCH = "recurrentgemma-9b"  # 38 layers, 12 local attention, MQA 16/1
+# twice the 2048 window: the window cuts in prefill and the ring wraps in
+# decode
+HYBRID_BATCH, HYBRID_PROMPT, HYBRID_STEPS = 2, 4096, 16
+# a run's measured own peak against the peak reckoned before it: the
+# reckoning leaves out the allocator's rounding and short-lived temporaries
+PEAK_RECKON_SLACK = 1.10
 KERNELS = {
     "broadcast": dict(
         name="intersect_broadcast", plain="intersect_counts_broadcast",
@@ -659,11 +706,13 @@ def row_rms_facts(rows, s: int) -> dict:
                 late_median=float(late.median()), late_max=float(late.max()))
 
 
-def rounded_weight_attention(torch, q, k, v, window, cap, bits: int):
-    """A planted control for phase 4c: the plain version's causal
-    arithmetic in fp32 with the unnormalised softmax weights rounded to
-    ``bits`` significant bits before ·v (8: what bf16 rounding does; 4: a
-    fault, 2⁻⁴ relative) and the sum of the unrounded ones as divisor."""
+def rounded_weight_attention(torch, q, k, v, window, cap, bits: int,
+                             causal: bool = True):
+    """A planted control for phase 4c: the plain version's arithmetic
+    (causal, or with every key of a non-causal call without a window) in
+    fp32 with the unnormalised softmax weights rounded to ``bits``
+    significant bits before ·v (8: what bf16 rounding does; 4: a fault,
+    2⁻⁴ relative) and the sum of the unrounded ones as divisor."""
     b, s, hq, hd = q.shape
     t, hkv = k.shape[1], k.shape[2]
     qg = q.reshape(b, s, hkv, hq // hkv, hd).float()
@@ -673,6 +722,10 @@ def rounded_weight_attention(torch, q, k, v, window, cap, bits: int):
     d = (torch.arange(s, device=q.device)[:, None]
          - torch.arange(t, device=q.device)[None, :])
     valid = (d >= 0) & (d < (s + t if window is None else window))
+    if not causal:
+        if window is not None:
+            raise ValueError("a non-causal window has no K6 path (R10)")
+        valid = torch.ones_like(valid)
     x = torch.where(valid[None, :, None, None], x, -1e30)
     p = torch.exp(x - x.amax(-1, keepdim=True))
     del x
@@ -685,15 +738,15 @@ def rounded_weight_attention(torch, q, k, v, window, cap, bits: int):
 
 
 def flex_library(torch, flex, create_block_mask, q, k, v, window, cap,
-                 prefix_len: int = 0):
+                 prefix_len: int = 0, causal: bool = True):
     """The library call for K6: one compiled ``flex_attention`` on the
     (B, H, S, hd) views, the softcap as its ``score_mod`` (flex scales the
     logits by 1/sqrt(hd) before it, as the kernel does), the causal and
     window mask, with the bidirectional prefix, as its ``block_mask`` and
     ``enable_gqa=True`` (q head h reads kv head h // G, as the kernel
-    does). The port never calls it. Returns (call, seconds to build the
-    block mask), the mask built once as a model would build it once a
-    prefill."""
+    does); a non-causal call without a window or a prefix has no mask. The
+    port never calls it. Returns (call, seconds to build the block mask),
+    the mask built once as a model would build it once a prefill."""
     def mask(b, h, qi, ki):
         ok = qi >= ki
         ok = ok if window is None else ok & (qi - ki < window)
@@ -706,8 +759,12 @@ def flex_library(torch, flex, create_block_mask, q, k, v, window, cap,
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    block_mask = create_block_mask(mask, None, None, q.shape[1], k.shape[1],
-                                   device=q.device)
+    block_mask = None
+    if causal or window is not None or prefix_len:
+        if not causal:
+            raise ValueError("a non-causal mask has no K6 path (R10)")
+        block_mask = create_block_mask(mask, None, None, q.shape[1],
+                                       k.shape[1], device=q.device)
     torch.cuda.synchronize()
     mask_s = time.perf_counter() - t0
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -2620,8 +2677,11 @@ def device_profile(torch, fn) -> dict:
 def flash_phase(torch, np, dev, fa, flush, serve, lm_layers: dict) -> dict:
     """Phase 4c: K6 against its plain version, timed beside its bound, at
     the layer shapes of every serving path (``lm_layers``: K6's launches a
-    prefill of each model that phases 3p–3r serve), with and without the
-    VLM's bidirectional prefix."""
+    prefill of each model that phases 3p–3r, 3s and 3u serve, whisper's by
+    call: ``encoder``, ``self``, ``cross``, and ``decode cross`` a decode
+    step; and ``encoder_seq``), with and without the VLM's bidirectional
+    prefix, each also beside ``flex_attention`` (and SDPA where it computes
+    the same function)."""
     phase("phase 4c: flash-attention kernel against its plain torch version")
     import torch.nn.functional as F
     from repro_torch.kernels import _build
@@ -2631,12 +2691,13 @@ def flash_phase(torch, np, dev, fa, flush, serve, lm_layers: dict) -> dict:
     flex = torch.compile(flex_attention)
 
     def case(label, b, s, hq, hkv, hd, dtype, window, cap, per_prefill,
-             library=False, prefix=0):
-        gen = torch.Generator(device=dev).manual_seed(s + hq + hd + prefix)
+             library=False, prefix=0, t=None, causal=True, sdpa=False):
+        t = s if t is None else t
+        gen = torch.Generator(device=dev).manual_seed(s + t + hq + hd + prefix)
         q = torch.randn(b, s, hq, hd, generator=gen, device=dev).to(dtype)
-        k = torch.randn(b, s, hkv, hd, generator=gen, device=dev).to(dtype)
-        v = torch.randn(b, s, hkv, hd, generator=gen, device=dev).to(dtype)
-        kw = dict(causal=True, window=window, cap=cap)
+        k = torch.randn(b, t, hkv, hd, generator=gen, device=dev).to(dtype)
+        v = torch.randn(b, t, hkv, hd, generator=gen, device=dev).to(dtype)
+        kw = dict(causal=causal, window=window, cap=cap)
         if prefix:
             kw["prefix_len"] = prefix
         k_out = fa.flash_attention_kernel(q, k, v, **kw)
@@ -2661,7 +2722,7 @@ def flash_phase(torch, np, dev, fa, flush, serve, lm_layers: dict) -> dict:
                        5, flush)
         p_ms = time_ms(torch, lambda: fa.flash_attention_ref(q, k, v, **kw),
                        3, flush)
-        bound = flash_bound_ms(np, q, k, True, window, prefix)
+        bound = flash_bound_ms(np, q, k, causal, window, prefix)
         tflops = bound["flops"] / (k_ms * 1e-3) / 1e12
         print(f"  flash_attention {label}: kernel {k_ms:.4f} ms "
               f"({tflops:.1f} TFLOP/s, {bound['bound_ms'] / k_ms * 100:.1f} % "
@@ -2670,7 +2731,8 @@ def flash_phase(torch, np, dev, fa, flush, serve, lm_layers: dict) -> dict:
               f"{bound['flops'] / 1e12:.4f} TFLOP over {bound['pairs']:,} "
               f"pairs a head; fp32 CUDA-core figure "
               f"{bound['fp32_alu_ms']:.4f} ms)", flush=True)
-        rec = dict(label=label, shape=[b, s, hq, hkv, hd],
+        rec = dict(label=label, shape=[b, s, hq, hkv, hd], keys=t,
+                   causal=causal,
                    dtype=str(dtype).replace("torch.", ""), window=window,
                    cap=cap, prefix_len=prefix, ms=k_ms, plain_ms=p_ms, max_abs_err=err,
                    row_rms=rows,
@@ -2678,7 +2740,7 @@ def flash_phase(torch, np, dev, fa, flush, serve, lm_layers: dict) -> dict:
                    launches_per_prefill=per_prefill, **bound)
         if library:
             lib, mask_s = flex_library(torch, flex, create_block_mask, q, k,
-                                       v, window, cap, prefix)
+                                       v, window, cap, prefix, causal)
             t0 = time.perf_counter()
             l_out = lib()
             torch.cuda.synchronize()
@@ -2702,6 +2764,22 @@ def flash_phase(torch, np, dev, fa, flush, serve, lm_layers: dict) -> dict:
                   f"{k_ms:.4f} ms (x{k_ms / l_ms:.2f})", flush=True)
             rec.update(library_ms=l_ms, library_max_abs_err=l_err,
                        library_block_mask_s=mask_s)
+        if sdpa:  # no window, softcap or prefix: the same function
+            def sdpa_call():
+                return F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=causal, enable_gqa=True).transpose(1, 2)
+            ok, s_err = fa.flash_within_tolerance(
+                sdpa_call(), fa.flash_attention_ref(q, k, v, **kw), q, k, v,
+                **kw)
+            check(ok, f"library scaled_dot_product_attention == plain within "
+                      f"one rounding step and its bf16 weights' slack at "
+                      f"{label} (max |Δ| {s_err})")
+            s_ms = time_ms(torch, sdpa_call, 5, flush)
+            print(f"  library scaled_dot_product_attention(is_causal="
+                  f"{causal}, enable_gqa=True): {s_ms:.4f} ms against the "
+                  f"kernel's {k_ms:.4f} ms (x{k_ms / s_ms:.2f})", flush=True)
+            rec.update(sdpa_ms=s_ms, sdpa_max_abs_err=s_err)
         return rec, (q, k, v)
 
     b, s = SERVE_BATCH, SERVE_PROMPT
@@ -2726,17 +2804,43 @@ def flash_phase(torch, np, dev, fa, flush, serve, lm_layers: dict) -> dict:
     # G = 7 (head_dim 128, no window, no softcap)
     gqa_cases = [
         case(f"{arch} layer ({b_}, {s_}, {hq}/{hkv}, 128) bf16", b_, s_, hq,
-             hkv, 128, torch.bfloat16, None, None, lm_layers[arch])[0]
+             hkv, 128, torch.bfloat16, None, None, lm_layers[arch],
+             library=True)[0]
         for arch, b_, s_, hq, hkv in (
             (INT8_ARCH, INT8_BATCH, INT8_PROMPT, 40, 40),
             ("arctic-480b", MOE_BATCH, MOE_PROMPT, 56, 8),
             ("dbrx-132b", MOE_BATCH, MOE_PROMPT, 48, 8))]
-    for r in gqa_cases:
-        print(f"K6 per prefill of {r['label']}: "
-              f"{r['ms'] * r['launches_per_prefill']:.3f} ms over "
-              f"{r['launches_per_prefill']} launches; bound "
-              f"{r['bound_ms'] * r['launches_per_prefill']:.3f} ms; plain "
-              f"{r['plain_ms'] * r['launches_per_prefill']:.3f} ms", flush=True)
+
+    # the layer shapes of phases 3s and 3u: whisper-medium's encoder (not
+    # causal over its 1500 frames), the decoder's causal self-attention,
+    # its cross-attention (S = prompt, T = 1500) and a decode step's
+    # one-query cross-attention (16/16 heads of 64, no softcap, so SDPA
+    # computes the same function); recurrentgemma-9b's local attention
+    # (MQA 16/1 at head dim 256, causal, window 2048)
+    eb, es, et = ENCDEC_BATCH, ENCDEC_PROMPT, lm_layers["encoder_seq"]
+    encdec_cases = [
+        case(f"{ENCDEC_ARCH} {what} ({eb}, {s_} vs {t_}, 16/16, 64) bf16"
+             f"{'' if causal else ', not causal'}", eb, s_, 16, 16, 64,
+             torch.bfloat16, None, None, lm_layers[what], library=True,
+             t=t_, causal=causal, sdpa=True)[0]
+        for what, s_, t_, causal in (("encoder", et, et, False),
+                                     ("self", es, es, True),
+                                     ("cross", es, et, False),
+                                     ("decode cross", 1, et, False))]
+    hb, hs = HYBRID_BATCH, HYBRID_PROMPT
+    hybrid_case = case(
+        f"{HYBRID_ARCH} local layer ({hb}, {hs}, 16/1, 256) bf16, window "
+        f"2048", hb, hs, 16, 1, 256, torch.bfloat16, 2048, None,
+        lm_layers[HYBRID_ARCH], library=True)[0]
+    for r in gqa_cases + encdec_cases + [hybrid_case]:
+        n = r["launches_per_prefill"]
+        print(f"K6 per prefill (per decode step for the decode cross-"
+              f"attention) of {r['label']}: {r['ms'] * n:.3f} ms over {n} "
+              f"launches; bound {r['bound_ms'] * n:.3f} ms; plain "
+              f"{r['plain_ms'] * n:.3f} ms; library flex_attention "
+              f"{r['library_ms'] * n:.3f} ms"
+              + (f", scaled_dot_product_attention {r['sdpa_ms'] * n:.3f} ms"
+                 if "sdpa_ms" in r else ""), flush=True)
 
     # the VLM's bidirectional prefix: paligemma-3b's layer shape (multi-query,
     # G = 8, timed beside its bound and flex_attention with the prefix in its
@@ -2880,7 +2984,8 @@ def flash_phase(torch, np, dev, fa, flush, serve, lm_layers: dict) -> dict:
                   "and each bf16 (fp16) row's relative RMS error against "
                   "the fp32 plain version (flash_row_rms) <= 2^-7 (2^-10)",
         max_abs_err=max(r["max_abs_err"]
-                        for r in path + ragged + gqa_cases + prefix_cases),
+                        for r in path + ragged + gqa_cases + prefix_cases
+                        + encdec_cases + [hybrid_case]),
         ms=k6_prefill_ms, plain_ms=per_prefill("plain_ms"),
         design="bf16 / fp16: flash_fwd_wgmma_kernel, 3 warpgroups (1 TMA "
                "producer thread, 2 consumers of 64 rows), 128 (query, head) "
@@ -2911,31 +3016,59 @@ def flash_phase(torch, np, dev, fa, flush, serve, lm_layers: dict) -> dict:
         prefill_share=k6_prefill_ms / 1e3 / serve["prefill_s"],
         serving=serve, shapes=path, ragged=ragged,
         row_rms_controls=controls, serve_shapes=gqa_cases,
-        prefix_shapes=prefix_cases)
+        prefix_shapes=prefix_cases, encdec_shapes=encdec_cases,
+        hybrid_shapes=[hybrid_case])
 
 
 def lm_peak_reckoning(cfg, weight_bytes: int, b: int, positions: int,
                       max_len: int) -> dict:
     """A serving run's device peak, reckoned before it runs: the weights,
     the fp32 copy of the embedding that the unembedding makes, the
-    prefill's fp32 logits (every position), the KV cache (int8 with bf16
-    scales, or the weights' type) and a layer's widest fp32 temporaries
-    (three (B, positions, ff) for the gated MLP, or three (E, B·C, ff) for
-    the experts)."""
+    prefill's fp32 logits (every position), the cache twice (``lm_serve_run``
+    holds one while a timed prefill makes another) and a layer's widest
+    fp32 temporaries. The cache: k and v (int8 with bf16 scales, or the
+    weights' type, 2 bytes); whisper's also the cross K/V of encoder_seq
+    frames; mamba2's the fp32 SSM states and the conv tails; the hybrid's
+    rings of min(window, max_len) slots, RG-LRU states and conv tails. The
+    temporaries: three (B, positions, ff) for an MLP (whisper: over the
+    encoder's frames), three (E, B·C, ff) for the experts, three (B, chunks,
+    heads, Q, Q) and eight (B, positions, d_inner) for mamba2's SSD, eight
+    (B, positions, lru_width) for the RG-LRU scan if wider."""
     vp, d = cfg.padded_vocab, cfg.d_model
     kv = 2 * cfg.num_layers * b * max_len * cfg.kv_heads * cfg.head_dim
     cache = kv + kv // cfg.head_dim * 2 if cfg.kv_cache_dtype == "int8" \
         else kv * 2
+    act = 3 * 4 * b * positions * cfg.d_ff
+    if cfg.family == "encdec":
+        cache += 2 * 2 * cfg.num_layers * b * cfg.encoder_seq * cfg.kv_heads \
+            * cfg.head_dim
+        act = 3 * 4 * b * max(positions, cfg.encoder_seq) * cfg.d_ff
+    elif cfg.family == "ssm":
+        d_in = cfg.expand * d
+        h, n = cfg.ssm_heads, cfg.ssm_state
+        q = min(cfg.ssm_chunk, positions)
+        chunks = -(-positions // q)
+        cache = cfg.num_layers * b * (d_in * n * 4 + (cfg.conv_width - 1)
+                                      * (d_in + 2 * n) * 2)
+        act = 3 * 4 * b * chunks * h * q * q + 8 * 4 * b * positions * d_in
+    elif cfg.family == "hybrid":
+        from repro_torch.models.rglru import block_kinds
+
+        kinds = block_kinds(cfg)
+        w = cfg.lru_width or d
+        ring = min(cfg.sliding_window or max_len, max_len)
+        cache = kinds.count("attn") * 2 * b * ring * cfg.kv_heads \
+            * cfg.head_dim * 2 + kinds.count("rec") * b * w \
+            * (4 + (cfg.conv_width - 1) * 2)
+        act = max(act, 8 * 4 * b * positions * w)
     if cfg.family == "moe":
         cap = max(1, int(positions * cfg.top_k / cfg.num_experts
                          * cfg.moe_capacity_factor))
         act = 3 * 4 * max(cfg.num_experts * b * cap * cfg.d_ff,
                           b * positions * cfg.dense_residual_ff)
-    else:
-        act = 3 * 4 * b * positions * cfg.d_ff
     parts = dict(weights=weight_bytes, embed_fp32=vp * d * 4,
                  logits_fp32=b * positions * vp * 4, kv_cache=cache,
-                 activations=act)
+                 kv_cache_held=cache, activations=act)
     parts["total"] = sum(parts.values())
     return parts
 
@@ -2962,12 +3095,15 @@ def teacher_forced(torch, model, batch, toks, max_len: int, backend: str):
 
 
 def lm_serve_run(torch, model, cfg, batch, steps: int, max_len: int, fa,
-                 greedy_generate, held: int, reckoned: dict) -> dict:
+                 greedy_generate, held: int, reckoned: dict,
+                 launches: int = None, hold_reckoning: bool = False) -> dict:
     """One model's main path: ``greedy_generate`` with K6's counter set to
-    0 just before it and read just after (one launch a layer), then
+    0 just before it and read just after (``launches`` of them; default
+    one a layer of the prefill), then
     prefill seconds, decode ms per token and the whole generation (medians
     of 3 after a warm-up), ``torch.profiler`` over one prefill and one
-    decode step, and the run's own peak against the reckoned one."""
+    decode step, and the run's own peak against the reckoned one (with
+    ``hold_reckoning``, within ``PEAK_RECKON_SLACK`` of it)."""
     b = batch["tokens"].shape[0]
     positions = batch["tokens"].shape[1] + (
         batch["patches"].shape[1] if "patches" in batch else 0)
@@ -2976,11 +3112,13 @@ def lm_serve_run(torch, model, cfg, batch, steps: int, max_len: int, fa,
     toks = greedy_generate(model, cfg, batch, steps=steps, max_len=max_len)
     toks_host = toks.cpu()
     first_s = time.perf_counter() - t0
+    want = cfg.num_layers if launches is None else launches
     launches = fa.LAUNCHES["flash_attention"]
     print(f"first greedy_generate {first_s:.3f} s; flash_attention launches "
           f"{launches}; tokens (first sequence) {toks_host[0].tolist()}")
-    check(launches == cfg.num_layers,
-          f"{launches} flash_attention launches = one a layer of one prefill")
+    check(launches == want,
+          f"{launches} flash_attention launches = {want} in one "
+          f"greedy_generate")
     check(tuple(toks.shape) == (b, steps) and int(toks.min()) >= 0
           and int(toks.max()) < cfg.vocab, f"tokens {tuple(toks.shape)} in "
                                            f"[0, vocab)")
@@ -3053,6 +3191,10 @@ def lm_serve_run(torch, model, cfg, batch, steps: int, max_len: int, fa,
           f"{reckoned['total'] / 2**30:.2f} GiB; {peak_memory(torch, held)}")
     check(peak < DEVICE_PEAK_LIMIT,
           f"own peak {peak / 2**30:.2f} GiB < {DEVICE_PEAK_LIMIT / 2**30:.0f} GiB")
+    if hold_reckoning:
+        check(peak <= PEAK_RECKON_SLACK * reckoned["total"],
+              f"own peak {peak / 2**30:.2f} GiB within {PEAK_RECKON_SLACK} x "
+              f"the reckoned {reckoned['total'] / 2**30:.2f} GiB")
     k6 = sum(t for n, t in prof["prefill"]["by_name"].items()
              if "flash_fwd" in n)
     return dict(launches=launches, toks=toks, prefill_s=pre,
@@ -3089,22 +3231,23 @@ def contract_held_calls(torch, fa, kernel_call, calls: list):
     return held
 
 
-def p_rounded_attention(torch, q, k, v, *, window, cap, prefix_len=0,
-                        backend="chunked"):
-    """The model's prefill attention as the plain arithmetic with K6's one
-    extra rounding, the softmax weights rounded to bf16's 8 significant
-    bits before ·v (``rounded_weight_attention``); causal, no prefix."""
+def p_rounded_attention(torch, q, k, v, *, window=None, cap=None,
+                        prefix_len=0, causal=True, backend="chunked"):
+    """The model's prefill attention (``layers.attention`` with positions
+    ``arange``) as the plain arithmetic with K6's one extra rounding, the
+    softmax weights rounded to bf16's 8 significant bits before ·v
+    (``rounded_weight_attention``); no prefix."""
     from repro_torch.models.layers import NO_WINDOW
 
     if prefix_len:
         raise ValueError("the rounded-weight attention takes no prefix")
-    return rounded_weight_attention(
-        torch, q, k, v, None if window >= NO_WINDOW else window, cap, 8)
+    window = None if window is None or window >= NO_WINDOW else window
+    return rounded_weight_attention(torch, q, k, v, window, cap, 8, causal)
 
 
 def forced_against_plain(torch, model, batch, toks, max_len: int, fa,
                          tol, label: str, floor_chunk: int = 128,
-                         floor_factor=None) -> dict:
+                         floor_factor=None, launches: int = None) -> dict:
     """The kernel path teacher-forced on its greedy tokens against the
     chunked plain attention (last-position logits of the prefill and of
     every decode step): every K6 call of the kernel run within K6's
@@ -3114,7 +3257,9 @@ def forced_against_plain(torch, model, batch, toks, max_len: int, fa,
     against itself with ``floor_chunk``-key chunks in place of 1024 (the
     bf16 model's rounding floor). With ``floor_factor``, the limit is that
     factor times the larger of this floor and a second one: the plain path
-    with K6's rounding of the softmax weights against the plain path."""
+    with K6's rounding of the softmax weights against the plain path. The
+    kernel run launches K6 ``launches`` times (default: one a layer of the
+    prefill)."""
     from repro_torch.models import layers as L
 
     steps = toks.shape[1]
@@ -3125,14 +3270,15 @@ def forced_against_plain(torch, model, batch, toks, max_len: int, fa,
         k_rows = teacher_forced(torch, model, batch, toks, max_len, "kernel")
     finally:
         L.flash_attention = kernel_call
-    check(fa.LAUNCHES["flash_attention"] == model.cfg.num_layers,
-          f"{label}: teacher-forced kernel run, one launch a layer")
-    print(f"{label}, each K6 call of the teacher-forced prefill against the "
+    launches = model.cfg.num_layers if launches is None else launches
+    check(fa.LAUNCHES["flash_attention"] == launches,
+          f"{label}: teacher-forced kernel run, {launches} launches")
+    print(f"{label}, each K6 call of the teacher-forced run against the "
           f"plain version on its own inputs: max |Δ| "
           f"{max(c[1] for c in calls):.6f}, row RMS max "
           f"{max(c[2] for c in calls):.4e} (bound {calls[0][3]:.4e})")
-    check(len(calls) == model.cfg.num_layers and all(c[0] for c in calls),
-          f"{label}: all {len(calls)} K6 calls of the prefill within "
+    check(len(calls) == launches and all(c[0] for c in calls),
+          f"{label}: all {len(calls)} K6 calls of the run within "
           f"flash_within_tolerance and flash_row_rms on the model's inputs")
     check(torch.equal(torch.argmax(k_rows[:, :steps], dim=-1), toks),
           f"{label}: the kernel path's teacher-forced argmaxes are its greedy "
@@ -3422,7 +3568,7 @@ def moe_phase(torch, np, dev, get_config, get_model, greedy_generate, fa,
                            greedy_generate, held, reckoned)
         forced = forced_against_plain(torch, model, batch, run.pop("toks"),
                                       max_len, fa, None, cfg.name,
-                                      floor_factor=MOE_FLOOR_FACTOR)
+                                      floor_factor=FLOOR_FACTOR)
         del batch
 
         # one full-width layer against the plain one-hot formula
@@ -3536,6 +3682,125 @@ def vlm_phase(torch, np, dev, get_config, get_model, greedy_generate,
                      f"(one prefill)")
 
 
+def fp32_decode_against_prefill(torch, dev, get_model, cfg, batch) -> float:
+    """The model again with fp32 weights (from seed 0): ``decode_step``
+    after ``prefill`` of all but the last prompt token against the last
+    logits of ``prefill`` of the whole prompt, which holds the state the
+    cache carries on the card (whisper's self and cross K/V, mamba2's SSD
+    states and conv tails, the hybrid's RG-LRU states, conv tails and
+    ring). Returns the max |Δ|, checked against ``SERVE_FP32_TOL``."""
+    model = get_model(cfg, device=dev, dtype=torch.float32)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    batch = {k: x.float() if x.is_floating_point() else x
+             for k, x in batch.items()}
+    tokens = batch["tokens"]
+    s = tokens.shape[1]
+    logits, _ = model.prefill(batch, s + 1)
+    want = logits[:, -1].clone()
+    del logits
+    _, cache = model.prefill(dict(batch, tokens=tokens[:, :-1]), s + 1)
+    got, cache = model.decode_step(cache, tokens[:, -1:])
+    diff = float((got[:, 0] - want).abs().max())
+    print(f"fp32 weights: decode_step after prefill({s - 1}) against "
+          f"prefill({s})'s last logits: max |Δ| {diff:.3e} (logits in "
+          f"[{float(want.min()):.3f}, {float(want.max()):.3f}])")
+    check(bool(torch.isfinite(got).all()) and diff <= SERVE_FP32_TOL,
+          f"{cfg.name} fp32: decode after prefill(S-1) = prefill(S) within "
+          f"{SERVE_FP32_TOL}")
+    del model, cache, got, want
+    drop_model(torch)
+    return diff
+
+
+def own_model_phase(torch, np, dev, get_config, get_model, greedy_generate,
+                    fa, tag: str, arch: str, b: int, s: int,
+                    steps: int) -> dict:
+    """Phases 3s–3u: a family with a model of its own (whisper-medium's
+    ``WhisperModel``, mamba2-780m's ``MambaLM``, recurrentgemma-9b's
+    ``GriffinLM``) at its published width and depth, bf16 weights from
+    seed 0: ``greedy_generate`` (``lm_serve_run``, its peak within the
+    reckoning), K6's launches (whisper: each encoder layer, and a decoder
+    layer's self- and cross-attention in the prefill, its cross-attention
+    in each decode step; the hybrid: each local-attention block of the
+    prefill; mamba2: none), teacher-forced against the chunked plain
+    attention where K6 runs, and the fp32 decode-against-prefill check."""
+    cfg = get_config(arch)
+    max_len = s + steps + 1
+    model, held, weights = new_lm_model(torch, dev, get_model, cfg,
+                                        torch.bfloat16)
+    if cfg.family == "encdec":
+        shape = (f"{cfg.encoder_layers} + {cfg.num_layers} layers, d "
+                 f"{cfg.d_model}, heads {cfg.num_heads} x {cfg.head_dim}, "
+                 f"{cfg.encoder_seq} frames")
+        per_prefill = cfg.encoder_layers + 2 * cfg.num_layers
+        per_step = cfg.num_layers
+    elif cfg.family == "ssm":
+        shape = (f"{cfg.num_layers} layers, d {cfg.d_model}, {model.h} SSM "
+                 f"heads of {model.p}, state {model.n}, chunk {cfg.ssm_chunk}")
+        per_prefill = per_step = 0
+    else:
+        shape = (f"{cfg.num_layers} layers ({model.kinds.count('rec')} "
+                 f"recurrent, {model.kinds.count('attn')} local attention), "
+                 f"d {cfg.d_model}, MQA {cfg.num_heads}/{cfg.kv_heads} x "
+                 f"{cfg.head_dim}, window {cfg.sliding_window}")
+        per_prefill, per_step = model.kinds.count("attn"), 0
+    phase(f"phase {tag}: serving {arch} ({shape}), batch {b}, prompt {s}, "
+          f"{steps} greedy tokens")
+    reckoned = lm_peak_reckoning(cfg, weights, b, s, max_len)
+    print(f"reckoned peak before the run: {reckon_line(reckoned)}")
+    check(reckoned["total"] < DEVICE_PEAK_LIMIT,
+          f"reckoned peak {reckoned['total'] / 2**30:.2f} GiB < "
+          f"{DEVICE_PEAK_LIMIT / 2**30:.0f} GiB")
+    t0 = time.perf_counter()
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{cfg.name} ({type(model).__name__}): {n_params:,} parameters "
+          f"({weights / 2**30:.2f} GiB), drawn in "
+          f"{time.perf_counter() - t0:.2f} s; ModelConfig.param_count() "
+          f"{cfg.param_count():,}")
+    # what param_count() leaves out: the padded vocab rows; whisper's
+    # position table, its decoder's cross-attention norms and the encoder's
+    # final norm; mamba2's dt_bias and the d_model more of its gate norm
+    # (d_inner = 2·d_model wide, counted as d_model)
+    from repro_torch.models.encdec import MAX_DECODE_POS
+    d, n_l = cfg.d_model, cfg.num_layers
+    extra = {"encdec": MAX_DECODE_POS * d + n_l * d + d,
+             "ssm": n_l * (cfg.ssm_heads + d)}.get(cfg.family)
+    if extra is not None:
+        check(n_params == cfg.param_count() + extra
+              + (cfg.padded_vocab - cfg.vocab) * d,
+              f"parameter count = param_count() + {extra:,} left out + the "
+              f"padded vocab")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                     device=dev)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(
+            b, cfg.encoder_seq, cfg.d_model, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(2)).bfloat16()
+    launches = per_prefill + steps * per_step
+    run = lm_serve_run(torch, model, cfg, batch, steps, max_len, fa,
+                       greedy_generate, held, reckoned, launches=launches,
+                       hold_reckoning=True)
+    toks = run.pop("toks")
+    forced = {}
+    if per_prefill:
+        forced = forced_against_plain(torch, model, batch, toks, max_len, fa,
+                                      None, cfg.name, floor_factor=FLOOR_FACTOR,
+                                      launches=launches)
+    del model
+    drop_model(torch)
+    fp32 = fp32_decode_against_prefill(torch, dev, get_model, cfg, batch)
+    return dict(run, **forced, arch=cfg.name, family=cfg.family,
+                n_params=n_params, fp32_decode_max_abs_diff=fp32,
+                launches_per_prefill=per_prefill,
+                launches_per_decode_step=per_step,
+                path=f"{cfg.name} greedy_generate: batch {b}, prompt {s}, "
+                     f"{steps} tokens (one prefill"
+                     + (f", {steps} decode steps" if per_step else "") + ")")
+
+
 def main() -> int:
     # torch.compile (the flex_attention yardstick of phase 4c) caches its
     # kernels inside the checkout's git-ignored build directory
@@ -3573,6 +3838,7 @@ def main() -> int:
         reset_launch_counts as reset_ms_launch_counts
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.registry import get_config, get_model
+    from repro_torch.models.rglru import block_kinds
     from repro_torch.train.serve_step import greedy_generate
 
     dev = torch.device("cuda")
@@ -4403,28 +4669,56 @@ def main() -> int:
     lm_layers = {arch: get_config(arch).num_layers
                  for arch in (INT8_ARCH, VLM_ARCH)}
     lm_layers.update(MOE_RUNS)
+    whisper = get_config(ENCDEC_ARCH)
+    lm_layers.update({"encoder": whisper.encoder_layers,
+                      "self": whisper.num_layers, "cross": whisper.num_layers,
+                      "decode cross": whisper.num_layers,
+                      "encoder_seq": whisper.encoder_seq,
+                      HYBRID_ARCH: block_kinds(
+                          get_config(HYBRID_ARCH)).count("attn")})
     k6 = flash_phase(torch, np, dev, fa, flush, serve, lm_layers)
     report.append(k6)
     lm_args = (torch, np, dev, get_config, get_model, greedy_generate, fa)
     int8 = int8_phase(*lm_args)
     moe = moe_phase(*lm_args, flush)
     vlm = vlm_phase(*lm_args)
+    encdec = own_model_phase(*lm_args, "3s", ENCDEC_ARCH, ENCDEC_BATCH,
+                             ENCDEC_PROMPT, ENCDEC_STEPS)
+    ssm = own_model_phase(*lm_args, "3t", SSM_ARCH, SSM_BATCH, SSM_PROMPT,
+                          SSM_STEPS)
+    hybrid = own_model_phase(*lm_args, "3u", HYBRID_ARCH, HYBRID_BATCH,
+                             HYBRID_PROMPT, HYBRID_STEPS)
     # K6's launches on each serving path of this slice, each read around
     # its own greedy_generate
     k6["serve_paths"] = [
         dict(path=r["path"], launches=r["launches"], prefill_s=r["prefill_s"],
              decode_ms_per_token=r["decode_ms_per_token"],
-             own_peak_gib=r["own_peak_gib"]) for r in [int8, *moe, vlm]]
-    k6["lm_serving"] = dict(int8=int8, moe=moe, vlm=vlm)
+             own_peak_gib=r["own_peak_gib"])
+        for r in [int8, *moe, vlm, encdec, hybrid]]
+    k6["lm_serving"] = dict(int8=int8, moe=moe, vlm=vlm, encdec=encdec,
+                            hybrid=hybrid)
     check([r["launches"] for r in [int8, *moe, vlm]]
           == [r["launches_per_prefill"] for r in
               k6["serve_shapes"] + k6["prefix_shapes"][:1]],
           "phase 4c's layer shapes cover every launch of the 3p–3r prefills")
+    enc = {r["label"].split(" (")[0]: r["launches_per_prefill"]
+           for r in k6["encdec_shapes"]}
+    check(encdec["launches"] == enc[f"{ENCDEC_ARCH} encoder"]
+          + enc[f"{ENCDEC_ARCH} self"] + enc[f"{ENCDEC_ARCH} cross"]
+          + ENCDEC_STEPS * enc[f"{ENCDEC_ARCH} decode cross"]
+          and hybrid["launches"]
+          == k6["hybrid_shapes"][0]["launches_per_prefill"],
+          "phase 4c's layer shapes cover every launch of the 3s and 3u runs")
+    # mamba2-780m runs no kernel (the reference has none for its family);
+    # its serving run is reported beside the kernels
+    ssm_path = dict(ssm, kernels="none: the reference has no Pallas kernel "
+                                 "for the ssm family")
     for entry in report:
         entry.update(max_abs_diff=entry["max_abs_err"], kernel_ms=entry["ms"])
 
     # -- phase 5: the result --------------------------------------------------
     phase("phase 5: result")
+    print(json.dumps({"lm_without_kernels": [ssm_path]}))
     print(json.dumps({"kernels": report}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {

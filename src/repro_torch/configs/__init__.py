@@ -1,5 +1,5 @@
 """One module per architecture the port serves (copies of
-``repro.configs``' dense, moe and vlm families).
+``repro.configs``' ten architectures).
 
 Each exports CONFIG (the exact published configuration) and REDUCED (a
 same-family scale-down that one CPU core can run in a test)."""

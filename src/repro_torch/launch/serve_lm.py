@@ -7,15 +7,20 @@ published configuration unless ``--reduced`` is given:
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch gemma2-2b
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch paligemma-3b \\
         --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm \\
+        --arch recurrentgemma-9b --batch 2 --prompt-len 4096 --tokens 16
 
-Weights, prompts and the VLM's patch embeddings (B, vision_tokens,
-vision_dim) are drawn from ``--seed`` (bf16 weights at full size, fp32 with
-``--reduced``, as the reference's example runs). The dense, moe and vlm
-families are served (qwen1.5-32b with its config's int8 KV cache); the
-others raise ``NotImplementedError``. The cache holds the image prefix,
-the prompt and every generated token: ``max_len = vision_tokens +
-prompt_len + tokens + 1``, where the reference's example leaves out the
-prefix and its decode overwrites the cache's last slot (ROADMAP R12).
+Weights, prompts, the VLM's patch embeddings (B, vision_tokens,
+vision_dim) and whisper's frame embeddings (B, encoder_seq, d_model) are
+drawn from ``--seed`` (bf16 weights at full size, fp32 with ``--reduced``,
+as the reference's example runs). Every architecture of the registry is
+served: the dense, moe and vlm families (qwen1.5-32b with its config's int8
+KV cache) through ``TransformerLM``, whisper-medium, mamba2-780m and
+recurrentgemma-9b through ``WhisperModel``, ``MambaLM`` and ``GriffinLM``.
+The cache holds the image prefix, the prompt and every generated token:
+``max_len = vision_tokens + prompt_len + tokens + 1``, where the
+reference's example leaves out the prefix and its decode overwrites the
+cache's last slot (ROADMAP R12).
 """
 
 from __future__ import annotations
@@ -58,6 +63,11 @@ def main(argv=None) -> int:
             (args.batch, cfg.vision_tokens, cfg.vision_dim),
             generator=torch.Generator(device=dev).manual_seed(args.seed + 2),
             device=dev, dtype=torch.float32).to(dtype)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(
+            (args.batch, cfg.encoder_seq, cfg.d_model),
+            generator=torch.Generator(device=dev).manual_seed(args.seed + 2),
+            device=dev, dtype=torch.float32).to(dtype)
     max_len = cfg.vision_tokens + args.prompt_len + args.tokens + 1
     t0 = time.perf_counter()
     out = greedy_generate(model, cfg, batch, steps=args.tokens,
@@ -71,6 +81,9 @@ def main(argv=None) -> int:
     if cfg.family == "vlm":
         print(f"image prefix: {cfg.vision_tokens} patch tokens of width "
               f"{cfg.vision_dim}")
+    if cfg.family == "encdec":
+        print(f"audio frames: {cfg.encoder_seq} of width {cfg.d_model} "
+              f"(the frontend stub)")
     print(f"output token ids (first sequence): {first}")
     print(f"{total} tokens in {dt:.2f}s = {total / dt:.1f} tok/s ({where}; "
           f"on a card the first call includes the kernel build)")

@@ -1,20 +1,29 @@
-"""Weights between the reference's parameter tree and the port's modules.
+"""Weights between the reference's parameter trees and the port's modules.
 
-``params_from_jax`` turns the tree of ``repro.models.transformer.
-TransformerLM.init`` — given as numpy arrays, the layers stacked on a
-leading ``(L, ...)`` axis — into a ``TransformerLM`` state dict:
-``embed``, ``blocks.<i>.<path>`` for layer i's slice of each stacked leaf
-(the MoE family's ``moe.router``, ``moe.wi`` / ``wg`` / ``wo`` and arctic's
-``moe.dense.*`` among them), ``final_norm.scale`` and the VLM's
-``vision_proj.w``. The reference's ``(d_in, d_out)`` weight layout is kept:
-nothing is transposed, and each leaf keeps its dtype (the MoE router is
-fp32 in a bf16 tree). ``params_to_jax`` is its inverse.
+``params_from_jax`` turns the tree of a reference model's ``init`` — given
+as numpy arrays, stacked layers on a leading axis — into the state dict of
+the port's model of the same family; ``params_to_jax`` is its inverse. The
+reference's ``(d_in, d_out)`` weight layout is kept (nothing is
+transposed), and so is each leaf's dtype (the MoE router, mamba's
+``A_log``, ``D`` and ``dt_bias`` and the RG-LRU gates are fp32 in a bf16
+tree). Per family (``_layout``):
+
+- dense, moe, vlm (``TransformerLM``): ``layers`` (L, ...) → ``blocks.<i>``;
+  ``embed``, ``final_norm`` and the VLM's ``vision_proj`` as they are.
+- ssm (``MambaLM``): ``layers`` (L, ...) → ``layers.<i>``; ``embed``,
+  ``final_norm``.
+- encdec (``WhisperModel``): ``enc_layers`` (encoder_layers, ...) →
+  ``enc_layers.<i>``, ``dec_layers`` (L, ...) → ``dec_layers.<i>``;
+  ``embed``, ``dec_pos``, ``enc_norm``, ``final_norm``.
+- hybrid (``GriffinLM``): ``groups.b<j>`` (G, ...) → ``blocks.<P·g + j>``
+  for a pattern of P blocks, the remainder ``rem<j>`` → ``blocks.<P·G +
+  j>`` (the reference's ``_layer_list`` order); ``embed``, ``final_norm``.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,66 +51,126 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
+def _layout(cfg: ModelConfig) -> List[Tuple[str, object, Optional[int]]]:
+    """The family's rules ``(tree prefix, port prefix, count)``: with a
+    count, the tree's leaves under the prefix are stacked on a leading axis
+    of that length and entry i goes to ``port(i)``; without one, the
+    subtree maps to the port prefix as it is."""
+    rules: List[Tuple[str, object, Optional[int]]] = [
+        ("embed", "embed", None), ("final_norm", "final_norm", None)]
+    if cfg.family in ("dense", "moe", "vlm"):
+        rules.append(("layers", lambda i: f"blocks.{i}", cfg.num_layers))
+        if cfg.family == "vlm":
+            rules.append(("vision_proj", "vision_proj", None))
+    elif cfg.family == "ssm":
+        rules.append(("layers", lambda i: f"layers.{i}", cfg.num_layers))
+    elif cfg.family == "encdec":
+        rules += [("enc_layers", lambda i: f"enc_layers.{i}",
+                   cfg.encoder_layers),
+                  ("dec_layers", lambda i: f"dec_layers.{i}", cfg.num_layers),
+                  ("dec_pos", "dec_pos", None), ("enc_norm", "enc_norm", None)]
+    elif cfg.family == "hybrid":
+        pat = cfg.block_pattern or ("rec", "rec", "attn")
+        groups = cfg.num_layers // len(pat)
+        for j in range(len(pat)):
+            rules.append((f"groups.b{j}",
+                          lambda g, j=j: f"blocks.{len(pat) * g + j}", groups))
+        for j in range(cfg.num_layers - groups * len(pat)):
+            rules.append((f"rem{j}", f"blocks.{len(pat) * groups + j}", None))
+    else:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    return rules
+
+
+def _under(name: str, prefix: str) -> Optional[str]:
+    """The rest of ``name`` below ``prefix`` ("" for the prefix itself), or
+    None if ``name`` is not under it."""
+    if name == prefix:
+        return ""
+    return name[len(prefix):] if name.startswith(prefix + ".") else None
+
+
+def _count_name(prefix: str) -> str:
+    return {"layers": "num_layers", "dec_layers": "num_layers",
+            "enc_layers": "encoder_layers"}.get(
+                prefix, "num_layers // len(block_pattern)")
+
+
 def params_from_jax(np_params: Mapping, cfg: ModelConfig
                     ) -> Dict[str, torch.Tensor]:
     """The port's state dict from the reference's parameter tree.
 
     Args:
-      np_params: ``{"embed": (Vp, d), "layers": {...: (L, ...)},
-        "final_norm": {"scale": (d,)}[, "vision_proj": {"w": (Dv, d)}]}``
-        as numpy arrays (fp32, fp16 or ml_dtypes bf16).
-      cfg: the model's config (its ``num_layers`` and family are checked).
+      np_params: the tree of the reference's ``init`` for ``cfg``'s family
+        (see the module docstring) as numpy arrays (fp32, fp16 or
+        ml_dtypes bf16).
+      cfg: the model's config (its family and layer counts are checked).
 
     Raises:
-      ValueError: a top-level key the model does not have (``vision_proj``
+      ValueError: a key the family's model does not have (``vision_proj``
         outside the vlm family), or a stacked leaf whose leading axis is
-        not ``num_layers``.
+        not the layer count (``num_layers``, ``encoder_layers`` or the
+        hybrid's group count).
     """
-    known = {"embed", "layers", "final_norm"}
-    if cfg.family == "vlm":
-        known.add("vision_proj")
-    extra = set(np_params) - known
-    if extra:
-        raise ValueError(f"keys {sorted(extra)} are not the {cfg.family} "
-                         f"model's")
+    rules = _layout(cfg)
     out: Dict[str, torch.Tensor] = OrderedDict()
-    out["embed"] = _tensor(np_params["embed"])
-    for name, leaf in _flatten(np_params["layers"]):
+    for name, leaf in _flatten(np_params):
+        for prefix, port, count in rules:
+            rest = _under(name, prefix)
+            if rest is not None:
+                break
+        else:
+            raise ValueError(f"key {name!r} is not the {cfg.family} model's "
+                             f"(keys {sorted(set(np_params))})")
+        if count is None:
+            out[port + rest] = _tensor(leaf)
+            continue
         arr = np.asarray(leaf)
-        if arr.shape[0] != cfg.num_layers:
-            raise ValueError(f"layers.{name} has leading axis {arr.shape[0]}, "
-                             f"not num_layers = {cfg.num_layers}")
-        for i in range(cfg.num_layers):
-            out[f"blocks.{i}.{name}"] = _tensor(arr[i])
-    for top in ("final_norm", "vision_proj"):
-        for name, leaf in _flatten(np_params.get(top, {}), top + "."):
-            out[name] = _tensor(leaf)
+        if arr.shape[0] != count:
+            raise ValueError(f"{name} has leading axis {arr.shape[0]}, not "
+                             f"{_count_name(prefix)} = {count}")
+        for i in range(count):
+            out[port(i) + rest] = _tensor(arr[i])
     return out
 
 
 def params_to_jax(state_dict: Mapping[str, torch.Tensor], cfg: ModelConfig
                   ) -> Dict[str, object]:
-    """The reference's parameter tree (numpy, layers stacked on a leading
+    """The reference's parameter tree (numpy, stacked layers on a leading
     axis) from the port's state dict; bf16 tensors come back as fp32
-    arrays (numpy has no bf16)."""
+    arrays (numpy has no bf16), every other dtype as it is."""
     def arr(t: torch.Tensor) -> np.ndarray:
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
-    tree: Dict[str, object] = {"embed": arr(state_dict["embed"]),
-                               "layers": {}, "final_norm": {}}
-    per_layer: Dict[str, list] = OrderedDict()
+    owner = {}  # port prefix -> (tree prefix, index or None, count)
+    for prefix, port, count in _layout(cfg):
+        if count is None:
+            owner[port] = (prefix, None, None)
+        else:
+            for i in range(count):
+                owner[port(i)] = (prefix, i, count)
+    flat: Dict[str, object] = OrderedDict()
     for name, t in state_dict.items():
-        if name.startswith("blocks."):
-            _, i, path = name.split(".", 2)
-            per_layer.setdefault(path, [None] * cfg.num_layers)[int(i)] = arr(t)
-        elif name.startswith(("final_norm.", "vision_proj.")):
-            top, leaf = name.split(".", 1)
-            tree.setdefault(top, {})[leaf] = arr(t)
-    for path, leaves in per_layer.items():
-        node = tree["layers"]
-        *parents, leaf = path.split(".")
+        parts = name.split(".")
+        for n in range(len(parts), 0, -1):
+            key = ".".join(parts[:n])
+            if key in owner:
+                break
+        else:
+            raise ValueError(f"{name!r} is not a {cfg.family} model's "
+                             f"parameter")
+        prefix, i, count = owner[key]
+        leaf = prefix + name[len(key):]
+        if i is None:
+            flat[leaf] = arr(t)
+        else:
+            flat.setdefault(leaf, [None] * count)[i] = arr(t)
+    tree: Dict[str, object] = {}
+    for leaf, val in flat.items():
+        node = tree
+        *parents, last = leaf.split(".")
         for key in parents:
             node = node.setdefault(key, {})
-        node[leaf] = np.stack(leaves)
+        node[last] = np.stack(val) if isinstance(val, list) else val
     return tree

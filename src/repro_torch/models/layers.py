@@ -1,25 +1,29 @@
-"""Layer primitives of the decoder-only transformer (dense, MoE and VLM
-families).
+"""Layer primitives of the port's language models (every family).
 
 The port of ``repro.models.layers``. Parameters are ``nn.ParameterDict`` /
 ``nn.ModuleDict`` trees (``ParamTree`` where a node holds arrays and
 sub-trees together, as the MoE block does) with the reference's names and
 its ``(d_in, d_out)`` weight layout, so ``dense`` is ``x @ w`` as there.
 Each parameter records the fan of its He-normal draw (``he_fan``; none for
-the zero-initialised norm scales and biases), so ``draw_`` can fill it in
-place with the reference's distribution; each ``*_init`` given a
-``torch.Generator`` draws at once.
+the zero-initialised norm scales and biases), or, made by ``leaf``, a
+normal's standard deviation (``init_std``) or a constant (``init_fill``),
+so ``draw_`` can fill it in place with the reference's distribution; each
+``*_init`` given a ``torch.Generator`` draws at once.
 
 Attention has two paths. The plain one is the reference's chunked-KV
 online-softmax scan (``backend="chunked"``), which CPU tensors always take.
-On a CUDA tensor, ``attention`` runs the prefill case — query and key
-positions ``arange(S)``, with or without the VLM's bidirectional prefix —
-through the flash kernel K6 (``repro_torch.kernels.flash_attention.ops``),
-the counterpart of the Pallas kernel that the reference names as its
-drop-in MXU version. Any other case on a CUDA tensor (padded or shifted
-key positions, a non-causal finite window) raises ``NotImplementedError``;
-it never quietly takes the plain path. ``decode_attention`` is plain torch
-on every device.
+On a CUDA tensor, ``attention`` runs through the flash kernel K6
+(``repro_torch.kernels.flash_attention.ops``), the counterpart of the
+Pallas kernel that the reference names as its drop-in MXU version, in two
+cases: the prefill case — query and key positions ``arange(S)``, with or
+without the VLM's bidirectional prefix — and a non-causal call without a
+window for any S and T (whisper's encoder and cross-attention), where
+positions do not enter the mask. Any other case on a CUDA tensor (padded
+or shifted key positions, a non-causal finite window) raises
+``NotImplementedError``; it never quietly takes the plain path.
+``decode_attention`` and the hybrid's ring-buffer decode
+(``repro_torch.models.rglru.ring_decode_attention``) are plain torch on
+every device.
 
 ``moe`` is the reference's grouped capacity-based top-k dispatch in plain
 torch (the reference has no Pallas kernel for it): the one-hot (B, S, E, C)
@@ -54,6 +58,7 @@ __all__ = [
     "init_attention_block",
     "init_mlp",
     "init_moe",
+    "leaf",
     "mask_padded_vocab",
     "mlp",
     "moe",
@@ -63,6 +68,7 @@ __all__ = [
     "rmsnorm_init",
     "rope",
     "softcap",
+    "unembed",
 ]
 
 #: Window of a global-attention layer (the reference's NO_WINDOW).
@@ -101,25 +107,39 @@ def _zeros(shape, dtype, device) -> nn.Parameter:
     return _param(torch.zeros(shape, dtype=dtype, device=device))
 
 
+def leaf(shape, dtype, device=None, *, std: Optional[float] = None,
+         fill: Optional[float] = None) -> nn.Parameter:
+    """An uninitialised parameter that ``draw_`` fills with N(0, std²)
+    (drawn in fp32 and cast) or with the constant ``fill`` (neither:
+    zeros): the reference's embeddings, conv weights, gates and decay
+    parameters."""
+    p = _param(torch.empty(shape, dtype=dtype, device=device))
+    p.init_std, p.init_fill = std, fill
+    return p
+
+
 @torch.no_grad()
 def draw_(p: torch.Tensor, gen: torch.Generator) -> None:
     """Fill parameter ``p`` in place with its initial distribution: He
     normal over its ``he_fan`` (drawn in fp32 on the generator's device and
-    cast, as ``_he`` draws), zeros without one. A leaf of up to
+    cast, as ``_he`` draws), N(0, ``init_std``²) or the constant
+    ``init_fill`` (``leaf``), zeros without any. A leaf of up to
     ``DRAW_ELEMS`` elements is drawn whole, which gives the values ``_he``
     would; a larger one in slices of its leading axis, so the fp32
     temporary stays one slice (an expert stack of 16.6 GiB in fp32 at
     arctic-480b's width is drawn 7 experts at a time)."""
     fan = getattr(p, "he_fan", None)
-    if fan is None:
-        p.zero_()
+    std = getattr(p, "init_std", None)
+    if fan is None and std is None:
+        p.fill_(getattr(p, "init_fill", None) or 0)
         return
     step = p.shape[0] if p.numel() <= DRAW_ELEMS else max(
         1, DRAW_ELEMS // p[0].numel())
     for i in range(0, p.shape[0], step):
         part = p[i:i + step]
-        part.copy_(torch.randn(part.shape, generator=gen, device=gen.device,
-                               dtype=torch.float32) / math.sqrt(fan))
+        x = torch.randn(part.shape, generator=gen, device=gen.device,
+                        dtype=torch.float32)
+        part.copy_(x / math.sqrt(fan) if std is None else x * std)
 
 
 class ParamTree(nn.Module):
@@ -204,6 +224,17 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
                   dtype=torch.bfloat16) -> torch.Tensor:
     """``q·scale`` in fp32, cast to ``dtype``."""
     return (q.float() * scale[..., None].float()).to(dtype)
+
+
+def unembed(x: torch.Tensor, embed: torch.Tensor, vocab: int,
+            final_softcap: Optional[float] = None) -> torch.Tensor:
+    """fp32 logits of x against the tied embedding ``embed.T`` (TF32 off
+    by PyTorch's default), the final softcap and the padded-vocab mask
+    applied in place."""
+    logits = x.float() @ embed.float().T
+    if final_softcap is not None:
+        logits.div_(final_softcap).tanh_().mul_(final_softcap)
+    return mask_padded_vocab(logits, vocab)
 
 
 def mask_padded_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
@@ -315,17 +346,23 @@ def attention(
     ``backend="chunked"``, and every CPU tensor, takes the chunked-KV
     online-softmax scan: the KV axis in ``chunk``-sized tiles with a
     running (max, sumexp, out) accumulator, never the S×T logit matrix.
-    ``backend="kernel"`` on a CUDA tensor runs K6, a bidirectional
-    ``prefix_len`` included; it needs ``S == T``, positions ``arange(S)``
-    and, when not causal, no finite window (the kernel keeps
-    ``q_pos - k_pos < window``, this function ``|q_pos - k_pos| <
-    window``). Positions left as ``None`` are ``arange`` by contract, which
-    costs no device read; given ones are checked with one device-to-host
-    read each.
+    ``backend="kernel"`` on a CUDA tensor runs K6 in two cases:
+
+    - causal (a window and a bidirectional ``prefix_len`` allowed): it
+      needs ``S == T`` and positions ``arange(S)``. Positions left as
+      ``None`` are ``arange`` by contract, which costs no device read;
+      given ones are checked with one device-to-host read each.
+    - not causal and no finite window, for any S and T: the reference's
+      mask then keeps every key of ``k_pos >= 0``, whatever the query
+      positions, so ``q_pos`` is not read; a given ``k_pos`` is checked
+      to hold no padded key (one device-to-host read).
 
     Raises:
       NotImplementedError: ``backend="kernel"`` on a CUDA tensor in any
-        other case (padded or shifted positions, a non-causal window).
+        other case: padded or shifted positions, S != T with a causal
+        mask, or a non-causal finite window (the kernel keeps ``q_pos -
+        k_pos < window``, this function ``|q_pos - k_pos| < window``;
+        ROADMAP R10).
       ValueError: an unknown backend.
     """
     window = int(window)
@@ -341,15 +378,22 @@ def attention(
         return _attention_chunked(q, k, v, q_pos=q_pos, k_pos=k_pos,
                                   window=window, causal=causal,
                                   prefix_len=prefix_len, cap=cap, chunk=chunk)
-    if (not causal and window < NO_WINDOW) or s != t \
+    if not causal and window >= NO_WINDOW:
+        if k_pos is not None and not bool((k_pos >= 0).all()):
+            raise NotImplementedError(
+                f"attention on {q.device}: padded keys (k_pos < 0) have no "
+                f"kernel path")
+        return flash_attention(q, k, v, causal=False, cap=cap,
+                               backend="kernel")
+    if not causal or s != t \
             or (q_pos is not None and not _is_arange(q_pos, s)) \
             or (k_pos is not None and not _is_arange(k_pos, t)):
         raise NotImplementedError(
             f"attention on {q.device} runs the flash kernel only for a "
-            f"prefill: q_pos == k_pos == arange(S), and a causal mask or no "
-            f"window (causal={causal}, window={window}); padded or shifted "
-            f"keys and a non-causal finite window (ROADMAP R10) have no "
-            f"kernel path")
+            f"causal prefill (q_pos == k_pos == arange(S)) or a non-causal "
+            f"call without a window (causal={causal}, window={window}, "
+            f"S={s}, T={t}); padded or shifted keys and a non-causal finite "
+            f"window (ROADMAP R10) have no kernel path")
     return flash_attention(
         q, k, v, causal=causal, window=None if window >= NO_WINDOW else window,
         cap=cap, prefix_len=prefix_len, backend="kernel")

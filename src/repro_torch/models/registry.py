@@ -1,10 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolution for configs and models.
 
-The port of ``repro.models.registry``. ``ARCHS`` keeps all ten names and
-``get_config`` / ``get_reduced_config`` resolve the dense, moe and vlm
-families, whose configurations are ported (``repro_torch/configs/``) and
-which ``TransformerLM`` serves. The ssm, hybrid and encdec families raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+The port of ``repro.models.registry``. ``get_config`` /
+``get_reduced_config`` resolve all ten architectures of ``ARCHS``
+(``repro_torch/configs/``), and ``get_model`` builds the model that serves
+each family: ``TransformerLM`` (dense, moe, vlm), ``MambaLM`` (ssm),
+``GriffinLM`` (hybrid) or ``WhisperModel`` (encdec).
 """
 
 from __future__ import annotations
@@ -29,23 +29,8 @@ ARCHS = [
     "recurrentgemma-9b",
 ]
 
-# architectures of the families not yet ported, with their family
-_NOT_PORTED = {
-    "mamba2-780m": "ssm",
-    "whisper-medium": "encdec",
-    "recurrentgemma-9b": "hybrid",
-}
-
-
-def _not_ported(what: str, family: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: the {family!r} family is not ported yet (ROADMAP Queue 1, "
-        f"item 15); the port serves the dense, moe and vlm families")
-
 
 def _module(arch: str):
-    if arch in _NOT_PORTED:
-        raise _not_ported(arch, _NOT_PORTED[arch])
     if arch not in ARCHS:
         raise ValueError(f"unknown arch {arch!r}; expected one of {ARCHS}")
     return importlib.import_module(
@@ -53,14 +38,12 @@ def _module(arch: str):
 
 
 def get_config(arch: str) -> ModelConfig:
-    """The published configuration of ``arch`` (dense, moe and vlm
-    families)."""
+    """The published configuration of ``arch``."""
     return _module(arch).CONFIG
 
 
 def get_reduced_config(arch: str) -> ModelConfig:
-    """The same-family scale-down of ``arch`` (dense, moe and vlm
-    families)."""
+    """The same-family scale-down of ``arch``."""
     return _module(arch).REDUCED
 
 
@@ -69,13 +52,23 @@ def list_archs() -> List[str]:
 
 
 def get_model(cfg: ModelConfig, **kw):
-    """A ``TransformerLM`` for a dense, moe or vlm config (``kw`` go to its
-    constructor); the ssm, hybrid and encdec families raise
-    ``NotImplementedError``."""
+    """The model of ``cfg``'s family, as the reference's ``get_model``
+    builds it; ``kw`` (``device``, ``dtype``, ``attn_backend``) go to its
+    constructor."""
     if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.models.transformer import TransformerLM
 
         return TransformerLM(cfg, **kw)
-    if cfg.family in ("ssm", "hybrid", "encdec"):
-        raise _not_ported(cfg.name, cfg.family)
+    if cfg.family == "ssm":
+        from repro_torch.models.ssm import MambaLM
+
+        return MambaLM(cfg, **kw)
+    if cfg.family == "hybrid":
+        from repro_torch.models.rglru import GriffinLM
+
+        return GriffinLM(cfg, **kw)
+    if cfg.family == "encdec":
+        from repro_torch.models.encdec import WhisperModel
+
+        return WhisperModel(cfg, **kw)
     raise ValueError(f"unknown family {cfg.family!r}")

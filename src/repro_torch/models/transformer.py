@@ -51,6 +51,9 @@ _NO_WINDOW = L.NO_WINDOW
 
 #: The families this model serves; the others have models of their own.
 FAMILIES = ("dense", "moe", "vlm")
+_OTHER_MODELS = {"ssm": "repro_torch.models.ssm.MambaLM",
+                 "hybrid": "repro_torch.models.rglru.GriffinLM",
+                 "encdec": "repro_torch.models.encdec.WhisperModel"}
 KV_CACHE_DTYPES = ("bfloat16", "int8")
 
 
@@ -80,7 +83,8 @@ class TransformerLM(nn.Module):
     in place, or ``load_state_dict`` fills them (``convert.params_from_jax``).
 
     Raises:
-      NotImplementedError: the ssm, hybrid or encdec family.
+      NotImplementedError: the ssm, hybrid or encdec family, which
+        ``MambaLM``, ``GriffinLM`` and ``WhisperModel`` serve.
       ValueError: an unknown family, KV-cache dtype or attention backend.
     """
 
@@ -89,10 +93,11 @@ class TransformerLM(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  attn_backend: str = "kernel"):
         super().__init__()
-        if cfg.family in ("ssm", "hybrid", "encdec"):
+        if cfg.family in _OTHER_MODELS:
             raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-                f"(ROADMAP Queue 1, item 15)")
+                f"{cfg.name}: TransformerLM does not serve the {cfg.family!r} "
+                f"family; {_OTHER_MODELS[cfg.family]} does (registry."
+                f"get_model builds it)")
         if cfg.family not in FAMILIES:
             raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
         if cfg.kv_cache_dtype not in KV_CACHE_DTYPES:
@@ -186,13 +191,7 @@ class TransformerLM(nn.Module):
         return torch.cat([vis, x], dim=1), int(patches.shape[1])
 
     def _unembed(self, x: torch.Tensor) -> torch.Tensor:
-        """fp32 logits against ``embed.T``; the final softcap and the
-        padded-vocab mask are applied in place."""
-        cfg = self.cfg
-        logits = x.float() @ self.embed.float().T
-        if cfg.final_softcap is not None:
-            logits.div_(cfg.final_softcap).tanh_().mul_(cfg.final_softcap)
-        return L.mask_padded_vocab(logits, cfg.vocab)
+        return L.unembed(x, self.embed, self.cfg.vocab, self.cfg.final_softcap)
 
     def _layer_fwd(self, p, x: torch.Tensor, window: int, *,
                    q_pos: torch.Tensor, prefix_len: int = 0, cache=None,

@@ -36,11 +36,13 @@ def greedy_generate(model, cfg: ModelConfig, prompt_batch: Dict[str, torch.Tenso
     """Prefill the prompt then greedy-decode ``steps`` tokens.
 
     ``prompt_batch`` goes to ``model.prefill`` whole: ``{"tokens": (B, S)}``
-    and, for the vlm family, ``"patches"`` (B, P, vision_dim). ``max_len``
+    and, for the vlm family, ``"patches"`` (B, P, vision_dim), for the
+    encdec family ``"frames"`` (B, encoder_seq, d_model). ``max_len``
     must hold the P + S prefilled positions and the ``steps`` decoded ones
     (P + S + steps, or more): past the cache a ``decode_step`` raises
     ``ValueError``, where the reference's clamped write would overwrite the
-    last slot (ROADMAP R12).
+    last slot (ROADMAP R12). The ssm family's state does not grow and the
+    hybrid's ring holds min(window, ``max_len``) slots.
 
     Returns the (B, steps) tokens fed at each step, as the reference's scan
     emits them: the first is the argmax of the prefill's last position, and

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain torch versions, on the card,
 the five lanes on the card against scipy, the LM's prefill (dense, moe,
 vlm with its prefix, the int8 cache) through the flash kernel against its
-plain attention path, the
+plain attention path, the encdec, ssm and hybrid models on the card
+against the CPU, the
 triangle service and the measured chooser on the card, and the sharded
 lanes on a world-1 NCCL group and on 4 gloo ranks sharing the card.
 
@@ -510,6 +511,17 @@ FLASH_CASES = [
     (2, 512, 512, 40, 40, 128, torch.bfloat16, True, None, None),
     (2, 256, 256, 48, 8, 128, torch.bfloat16, True, None, None),
     (2, 256, 256, 56, 8, 128, torch.bfloat16, True, None, None),
+    # whisper-medium's layers at batch 4, prompt 64 (head dim 64, 16/16):
+    # the encoder (not causal, T = 1500), the decoder's causal self-
+    # attention, its cross-attention (S = 64, T = 1500) and a decode
+    # step's one-query cross-attention, bf16 and fp32
+    *[(4, s_, t_, 16, 16, 64, dt_, c_, None, None)
+      for dt_ in (torch.bfloat16, torch.float32)
+      for s_, t_, c_ in ((1500, 1500, False), (64, 64, True),
+                         (64, 1500, False), (1, 1500, False))],
+    # recurrentgemma-9b's local attention: MQA 16/1 at head dim 256,
+    # causal, window 2048 over a 4096-token prompt
+    (2, 4096, 4096, 16, 1, 256, torch.bfloat16, True, 2048, None),
 ]
 
 
@@ -633,6 +645,98 @@ def test_new_families_prefill_through_flash_kernel(cuda, arch):
     else:
         torch.testing.assert_close(ck["k"], cp["k"], rtol=1e-4, atol=1e-4)
         torch.testing.assert_close(dk, dp, rtol=1e-4, atol=1e-4)
+
+
+def test_attention_dispatch_takes_non_causal_calls_of_any_length(cuda):
+    """``layers.attention`` launches K6 for a non-causal call without a
+    window whatever S and T (whisper's encoder and cross-attention), reads
+    no position then, and still raises for a non-causal finite window
+    (R10), a causal S != T and padded keys."""
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(2, 7, 4, 64, generator=gen, device=cuda)
+    k, v = (torch.randn(2, 300, 2, 64, generator=gen, device=cuda)
+            for _ in range(2))
+    fa.reset_launch_counts()
+    got = L.attention(q, k, v, causal=False)
+    shifted = L.attention(q, k, v, causal=False,
+                          q_pos=torch.arange(100, 107, device=cuda),
+                          k_pos=torch.arange(300, device=cuda))
+    assert fa.LAUNCHES["flash_attention"] == 2
+    want = fa.flash_attention_ref(q, k, v, causal=False)
+    for out in (got, shifted):
+        ok, err = fa.flash_within_tolerance(out, want, q, k, v, causal=False)
+        assert ok, err
+    plain = L.attention(q, k, v, causal=False, backend="chunked")
+    torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-4)
+    with pytest.raises(NotImplementedError, match="R10"):
+        L.attention(q, k, v, causal=False, window=16)
+    with pytest.raises(NotImplementedError):
+        L.attention(q, k, v)  # causal with S != T
+    with pytest.raises(NotImplementedError, match="padded keys"):
+        L.attention(q, k, v, causal=False,
+                    k_pos=torch.arange(300, device=cuda) - 1)
+    assert fa.LAUNCHES["flash_attention"] == 2
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "mamba2-780m",
+                                  "recurrentgemma-9b"])
+def test_own_model_families_on_card_equal_cpu(cuda, arch):
+    """The encdec, ssm and hybrid models (reduced, fp32; whisper's and the
+    hybrid's head_dim 64 for the kernel) on the card against the same
+    weights on the CPU: prefill logits and every cache leaf, then four
+    decode steps (the hybrid's ring wraps), within ``MODEL_TOL`` of
+    ``tests/test_torch_lm.py``; K6 launched once an encoder layer and twice
+    a decoder layer in whisper's prefill and once a decoder layer a decode
+    step, once an attention block in the hybrid's prefill, never in
+    mamba2's."""
+    from repro_torch.models.registry import get_model, get_reduced_config
+
+    cfg = get_reduced_config(arch)
+    if cfg.family != "ssm":
+        cfg = cfg.replace(d_model=128, head_dim=64)
+    model = get_model(cfg, device=cuda, dtype=torch.float32)
+    model.init(torch.Generator(device=cuda).manual_seed(0))
+    host = get_model(cfg, device="cpu", dtype=torch.float32)
+    host.load_state_dict({k: t.cpu() for k, t in model.state_dict().items()})
+    gen = torch.Generator().manual_seed(1)
+    b, s, steps = 2, 40, 4
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(b, cfg.encoder_seq, cfg.d_model,
+                                      generator=gen)
+    feed = torch.randint(0, cfg.vocab, (steps, b, 1), generator=gen)
+    tol = dict(rtol=2e-4, atol=2e-4)
+
+    def leaves(cache):
+        if "blocks" in cache:
+            return [t for block in cache["blocks"] for t in block]
+        return [t for key, t in sorted(cache.items()) if key != "pos"]
+
+    fa.reset_launch_counts()
+    lk, ck = model.prefill({k: t.to(cuda) for k, t in batch.items()}, s + 8)
+    prefill_launches = fa.LAUNCHES["flash_attention"]
+    lh, chost = host.prefill(batch, s + 8)
+    torch.testing.assert_close(lk.cpu(), lh, **tol)
+    for a, h in zip(leaves(ck), leaves(chost), strict=True):
+        torch.testing.assert_close(a.cpu(), h, **tol)
+    fa.reset_launch_counts()
+    for i in range(steps):
+        dk, ck = model.decode_step(ck, feed[i].to(cuda))
+        dh, chost = host.decode_step(chost, feed[i])
+        torch.testing.assert_close(dk.cpu(), dh, **tol)
+    decode_launches = fa.LAUNCHES["flash_attention"]
+    for a, h in zip(leaves(ck), leaves(chost), strict=True):
+        torch.testing.assert_close(a.cpu(), h, **tol)
+    if cfg.family == "encdec":
+        assert prefill_launches == cfg.encoder_layers + 2 * cfg.num_layers
+        assert decode_launches == steps * cfg.num_layers
+    elif cfg.family == "hybrid":
+        assert prefill_launches == model.kinds.count("attn")
+        assert decode_launches == 0
+    else:
+        assert prefill_launches == decode_launches == 0
 
 
 def test_flash_kernel_checks_inputs(cuda):

@@ -7,10 +7,13 @@ qwen1.5-4b (QKV bias) and minicpm-2b (residual scale) in fp32, loaded with
 the reference's own initial weights: prefill logits and KV cache, every
 ``decode_step``'s logits and ``greedy_generate``'s tokens against the
 reference's. Prefill plus decode agrees with ``apply_train``'s forward, as
-``tests/test_models_smoke.py`` checks it in JAX. The ssm, hybrid and
-encdec families and a missing card raise; the moe and vlm families and the
-int8 KV cache build (their parity is in ``tests/test_torch_moe.py``,
-``test_torch_vlm.py`` and ``test_torch_kvint8.py``).
+``tests/test_models_smoke.py`` checks it in JAX. A missing card raises;
+every family builds and serves through the registry: the moe and vlm
+families and the int8 KV cache in ``TransformerLM``, the ssm, hybrid and
+encdec families in models of their own (their parity is in
+``tests/test_torch_moe.py``, ``test_torch_vlm.py``,
+``test_torch_kvint8.py``, ``test_torch_ssm.py``, ``test_torch_hybrid.py``
+and ``test_torch_encdec.py``).
 
 Tolerances: layers 1e-5 (the same fp32 arithmetic); model logits and
 caches 2e-4 after four fp32 layers (reductions summed in another order,
@@ -34,10 +37,13 @@ from repro_torch.models.transformer import TransformerLM, _layer_windows
 from repro_torch.train.serve_step import greedy_generate, make_serve_fns
 
 DENSE = ["gemma2-2b", "qwen1.5-4b", "qwen1.5-32b", "minicpm-2b"]
-# the families TransformerLM serves, and the archs of those it does not
-PORTED = DENSE + ["arctic-480b", "dbrx-132b", "paligemma-3b"]
-UNPORTED = {"mamba2-780m": "ssm", "whisper-medium": "encdec",
-            "recurrentgemma-9b": "hybrid"}
+# the archs of the families TransformerLM serves, and those of the families
+# with models of their own
+TRANSFORMER = DENSE + ["arctic-480b", "dbrx-132b", "paligemma-3b"]
+OWN_MODEL = {"mamba2-780m": ("ssm", "MambaLM"),
+             "whisper-medium": ("encdec", "WhisperModel"),
+             "recurrentgemma-9b": ("hybrid", "GriffinLM")}
+PORTED = TRANSFORMER + list(OWN_MODEL)
 MODEL_TOL = dict(rtol=2e-4, atol=2e-4)
 CPU = "cpu"
 
@@ -79,18 +85,23 @@ def test_configs_equal_reference(lmref, arch, which):
 def test_registry_names_and_non_dense_families(lmref):
     assert registry.ARCHS == lmref.registry.ARCHS
     assert registry.list_archs() == lmref.registry.list_archs()
-    assert sorted(PORTED + list(UNPORTED)) == sorted(registry.ARCHS)
-    for arch, family in UNPORTED.items():
+    assert sorted(PORTED) == sorted(registry.ARCHS)
+    # the ssm, encdec and hybrid families build in models of their own and
+    # serve; TransformerLM refuses them, naming the class that serves each
+    for arch, (family, cls) in OWN_MODEL.items():
         assert lmref.registry.get_config(arch).family == family
-        with pytest.raises(NotImplementedError, match=family):
-            registry.get_config(arch)
-        with pytest.raises(NotImplementedError, match="item 15"):
-            registry.get_reduced_config(arch)
-    for family in UNPORTED.values():
-        cfg = registry.get_reduced_config("gemma2-2b").replace(family=family)
-        with pytest.raises(NotImplementedError, match=family):
-            registry.get_model(cfg, device=CPU)
-        with pytest.raises(NotImplementedError, match="item 15"):
+        cfg = registry.get_reduced_config(arch)
+        assert registry.get_config(arch).family == cfg.family == family
+        model = registry.get_model(cfg, device=CPU, dtype=torch.float32)
+        assert type(model).__name__ == cls
+        assert type(lmref.registry.get_model(cfg)).__name__ == cls
+        model.init(torch.Generator().manual_seed(0))
+        batch = {"tokens": torch.arange(12).reshape(2, 6) % cfg.vocab}
+        if family == "encdec":
+            batch["frames"] = torch.ones(2, cfg.encoder_seq, cfg.d_model)
+        toks = greedy_generate(model, cfg, batch, steps=3, max_len=10)
+        assert toks.shape == (2, 3) and int(toks.max()) < cfg.vocab
+        with pytest.raises(NotImplementedError, match=cls):
             TransformerLM(cfg, device=CPU)
     with pytest.raises(ValueError, match="unknown arch"):
         registry.get_config("gpt-2")
@@ -335,14 +346,17 @@ def test_lm_modules_import_and_serve_without_jax():
     root = pathlib.Path(__file__).resolve().parent.parent
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None; "
             "import repro_torch.models.registry, repro_torch.models.convert, "
+            "repro_torch.models.encdec, repro_torch.models.ssm, "
+            "repro_torch.models.rglru, "
             "repro_torch.kernels.flash_attention, repro_torch.train.serve_step; "
             "from repro_torch.launch import serve_lm; "
             "[serve_lm.main(['--arch', a, '--reduced', '--device', 'cpu', "
             "'--batch', '1', '--prompt-len', '20', '--tokens', '3']) for a in "
             "('gemma2-2b', 'qwen1.5-32b', 'arctic-480b', 'dbrx-132b', "
-            "'paligemma-3b')]")
+            "'paligemma-3b', 'whisper-medium', 'mamba2-780m', "
+            "'recurrentgemma-9b')]")
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=root,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.count("generated=3/seq") == 5
+    assert out.stdout.count("generated=3/seq") == 8

@@ -78,6 +78,9 @@ _LM_MODULES = {
     "registry": "repro.models.registry",
     "layers": "repro.models.layers",
     "transformer": "repro.models.transformer",
+    "encdec": "repro.models.encdec",
+    "ssm": "repro.models.ssm",
+    "rglru": "repro.models.rglru",
     "serve_step": "repro.train.serve_step",
     "flash": "repro.kernels.flash_attention.flash_attention",
     "flashref": "repro.kernels.flash_attention.ref",
@@ -142,7 +145,7 @@ def ref():
 def lmref():
     """Namespace of the reference's LM modules (``lmref.config``,
     ``lmref.registry``, ``lmref.layers``, ``lmref.transformer``,
-    ``lmref.serve_step``, ``lmref.flash``, ``lmref.flashref``,
+    ``lmref.encdec``, ``lmref.ssm``, ``lmref.rglru``, ``lmref.serve_step``, ``lmref.flash``, ``lmref.flashref``,
     ``lmref.flashops``), imported under the enable_x64 shim (``pl.load``
     is set when this file is imported)."""
     with _reference(_LM_MODULES) as ns:
