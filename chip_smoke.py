@@ -231,10 +231,11 @@ source, all started together), and runs, in order:
    these four also beside ``scaled_dot_product_attention`` (no window or
    softcap: the same function), and recurrentgemma-9b's local attention
    (2, 4096, 16/1, 256, window 2048);
-3p. the int8 KV cache: qwen1.5-32b at its published width and depth (64
-   layers, MHA 40/40, 64.2 GiB of bf16 weights from seed 0, its config's
-   ``kv_cache_dtype="int8"``), batch 2, a 512-token prompt and 16 greedy
-   tokens with K6's counter read around them (64 launches); the peak
+3p. the int8 KV cache: qwen1.5-32b at its published width, 16 of its 64
+   layers (``INT8_LAYERS``, for the script's time; MHA 40/40, 17.1 GiB of
+   bf16 weights from seed 0, its config's ``kv_cache_dtype="int8"``),
+   batch 2, a 512-token prompt and 16 greedy tokens with K6's counter read
+   around them (16 launches); the peak
    reckoned before the run and measured after it (under 79 GiB); prefill
    seconds, decode ms per token, ``torch.profiler`` over one of each;
    ``quantize_kv`` of layer 0's k and v on the card against the CPU's and
@@ -256,19 +257,21 @@ source, all started together), and runs, in order:
    tokens: 18 K6 launches a prefill, each with ``prefix_len = 256``;
    teacher-forced against the chunked plain attention; the prefill again
    with fp32 weights, kernel and plain logits and caches within 1e-3;
-3s. encdec: whisper-medium at its published width and depth
-   (``WhisperModel``; 24 + 24 layers, d 1024, 16 heads of 64, 1500 frames),
-   batch 4, frames (4, 1500, 1024) from seed 2, a 64-token prompt and 32
-   greedy tokens: 72 K6 launches a prefill (24 encoder, 24 causal self,
-   24 cross-attention, the last two S = 64 against T = 64 and 1500) and 24
-   a decode step (the one-query cross-attention);
-3t. ssm: mamba2-780m (``MambaLM``; 48 layers, d 1536, 48 SSM heads of 64,
-   state 128, chunk 256), batch 2, a 4096-token prompt (16 chunks) and 32
-   greedy tokens: no kernel (the reference has none for the family);
-3u. hybrid: recurrentgemma-9b (``GriffinLM``; 38 layers, 26 RG-LRU and 12
-   local attention, d 4096, MQA 16/1 at head dim 256, window 2048, vocab
-   256,000), batch 2, a 4096-token prompt (the window cuts in prefill, the
-   ring wraps in decode) and 16 greedy tokens: 12 K6 launches a prefill;
+3s. encdec: whisper-medium at its published width (``WhisperModel``; 8 +
+   8 of its 24 + 24 layers, ``SERVE_CUTS``, for the script's time; d 1024,
+   16 heads of 64, 1500 frames), batch 4, frames (4, 1500, 1024) from seed
+   2, a 64-token prompt and 32 greedy tokens: 24 K6 launches a prefill (8
+   encoder, 8 causal self, 8 cross-attention, the last two S = 64 against
+   T = 64 and 1500) and 8 a decode step (the one-query cross-attention);
+3t. ssm: mamba2-780m (``MambaLM``; 16 of its 48 layers, d 1536, 48 SSM
+   heads of 64, state 128, chunk 256), batch 2, a 4096-token prompt (16
+   chunks) and 32 greedy tokens: no kernel (the reference has none for the
+   family);
+3u. hybrid: recurrentgemma-9b (``GriffinLM``; 14 of its 38 layers: 10
+   RG-LRU and 4 local attention, d 4096, MQA 16/1 at head dim 256, window
+   2048, vocab 256,000), batch 2, a 4096-token prompt (the window cuts in
+   prefill, the ring wraps in decode) and 16 greedy tokens: 4 K6 launches
+   a prefill;
    each of 3s–3u with bf16 weights from seed 0, its peak reckoned before
    the run and held to the reckoning after it, prefill seconds, decode ms
    a token and ``torch.profiler`` over one of each; 3s and 3u
@@ -278,13 +281,44 @@ source, all started together), and runs, in order:
    floor with K6's rounding of the softmax weights); each then with fp32
    weights, ``decode_step`` after ``prefill(S - 1)`` against
    ``prefill(S)``'s last logits within 1e-3;
+4d. K6's gradient: at each K6 shape of the training paths, bf16 —
+   gemma2-2b's local and global microbatch (1, 2048, 8/4, 256) with cap
+   50 (window 4096), paligemma-3b's layer (1, 512, 8/1, 256) with prefix
+   256, whisper-medium's encoder (1, 1500, 16/16, 64, not causal), causal
+   self (1, 64) and cross (1, 64 against 1500), recurrentgemma-9b's local
+   layer (1, 4096, 16/1, 256, window 2048) — ``attention(backend=
+   "kernel")`` on inputs that require grad runs K6 once through
+   ``FlashAttention`` (its output within K6's contract), and dq, dk, dv
+   equal autograd through the chunked scan within 1e-5 of their largest
+   value; a planted fault (the softcap's derivative left out) must read
+   above that; the backward and forward + backward timed beside their
+   bounds, the chunked path, ``torch.compile(flex_attention)`` forward +
+   backward with the softcap (gemma2-2b's global layer, static shapes) and
+   SDPA forward + backward elsewhere (the mask as ``attn_mask``), and the
+   backward's own peak beside 4·B·S·T·Hq·4 bytes;
+3v. training: gemma2-2b at its published width and depth (bf16 weights
+   from seed 0, bf16 moments, fp32 accumulators, remat), batch 8 × 2048
+   from ``SyntheticDataset`` in 8 microbatches, 4 steps through
+   ``ElasticTrainer`` with a checkpoint after step 2: every loss finite,
+   every leaf's gradient finite with a norm above 0, 416 K6 launches a
+   step, step seconds (median of steps 1–3), tokens/s, the model-FLOP
+   rate against 989 TFLOP/s, the own peak within 1.1× its reckoning; then
+   a fresh model resumes from the checkpoint (params and moments bit-equal
+   to the saved ones, its step-3 loss within 1e-3 of the uninterrupted
+   one), that step run under ``torch.profiler`` (idle share);
+3w. one training step each, K6 against the chunked attention (and the
+   chunked attention in 128-key chunks, the floor), bf16, published
+   widths with cut depths: whisper-medium 2 + 2 layers (batch 2, 1500
+   frames, 64 tokens), paligemma-3b 2 layers (batch 2, 256 patches, 256
+   tokens), recurrentgemma-9b one block group (1 × 4096): the loss and the
+   global grad norm within twice the floor, K6's launches counted;
 5. a ``{"lm_without_kernels": [...]}`` line (3t's run), a
    ``{"kernels": [...]}`` line, the card's name and power limit from
    nvidia-smi, and a last line ``{"ok": true, "device": {...}}``.
 
 The phases run in the order 1, 2, 3, 3b, 3c, 4, 3d, 4b, 3k, 3l, 3g–3j,
-3e, 3m, 3n, 3o, 3f, 4c, 3p, 3q, 3r, 3s, 3t, 3u, 5 (each of 3p–3u frees
-its model before the next): phase 4 needs the earlier lanes' plans (about 40 GiB), so
+3e, 3m, 3n, 3o, 3f, 4c, 3p, 3q, 3r, 3s, 3t, 3u, 4d, 3v, 3w, 5 (each of
+3p–3w frees its model before the next): phase 4 needs the earlier lanes' plans (about 40 GiB), so
 the new lanes wait until it has released them (phase 4b holds the hash
 paths' stages and releases them before the edge and dynamic lanes, and the
 tiled phases free their pinned host memory before the next), and the
@@ -295,8 +329,10 @@ entries carry the tiled, batch, recount and served shapes under
 chooser's launches under ``chooser_path``, and K6 its launches on the
 int8, MoE, VLM, encdec and hybrid serving paths under ``serve_paths``
 (their runs under ``lm_serving``), its prefix shapes under
-``prefix_shapes`` and whisper's and the hybrid's layer shapes under
-``encdec_shapes`` and ``hybrid_shapes``.
+``prefix_shapes``, whisper's and the hybrid's layer shapes under
+``encdec_shapes`` and ``hybrid_shapes``, and its launches a training step
+of 3v and 3w under ``train_paths`` (4d's gradient checks and timings and
+both phases' runs under ``training``).
 
 Any failed check raises, so the script exits non-zero and prints no last
 line. Without a CUDA device, or outside a checkout, it exits 2 at once.
@@ -368,6 +404,9 @@ K6_EARLIER_MS = 328.678
 MARGIN_FACTOR = 10.0
 # phases 3p–3r: the rest of TransformerLM at published widths on one card
 INT8_ARCH = "qwen1.5-32b"  # 64 layers, its config's int8 KV cache
+# cut to 16 of its 64 layers (16.8 GiB of bf16 weights): the script's time
+# limit, with the training phases 4d, 3v and 3w added
+INT8_LAYERS = 16
 INT8_BATCH, INT8_PROMPT, INT8_STEPS = 2, 512, 16
 # arctic-480b and dbrx-132b at their published widths, cut in depth to fit
 # one 80 GB card: (arch, layers kept); 25.35 GiB a layer of arctic's and
@@ -404,6 +443,14 @@ ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_STEPS = 4, 64, 32
 SSM_ARCH = "mamba2-780m"  # 48 layers, d 1536, 48 SSM heads of 64, state 128
 SSM_BATCH, SSM_PROMPT, SSM_STEPS = 2, 4096, 32  # 16 chunks of 256
 HYBRID_ARCH = "recurrentgemma-9b"  # 38 layers, 12 local attention, MQA 16/1
+# 3s-3u cut in depth for the script's time, with the training phases 4d, 3v
+# and 3w added (a full run took 1119.6 s of its 1200 s on one card):
+# whisper-medium 8 + 8 of 24 + 24 layers, mamba2-780m 16 of 48,
+# recurrentgemma-9b 14 of 38 (4 block groups and the 2 recurrent blocks of
+# its remainder, 4 local-attention blocks)
+SERVE_CUTS = {"whisper-medium": dict(encoder_layers=8, num_layers=8),
+              "mamba2-780m": dict(num_layers=16),
+              "recurrentgemma-9b": dict(num_layers=14)}
 # twice the 2048 window: the window cuts in prefill and the ring wraps in
 # decode
 HYBRID_BATCH, HYBRID_PROMPT, HYBRID_STEPS = 2, 4096, 16
@@ -707,12 +754,16 @@ def row_rms_facts(rows, s: int) -> dict:
 
 
 def rounded_weight_attention(torch, q, k, v, window, cap, bits: int,
-                             causal: bool = True):
+                             causal: bool = True, prefix: int = 0,
+                             straight_through: bool = False):
     """A planted control for phase 4c: the plain version's arithmetic
-    (causal, or with every key of a non-causal call without a window) in
-    fp32 with the unnormalised softmax weights rounded to ``bits``
-    significant bits before ·v (8: what bf16 rounding does; 4: a fault,
-    2⁻⁴ relative) and the sum of the unrounded ones as divisor."""
+    (causal, keys below ``prefix`` visible to every query, or with every
+    key of a non-causal call without a window) in fp32 with the
+    unnormalised softmax weights rounded to ``bits`` significant bits
+    before ·v (8: what bf16 rounding does; 4: a fault, 2⁻⁴ relative) and
+    the sum of the unrounded ones as divisor. With ``straight_through`` the
+    rounding passes the gradient through unchanged (phase 3w's floor: K6's
+    forward rounding, the exact gradient)."""
     b, s, hq, hd = q.shape
     t, hkv = k.shape[1], k.shape[2]
     qg = q.reshape(b, s, hkv, hq // hkv, hd).float()
@@ -726,12 +777,16 @@ def rounded_weight_attention(torch, q, k, v, window, cap, bits: int,
         if window is not None:
             raise ValueError("a non-causal window has no K6 path (R10)")
         valid = torch.ones_like(valid)
+    if prefix:
+        valid = valid | (torch.arange(t, device=q.device)[None, :] < prefix)
     x = torch.where(valid[None, :, None, None], x, -1e30)
     p = torch.exp(x - x.amax(-1, keepdim=True))
     del x
-    mant, ex = torch.frexp(p)
+    mant, ex = torch.frexp(p.detach())
     rounded = torch.ldexp(torch.round(mant * 2 ** bits) / 2 ** bits, ex)
     del mant, ex
+    if straight_through:
+        rounded = p + (rounded - p).detach()
     out = torch.einsum("bshgt,bthd->bshgd", rounded, v.float()) \
         / p.sum(-1)[..., None]
     return out.reshape(b, s, hq, hd).to(q.dtype)
@@ -2650,15 +2705,18 @@ def serve_phase(torch, np, dev, get_config, get_model, greedy_generate, fa):
                          None: cfg.num_layers - local_layers})
 
 
-def device_profile(torch, fn) -> dict:
+def device_profile(torch, fn, host_ops: bool = True) -> dict:
     """Run ``fn`` once under ``torch.profiler`` and read the device's
     activity: kernels and copies, their summed time, by name, and the idle
     share of the host-clock wall time (the profiler's own host overhead
-    included, so the share is an upper bound)."""
+    included, so the share is an upper bound). ``host_ops=False`` records
+    the device's activity alone (a training step's 10⁵ host ops take the
+    profiler a minute to read back)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if host_ops else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2815,14 +2873,15 @@ def flash_phase(torch, np, dev, fa, flush, serve, lm_layers: dict) -> dict:
     # causal over its 1500 frames), the decoder's causal self-attention,
     # its cross-attention (S = prompt, T = 1500) and a decode step's
     # one-query cross-attention (16/16 heads of 64, no softcap, so SDPA
-    # computes the same function); recurrentgemma-9b's local attention
+    # computes the same function and is their library call; flex_attention
+    # is not compiled for them); recurrentgemma-9b's local attention
     # (MQA 16/1 at head dim 256, causal, window 2048)
     eb, es, et = ENCDEC_BATCH, ENCDEC_PROMPT, lm_layers["encoder_seq"]
     encdec_cases = [
         case(f"{ENCDEC_ARCH} {what} ({eb}, {s_} vs {t_}, 16/16, 64) bf16"
              f"{'' if causal else ', not causal'}", eb, s_, 16, 16, 64,
-             torch.bfloat16, None, None, lm_layers[what], library=True,
-             t=t_, causal=causal, sdpa=True)[0]
+             torch.bfloat16, None, None, lm_layers[what], t=t_,
+             causal=causal, sdpa=True)[0]
         for what, s_, t_, causal in (("encoder", et, et, False),
                                      ("self", es, es, True),
                                      ("cross", es, et, False),
@@ -2837,9 +2896,10 @@ def flash_phase(torch, np, dev, fa, flush, serve, lm_layers: dict) -> dict:
         print(f"K6 per prefill (per decode step for the decode cross-"
               f"attention) of {r['label']}: {r['ms'] * n:.3f} ms over {n} "
               f"launches; bound {r['bound_ms'] * n:.3f} ms; plain "
-              f"{r['plain_ms'] * n:.3f} ms; library flex_attention "
-              f"{r['library_ms'] * n:.3f} ms"
-              + (f", scaled_dot_product_attention {r['sdpa_ms'] * n:.3f} ms"
+              f"{r['plain_ms'] * n:.3f} ms"
+              + (f"; library flex_attention {r['library_ms'] * n:.3f} ms"
+                 if "library_ms" in r else "")
+              + (f"; scaled_dot_product_attention {r['sdpa_ms'] * n:.3f} ms"
                  if "sdpa_ms" in r else ""), flush=True)
 
     # the VLM's bidirectional prefix: paligemma-3b's layer shape (multi-query,
@@ -3232,17 +3292,17 @@ def contract_held_calls(torch, fa, kernel_call, calls: list):
 
 
 def p_rounded_attention(torch, q, k, v, *, window=None, cap=None,
-                        prefix_len=0, causal=True, backend="chunked"):
+                        prefix_len=0, causal=True, backend="chunked",
+                        straight_through=False):
     """The model's prefill attention (``layers.attention`` with positions
     ``arange``) as the plain arithmetic with K6's one extra rounding, the
     softmax weights rounded to bf16's 8 significant bits before ·v
-    (``rounded_weight_attention``); no prefix."""
+    (``rounded_weight_attention``)."""
     from repro_torch.models.layers import NO_WINDOW
 
-    if prefix_len:
-        raise ValueError("the rounded-weight attention takes no prefix")
     window = None if window is None or window >= NO_WINDOW else window
-    return rounded_weight_attention(torch, q, k, v, window, cap, 8, causal)
+    return rounded_weight_attention(torch, q, k, v, window, cap, 8, causal,
+                                    prefix_len, straight_through)
 
 
 def forced_against_plain(torch, model, batch, toks, max_len: int, fa,
@@ -3390,16 +3450,17 @@ def drop_model(torch) -> None:
 
 def int8_phase(torch, np, dev, get_config, get_model, greedy_generate,
                fa) -> dict:
-    """Phase 3p: qwen1.5-32b with its int8 KV cache, at its published width
-    and depth, through K6."""
+    """Phase 3p: qwen1.5-32b with its int8 KV cache, at its published width,
+    ``INT8_LAYERS`` of its layers, through K6."""
     from repro_torch.models import layers as L
 
-    cfg = get_config(INT8_ARCH)
+    full = get_config(INT8_ARCH)
+    cfg = full.replace(num_layers=INT8_LAYERS)
     b, s, steps = INT8_BATCH, INT8_PROMPT, INT8_STEPS
     max_len = s + steps + 1
     phase(f"phase 3p: int8 KV cache, serving {INT8_ARCH} ({cfg.num_layers} "
-          f"layers, heads {cfg.num_heads}/{cfg.kv_heads}), batch {b}, prompt "
-          f"{s}, {steps} greedy tokens")
+          f"of {full.num_layers} layers, heads {cfg.num_heads}/"
+          f"{cfg.kv_heads}), batch {b}, prompt {s}, {steps} greedy tokens")
     check(cfg.kv_cache_dtype == "int8", f"{cfg.name} asks for the int8 cache")
     model, held, weights = new_lm_model(torch, dev, get_model, cfg,
                                         torch.bfloat16)
@@ -3476,7 +3537,9 @@ def int8_phase(torch, np, dev, get_config, get_model, greedy_generate,
     drop_model(torch)
     run.pop("toks")
     return dict(run, **forced, arch=cfg.name, quant_steps_off=steps_off,
-                path=f"{cfg.name} greedy_generate, int8 KV cache: batch {b}, "
+                layers=cfg.num_layers, full_layers=full.num_layers,
+                path=f"{cfg.name} ({cfg.num_layers} of {full.num_layers} "
+                     f"layers) greedy_generate, int8 KV cache: batch {b}, "
                      f"prompt {s}, {steps} tokens (one prefill)")
 
 
@@ -3717,14 +3780,15 @@ def own_model_phase(torch, np, dev, get_config, get_model, greedy_generate,
                     steps: int) -> dict:
     """Phases 3s–3u: a family with a model of its own (whisper-medium's
     ``WhisperModel``, mamba2-780m's ``MambaLM``, recurrentgemma-9b's
-    ``GriffinLM``) at its published width and depth, bf16 weights from
-    seed 0: ``greedy_generate`` (``lm_serve_run``, its peak within the
+    ``GriffinLM``) at its published width, its depth cut as ``SERVE_CUTS``
+    says, bf16 weights from seed 0: ``greedy_generate`` (``lm_serve_run``, its peak within the
     reckoning), K6's launches (whisper: each encoder layer, and a decoder
     layer's self- and cross-attention in the prefill, its cross-attention
     in each decode step; the hybrid: each local-attention block of the
     prefill; mamba2: none), teacher-forced against the chunked plain
     attention where K6 runs, and the fp32 decode-against-prefill check."""
-    cfg = get_config(arch)
+    full = get_config(arch)
+    cfg = full.replace(**SERVE_CUTS[arch])
     max_len = s + steps + 1
     model, held, weights = new_lm_model(torch, dev, get_model, cfg,
                                         torch.bfloat16)
@@ -3744,8 +3808,9 @@ def own_model_phase(torch, np, dev, get_config, get_model, greedy_generate,
                  f"d {cfg.d_model}, MQA {cfg.num_heads}/{cfg.kv_heads} x "
                  f"{cfg.head_dim}, window {cfg.sliding_window}")
         per_prefill, per_step = model.kinds.count("attn"), 0
-    phase(f"phase {tag}: serving {arch} ({shape}), batch {b}, prompt {s}, "
-          f"{steps} greedy tokens")
+    phase(f"phase {tag}: serving {arch} ({shape}; cut from "
+          f"{full.num_layers} layers), batch {b}, prompt {s}, {steps} greedy "
+          f"tokens")
     reckoned = lm_peak_reckoning(cfg, weights, b, s, max_len)
     print(f"reckoned peak before the run: {reckon_line(reckoned)}")
     check(reckoned["total"] < DEVICE_PEAK_LIMIT,
@@ -3800,6 +3865,749 @@ def own_model_phase(torch, np, dev, get_config, get_model, greedy_generate,
                      f"{steps} tokens (one prefill"
                      + (f", {steps} decode steps" if per_step else "") + ")")
 
+
+# -- phases 4d, 3v and 3w: training -------------------------------------------
+
+# phase 3v: gemma2-2b trains at its published width and depth: batch 8 x
+# 2048 tokens in its config's 8 microbatches (1 x 2048 each), 4 steps
+# through ElasticTrainer, a checkpoint after step 2
+TRAIN_ARCH = "gemma2-2b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_SAVE_EVERY = 8, 2048, 4, 2
+# phase 4d: dq, dk and dv through FlashAttention against autograd through
+# the chunked scan on the same inputs. The backward IS that scan's
+# gradient, so only fp32 summation order may separate them
+GRAD_RTOL = 1e-5
+# phase 3v: the first step after a restore against the uninterrupted run's:
+# the embedding's backward adds its rows with atomics, so bits may differ
+RESUME_LOSS_RTOL = 1e-3
+# phase 3w: one training step each at published widths, depths cut:
+# (arch, config fields replaced, batch, tokens a sequence)
+TRAIN_CUT_RUNS = (
+    ("whisper-medium", dict(encoder_layers=2, num_layers=2), 2, 64),
+    ("paligemma-3b", dict(num_layers=2), 2, 256),
+    ("recurrentgemma-9b", dict(num_layers=3), 1, 4096))
+# the kernel step's loss and gradient against the chunked plain step's
+# (1024-key chunks): this factor times the largest distance of five plain
+# variants from the plain step (64-, 128-, 256- and 512-key chunks, and
+# K6's rounding of the softmax weights to bf16). A single floor is one
+# sample of a rounding noise: whisper-medium's loss floors ranged from
+# 2.37e-4 to 7.88e-4 over these variants and its grad-norm floors from
+# 1.15e-4 to 9.37e-4, against the kernel's 6.08e-4 and 2.12e-3, while the
+# gradient vectors' distances (5.42e-3 to 5.82e-3, the kernel's 5.81e-3)
+# barely move; so the grad norm is held through the gradient vector
+# (NVIDIA H100 80GB HBM3, 700.00 W)
+TRAIN_FLOOR_FACTOR = 2.0
+TRAIN_FLOOR_CHUNKS = (64, 128, 256, 512)
+
+
+def grad_rel_err(torch, got, want) -> float:
+    """max over the tensors of max |got - want| / max |want|, in fp32."""
+    return max(float((g.float() - w.float()).abs().max())
+               / max(float(w.float().abs().max()), 1e-30)
+               for g, w in zip(got, want))
+
+
+def flash_grad_bound_ms(np, q, k, causal: bool, window, prefix: int = 0,
+                        backward_only: bool = False) -> dict:
+    """Least time for attention's forward and backward (FA2's count: the
+    forward's two products, 4·hd flops a pair a head, and the backward's
+    five, 10·hd) at the bf16 tensor-core rate, or reading q, k, v, the
+    output and its gradient and writing dq, dk, dv (and the output) once;
+    with ``backward_only`` the backward alone."""
+    b, s, hq, hd = q.shape
+    t = k.shape[1]
+    pairs = flash_pairs(np, s, t, causal, window, prefix)
+    flops = (10 if backward_only else 14) * hd * pairs * b * hq
+    t_ops = flops / TENSOR_OPS_PER_S * 1e3
+    t_bytes = (3 * q.numel() + 2 * k.numel() * 2) * q.element_size() \
+        / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                flops=flops, pairs=pairs,
+                fp32_alu_ms=flops / ALU_FLOPS_PER_S * 1e3)
+
+
+def sdpa_mask(torch, s: int, t: int, causal: bool, window, prefix: int, dev):
+    """The (S, T) boolean mask of K6's rule, for SDPA (None: every key)."""
+    if not causal and window is None and not prefix:
+        return None
+    i = torch.arange(s, device=dev)[:, None]
+    j = torch.arange(t, device=dev)[None, :]
+    ok = (j <= i) if causal else torch.ones(s, t, dtype=torch.bool,
+                                             device=dev)
+    if window is not None:
+        ok = ok & (i - j < window)
+    return ok | (j < prefix) if prefix else ok
+
+
+def flash_grad_phase(torch, np, dev, fa, flush, get_config) -> dict:
+    """Phase 4d: K6's gradient on the card. At each K6 shape of the
+    training paths (3v's gemma2-2b microbatch, 3w's paligemma-3b,
+    whisper-medium and recurrentgemma-9b ones), bf16: ``attention(
+    backend="kernel")`` on inputs that require grad runs K6 once (through
+    ``FlashAttention``; its output within K6's contract), and its dq, dk
+    and dv equal autograd through ``backend="chunked"`` within
+    ``GRAD_RTOL``; at the softcapped shapes a planted fault (the softcap's
+    derivative left out of the chunked scan) must read above that limit.
+    The backward and the forward + backward are timed (CUDA events, L2
+    flushed) beside their bounds, the chunked path's forward + backward,
+    ``torch.compile(flex_attention)`` forward + backward with the same
+    ``score_mod`` and mask where there is a softcap (gemma2-2b's global
+    layer; static shapes; the local layer's window passes its 2048 keys, so
+    it is the same function), and SDPA forward + backward (with the mask as
+    ``attn_mask`` where there is one) where there is none: neither library
+    call is on the path. The backward's own peak memory is read
+    beside 4·B·S·T·Hq·4 bytes."""
+    phase("phase 4d: K6's gradient (FlashAttention) against the chunked "
+          "scan's, at the training paths' shapes")
+    import torch.nn.functional as F
+    from repro_torch.models import layers as L
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    from repro_torch.models.transformer import _layer_windows
+
+    # a fresh compile cache and static shapes: after phase 4c's dozen
+    # compiles of flex_attention, these calls ran 20-30x slower than when 4d
+    # ran alone (42.12 against 1.28 ms forward + backward at gemma2-2b's
+    # local layer; NVIDIA H100 80GB HBM3, 700.00 W)
+    torch._dynamo.reset()
+    flex = torch.compile(flex_attention, dynamic=False)
+    train_cfg = get_config(TRAIN_ARCH)
+    windows = _layer_windows(train_cfg)
+
+    def grads(out, ins, dout, retain=False):
+        return torch.autograd.grad(out, ins, dout, retain_graph=retain)
+
+    def case(label, b, s, t, hq, hkv, hd, causal, window, cap, prefix,
+             per_step, library=True):
+        gen = torch.Generator(device=dev).manual_seed(s + t + hq + hd + prefix)
+        bf = torch.bfloat16
+        q0 = torch.randn(b, s, hq, hd, generator=gen, device=dev).to(bf)
+        k0, v0 = (torch.randn(b, t, hkv, hd, generator=gen,
+                              device=dev).to(bf) for _ in range(2))
+        dout = torch.randn(b, s, hq, hd, generator=gen, device=dev).to(bf)
+        kw = dict(causal=causal, window=L.NO_WINDOW if window is None
+                  else window, cap=cap, prefix_len=prefix)
+        fkw = dict(causal=causal, window=window, cap=cap, prefix_len=prefix)
+        ins = [x.clone().requires_grad_() for x in (q0, k0, v0)]
+        pins = [x.clone().requires_grad_() for x in (q0, k0, v0)]
+        fa.reset_launch_counts()
+        out = L.attention(*ins, backend="kernel", **kw)
+        check(fa.LAUNCHES["flash_attention"] == 1 and out.requires_grad,
+              f"{label}: one K6 launch through FlashAttention, the output "
+              f"carries a graph")
+        ok, f_err = fa.flash_within_tolerance(
+            out.detach(), fa.flash_attention_ref(q0, k0, v0, **fkw), q0, k0,
+            v0, **fkw)
+        rms = float(fa.flash_row_rms(out.detach(), q0, k0, v0, **fkw).max())
+        check(ok and rms <= fa.ROW_RMS_BOUND[bf],
+              f"{label}: K6's forward within flash_within_tolerance (max |Δ| "
+              f"{f_err}) and flash_row_rms ({rms:.3e})")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        g_k = grads(out, ins, dout)
+        torch.cuda.synchronize()
+        bwd_peak = torch.cuda.max_memory_allocated() - base
+        check(fa.LAUNCHES["flash_attention"] == 1,
+              f"{label}: the backward launches no K6")
+        g_c = grads(L.attention(*pins, backend="chunked", **kw), pins, dout)
+        err = grad_rel_err(torch, g_k, g_c)
+        print(f"  {label}: dq, dk, dv against autograd through the chunked "
+              f"scan: max |Δ| / max |g| {err:.3e} (limit {GRAD_RTOL})",
+              flush=True)
+        check(err <= GRAD_RTOL and all(bool(torch.isfinite(g).all())
+                                       for g in g_k),
+              f"{label}: FlashAttention's gradients equal the chunked "
+              f"path's within {GRAD_RTOL}")
+        fault = None
+        if cap is not None:
+            softcap = L.softcap
+            L.softcap = lambda x, c: x + (softcap(x, c) - x).detach()
+            try:
+                g_f = grads(L.attention(*pins, backend="chunked", **kw), pins,
+                            dout)
+            finally:
+                L.softcap = softcap
+            fault = grad_rel_err(torch, g_f, g_c)
+            del g_f
+            print(f"  {label}: planted fault, the softcap's derivative left "
+                  f"out: {fault:.3e}", flush=True)
+            check(fault > GRAD_RTOL, f"{label}: the planted fault reads "
+                                     f"above {GRAD_RTOL}")
+        del g_k, g_c, out
+
+        def fwd_bwd():
+            return grads(L.attention(*ins, backend="kernel", **kw), ins, dout)
+
+        held_out = L.attention(*ins, backend="kernel", **kw)
+        bwd_ms = time_ms(torch, lambda: grads(held_out, ins, dout, True), 5,
+                         flush)
+        del held_out
+        fwd_ms = time_ms(torch, lambda: L.attention(*ins, backend="kernel",
+                                                    **kw), 5, flush)
+        fb_ms = time_ms(torch, fwd_bwd, 5, flush)
+        plain_ms = time_ms(torch, lambda: grads(L.attention(
+            *pins, backend="chunked", **kw), pins, dout), 3, flush)
+        bound = flash_grad_bound_ms(np, q0, k0, causal, window, prefix)
+        bwd_bound = flash_grad_bound_ms(np, q0, k0, causal, window, prefix,
+                                        backward_only=True)
+        chunks = -(-t // 1024)
+        reckoned = 4 * b * s * min(t, 1024) * chunks * hq * 4
+        rec = dict(label=label, shape=[b, s, hq, hkv, hd], keys=t,
+                   causal=causal, window=window, cap=cap, prefix_len=prefix,
+                   launches_per_step=per_step, forward_max_abs_err=f_err,
+                   forward_row_rms_max=rms, grad_rel_err=err,
+                   planted_fault_rel_err=fault, forward_ms=fwd_ms,
+                   backward_ms=bwd_ms, fwd_bwd_ms=fb_ms,
+                   plain_fwd_bwd_ms=plain_ms, fwd_bwd_bound_ms=bound[
+                       "bound_ms"], fwd_bwd_bound_by=bound["bound_by"],
+                   backward_bound_ms=bwd_bound["bound_ms"],
+                   backward_fp32_alu_ms=bwd_bound["fp32_alu_ms"],
+                   backward_peak_gib=bwd_peak / 2**30,
+                   backward_reckoned_gib=reckoned / 2**30)
+        line = (f"  {label}: backward {bwd_ms:.4f} ms (bound "
+                f"{bwd_bound['bound_ms']:.4f} ms at the bf16 tensor rate, "
+                f"{bwd_bound['fp32_alu_ms']:.4f} ms at the fp32 CUDA-core "
+                f"rate the chunked scan runs at), forward {fwd_ms:.4f} ms, "
+                f"forward + backward {fb_ms:.4f} ms (bound "
+                f"{bound['bound_ms']:.4f} ms, {bound['bound_by']}); chunked "
+                f"forward + backward {plain_ms:.4f} ms; backward peak "
+                f"{bwd_peak / 2**30:.3f} GiB against 4·B·S·T·Hq·4 = "
+                f"{reckoned / 2**30:.3f} GiB")
+        if library:
+            lib, _ = flex_library(torch, flex, create_block_mask, ins[0],
+                                  ins[1], ins[2], window, cap, prefix,
+                                  causal)
+            t0 = time.perf_counter()
+            l_g = grads(lib(), ins, dout)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            l_err = grad_rel_err(torch, l_g, grads(L.attention(
+                *pins, backend="chunked", **kw), pins, dout))
+            del l_g
+            l_ms = time_ms(torch, lambda: grads(lib(), ins, dout), 5, flush)
+            rec.update(flex_fwd_bwd_ms=l_ms, flex_first_call_s=first_s,
+                       flex_grad_rel_err=l_err)
+            line += (f"; flex_attention forward + backward {l_ms:.4f} ms "
+                     f"(first call {first_s:.1f} s with its compile; its "
+                     f"gradients {l_err:.3e} from the chunked path's)")
+        if cap is None:
+            mask = sdpa_mask(torch, s, t, causal, window, prefix, dev)
+
+            def sdpa():
+                o = F.scaled_dot_product_attention(
+                    ins[0].transpose(1, 2), ins[1].transpose(1, 2),
+                    ins[2].transpose(1, 2), attn_mask=mask,
+                    enable_gqa=True).transpose(1, 2)
+                return grads(o, ins, dout)
+
+            s_err = grad_rel_err(torch, sdpa(), grads(L.attention(
+                *pins, backend="chunked", **kw), pins, dout))
+            s_ms = time_ms(torch, sdpa, 5, flush)
+            rec.update(sdpa_fwd_bwd_ms=s_ms, sdpa_grad_rel_err=s_err)
+            line += (f"; scaled_dot_product_attention forward + backward "
+                     f"{s_ms:.4f} ms (gradients {s_err:.3e} from the "
+                     f"chunked path's)")
+        print(line, flush=True)
+        return rec
+
+    n_local = sum(w == train_cfg.sliding_window for w in windows)
+    # the forward and the remat's recompute, each microbatch
+    per = 2 * train_cfg.microbatches
+    cases = [
+        case(f"{TRAIN_ARCH} local layer (1, {TRAIN_SEQ}, 8/4, 256), window "
+             f"4096, cap 50", 1, TRAIN_SEQ, TRAIN_SEQ, 8, 4, 256, True, 4096,
+             50.0, 0, n_local * per, library=False),
+        case(f"{TRAIN_ARCH} global layer (1, {TRAIN_SEQ}, 8/4, 256), cap 50",
+             1, TRAIN_SEQ, TRAIN_SEQ, 8, 4, 256, True, None, 50.0, 0,
+             (len(windows) - n_local) * per)]
+    for arch, cut, b, s in TRAIN_CUT_RUNS:
+        cfg = get_config(arch)
+        per_cut = 2 * min(cfg.microbatches, b)
+        if cfg.family == "encdec":
+            t = cfg.encoder_seq
+            cases += [
+                # no mask and no softcap: SDPA computes the same function,
+                # so flex_attention's compiles are spared here
+                case(f"{arch} encoder (1, {t}, 16/16, 64), not causal", 1, t,
+                     t, 16, 16, 64, False, None, None, 0,
+                     cut["encoder_layers"] * per_cut, library=False),
+                case(f"{arch} self (1, {s}, 16/16, 64)", 1, s, s, 16, 16, 64,
+                     True, None, None, 0, cut["num_layers"] * per_cut,
+                     library=False),
+                case(f"{arch} cross (1, {s} vs {t}, 16/16, 64), not causal",
+                     1, s, t, 16, 16, 64, False, None, None, 0,
+                     cut["num_layers"] * per_cut, library=False)]
+        elif cfg.family == "vlm":
+            p = cfg.vision_tokens
+            cases.append(case(
+                f"{arch} layer (1, {p + s}, 8/1, 256), prefix {p}", 1, p + s,
+                p + s, 8, 1, 256, True, None, None, p,
+                cut["num_layers"] * per_cut, library=False))
+        else:
+            cases.append(case(
+                f"{arch} local layer (1, {s}, 16/1, 256), window 2048", 1, s,
+                s, 16, 1, 256, True, 2048, None, 0, per_cut, library=False))
+    return dict(shapes=cases,
+                max_grad_rel_err=max(c["grad_rel_err"] for c in cases),
+                tolerance=f"dq, dk, dv: max |Δ| / max |g| <= {GRAD_RTOL} "
+                          f"against autograd through the chunked scan")
+
+
+def train_peak_reckoning(cfg, n_params: int, weight_bytes: int,
+                         moment_bytes: int, micro_b: int, seq: int,
+                         micro: int) -> dict:
+    """A training step's device peak, reckoned before it runs: the
+    weights, the two AdamW moments, the fp32 gradient accumulators (with
+    more than one microbatch), one microbatch's gradients in the weights'
+    type, the unembedding's fp32 copy of the embedding and its fp32
+    gradient, four fp32 (B, S, padded vocab) planes (the logits, their
+    softcap, its tanh and their gradient), each block's bf16 input kept by
+    remat, and one block's recompute temporaries (three (B, S, ff) fp32
+    and the chunked attention backward's 4·B·S·T·Hq·4 bytes)."""
+    vp, d = cfg.padded_vocab, cfg.d_model
+    tokens = micro_b * seq
+    parts = dict(
+        weights=weight_bytes, moments=2 * n_params * moment_bytes,
+        accumulators=4 * n_params if micro > 1 else 0,
+        grads=weight_bytes, embed_fp32=vp * d * 4, embed_grad_fp32=vp * d * 4,
+        logits_fp32=4 * tokens * vp * 4,
+        remat_inputs=cfg.num_layers * tokens * d * 2,
+        block_temporaries=3 * tokens * cfg.d_ff * 4
+        + 4 * tokens * seq * cfg.num_heads * 4)
+    parts["total"] = sum(parts.values())
+    return parts
+
+
+def train_phase(torch, np, dev, get_config, get_model, fa) -> dict:
+    """Phase 3v: gemma2-2b trains at its published width and depth through
+    the port's entry points: ``init_train_state`` (bf16 weights from seed
+    0, the config's moment dtype), ``make_train_step`` (the config's 8
+    microbatches, fp32 accumulators, remat on), ``SyntheticDataset`` batches
+    of 8 x 2048 tokens, 4 steps through ``ElasticTrainer`` with a
+    checkpoint after step 2. Checks: every loss finite; every trainable
+    leaf's gradient finite with a norm above 0 (read at each step's
+    ``adamw_update``); 416 K6 launches a step (26 layers x 8 microbatches x
+    the forward and the remat's recompute); the run's own peak within
+    ``PEAK_RECKON_SLACK`` of the reckoning. Measures the step's seconds
+    (median of steps 1-3), tokens/s, the model-FLOP rate against 989
+    TFLOP/s. Then a fresh model resumes from the checkpoint: its params
+    and moments bit-equal to the saved ones, its step-3 loss within
+    ``RESUME_LOSS_RTOL`` of the uninterrupted step 3's, that step under
+    ``torch.profiler`` for the device's idle share."""
+    import shutil
+
+    from repro_torch.models.transformer import _layer_windows
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.checkpoint import flatten_state
+    from repro_torch.train.data import SyntheticDataConfig, SyntheticDataset
+    from repro_torch.train.elastic import ElasticTrainer
+    from repro_torch.train.optimizer import AdamWConfig
+
+    cfg = get_config(TRAIN_ARCH)
+    micro = cfg.microbatches
+    phase(f"phase 3v: training {TRAIN_ARCH} at full width and depth "
+          f"({cfg.num_layers} layers, d {cfg.d_model}, vocab {cfg.vocab}), "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ} in {micro} microbatches, "
+          f"{TRAIN_STEPS} steps, a checkpoint after step {TRAIN_SAVE_EVERY}")
+    check(cfg.remat and cfg.grad_accum_dtype == "float32",
+          "remat on, fp32 gradient accumulators")
+    moment_dtype = (torch.bfloat16 if cfg.adam_dtype == "bfloat16"
+                    else torch.float32)
+    opt_cfg = AdamWConfig(peak_lr=3e-4, warmup_steps=1,
+                          stable_steps=TRAIN_STEPS, decay_steps=1,
+                          moment_dtype=moment_dtype)
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    t_phase = time.perf_counter()
+    model, held, weights = new_lm_model(torch, dev, get_model, cfg,
+                                        torch.bfloat16)
+    n_params = sum(p.numel() for p in model.parameters())
+    reckoned = train_peak_reckoning(
+        cfg, n_params, weights, torch.empty((), dtype=moment_dtype)
+        .element_size(), TRAIN_BATCH // micro, TRAIN_SEQ, micro)
+    print(f"reckoned peak before the run: {reckon_line(reckoned)}")
+    check(reckoned["total"] < DEVICE_PEAK_LIMIT,
+          f"reckoned peak {reckoned['total'] / 2**30:.2f} GiB < "
+          f"{DEVICE_PEAK_LIMIT / 2**30:.0f} GiB")
+    per_step = 2 * micro * len(_layer_windows(cfg))
+    leaf_stats = []
+    update = ts.adamw_update
+
+    def reading_update(grads, state, params, cfg_):
+        # each leaf's gradient norm and finiteness, read at the update
+        norms = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32)
+                             for g in grads.values()])
+        leaf_stats.append((list(grads), norms))
+        return update(grads, state, params, cfg_)
+
+    def batches(start):
+        ds = SyntheticDataset(cfg, SyntheticDataConfig(TRAIN_BATCH,
+                                                       TRAIN_SEQ + 1), start)
+        while True:
+            yield {k: torch.from_numpy(v).to(dev) for k, v in next(ds).items()}
+
+    def run(model, trainer, start, stop, on_step=None, on_resume=None,
+            profile=None):
+        def fresh():
+            opt = ts.init_train_state(
+                model, cfg, opt_cfg, torch.Generator(device=dev).manual_seed(0))
+            return {"params": model.state_dict(), "opt": opt}
+
+        state, first = trainer.resume_or_init(fresh)
+        check(first == start, f"the trainer starts at step {start} "
+                              f"({time.perf_counter() - t_phase:.2f} s into "
+                              f"the phase)")
+        if on_resume is not None:
+            on_resume(state)
+        step_fn = ts.make_train_step(model, cfg, opt_cfg)
+        out = []
+        feed = batches(start)
+        for step in range(start, stop):
+            batch = next(feed)
+            fa.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if profile is None:
+                opt, m = step_fn(state["opt"], batch)
+            else:  # this step under torch.profiler, once
+                res = []
+                profile.update(device_profile(torch, lambda: res.append(
+                    step_fn(state["opt"], batch)), host_ops=False))
+                (opt, m), profile = res[0], None
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            state = {"params": model.state_dict(), "opt": opt}
+            out.append(dict(step=step, loss=loss, seconds=secs,
+                            grad_norm=float(m["grad_norm"]),
+                            lr=float(m["lr"]),
+                            launches=fa.LAUNCHES["flash_attention"]))
+            print(f"  step {step}: loss {loss:.5f}, grad norm "
+                  f"{out[-1]['grad_norm']:.4f}, lr {out[-1]['lr']:.3e}, "
+                  f"{secs:.3f} s, {out[-1]['launches']} K6 launches",
+                  flush=True)
+            if on_step is not None:
+                on_step(step, state)
+            t0 = time.perf_counter()
+            trainer.maybe_save(step, state)
+            if step > 0 and step % TRAIN_SAVE_EVERY == 0:
+                print(f"  checkpoint of step {step} saved in "
+                      f"{time.perf_counter() - t0:.2f} s", flush=True)
+        return out, state, step_fn
+
+    saved = {}
+
+    def bits(t):
+        return t.detach().cpu().reshape(-1).view(torch.uint8)
+
+    def keep_saved(step, state):
+        if step == TRAIN_SAVE_EVERY:  # the host copy the restore is held to
+            saved.update({k: bits(t.detach().to("cpu", copy=True))
+                          for k, t in flatten_state(state).items()})
+
+    ts.adamw_update = reading_update
+    try:
+        trainer = ElasticTrainer(str(ckpt_dir), save_every=TRAIN_SAVE_EVERY,
+                                 keep=1)
+        steps, state, _ = run(model, trainer, 0, TRAIN_STEPS, keep_saved)
+    finally:
+        ts.adamw_update = update
+    peak = torch.cuda.max_memory_allocated() - held
+    names = dict(model.named_parameters())
+    check(all(np.isfinite(s["loss"]) for s in steps),
+          f"all {TRAIN_STEPS} losses finite")
+    check(all(s["launches"] == per_step for s in steps),
+          f"{per_step} K6 launches a step ({cfg.num_layers} layers x {micro} "
+          f"microbatches x 2)")
+    for keys, norms in leaf_stats:
+        norms = norms.cpu()
+        check(keys == list(names) and bool(torch.isfinite(norms).all())
+              and bool((norms > 0).all()),
+              f"every one of the {len(keys)} trainable leaves has a finite "
+              f"gradient with a norm above 0 (smallest "
+              f"{float(norms.min()):.3e})")
+    med = statistics.median(s["seconds"] for s in steps[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    embed = cfg.padded_vocab * cfg.d_model
+    pairs = sum(flash_pairs(np, TRAIN_SEQ, TRAIN_SEQ, True,
+                            None if w >= 1 << 30 else w)
+                for w in _layer_windows(cfg))
+    # 6·N·tokens, the remat's second forward of the blocks (2·N_blocks), and
+    # attention's products (forward, backward, recompute: 16·hd a pair a head)
+    flops = (6 * n_params + 2 * (n_params - embed)) * tokens \
+        + 16 * cfg.head_dim * cfg.num_heads * pairs * TRAIN_BATCH
+    rate = flops / med / 1e12
+    print(f"{TRAIN_ARCH} training: first step {steps[0]['seconds']:.3f} s, "
+          f"median of steps 1-{TRAIN_STEPS - 1} {med:.3f} s; "
+          f"{tokens / med:,.0f} tokens/s; {flops / 1e15:.4f} PFLOP a step "
+          f"(6·N·T + the remat's 2·N_blocks·T + attention), {rate:.1f} "
+          f"TFLOP/s = {rate / (TENSOR_OPS_PER_S / 1e12) * 100:.1f} % of "
+          f"{TENSOR_OPS_PER_S / 1e12:.0f}; own peak {peak / 2**30:.2f} GiB "
+          f"against the reckoned {reckoned['total'] / 2**30:.2f} GiB")
+    check(peak <= PEAK_RECKON_SLACK * reckoned["total"],
+          f"own peak {peak / 2**30:.2f} GiB within {PEAK_RECKON_SLACK}x the "
+          f"reckoned {reckoned['total'] / 2**30:.2f} GiB")
+    step3 = steps[TRAIN_SAVE_EVERY + 1]["loss"]
+    del model, state, names, leaf_stats
+    drop_model(torch)
+
+    # a fresh model resumes from the checkpoint of step TRAIN_SAVE_EVERY
+    model = get_model(cfg, device=dev, dtype=torch.bfloat16)
+    trainer = ElasticTrainer(str(ckpt_dir), save_every=TRAIN_SAVE_EVERY,
+                             keep=1)
+    def check_bits(state):
+        flat = flatten_state(state)
+        check(list(flat) == list(saved) and all(
+            torch.equal(bits(t), saved[k]) for k, t in flat.items()),
+            f"the restored params and moments ({len(flat)} leaves, step "
+            f"{int(state['opt'].step)}) are bit-equal to the saved ones")
+
+    restore_s = []
+
+    def check_restored(state):
+        restore_s.append(time.perf_counter() - t0)
+        check_bits(state)
+
+    t0 = time.perf_counter()
+    first = TRAIN_SAVE_EVERY + 1
+    prof = {}
+    resumed, state, step_fn = run(model, trainer, first, first + 1,
+                                  on_resume=check_restored, profile=prof)
+    saved.clear()
+    rel = abs(resumed[0]["loss"] - step3) / abs(step3)
+    print(f"a fresh model resumed from {ckpt_dir.relative_to(ROOT)} in "
+          f"{restore_s[0]:.2f} s (its weights drawn, then overwritten): step "
+          f"{first} loss {resumed[0]['loss']:.6f} against the uninterrupted "
+          f"{step3:.6f} (relative {rel:.2e})")
+    check(rel <= RESUME_LOSS_RTOL,
+          f"the resumed step {first} loss within {RESUME_LOSS_RTOL} of the "
+          f"uninterrupted run's")
+    print(f"the resumed step under torch.profiler: {profile_line(prof)}; "
+          f"its device busy time over the unprofiled median step: idle "
+          f"share {1 - prof['busy_s'] / med:.3f}")
+
+    # yardsticks of later work: the fp32 unembedding with the loss, forward
+    # and backward, at one microbatch; one step without remat
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    mb = TRAIN_BATCH // micro
+    x = torch.randn(mb, TRAIN_SEQ, cfg.d_model, generator=gen, device=dev
+                    ).bfloat16().requires_grad_()
+    labels = torch.randint(0, cfg.vocab, (mb, TRAIN_SEQ), generator=gen,
+                           device=dev)
+
+    def unembed_loss():
+        logits = L.unembed(x, model.embed, cfg.vocab, cfg.final_softcap)
+        ll = torch.gather(logits, -1, labels[..., None])[..., 0] \
+            - torch.logsumexp(logits, dim=-1)
+        return torch.autograd.grad(-ll.mean(), (x, model.embed))
+
+    unembed_ms = time_ms(torch, unembed_loss, 3, torch.empty(
+        64 << 20, dtype=torch.uint8, device=dev))
+    del x, labels
+    model.cfg = cfg.replace(remat=False)
+    batch = next(batches(first + 1))
+    fa.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, m = step_fn(state["opt"], batch)
+    check(np.isfinite(float(m["loss"])), "the step without remat: loss finite")
+    no_remat_s = time.perf_counter() - t0
+    no_remat_peak = torch.cuda.max_memory_allocated() - held
+    model.cfg = cfg
+    check(fa.LAUNCHES["flash_attention"] == per_step // 2,
+          f"without remat, {per_step // 2} K6 launches a step")
+    print(f"yardsticks: the fp32 unembedding and the loss, forward and "
+          f"backward, {unembed_ms:.2f} ms a microbatch ({unembed_ms * micro:.1f}"
+          f" ms a step); a step without remat {no_remat_s:.3f} s against "
+          f"{med:.3f} s with it (the run's peak since the phase began "
+          f"{no_remat_peak / 2**30:.2f} GiB)")
+    del model, state, step_fn
+    drop_model(torch)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return dict(
+        arch=TRAIN_ARCH, path=f"{TRAIN_ARCH} make_train_step: batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} in {micro} microbatches, remat",
+        n_params=n_params, steps=steps, step_s=med, tokens_per_s=tokens / med,
+        flops_per_step=flops, tflops=rate,
+        flop_share=rate * 1e12 / TENSOR_OPS_PER_S, own_peak_gib=peak / 2**30,
+        reckoned=reckoned, launches_per_step=per_step,
+        resumed_loss=resumed[0]["loss"], uninterrupted_loss=step3,
+        resume_rel_diff=rel, restore_s=restore_s[0],
+        unembed_loss_ms_per_microbatch=unembed_ms,
+        no_remat_step_s=no_remat_s, profile=dict(
+            wall_s=prof["wall_s"], busy_s=prof["busy_s"],
+            kernels=prof["kernels"], idle_share=prof["idle_share"],
+            idle_share_of_median_step=1 - prof["busy_s"] / med))
+
+
+def train_cut_phase(torch, np, dev, get_config, get_model, fa) -> list:
+    """Phase 3w: one training step each of whisper-medium (2 + 2 layers),
+    paligemma-3b (2 layers, its 256-patch prefix) and recurrentgemma-9b
+    (one block group: rec, rec, local attention) at their published
+    widths, bf16, through ``init_train_state`` and ``make_train_step``
+    (the config's microbatches, at most the batch), each step from the same
+    seed-0 weights: with ``attn_backend="kernel"`` (K6 through
+    ``FlashAttention``; its launches counted, every call held to K6's
+    contract on its own inputs), with the chunked plain attention, and
+    with five variants of the plain step that are as good a bf16 model
+    (``TRAIN_FLOOR_VARIANTS``: other key chunks, and the softmax weights
+    rounded to bf16 before ·v, K6's one extra rounding, the gradient passed
+    straight through). Each variant's distance from the plain step is a
+    floor; the kernel step's loss must lie within ``TRAIN_FLOOR_FACTOR`` x
+    the largest loss floor of the plain step's, its gradient vector within
+    that factor x the largest gradient floor (‖g - g_plain‖ over
+    ‖g_plain‖), and so its global grad norm (|‖g‖ - ‖g_plain‖| <= ‖g -
+    g_plain‖); every gradient leaf finite, its norm above 0."""
+    import importlib
+
+    from repro_torch.models import layers as L
+
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.data import SyntheticDataConfig, make_batch
+    from repro_torch.train.optimizer import AdamWConfig
+
+    # the module that FlashAttention.forward launches K6 from (the package
+    # exports a function of the same name)
+    fmod = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    variants = {f"{c}-key chunks": functools.partial(L.attention, chunk=c)
+                for c in TRAIN_FLOOR_CHUNKS}
+    variants["softmax weights rounded to bf16"] = functools.partial(
+        p_rounded_attention, torch, straight_through=True)
+    out, pending = [], []  # the limits are checked once every model ran
+    for arch, cut, b, s in TRAIN_CUT_RUNS:
+        cfg = get_config(arch).replace(**cut)
+        micro = min(cfg.microbatches, b)
+        model, held, weights = new_lm_model(torch, dev, get_model, cfg,
+                                            torch.bfloat16)
+        if cfg.family == "encdec":
+            layers, attn = (f"{cfg.encoder_layers} + {cfg.num_layers} layers",
+                            cfg.encoder_layers + 2 * cfg.num_layers)
+        elif cfg.family == "hybrid":
+            layers, attn = (f"one group: {model.kinds}",
+                            model.kinds.count("attn"))
+        else:
+            layers, attn = f"{cfg.num_layers} layers", cfg.num_layers
+        want = 2 * micro * attn
+        phase(f"phase 3w: one training step of {arch} ({layers}, d "
+              f"{cfg.d_model}), batch {b} x {s} in {micro} microbatches, "
+              f"kernel against chunked attention")
+        opt_cfg = AdamWConfig(moment_dtype=torch.bfloat16)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+            cfg, SyntheticDataConfig(b, s + 1), 0).items()}
+        plain = {}
+        update = ts.adamw_update
+
+        def step(backend, attention_fn=None, hold_calls=None):
+            seen = {}
+
+            def reading_update(grads, state, params, cfg_):
+                seen["norms"] = torch.stack([torch.linalg.vector_norm(
+                    g, dtype=torch.float32) for g in grads.values()]).cpu()
+                flat = torch.cat([g.float().reshape(-1)
+                                  for g in grads.values()])
+                if "g" in plain:
+                    seen["dist"] = float((flat - plain["g"]).norm()
+                                         / plain["g"].norm())
+                else:
+                    plain["g"] = flat
+                del flat
+                return update(grads, state, params, cfg_)
+
+            model.attn_backend = backend
+            opt = ts.init_train_state(
+                model, cfg, opt_cfg, torch.Generator(device=dev).manual_seed(0))
+            attention, kernel = L.attention, fmod.flash_attention_kernel
+            if attention_fn is not None:
+                L.attention = attention_fn
+            if hold_calls is not None:
+                fmod.flash_attention_kernel = contract_held_calls(
+                    torch, fa, kernel, hold_calls)
+            ts.adamw_update = reading_update
+            try:
+                fa.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, m = ts.make_train_step(model, cfg, opt_cfg,
+                                          microbatches=micro)(opt, batch)
+                r = dict(loss=float(m["loss"]), grad_norm=float(
+                    m["grad_norm"]), launches=fa.LAUNCHES["flash_attention"])
+                torch.cuda.synchronize()
+                r["seconds"] = time.perf_counter() - t0
+            finally:
+                L.attention, fmod.flash_attention_kernel = attention, kernel
+                ts.adamw_update = update
+            norms = seen.pop("norms")
+            r["leaves_ok"] = bool(torch.isfinite(norms).all()
+                                  and (norms > 0).all())
+            r["leaves"] = norms.numel()
+            return dict(r, **seen)
+
+        p = step("chunked")
+        calls = []
+        k = step("kernel", hold_calls=calls)
+        floors = {name: step("chunked", fn) for name, fn in variants.items()}
+        plain.clear()
+        peak = torch.cuda.max_memory_allocated() - held
+        check(k["launches"] == want and p["launches"] == 0
+              and all(f["launches"] == 0 for f in floors.values()),
+              f"{arch}: {want} K6 launches in the kernel step ({micro} "
+              f"microbatches x {attn} attention calls x 2 with the "
+              f"recompute), none in the plain steps")
+        print(f"  {arch}, each K6 call of the kernel step against the plain "
+              f"version on its own inputs: max |Δ| "
+              f"{max(c[1] for c in calls):.6f}, row RMS max "
+              f"{max(c[2] for c in calls):.4e} (bound {calls[0][3]:.4e})",
+              flush=True)
+        check(len(calls) == want and all(c[0] for c in calls),
+              f"{arch}: all {len(calls)} K6 calls of the kernel step within "
+              f"flash_within_tolerance and flash_row_rms on their inputs")
+        check(all(r["leaves_ok"] for r in [p, k, *floors.values()]),
+              f"{arch}: every one of the {k['leaves']} leaves has a finite "
+              f"gradient with a norm above 0 on every path")
+        for name, f in floors.items():
+            print(f"  {arch} plain step with {name}: loss {f['loss']:.6f}, "
+                  f"grad norm {f['grad_norm']:.6f}, gradient "
+                  f"{f['dist']:.4e} from the plain step's", flush=True)
+        loss_floor = max(abs(f["loss"] - p["loss"]) for f in floors.values())
+        grad_floor = max(f["dist"] for f in floors.values())
+        limits = dict(loss=TRAIN_FLOOR_FACTOR * loss_floor,
+                      dist=TRAIN_FLOOR_FACTOR * grad_floor,
+                      grad_norm=TRAIN_FLOOR_FACTOR * grad_floor
+                      * p["grad_norm"])
+        diffs = dict(loss=abs(k["loss"] - p["loss"]), dist=k["dist"],
+                     grad_norm=abs(k["grad_norm"] - p["grad_norm"]))
+        print(f"  {arch}: kernel loss {k['loss']:.6f} against plain "
+              f"{p['loss']:.6f} (|Δ| {diffs['loss']:.3e}, limit "
+              f"{limits['loss']:.3e}); grad norm {k['grad_norm']:.6f} against "
+              f"{p['grad_norm']:.6f} (|Δ| {diffs['grad_norm']:.3e}, limit "
+              f"{limits['grad_norm']:.3e}); gradient {diffs['dist']:.4e} from "
+              f"the plain step's (limit {limits['dist']:.4e}); step seconds "
+              f"kernel {k['seconds']:.3f}, plain {p['seconds']:.3f}; own peak "
+              f"{peak / 2**30:.2f} GiB", flush=True)
+        for key, what in (("loss", "loss"), ("dist", "gradient vector"),
+                          ("grad_norm", "global grad norm")):
+            pending.append((np.isfinite(k[key if key != "dist" else "loss"])
+                            and diffs[key] <= limits[key],
+                            f"{arch}: the kernel step's {what} within "
+                            f"{TRAIN_FLOOR_FACTOR} x the plain path's largest "
+                            f"floor of the plain step's"))
+        out.append(dict(arch=arch, cut=cut, batch=b, seq=s,
+                        microbatches=micro, launches=k["launches"],
+                        own_peak_gib=peak / 2**30, kernel=k, chunked=p,
+                        floors=floors, diffs=diffs, limits=limits,
+                        k6_calls_max_abs_err=max(c[1] for c in calls),
+                        k6_calls_row_rms_max=max(c[2] for c in calls)))
+        del model, batch
+        drop_model(torch)
+    for ok, what in pending:
+        check(ok, what)
+    return out
 
 def main() -> int:
     # torch.compile (the flex_attention yardstick of phase 4c) caches its
@@ -4666,16 +5474,16 @@ def main() -> int:
                 launches=sum(chooser["launches"][k] for k in keys))
     serve = serve_phase(torch, np, dev, get_config, get_model, greedy_generate,
                         fa)
-    lm_layers = {arch: get_config(arch).num_layers
-                 for arch in (INT8_ARCH, VLM_ARCH)}
+    lm_layers = {INT8_ARCH: INT8_LAYERS,
+                 VLM_ARCH: get_config(VLM_ARCH).num_layers}
     lm_layers.update(MOE_RUNS)
-    whisper = get_config(ENCDEC_ARCH)
+    whisper = get_config(ENCDEC_ARCH).replace(**SERVE_CUTS[ENCDEC_ARCH])
     lm_layers.update({"encoder": whisper.encoder_layers,
                       "self": whisper.num_layers, "cross": whisper.num_layers,
                       "decode cross": whisper.num_layers,
                       "encoder_seq": whisper.encoder_seq,
-                      HYBRID_ARCH: block_kinds(
-                          get_config(HYBRID_ARCH)).count("attn")})
+                      HYBRID_ARCH: block_kinds(get_config(HYBRID_ARCH).replace(
+                          **SERVE_CUTS[HYBRID_ARCH])).count("attn")})
     k6 = flash_phase(torch, np, dev, fa, flush, serve, lm_layers)
     report.append(k6)
     lm_args = (torch, np, dev, get_config, get_model, greedy_generate, fa)
@@ -4688,6 +5496,9 @@ def main() -> int:
                           SSM_STEPS)
     hybrid = own_model_phase(*lm_args, "3u", HYBRID_ARCH, HYBRID_BATCH,
                              HYBRID_PROMPT, HYBRID_STEPS)
+    grad = flash_grad_phase(torch, np, dev, fa, flush, get_config)
+    train = train_phase(torch, np, dev, get_config, get_model, fa)
+    train_cut = train_cut_phase(torch, np, dev, get_config, get_model, fa)
     # K6's launches on each serving path of this slice, each read around
     # its own greedy_generate
     k6["serve_paths"] = [
@@ -4697,6 +5508,26 @@ def main() -> int:
         for r in [int8, *moe, vlm, encdec, hybrid]]
     k6["lm_serving"] = dict(int8=int8, moe=moe, vlm=vlm, encdec=encdec,
                             hybrid=hybrid)
+    # the training paths: K6 forward through FlashAttention (its backward
+    # the chunked scan's gradient), launches read around each step
+    k6["train_paths"] = [
+        dict(path=train["path"], launches=train["launches_per_step"],
+             step_s=train["step_s"], tokens_per_s=train["tokens_per_s"],
+             own_peak_gib=train["own_peak_gib"])] + [
+        dict(path=f"{r['arch']} make_train_step ({r['cut']}): batch "
+                  f"{r['batch']} x {r['seq']} in {r['microbatches']} "
+                  f"microbatches", launches=r["launches"],
+             step_s=r["kernel"]["seconds"]) for r in train_cut]
+    k6["training"] = dict(gemma2=train, cut_depth=train_cut, gradient=grad)
+    grad_launches = {r["label"].split(" (")[0]: r["launches_per_step"]
+                     for r in grad["shapes"]}
+    check(train["launches_per_step"]
+          == grad_launches[f"{TRAIN_ARCH} local layer"]
+          + grad_launches[f"{TRAIN_ARCH} global layer"]
+          and all(r["launches"] == sum(
+              n for label, n in grad_launches.items()
+              if label.startswith(r["arch"])) for r in train_cut),
+          "phase 4d's shapes cover every K6 launch of the 3v and 3w steps")
     check([r["launches"] for r in [int8, *moe, vlm]]
           == [r["launches_per_prefill"] for r in
               k6["serve_shapes"] + k6["prefix_shapes"][:1]],

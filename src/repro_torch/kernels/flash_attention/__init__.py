@@ -1,7 +1,8 @@
-"""Forward flash attention for the dense serving path: dispatch, kernel
-(K6) and plain versions."""
+"""Flash attention: dispatch, the forward kernel (K6), its autograd
+``FlashAttention`` and the plain versions."""
 
 from repro_torch.kernels.flash_attention.flash_attention import (
+    FlashAttention,
     HEAD_DIMS,
     LAUNCHES,
     check_flash_inputs,
@@ -18,6 +19,7 @@ from repro_torch.kernels.flash_attention.ref import (
 
 __all__ = [
     "BACKENDS",
+    "FlashAttention",
     "HEAD_DIMS",
     "LAUNCHES",
     "ROW_RMS_BOUND",

@@ -1,4 +1,4 @@
-"""Forward flash attention for the serving path's prefill (K6 of the port).
+"""Flash attention (K6 of the port): the forward kernel, and its gradient.
 
 The port of ``repro.kernels.flash_attention.flash_attention``.
 ``flash_attention_kernel`` launches a CUDA kernel of
@@ -28,13 +28,25 @@ The wrapper checks its inputs, allocates the output with ``torch.empty``,
 launches on PyTorch's current stream, raises if the launch reported a CUDA
 error, and adds one to ``LAUNCHES["flash_attention"]``. Launches happen
 nowhere else, so the counter shows whether a run went through the kernel.
+It is forward only: its output has no autograd graph, so it raises
+``RuntimeError`` on inputs that require grad while grad mode is on.
+
+``FlashAttention`` is the differentiable call. Its forward is the same
+wrapper (the same kernel and tolerance as serving); its backward
+recomputes a plain attention function that the caller passes
+(``repro_torch.models.layers`` passes its chunked online-softmax scan, the
+expression the CPU path runs and the reference differentiates with
+``jax.grad``) on the saved inputs and returns its autograd gradients. The
+reference has no backward kernel, so this ports none; the backward's
+memory is the plain function's chunk tensors, about 4·B·S·T·Hq·4 bytes
+for 1024-key chunks.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -42,6 +54,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 __all__ = [
+    "FlashAttention",
     "HEAD_DIMS",
     "LAUNCHES",
     "check_flash_inputs",
@@ -143,9 +156,16 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Raises:
       ValueError: bad inputs (see ``check_flash_inputs``) or a device that is
         neither CPU nor CUDA.
-      RuntimeError: the kernel did not build or launch.
+      RuntimeError: an input requires grad while grad mode is on (the
+        output would have no graph: use ``FlashAttention``), or the kernel
+        did not build or launch.
     """
     check_flash_inputs(q, k, v, window, prefix_len)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_kernel is forward only and its output has no "
+            "autograd graph; inputs that require grad go through "
+            "FlashAttention.apply (layers.attention routes them there)")
     dev = q.device
     if dev.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -175,3 +195,41 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"{q.dtype}")
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """K6 forward with the gradient of a plain attention function.
+
+    ``FlashAttention.apply(q, k, v, plain, causal, window, cap,
+    prefix_len)``: the forward is ``flash_attention_kernel`` with those
+    arguments (one launch on CUDA tensors, the plain version on CPU ones);
+    ``plain(q, k, v)`` must compute the same function differentiably (the
+    layers' chunked scan at positions ``arange(S)`` and ``arange(T)``).
+    The backward detaches the saved q, k and v, runs ``plain`` on them
+    under ``torch.enable_grad()`` and returns ``torch.autograd.grad`` of
+    its output against the incoming gradient; no kernel runs there. Under
+    activation checkpointing the forward runs again in the recompute, so a
+    checkpointed layer launches K6 twice a step.
+    """
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                plain: Callable, causal: bool = True,
+                window: Optional[int] = None, cap: Optional[float] = None,
+                prefix_len: int = 0) -> torch.Tensor:
+        ctx.save_for_backward(q, k, v)
+        ctx.plain = plain
+        return flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                      cap=cap, prefix_len=prefix_len)
+
+    @staticmethod
+    def backward(ctx, dout: torch.Tensor):
+        need = ctx.needs_input_grad[:3]
+        inputs = [x.detach().requires_grad_(n)
+                  for x, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            out = ctx.plain(*inputs)
+            wanted = [x for x, n in zip(inputs, need) if n]
+            grads = iter(torch.autograd.grad(out, wanted, dout))
+        return (*(next(grads) if n else None for n in need),
+                None, None, None, None, None)

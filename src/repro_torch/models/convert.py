@@ -18,6 +18,12 @@ tree). Per family (``_layout``):
 - hybrid (``GriffinLM``): ``groups.b<j>`` (G, ...) → ``blocks.<P·g + j>``
   for a pattern of P blocks, the remainder ``rem<j>`` → ``blocks.<P·G +
   j>`` (the reference's ``_layer_list`` order); ``embed``, ``final_norm``.
+
+``opt_state_from_jax`` / ``opt_state_to_jax`` carry the reference's AdamW
+state (``step``, and ``mu`` and ``nu`` shaped as the parameters) to and
+from the port's ``OptState``: the moments map by the same rules as the
+weights. A gradient keyed by parameter name maps back through
+``params_to_jax`` as well.
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["params_from_jax", "params_to_jax"]
+__all__ = ["opt_state_from_jax", "opt_state_to_jax", "params_from_jax",
+           "params_to_jax"]
 
 
 def _flatten(tree: Mapping, prefix: str = ""):
@@ -174,3 +181,25 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor], cfg: ModelConfig
             node = node.setdefault(key, {})
         node[last] = np.stack(val) if isinstance(val, list) else val
     return tree
+
+
+def opt_state_from_jax(np_opt, cfg: ModelConfig):
+    """The port's ``OptState`` from the reference's (``step``, ``mu``,
+    ``nu``: a named tuple or mapping of numpy arrays): ``step`` a 0-d int32
+    tensor, the moments dicts by ``params_from_jax``."""
+    from repro_torch.train.optimizer import OptState
+
+    get = (np_opt.__getitem__ if isinstance(np_opt, Mapping)
+           else lambda k: getattr(np_opt, k))
+    return OptState(
+        step=torch.tensor(int(np.asarray(get("step"))), dtype=torch.int32),
+        mu=dict(params_from_jax(get("mu"), cfg)),
+        nu=dict(params_from_jax(get("nu"), cfg)))
+
+
+def opt_state_to_jax(state, cfg: ModelConfig) -> Dict[str, object]:
+    """The reference's AdamW state as a dict {``step``: int32 array,
+    ``mu``, ``nu``: trees by ``params_to_jax``} (bf16 moments as fp32)."""
+    return {"step": np.asarray(int(state.step), dtype=np.int32),
+            "mu": params_to_jax(state.mu, cfg),
+            "nu": params_to_jax(state.nu, cfg)}

@@ -20,6 +20,11 @@ one-query cross-attention. The decode step's self-attention is the plain
 ``decode_attention``. ``attn_backend="chunked"`` (and every CPU tensor)
 takes the chunked plain path.
 
+Training: ``apply_train`` is differentiable, each encoder and decoder
+layer under activation checkpointing with ``cfg.remat`` (the reference's
+``jax.checkpoint(body)`` over each stack), its K6 calls through
+``FlashAttention`` on a card.
+
 Serving: ``prefill`` encodes once and computes each layer's cross K/V
 once (the standard whisper serving optimization); ``decode_step`` reads
 the encoder memory only through them. The cache holds ``k`` / ``v``
@@ -140,20 +145,24 @@ class WhisperModel(nn.Module):
         b, s = att.shape[:2]
         return L.dense(p["wo"], att.reshape(b, s, -1))
 
-    @torch.no_grad()
+    def _enc_layer(self, p, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        q, k, v = self._qkv(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps))
+        att = L.attention(q, k, v, causal=False, backend=self.attn_backend)
+        x = x + self._out(p["attn"], att)
+        return x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps),
+                         "gelu")
+
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """frames (B, T, d_model), the frontend stub's embeddings → the
-        encoder memory (B, T, d_model) in the weights' dtype."""
+        encoder memory (B, T, d_model) in the weights' dtype; each layer
+        rematerialised with ``cfg.remat`` when grad mode is on."""
         cfg = self.cfg
         frames = frames.to(self.embed.dtype)
         x = frames + sinusoid(frames.shape[1], cfg.d_model,
                               frames.device).to(frames.dtype)[None]
         for p in self.enc_layers:
-            q, k, v = self._qkv(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps))
-            att = L.attention(q, k, v, causal=False, backend=self.attn_backend)
-            x = x + self._out(p["attn"], att)
-            x = x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps),
-                          "gelu")
+            x = L.remat(self._enc_layer, cfg.remat, p, x)
         return L.rmsnorm(self.enc_norm, x, cfg.norm_eps)
 
     # ------------------------------------------------------------ decoder
@@ -199,33 +208,43 @@ class WhisperModel(nn.Module):
                              f"{MAX_DECODE_POS}-row decoder position table")
         return self.embed[tokens] + self.dec_pos[:s][None]
 
-    def _decode(self, batch: Dict[str, torch.Tensor], cache=None):
-        """Encode, then the decoder over the prompt: (logits, per-layer
-        (k, v), per-layer (xk, xv)). With ``cache``, each layer's k and v go
-        straight into ``cache["k"][i, :, :S]`` (and ``v``) and its cross K/V
-        into ``xk`` / ``xv``."""
+    def _decode(self, batch: Dict[str, torch.Tensor], cache):
+        """Encode, then the decoder over the prompt, returning the logits:
+        each layer's k and v go straight into ``cache["k"][i, :, :S]`` (and
+        ``v``) and its cross K/V into ``xk`` / ``xv``."""
         x = self._embed_prompt(batch["tokens"])
         memory = self.encode(batch["frames"])
         s = x.shape[1]
         for i, p in enumerate(self.dec_layers):
             cross = self._cross_kv(p, memory)
             x, (k, v) = self._dec_layer(p, x, cross)
-            if cache is not None:
-                cache["k"][i, :, :s] = k
-                cache["v"][i, :, :s] = v
-                cache["xk"][i] = cross[0]
-                cache["xv"][i] = cross[1]
+            cache["k"][i, :, :s] = k
+            cache["v"][i, :, :s] = v
+            cache["xk"][i] = cross[0]
+            cache["xv"][i] = cross[1]
         return self._logits(x)
 
     # ----------------------------------------------------------- forwards
 
-    @torch.no_grad()
+    def _train_dec_layer(self, p, x: torch.Tensor,
+                         memory: torch.Tensor) -> torch.Tensor:
+        """One decoder layer of the training forward, its cross K/V
+        computed inside it (inside the checkpoint), as the reference's
+        ``_dec_layer`` does."""
+        return self._dec_layer(p, x, self._cross_kv(p, memory))[0]
+
     def apply_train(self, batch: Dict[str, torch.Tensor]
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """batch: {frames (B, T, d_model), tokens (B, S)} → (logits
-        (B, S, padded vocab) fp32, aux 0). A forward only: there is no
-        backward and no remat."""
-        logits = self._decode(batch)
+        (B, S, padded vocab) fp32, aux 0). Differentiable; each encoder and
+        decoder layer under activation checkpointing with ``cfg.remat``
+        when grad mode is on."""
+        cfg = self.cfg
+        x = self._embed_prompt(batch["tokens"])
+        memory = self.encode(batch["frames"])
+        for p in self.dec_layers:
+            x = L.remat(self._train_dec_layer, cfg.remat, p, x, memory)
+        logits = self._logits(x)
         return logits, torch.zeros((), dtype=torch.float32,
                                    device=logits.device)
 

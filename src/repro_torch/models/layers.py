@@ -10,6 +10,12 @@ normal's standard deviation (``init_std``) or a constant (``init_fill``),
 so ``draw_`` can fill it in place with the reference's distribution; each
 ``*_init`` given a ``torch.Generator`` draws at once.
 
+Parameters are frozen (``requires_grad=False``) as built: serving never
+records a graph. ``trainable_`` turns gradients on for every parameter of
+a model (the train step does), and ``remat`` runs a block under
+activation checkpointing (``torch.utils.checkpoint``, non-reentrant: the
+reference's ``jax.checkpoint``) when grad mode is on.
+
 Attention has two paths. The plain one is the reference's chunked-KV
 online-softmax scan (``backend="chunked"``), which CPU tensors always take.
 On a CUDA tensor, ``attention`` runs through the flash kernel K6
@@ -20,7 +26,11 @@ without the VLM's bidirectional prefix — and a non-causal call without a
 window for any S and T (whisper's encoder and cross-attention), where
 positions do not enter the mask. Any other case on a CUDA tensor (padded
 or shifted key positions, a non-causal finite window) raises
-``NotImplementedError``; it never quietly takes the plain path.
+``NotImplementedError``; it never quietly takes the plain path. When grad
+mode is on and q, k or v requires grad, the kernel runs through the
+autograd Function ``FlashAttention``, whose backward differentiates the
+chunked scan on the same inputs (the reference differentiates its jnp
+path; it has no backward kernel).
 ``decode_attention`` and the hybrid's ring-buffer decode
 (``repro_torch.models.rglru.ring_decode_attention``) are plain torch on
 every device.
@@ -36,13 +46,16 @@ without a mesh and is left out.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Mapping, Optional, Union
+from typing import Callable, Dict, Mapping, Optional, Union
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch.kernels.flash_attention.flash_attention import FlashAttention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 
 __all__ = [
@@ -64,10 +77,12 @@ __all__ = [
     "moe",
     "moe_route",
     "quantize_kv",
+    "remat",
     "rmsnorm",
     "rmsnorm_init",
     "rope",
     "softcap",
+    "trainable_",
     "unembed",
 ]
 
@@ -83,8 +98,9 @@ DRAW_ELEMS = 1 << 28
 
 
 def _param(x: torch.Tensor, fan: Optional[int] = None) -> nn.Parameter:
-    """A frozen parameter; ``fan`` is the fan of its He-normal draw (None:
-    it is initialised to zeros), which ``draw_`` reads."""
+    """A frozen parameter (``trainable_`` turns its gradient on); ``fan``
+    is the fan of its He-normal draw (None: it is initialised to zeros),
+    which ``draw_`` reads."""
     p = nn.Parameter(x, requires_grad=False)
     p.he_fan = fan
     return p
@@ -140,6 +156,24 @@ def draw_(p: torch.Tensor, gen: torch.Generator) -> None:
         x = torch.randn(part.shape, generator=gen, device=gen.device,
                         dtype=torch.float32)
         part.copy_(x / math.sqrt(fan) if std is None else x * std)
+
+
+def trainable_(module: nn.Module) -> nn.Module:
+    """Turn gradients on for every parameter of ``module``, in place;
+    returns it."""
+    for p in module.parameters():
+        p.requires_grad_(True)
+    return module
+
+
+def remat(fn: Callable, on: bool, *args):
+    """``fn(*args)``, under non-reentrant activation checkpointing when
+    ``on`` and grad mode is on (the block's activations are recomputed in
+    the backward, as the reference's ``jax.checkpoint``)."""
+    if on and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
 
 
 class ParamTree(nn.Module):
@@ -230,10 +264,13 @@ def unembed(x: torch.Tensor, embed: torch.Tensor, vocab: int,
             final_softcap: Optional[float] = None) -> torch.Tensor:
     """fp32 logits of x against the tied embedding ``embed.T`` (TF32 off
     by PyTorch's default), the final softcap and the padded-vocab mask
-    applied in place."""
+    applied (in place unless the logits carry a graph)."""
     logits = x.float() @ embed.float().T
     if final_softcap is not None:
-        logits.div_(final_softcap).tanh_().mul_(final_softcap)
+        if logits.requires_grad:
+            logits = torch.tanh(logits / final_softcap) * final_softcap
+        else:
+            logits.div_(final_softcap).tanh_().mul_(final_softcap)
     return mask_padded_vocab(logits, vocab)
 
 
@@ -346,7 +383,10 @@ def attention(
     ``backend="chunked"``, and every CPU tensor, takes the chunked-KV
     online-softmax scan: the KV axis in ``chunk``-sized tiles with a
     running (max, sumexp, out) accumulator, never the S×T logit matrix.
-    ``backend="kernel"`` on a CUDA tensor runs K6 in two cases:
+    ``backend="kernel"`` on a CUDA tensor runs K6 (through
+    ``FlashAttention`` when grad mode is on and an input requires grad,
+    its backward the chunked scan's gradient with this ``chunk``) in two
+    cases:
 
     - causal (a window and a bidirectional ``prefix_len`` allowed): it
       needs ``S == T`` and positions ``arange(S)``. Positions left as
@@ -383,8 +423,8 @@ def attention(
             raise NotImplementedError(
                 f"attention on {q.device}: padded keys (k_pos < 0) have no "
                 f"kernel path")
-        return flash_attention(q, k, v, causal=False, cap=cap,
-                               backend="kernel")
+        return _kernel_attention(q, k, v, causal=False, window=None, cap=cap,
+                                 prefix_len=0, chunk=chunk)
     if not causal or s != t \
             or (q_pos is not None and not _is_arange(q_pos, s)) \
             or (k_pos is not None and not _is_arange(k_pos, t)):
@@ -394,9 +434,29 @@ def attention(
             f"call without a window (causal={causal}, window={window}, "
             f"S={s}, T={t}); padded or shifted keys and a non-causal finite "
             f"window (ROADMAP R10) have no kernel path")
-    return flash_attention(
+    return _kernel_attention(
         q, k, v, causal=causal, window=None if window >= NO_WINDOW else window,
-        cap=cap, prefix_len=prefix_len, backend="kernel")
+        cap=cap, prefix_len=prefix_len, chunk=chunk)
+
+
+def _kernel_attention(q, k, v, *, causal: bool, window: Optional[int],
+                      cap: Optional[float], prefix_len: int, chunk: int):
+    """K6 at positions ``arange(S)`` / ``arange(T)``: the bare kernel
+    without a graph to record, else ``FlashAttention`` with the chunked
+    scan's gradient."""
+    if not (torch.is_grad_enabled()
+            and any(x.requires_grad for x in (q, k, v))):
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               cap=cap, prefix_len=prefix_len,
+                               backend="kernel")
+    dev = q.device
+    plain = functools.partial(
+        _attention_chunked, q_pos=torch.arange(q.shape[1], device=dev),
+        k_pos=torch.arange(k.shape[1], device=dev),
+        window=NO_WINDOW if window is None else window, causal=causal,
+        prefix_len=prefix_len, cap=cap, chunk=chunk)
+    return FlashAttention.apply(q, k, v, plain, causal, window, cap,
+                                prefix_len)
 
 
 def decode_attention(

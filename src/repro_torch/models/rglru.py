@@ -280,7 +280,7 @@ class GriffinLM(nn.Module):
         x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
         return L.unembed(x, self.embed, cfg.vocab, cfg.final_softcap)
 
-    def _forward(self, tokens: torch.Tensor, ring: Optional[int] = None):
+    def _forward(self, tokens: torch.Tensor, ring: int):
         x = self._embed_tokens(tokens)
         q_pos = torch.arange(x.shape[1], device=x.device)
         blocks = []
@@ -294,12 +294,33 @@ class GriffinLM(nn.Module):
 
     # ----------------------------------------------------------- forwards
 
-    @torch.no_grad()
+    def _train_group(self, blocks, x: torch.Tensor,
+                     q_pos: torch.Tensor) -> torch.Tensor:
+        """Blocks ``blocks`` (index, kind) of the training forward."""
+        for i, kind in blocks:
+            p = self.blocks[i]
+            x = (self._rec_fwd(p, x) if kind == "rec"
+                 else self._attn_fwd(p, x, q_pos))[0]
+        return x
+
     def apply_train(self, batch: Dict[str, torch.Tensor]
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """batch: {tokens (B, S)} → (logits (B, S, padded vocab) fp32, aux
-        0). A forward only: there is no backward and no remat."""
-        logits, _ = self._forward(batch["tokens"])
+        0). Differentiable: with ``cfg.remat`` and grad mode on, each group
+        of ``len(block_pattern)`` blocks runs under one activation
+        checkpoint (the reference's ``jax.checkpoint(group_fwd)``) and the
+        remainder blocks without one, as the reference's."""
+        cfg = self.cfg
+        x = self._embed_tokens(batch["tokens"])
+        q_pos = torch.arange(x.shape[1], device=x.device)
+        n = len(cfg.block_pattern or ("rec", "rec", "attn"))
+        order = list(enumerate(self.kinds))
+        groups = len(order) // n
+        for g in range(groups):
+            x = L.remat(self._train_group, cfg.remat, order[g * n:(g + 1) * n],
+                        x, q_pos)
+        x = self._train_group(order[groups * n:], x, q_pos)
+        logits = self._logits(x)
         return logits, torch.zeros((), dtype=torch.float32,
                                    device=logits.device)
 

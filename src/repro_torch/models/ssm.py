@@ -242,14 +242,17 @@ class MambaLM(nn.Module):
 
     # ----------------------------------------------------------- forwards
 
-    @torch.no_grad()
+    def _train_layer(self, p, x: torch.Tensor) -> torch.Tensor:
+        return self._layer_fwd(p, x)[0]
+
     def apply_train(self, batch: Dict[str, torch.Tensor]
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """batch: {tokens (B, S)} → (logits (B, S, padded vocab) fp32, aux
-        0). A forward only: there is no backward and no remat."""
+        0). Differentiable (the chunked SSD is torch ops); each layer under
+        activation checkpointing with ``cfg.remat`` when grad mode is on."""
         x = self.embed[batch["tokens"]]
         for p in self.layers:
-            x, _ = self._layer_fwd(p, x)
+            x = L.remat(self._train_layer, self.cfg.remat, p, x)
         return self._logits(x), torch.zeros((), dtype=torch.float32,
                                             device=x.device)
 

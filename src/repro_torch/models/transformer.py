@@ -10,8 +10,9 @@ reference scans over stacked layers with the per-layer window as data,
 each block here runs in a Python loop with its window a Python int
 (``_layer_windows``: gemma2 alternates local and global layers).
 
-Entry points: ``apply_train`` (the full forward, a forward only, with the
-MoE load-balance aux summed over the layers), ``prefill`` (forward plus
+Entry points: ``apply_train`` (the full forward, differentiable, each
+block under activation checkpointing with ``cfg.remat``, with the MoE
+load-balance aux summed over the layers), ``prefill`` (forward plus
 KV-cache emission) and ``decode_step`` (one token against the cache). The
 cache is updated in place, which the port may do where the reference
 returns a new one, and its ``pos`` is a host int, so a decode loop never
@@ -251,21 +252,32 @@ class TransformerLM(nn.Module):
 
     # ----------------------------------------------------------- forwards
 
-    @torch.no_grad()
+    def _train_block(self, p, x: torch.Tensor, window: int,
+                     q_pos: torch.Tensor, prefix_len: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        x, aux, _ = self._layer_fwd(p, x, window, q_pos=q_pos,
+                                    prefix_len=prefix_len)
+        return x, aux
+
     def apply_train(self, batch: Dict[str, torch.Tensor]
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """batch: {tokens (B, S)[, patches (B, P, vision_dim)]} → (logits
         (B, S, padded vocab) fp32, aux): the text positions only, as the
         reference slices off the prefix; aux is the MoE load-balance loss
-        summed over the layers (0 for the other families). A forward only:
-        there is no backward and no remat."""
+        summed over the layers (0 for the other families).
+
+        Differentiable: with trainable parameters (``L.trainable_``) and
+        grad mode on, each block runs under activation checkpointing when
+        ``cfg.remat`` (the reference's ``jax.checkpoint(body)``), and on a
+        card its attention through ``FlashAttention``. Without grad it is
+        the serving forward."""
         cfg = self.cfg
         x, prefix_len = self._embed(batch["tokens"], batch.get("patches"))
         q_pos = torch.arange(x.shape[1], device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for p, w in zip(self.blocks, self.windows):
-            x, a, _ = self._layer_fwd(p, x, w, q_pos=q_pos,
-                                      prefix_len=prefix_len)
+            x, a = L.remat(self._train_block, cfg.remat, p, x, w, q_pos,
+                           prefix_len)
             aux = aux + a
         x = L.rmsnorm(self.final_norm, x[:, prefix_len:], cfg.norm_eps)
         return self._unembed(x), aux

@@ -2,7 +2,9 @@
 the five lanes on the card against scipy, the LM's prefill (dense, moe,
 vlm with its prefix, the int8 cache) through the flash kernel against its
 plain attention path, the encdec, ssm and hybrid models on the card
-against the CPU, the
+against the CPU, K6's autograd Function (its gradients against the chunked
+path's in each mask mode, the bare kernel refusing inputs that require
+grad) and one microbatched backward of each family, the
 triangle service and the measured chooser on the card, and the sharded
 lanes on a world-1 NCCL group and on 4 gloo ranks sharing the card.
 
@@ -737,6 +739,120 @@ def test_own_model_families_on_card_equal_cpu(cuda, arch):
         assert decode_launches == 0
     else:
         assert prefill_launches == decode_launches == 0
+
+
+# K6's autograd Function on the card, through ``layers.attention``: one
+# mask mode each (b, s, t, hq, hkv, hd, causal, window, cap, prefix)
+FLASH_GRAD_MODES = [
+    (1, 300, 300, 8, 4, 256, True, 128, 50.0, 0),   # gemma2: window, cap
+    (2, 200, 200, 8, 1, 256, True, None, None, 64),  # paligemma: prefix
+    (2, 150, 150, 16, 16, 64, False, None, None, 0),  # whisper encoder
+    (2, 40, 150, 16, 16, 64, False, None, None, 0),   # whisper cross
+    (1, 300, 300, 16, 1, 256, True, 100, None, 0),   # the hybrid, MQA
+    (1, 257, 257, 4, 2, 128, True, None, 30.0, 0),
+]
+
+
+@pytest.mark.parametrize("mode", FLASH_GRAD_MODES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_function_gradients_on_card(cuda, mode, dtype):
+    """``attention(backend="kernel")`` with inputs that require grad runs
+    K6 once forward (within its contract) through ``FlashAttention``, and
+    its dq, dk and dv equal autograd through ``backend="chunked"`` on the
+    same inputs: the backward is that scan's gradient (1e-5 relative)."""
+    from repro_torch.models import layers as L
+
+    b, s, t, hq, hkv, hd, causal, window, cap, prefix = mode
+    gen = torch.Generator(device=cuda).manual_seed(s + t + hd)
+    q0 = torch.randn(b, s, hq, hd, generator=gen, device=cuda).to(dtype)
+    k0, v0 = (torch.randn(b, t, hkv, hd, generator=gen,
+                          device=cuda).to(dtype) for _ in range(2))
+    dout = torch.randn(b, s, hq, hd, generator=gen, device=cuda).to(dtype)
+    kw = dict(causal=causal, window=L.NO_WINDOW if window is None else window,
+              cap=cap, prefix_len=prefix)
+    grads = {}
+    for backend in ("kernel", "chunked"):
+        ins = [x.clone().requires_grad_() for x in (q0, k0, v0)]
+        fa.reset_launch_counts()
+        out = L.attention(*ins, backend=backend, **kw)
+        assert out.requires_grad
+        assert fa.LAUNCHES["flash_attention"] == (backend == "kernel")
+        if backend == "kernel":
+            fkw = dict(causal=causal, window=window, cap=cap,
+                       prefix_len=prefix)
+            ok, err = fa.flash_within_tolerance(
+                out.detach(), fa.flash_attention_ref(q0, k0, v0, **fkw),
+                q0, k0, v0, **fkw)
+            assert ok, err
+        grads[backend] = torch.autograd.grad(out, ins, dout)
+        assert fa.LAUNCHES["flash_attention"] == (backend == "kernel")
+    for g, w in zip(grads["kernel"], grads["chunked"]):
+        assert g.dtype == dtype and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g.float(), w.float(), rtol=1e-5,
+                                   atol=1e-5 * float(w.float().abs().max()))
+
+
+def test_bare_flash_kernel_refuses_inputs_that_require_grad(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(1, 64, 2, 64, generator=gen, device=cuda)
+               for _ in range(3))
+    fa.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="forward only"):
+        fa.flash_attention_kernel(q.requires_grad_(), k, v)
+    assert fa.LAUNCHES["flash_attention"] == 0
+    with torch.no_grad():
+        fa.flash_attention_kernel(q, k, v)
+    assert fa.LAUNCHES["flash_attention"] == 1
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "dbrx-132b", "paligemma-3b",
+                                  "whisper-medium", "mamba2-780m",
+                                  "recurrentgemma-9b"])
+def test_apply_train_backward_on_card(cuda, arch):
+    """One microbatched gradient of each family on the card (reduced, fp32
+    weights, head_dim 64 for the kernel, remat on): every parameter gets a
+    finite gradient with a norm above 0; K6 launches twice an attention
+    layer (the forward and the remat's recompute); the loss and the
+    gradients within 1e-3 of the chunked path's on the card (fp32, K6's
+    forward in another summation order; with the reduced dbrx-132b's bf16
+    accumulators, where values a few fp32 ulp apart round to neighbouring
+    bf16 values, 2⁻⁶ of a leaf's largest value)."""
+    from repro_torch.models.registry import get_model, get_reduced_config
+    from repro_torch.train import data, train_step
+
+    cfg = get_reduced_config(arch)
+    if cfg.family != "ssm":
+        cfg = cfg.replace(d_model=128, head_dim=64)
+    model = get_model(cfg, device=cuda, dtype=torch.float32)
+    model.init(torch.Generator(device=cuda).manual_seed(0))
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in data.make_batch(
+        cfg, data.SyntheticDataConfig(4, 41), 0).items()}
+    attn = {"encdec": cfg.encoder_layers + 2 * cfg.num_layers,
+            "ssm": 0, "hybrid": getattr(model, "kinds", []).count("attn")
+            }.get(cfg.family, cfg.num_layers)
+    results = {}
+    for backend in ("kernel", "chunked"):
+        if cfg.family != "ssm":
+            model.attn_backend = backend
+        fa.reset_launch_counts()
+        grads, metrics = train_step.make_grad_fn(
+            model, cfg, microbatches=2)(batch)
+        torch.cuda.synchronize()
+        launches = fa.LAUNCHES["flash_attention"]
+        assert launches == (2 * 2 * attn if backend == "kernel" else 0)
+        results[backend] = grads, metrics
+    grads, metrics = results["kernel"]
+    assert set(grads) == {n for n, _ in model.named_parameters()}
+    for name, g in grads.items():
+        assert bool(torch.isfinite(g).all()) and float(g.norm()) > 0, name
+    plain, pm = results["chunked"]
+    torch.testing.assert_close(metrics["xent"], pm["xent"], rtol=1e-4,
+                               atol=0)
+    tol = 2.0 ** -6 if cfg.grad_accum_dtype == "bfloat16" else 1e-3
+    for name, g in grads.items():
+        w = plain[name].float()
+        assert float((g.float() - w).abs().max()) <= tol * float(
+            w.abs().max()), name
 
 
 def test_flash_kernel_checks_inputs(cuda):

@@ -10,7 +10,8 @@ fixture removes the shim and every ``repro`` module it imported, so later
 tests in the same process see the reference as they would have.
 
 The ``lmref`` fixture does the same for the language-model scaffolding
-(models, configs, serve step, flash attention).
+(models, configs, serve step, flash attention, and the training modules:
+data, optimizer, train step, checkpoint).
 
 On JAX releases that dropped ``pallas.load``, the reference's Pallas flash
 kernel (``repro.kernels.flash_attention``) fails while it traces. Importing
@@ -85,6 +86,10 @@ _LM_MODULES = {
     "flash": "repro.kernels.flash_attention.flash_attention",
     "flashref": "repro.kernels.flash_attention.ref",
     "flashops": "repro.kernels.flash_attention.ops",
+    "data": "repro.train.data",
+    "optimizer": "repro.train.optimizer",
+    "train_step": "repro.train.train_step",
+    "checkpoint": "repro.train.checkpoint",
 }
 
 
@@ -146,7 +151,8 @@ def lmref():
     """Namespace of the reference's LM modules (``lmref.config``,
     ``lmref.registry``, ``lmref.layers``, ``lmref.transformer``,
     ``lmref.encdec``, ``lmref.ssm``, ``lmref.rglru``, ``lmref.serve_step``, ``lmref.flash``, ``lmref.flashref``,
-    ``lmref.flashops``), imported under the enable_x64 shim (``pl.load``
-    is set when this file is imported)."""
+    ``lmref.flashops``, ``lmref.data``, ``lmref.optimizer``,
+    ``lmref.train_step``, ``lmref.checkpoint``), imported under the
+    enable_x64 shim (``pl.load`` is set when this file is imported)."""
     with _reference(_LM_MODULES) as ns:
         yield ns
