@@ -296,29 +296,46 @@ source, all started together), and runs, in order:
    backward with the softcap (gemma2-2b's global layer, static shapes) and
    SDPA forward + backward elsewhere (the mask as ``attn_mask``), and the
    backward's own peak beside 4·B·S·T·Hq·4 bytes;
-3v. training: gemma2-2b at its published width and depth (bf16 weights
-   from seed 0, bf16 moments, fp32 accumulators, remat), batch 8 × 2048
-   from ``SyntheticDataset`` in 8 microbatches, 4 steps through
-   ``ElasticTrainer`` with a checkpoint after step 2: every loss finite,
-   every leaf's gradient finite with a norm above 0, 416 K6 launches a
-   step, step seconds (median of steps 1–3), tokens/s, the model-FLOP
-   rate against 989 TFLOP/s, the own peak within 1.1× its reckoning; then
-   a fresh model resumes from the checkpoint (params and moments bit-equal
-   to the saved ones, its step-3 loss within 1e-3 of the uninterrupted
-   one), that step run under ``torch.profiler`` (idle share);
+3v. training: gemma2-2b at its published width, 12 of its 26 layers
+   (bf16 weights from seed 0, bf16 moments, fp32 accumulators, remat),
+   batch 8 × 2048 from ``SyntheticDataset`` in 8 microbatches, 4 steps
+   through ``ElasticTrainer`` with a checkpoint after step 2: every loss
+   finite, every leaf's gradient finite with a norm above 0, 192 K6
+   launches a step, step seconds (median of steps 1–3), tokens/s, the
+   model-FLOP rate against 989 TFLOP/s, the own peak within 1.1× its
+   reckoning; then a fresh model resumes from the checkpoint (params and
+   moments bit-equal to the saved ones, its step-3 loss within 1e-3 of
+   the uninterrupted one), that step run under ``torch.profiler`` (idle
+   share);
 3w. one training step each, K6 against the chunked attention (and the
    chunked attention in 128-key chunks, the floor), bf16, published
    widths with cut depths: whisper-medium 2 + 2 layers (batch 2, 1500
    frames, 64 tokens), paligemma-3b 2 layers (batch 2, 256 patches, 256
    tokens), recurrentgemma-9b one block group (1 × 4096): the loss and the
    global grad norm within twice the floor, K6's launches counted;
+3x. sharded training over a ``DeviceMesh``: (a) gemma2-2b as 3v trains
+   it, one step on a (1, 1) mesh of a world-1 NCCL group
+   (``make_local_mesh``, ``shard_model_``, ``activation_mesh``), its loss
+   and grad norm within 1e-3 of 3v's step 0, 192 K6 launches; (b) 4 gloo
+   ranks spawned on ``cuda:0``, one step of gemma2-2b (2 layers) on (2, 2)
+   and (1, 4) meshes and of qwen1.5-32b (2 layers, FSDP) on (2, 2), at
+   published widths in bf16, held to rank 0's one-process step on the
+   card (loss, grad norm, every leaf's first moment, which is its
+   gradient, and every parameter), each rank's resident weights and
+   moments equal to the reckoning from the specs, its peak within 1.1×
+   its reckoning, K6 on its own heads (2 launches a layer, each call
+   within K6's contract on its own inputs); ``ef_psum`` over
+   the 4 ranks at one gemma2-2b layer's gradient sizes against the true
+   sum and ``compress_decompress`` of the summed inputs; (c) each model
+   rank's local-head K6 call of gemma2-2b's layer against the unsharded
+   call's heads, within K6's contract;
 5. a ``{"lm_without_kernels": [...]}`` line (3t's run), a
    ``{"kernels": [...]}`` line, the card's name and power limit from
    nvidia-smi, and a last line ``{"ok": true, "device": {...}}``.
 
 The phases run in the order 1, 2, 3, 3b, 3c, 4, 3d, 4b, 3k, 3l, 3g–3j,
-3e, 3m, 3n, 3o, 3f, 4c, 3p, 3q, 3r, 3s, 3t, 3u, 4d, 3v, 3w, 5 (each of
-3p–3w frees its model before the next): phase 4 needs the earlier lanes' plans (about 40 GiB), so
+3e, 3m, 3n, 3o, 3f, 4c, 3p, 3q, 3r, 3s, 3t, 3u, 4d, 3v, 3w, 3x, 5 (each
+of 3p–3x frees its model before the next): phase 4 needs the earlier lanes' plans (about 40 GiB), so
 the new lanes wait until it has released them (phase 4b holds the hash
 paths' stages and releases them before the edge and dynamic lanes, and the
 tiled phases free their pinned host memory before the next), and the
@@ -332,7 +349,9 @@ int8, MoE, VLM, encdec and hybrid serving paths under ``serve_paths``
 ``prefix_shapes``, whisper's and the hybrid's layer shapes under
 ``encdec_shapes`` and ``hybrid_shapes``, and its launches a training step
 of 3v and 3w under ``train_paths`` (4d's gradient checks and timings and
-both phases' runs under ``training``).
+both phases' runs under ``training``), and its launches a rank a step on
+3x's meshes under ``sharded_train_paths`` (3x's runs under
+``sharded_training``).
 
 Any failed check raises, so the script exits non-zero and prints no last
 line. Without a CUDA device, or outside a checkout, it exits 2 at once.
@@ -3868,10 +3887,14 @@ def own_model_phase(torch, np, dev, get_config, get_model, greedy_generate,
 
 # -- phases 4d, 3v and 3w: training -------------------------------------------
 
-# phase 3v: gemma2-2b trains at its published width and depth: batch 8 x
-# 2048 tokens in its config's 8 microbatches (1 x 2048 each), 4 steps
-# through ElasticTrainer, a checkpoint after step 2
+# phase 3v: gemma2-2b trains at its published width: batch 8 x 2048 tokens
+# in its config's 8 microbatches (1 x 2048 each), 4 steps through
+# ElasticTrainer, a checkpoint after step 2. Its depth is cut to 12 of 26
+# layers (6 local and 6 global) for the script's time, with phase 3x added
+# (the whole run took 1030.3 s of its 1200 s at 26 layers, 3v 121 s of it;
+# NVIDIA H100 80GB HBM3, 700.00 W); 4d and 3x(a) follow the same cut
 TRAIN_ARCH = "gemma2-2b"
+TRAIN_CUT = dict(num_layers=12)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_SAVE_EVERY = 8, 2048, 4, 2
 # phase 4d: dq, dk and dv through FlashAttention against autograd through
 # the chunked scan on the same inputs. The backward IS that scan's
@@ -3973,7 +3996,7 @@ def flash_grad_phase(torch, np, dev, fa, flush, get_config) -> dict:
     # local layer; NVIDIA H100 80GB HBM3, 700.00 W)
     torch._dynamo.reset()
     flex = torch.compile(flex_attention, dynamic=False)
-    train_cfg = get_config(TRAIN_ARCH)
+    train_cfg = get_config(TRAIN_ARCH).replace(**TRAIN_CUT)
     windows = _layer_windows(train_cfg)
 
     def grads(out, ins, dout, retain=False):
@@ -4182,14 +4205,15 @@ def train_peak_reckoning(cfg, n_params: int, weight_bytes: int,
 
 
 def train_phase(torch, np, dev, get_config, get_model, fa) -> dict:
-    """Phase 3v: gemma2-2b trains at its published width and depth through
+    """Phase 3v: gemma2-2b trains at its published width (its depth cut
+    by ``TRAIN_CUT``) through
     the port's entry points: ``init_train_state`` (bf16 weights from seed
     0, the config's moment dtype), ``make_train_step`` (the config's 8
     microbatches, fp32 accumulators, remat on), ``SyntheticDataset`` batches
     of 8 x 2048 tokens, 4 steps through ``ElasticTrainer`` with a
     checkpoint after step 2. Checks: every loss finite; every trainable
     leaf's gradient finite with a norm above 0 (read at each step's
-    ``adamw_update``); 416 K6 launches a step (26 layers x 8 microbatches x
+    ``adamw_update``); 192 K6 launches a step (12 layers x 8 microbatches x
     the forward and the remat's recompute); the run's own peak within
     ``PEAK_RECKON_SLACK`` of the reckoning. Measures the step's seconds
     (median of steps 1-3), tokens/s, the model-FLOP rate against 989
@@ -4206,10 +4230,11 @@ def train_phase(torch, np, dev, get_config, get_model, fa) -> dict:
     from repro_torch.train.elastic import ElasticTrainer
     from repro_torch.train.optimizer import AdamWConfig
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(TRAIN_ARCH).replace(**TRAIN_CUT)
     micro = cfg.microbatches
-    phase(f"phase 3v: training {TRAIN_ARCH} at full width and depth "
-          f"({cfg.num_layers} layers, d {cfg.d_model}, vocab {cfg.vocab}), "
+    phase(f"phase 3v: training {TRAIN_ARCH} at full width "
+          f"({cfg.num_layers} of {get_config(TRAIN_ARCH).num_layers} layers, "
+          f"d {cfg.d_model}, vocab {cfg.vocab}), "
           f"batch {TRAIN_BATCH} x {TRAIN_SEQ} in {micro} microbatches, "
           f"{TRAIN_STEPS} steps, a checkpoint after step {TRAIN_SAVE_EVERY}")
     check(cfg.remat and cfg.grad_accum_dtype == "float32",
@@ -4430,7 +4455,8 @@ def train_phase(torch, np, dev, get_config, get_model, fa) -> dict:
     drop_model(torch)
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     return dict(
-        arch=TRAIN_ARCH, path=f"{TRAIN_ARCH} make_train_step: batch "
+        arch=TRAIN_ARCH, path=f"{TRAIN_ARCH} ({cfg.num_layers} layers) "
+        f"make_train_step: batch "
         f"{TRAIN_BATCH} x {TRAIN_SEQ} in {micro} microbatches, remat",
         n_params=n_params, steps=steps, step_s=med, tokens_per_s=tokens / med,
         flops_per_step=flops, tflops=rate,
@@ -4608,6 +4634,701 @@ def train_cut_phase(torch, np, dev, get_config, get_model, fa) -> list:
     for ok, what in pending:
         check(ok, what)
     return out
+
+# -- phase 3x: sharded training ------------------------------------------------
+
+# (a): a world-1 NCCL group, gemma2-2b as phase 3v trains it, one step on a
+# (1, 1) mesh. Limit, stated before the first run: the step's loss and
+# grad norm within this of 3v's step 0 (the same weights, batch and
+# kernels; the embedding's backward adds its rows with atomics, as 3v's
+# resume check says)
+SHARDED_WORLD1_RTOL = 1e-3
+# (b): SHARDED_TRAIN_RANKS gloo ranks on cuda:0, one step of each run on
+# each of its meshes (data, model) in turn: (arch, config fields replaced,
+# weights' dtype, batch, tokens a sequence, microbatches, meshes). Both at
+# published widths, cut to 2 layers. qwen1.5-32b runs on (2, 2) only, where
+# its fsdp splits the weights over "data" (on (1, 4) its step is the tensor
+# parallelism gemma2-2b shows there; the CPU test holds both meshes), for
+# the script's time
+SHARDED_TRAIN_RANKS = 4
+SHARDED_TRAIN_MESHES = ((2, 2), (1, 4))
+# bf16 weights and one microbatch: gloo stages every collective through
+# pinned host memory, and the first try (gemma2-2b in fp32, 2
+# microbatches) took a one-H100 host past its 96 GiB of host memory; the
+# microbatched path is held on the CPU
+SHARDED_TRAIN_RUNS = (
+    ("gemma2-2b", dict(num_layers=2), "bfloat16", 2, 512, 1,
+     SHARDED_TRAIN_MESHES),
+    ("qwen1.5-32b", dict(num_layers=2), "bfloat16", 2, 256, 1, ((2, 2),)))
+# Limits, stated before the first run, of a sharded step against rank 0's
+# one-process step on the card. fp32 weights: the reference's own
+# sharded-step tolerances (loss and grad norm rtol 1e-4, parameters rtol
+# 5e-4 / atol 5e-5). bf16 weights: each rank's bf16 gradient is rounded
+# before the sum over the data ranks, so the loss within 1e-3, the grad
+# norm within 2⁻⁶ (two bf16 steps). A parameter: Adam's first step moves
+# each element by at most lr·(1 + wd·|p|), and where a near-zero gradient
+# has other signs in the two steps they move apart, each then rounded to
+# bf16: so within 2·lr·(1 + wd·m) + 2⁻⁷·m (one bf16 step), m the larger
+# of the two values' magnitudes. A first limit of lr + 2⁻⁸·|p|, half a
+# bf16 step at the bottom of a binade and one move, was too tight: CPU runs
+# of the reduced gemma2-2b found elements two bf16 steps apart, moved one
+# each way, and one moved from 3.2e-4 to 2.4e-5 and to 6.3e-4 (so m, not
+# the one-process value). That limit holds whatever the gradients are, so
+# the parameters show only that the update ran. The gradient itself is
+# held leaf by leaf through the first moment, mu = (1 - b1)·clip·g after
+# the first step: each gathered leaf within ‖mu - mu₁‖ <= SHARDED_MU_TOL
+# ‖mu₁‖ of rank 0's one-process mu₁, stated before the first run on the
+# card. bf16 gradients summed in another order (partial sums rounded on
+# each rank before the sum over the model or data ranks) moved the reduced
+# configs' leaves by up to 8.1e-3 of their norm on 4 gloo CPU ranks (the
+# embedding on (1, 4); 1.3e-2 of a leaf's largest |mu| element-wise, so an
+# element-wise limit of 2⁻⁶ would sit at the noise), while a gradient
+# kept on the wrong model block, planted in _GatherParam.backward, moved
+# every split leaf by 1.39 to 1.51 of its norm. The first run on the card
+# read at most 1.013e-2 (qwen1.5-32b on (2, 2); NVIDIA H100 80GB HBM3,
+# 700.00 W)
+SHARDED_FP32_RTOL, SHARDED_PARAM_RTOL, SHARDED_PARAM_ATOL = 1e-4, 5e-4, 5e-5
+SHARDED_BF16_LOSS_RTOL, SHARDED_BF16_GNORM_RTOL = 1e-3, 2.0 ** -6
+SHARDED_MU_TOL = 2.0 ** -5
+SHARDED_LR = 3e-4
+# ef_psum at one gemma2-2b layer's gradient leaves, rank r's inputs N(0,
+# 1e-6) drawn from seed 100 + r
+EF_ARCH, EF_STD = "gemma2-2b", 1e-3
+
+
+def sharded_train_reckoning(cfg, sizes: dict, w_bytes: int, m_bytes: int,
+                            rows: int, seq: int, micro: int) -> dict:
+    """One rank's device peak in phase 3x(b), reckoned before the weights
+    are drawn, from the sanitised specs of ``cfg``'s model on the meta
+    device on a mesh of ``sizes``: at the start, the full weights drawn on
+    the rank beside its shards; in the step, the shards of the weights and
+    the two moments, this rank's gradients (and, with more than one
+    microbatch, accumulators in ``cfg.grad_accum_dtype``), the gathered
+    weights outside the blocks and their gradient, the unembedding's fp32
+    copy of the embedding and its fp32 gradient (bf16 weights), four fp32
+    planes of a microbatch's logits, one block's gathered weights and
+    their gradient, each block's input kept by remat, and one block's
+    recompute temporaries (three (B, S, ff) fp32, and the chunked attention
+    backward's 4·B·S·T·Hq·4 bytes on this rank's heads)."""
+    import torch
+    from torch import nn
+
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import sharding
+
+    model = get_model(cfg, device="meta", dtype=torch.float32)
+    specs = sharding.param_specs(model, fsdp=cfg.fsdp)
+    local = full = top = 0
+    block = {}
+    for name, p in model.named_parameters():
+        n = p.numel()
+        full += n
+        for entry in sharding.sanitize_spec(specs[name], p.shape, sizes):
+            for a in (() if entry is None else entry
+                      if isinstance(entry, tuple) else (entry,)):
+                n //= sizes.get(a, 1)
+        local += n
+        owner = name.split(".")
+        if owner[0] in ("blocks", "layers", "enc_layers", "dec_layers"):
+            key = ".".join(owner[:2])
+            block[key] = block.get(key, 0) + p.numel()
+        else:
+            top += p.numel()
+    del model
+    acc = 2 if cfg.grad_accum_dtype == "bfloat16" else 4
+    tokens = rows // micro * seq
+    vd = cfg.padded_vocab * cfg.d_model
+    hl = cfg.num_heads // sizes.get("model", 1) \
+        if cfg.num_heads % sizes.get("model", 1) == 0 else cfg.num_heads
+    parts = dict(
+        init_full=full * w_bytes,
+        weights=local * w_bytes, moments=2 * local * m_bytes,
+        grads=local * w_bytes, accumulators=local * acc if micro > 1 else 0,
+        top_gathered=2 * top * w_bytes,
+        embed_fp32=0 if w_bytes == 4 else 2 * vd * 4,
+        logits_fp32=4 * tokens * cfg.padded_vocab * 4,
+        block_gathered=2 * max(block.values()) * w_bytes,
+        remat_inputs=cfg.num_layers * tokens * cfg.d_model * w_bytes,
+        block_temporaries=3 * tokens * cfg.d_ff * 4
+        + 4 * (rows // micro) * seq * seq * hl * 4)
+    step = sum(v for k, v in parts.items() if k != "init_full")
+    parts["total"] = max(step, parts["init_full"] + parts["weights"])
+    return parts
+
+
+def param_limit_check(torch, got, want, fp32: bool, wd: float,
+                      chunk: int = 1 << 26) -> tuple:
+    """(the largest |got - want|, the count of elements past 3x(b)'s limit)
+    of one parameter, in chunks of ``chunk`` elements, so the fp32
+    temporaries stay small beside four ranks' steps on one card."""
+    worst, bad = 0.0, 0
+    g_all, w_all = got.reshape(-1), want.reshape(-1)
+    for i in range(0, w_all.numel(), chunk):
+        w, g = w_all[i:i + chunk].float(), g_all[i:i + chunk].float()
+        d = (g - w).abs()
+        if fp32:
+            lim = SHARDED_PARAM_ATOL + SHARDED_PARAM_RTOL * w.abs()
+        else:  # m: the larger of the two magnitudes
+            mag = torch.maximum(w.abs(), g.abs())
+            lim = 2 * SHARDED_LR * (1 + wd * mag) + 2.0 ** -7 * mag
+        worst = max(worst, float(d.max()))
+        bad += int((d > lim).sum())
+    return worst, bad
+
+
+def leaf_distance(got, want, chunk: int = 1 << 26) -> tuple:
+    """(‖got - want‖ / ‖want‖, max |got - want| / max |want|) of one tensor
+    in fp32, in chunks of ``chunk`` elements (small temporaries, as
+    ``param_limit_check``)."""
+    err, scale, d2, w2 = 0.0, 0.0, 0.0, 0.0
+    g_all, w_all = got.reshape(-1), want.reshape(-1)
+    for i in range(0, w_all.numel(), chunk):
+        w, g = w_all[i:i + chunk].float(), g_all[i:i + chunk].float()
+        d = g - w
+        err = max(err, float(d.abs().max()))
+        scale = max(scale, float(w.abs().max()))
+        d2 += float(d.double().square().sum())
+        w2 += float(w.double().square().sum())
+    return ((d2 / w2) ** 0.5 if w2 > 0 else math.inf,
+            err / scale if scale > 0 else math.inf)
+
+
+def sharded_train_rank(rank: int, world: int, store: str, spec: dict) -> None:
+    """Phase 3x (b): one of ``world`` gloo ranks on ``cuda:0``, spawned by
+    ``sharded_train_phase``. For each run of ``SHARDED_TRAIN_RUNS``,
+    every rank, on each of the run's meshes, draws the same weights, shards
+    them (``shard_model_``), runs the sharded step under
+    ``activation_mesh`` with each of its K6 calls held to K6's contract on
+    the call's own inputs (``contract_held_calls``), and keeps its shards
+    of the parameters and first moments; then rank 0 runs the one-process
+    step on the card, and every rank gathers each kept parameter and first
+    moment, which rank 0 holds to its one-process values. Then ``ef_psum``
+    over the world at one gemma2-2b layer's gradient sizes. Writes
+    ``rank<rank>.json`` to ``spec["out"]``; raises on any fault, which
+    fails the phase."""
+    import importlib
+
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models.meshctx import activation_mesh, full_value
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.train import sharding
+    from repro_torch.train.compression import (compress_decompress, ef_init,
+                                               ef_psum)
+    from repro_torch.train.data import SyntheticDataConfig, make_batch
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    # the module that FlashAttention.forward launches K6 from
+    fmod = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    out = dict(rank=rank, runs=[])
+    try:
+        for arch, cut, dname, b, s, micro, meshes in spec["runs"]:
+            cfg = get_config(arch).replace(**cut)
+            dtype = getattr(torch, dname)
+            opt_cfg = AdamWConfig(
+                peak_lr=SHARDED_LR, warmup_steps=1, stable_steps=1,
+                decay_steps=1, moment_dtype=torch.bfloat16
+                if cfg.adam_dtype == "bfloat16" else torch.float32)
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+                cfg, SyntheticDataConfig(b, s + 1), 0).items()}
+            # the sharded steps first, each mesh's parameters and first
+            # moments kept as this rank's shards
+            kept = []
+            for shape in meshes:
+                times = {}
+                t_part = time.perf_counter()
+                mesh = make_local_mesh(shape[1], device_type="cuda")
+                gc.collect()
+                torch.cuda.empty_cache()
+                held = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                model = get_model(cfg, device=dev, dtype=dtype)
+                model.init(torch.Generator(device=dev).manual_seed(0))
+                L.trainable_(model)
+                sharding.shard_model_(model, mesh, fsdp=cfg.fsdp)
+                params = dict(model.named_parameters())
+                opt = adamw_init(params, opt_cfg)
+                resident = sharding.resident_bytes(
+                    list(params.values()) + list(opt.mu.values())
+                    + list(opt.nu.values()))
+                step = make_train_step(model, cfg, opt_cfg,
+                                       microbatches=micro)
+                fa.reset_launch_counts()
+                calls = []  # each K6 call held to its contract, as 3w
+                kernel = fmod.flash_attention_kernel
+                fmod.flash_attention_kernel = contract_held_calls(
+                    torch, fa, kernel, calls)
+                dist.barrier()
+                torch.cuda.synchronize()
+                times["build"] = time.perf_counter() - t_part
+                t0 = time.perf_counter()
+                try:
+                    with activation_mesh(mesh):
+                        opt, m = step(opt, batch)
+                    torch.cuda.synchronize()
+                finally:
+                    fmod.flash_attention_kernel = kernel
+                secs = time.perf_counter() - t0
+                launches = fa.LAUNCHES["flash_attention"]
+                peak = torch.cuda.max_memory_allocated() - held
+                kept.append((params, dict(opt.mu), times, dict(
+                    arch=arch, mesh=list(shape), dtype=dname, batch=b,
+                    seq=s, microbatches=micro, loss=float(m["loss"]),
+                    grad_norm=float(m["grad_norm"]), seconds=secs,
+                    k6_launches=launches, peak=peak, resident=resident,
+                    k6_calls=len(calls),
+                    k6_calls_ok=all(c[0] for c in calls),
+                    k6_max_abs_err=max((c[1] for c in calls), default=0.0),
+                    k6_row_rms=max((c[2] for c in calls), default=0.0),
+                    k6_row_rms_bound=calls[0][3] if calls else 0.0)))
+                del model, opt, step, m
+                gc.collect()
+                torch.cuda.empty_cache()
+                dist.barrier()
+            # then rank 0's one-process step, while the others hold only
+            # their shards
+            one, want, want_mu = None, None, None
+            if rank == 0:
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                model = get_model(cfg, device=dev, dtype=dtype)
+                opt = init_train_state(model, cfg, opt_cfg, torch.Generator(
+                    device=dev).manual_seed(0))
+                step = make_train_step(model, cfg, opt_cfg,
+                                       microbatches=micro)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                opt, m = step(opt, batch)
+                torch.cuda.synchronize()
+                one = dict(loss=float(m["loss"]),
+                           grad_norm=float(m["grad_norm"]),
+                           seconds=time.perf_counter() - t0,
+                           peak=torch.cuda.max_memory_allocated() - held)
+                want = {n: p.detach() for n, p in model.named_parameters()}
+                want_mu = dict(opt.mu)
+                del model, opt, step, m
+                gc.collect()
+                torch.cuda.empty_cache()
+            dist.barrier()
+            # each mesh's parameters and first moments gathered, held by
+            # rank 0 to the one-process step's
+            for params, mu, times, rec in kept:
+                t_part = time.perf_counter()
+                worst, bad, equal, total = 0.0, 0, 0, 0
+                mu_worst, mu_leaf, mu_max_rel, mu_past = 0.0, None, 0.0, []
+                for name, p in params.items():
+                    got = full_value(p.detach())
+                    got_mu = full_value(mu[name])
+                    if rank == 0:
+                        w_, b_ = param_limit_check(
+                            torch, got, want[name], dtype == torch.float32,
+                            opt_cfg.weight_decay)
+                        worst, bad = max(worst, w_), bad + b_
+                        equal += int(torch.equal(got, want[name]))
+                        total += 1
+                        dist_, rel = leaf_distance(got_mu, want_mu[name])
+                        mu_max_rel = max(mu_max_rel, rel)
+                        if dist_ > mu_worst or mu_leaf is None:
+                            mu_worst, mu_leaf = dist_, name
+                        if not dist_ <= SHARDED_MU_TOL:
+                            mu_past.append(dict(leaf=name, distance=dist_))
+                    del got, got_mu
+                times["check"] = time.perf_counter() - t_part
+                release_host_memory(torch)
+                out["runs"].append(dict(
+                    rec, one_process=one, param_max_abs_err=worst,
+                    params_out_of_limit=bad, leaves_bit_equal=equal,
+                    leaves=total, mu_worst_distance=mu_worst,
+                    mu_worst_leaf=mu_leaf, mu_max_abs_rel=mu_max_rel,
+                    mu_past=mu_past, times=times))
+                dist.barrier()
+            del kept, want, want_mu
+            gc.collect()
+            torch.cuda.empty_cache()
+        # ef_psum over the world at one gemma2-2b layer's gradient sizes
+        meta = get_model(get_config(EF_ARCH).replace(num_layers=1),
+                         device="meta", dtype=torch.float32)
+        shapes = {n: p.shape for n, p in meta.named_parameters()
+                  if n.startswith("blocks.0.")}
+        del meta
+
+        def draw(r):
+            gen = torch.Generator(device=dev).manual_seed(100 + r)
+            return {n: torch.randn(sh, generator=gen, device=dev) * EF_STD
+                    for n, sh in shapes.items()}
+
+        mine = draw(rank)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        deq, res = ef_psum(mine, ef_init(mine))
+        torch.cuda.synchronize()
+        ef_s = time.perf_counter() - t0
+        total = {n: torch.zeros(sh, device=dev) for n, sh in shapes.items()}
+        smax = {n: 0.0 for n in shapes}
+        for r in range(world):
+            g = draw(r)
+            for n in shapes:
+                total[n] += g[n]
+                smax[n] = max(smax[n], float(g[n].abs().max()) / 127)
+        cd, _ = compress_decompress(total, ef_init(total))
+        worst = dict(psum=0.0, cd=0.0, between=0.0, res=0.0)
+        past = []
+        for n in shapes:
+            s_sum = float(total[n].abs().max()) / 127
+            errs = (float((deq[n] - total[n]).abs().max()),
+                    float((cd[n] - total[n]).abs().max()),
+                    float((deq[n] - cd[n]).abs().max()),
+                    float(res[n].abs().max()))
+            # the fp32 rounding of q·s and of the sums: a few ulp of the
+            # largest value
+            ulp = 2.0 ** -21 * world * smax[n] * 127
+            bounds = (world * smax[n] / 2, s_sum / 2,
+                      world * smax[n] / 2 + s_sum / 2, smax[n] / 2)
+            for k, e, lim in zip(worst, errs, bounds):
+                worst[k] = max(worst[k], e)
+                if e > lim + ulp:
+                    past.append(dict(leaf=n, what=k, err=e, bound=lim))
+        ok = not past
+        digest = [float(deq[n].double().sum()) for n in sorted(shapes)]
+        out["ef"] = dict(seconds=ef_s, within_bounds=bool(ok), worst=worst,
+                         past=past,
+                         digest=digest,
+                         elements=sum(math.prod(sh) for sh in
+                                      shapes.values()),
+                         leaves=len(shapes))
+        del mine, deq, res, total, cd
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def local_head_k6_case(torch, fa, dev, n: int, window, cap) -> dict:
+    """Phase 3x (c): each model rank's local-head K6 call of gemma2-2b's
+    layer (1, 2048, 8/4, 256, bf16) for a model axis of ``n`` against the
+    same heads of the unsharded call, in this process."""
+    from repro_torch.models.meshctx import head_split
+
+    gen = torch.Generator(device=dev).manual_seed(n)
+    b, s, hq, hkv, hd = 1, TRAIN_SEQ, 8, 4, 256
+    q = torch.randn(b, s, hq, hd, generator=gen, device=dev).bfloat16()
+    k = torch.randn(b, s, hkv, hd, generator=gen, device=dev).bfloat16()
+    v = torch.randn(b, s, hkv, hd, generator=gen, device=dev).bfloat16()
+    kw = dict(causal=True, window=window, cap=cap)
+    whole = fa.flash_attention_kernel(q, k, v, **kw)
+    out = dict(n=n, window=window, ranks=[])
+    for r in range(n):
+        qs, kv = head_split(hq, hkv, n, r)
+        idx = torch.tensor(kv, device=dev)
+        ql = q[:, :, qs.start:qs.stop].contiguous()
+        kl, vl = k.index_select(2, idx), v.index_select(2, idx)
+        fa.reset_launch_counts()
+        got = fa.flash_attention_kernel(ql, kl, vl, **kw)
+        torch.cuda.synchronize()
+        want = whole[:, :, qs.start:qs.stop]
+        ok, err = fa.flash_within_tolerance(got, want, ql, kl, vl, **kw)
+        rows = float(fa.flash_row_rms(got, ql, kl, vl, **kw).max())
+        out["ranks"].append(dict(
+            rank=r, q_heads=[qs.start, qs.stop], kv_heads=kv, ok=ok,
+            max_abs_err=err, row_rms=rows,
+            launches=fa.LAUNCHES["flash_attention"],
+            bit_equal=bool(torch.equal(got, want))))
+    return out
+
+
+def sharded_train_phase(torch, np, dev, get_config, get_model, fa,
+                        train: dict, smi: str) -> dict:
+    """Phase 3x: sharded training. (a) gemma2-2b as phase 3v trains it, one
+    step on a (1, 1) mesh of a world-1 NCCL group in this process, against
+    3v's step 0 (``sharded_world1``); (b) ``SHARDED_TRAIN_RANKS`` gloo
+    ranks spawned on cuda:0 (``sharded_gloo_ranks``, ``sharded_train_rank``);
+    (c) each rank's local-head K6 call against the unsharded call's heads,
+    in this process (``local_head_k6_case``). Returns K6's sharded paths
+    and the runs."""
+    import shutil
+
+    work = ROOT / "build" / "sharded_train"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    world1 = sharded_world1(torch, dev, get_config, get_model, fa, train, smi,
+                            work)
+    gloo = sharded_gloo_ranks(torch, get_config, smi, work)
+    local = sharded_local_heads(torch, dev, get_config, fa)
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(paths=[world1] + gloo["paths"], local_heads=local,
+                ranks_s=gloo["ranks_s"], ef=gloo["ef"])
+
+
+def sharded_world1(torch, dev, get_config, get_model, fa, train: dict,
+                   smi: str, work) -> dict:
+    """Phase 3x (a): gemma2-2b as phase 3v trains it, one step on a (1, 1)
+    mesh of a world-1 NCCL group in this process, against 3v's step 0."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models.meshctx import activation_mesh
+    from repro_torch.train import sharding
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.data import SyntheticDataConfig, SyntheticDataset
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+
+    # -- (a): a world-1 NCCL group --------------------------------------------
+    cfg = get_config(TRAIN_ARCH).replace(**TRAIN_CUT)
+    micro = cfg.microbatches
+    phase(f"phase 3x: sharded training, {TRAIN_ARCH} as phase 3v trains it, "
+          f"one step on a (1, 1) mesh of a world-1 NCCL group ({smi})")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(work / "nccl-store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh(1)
+        model, held, _ = new_lm_model(torch, dev, get_model, cfg,
+                                      torch.bfloat16)
+        opt_cfg = AdamWConfig(peak_lr=3e-4, warmup_steps=1,
+                              stable_steps=TRAIN_STEPS, decay_steps=1,
+                              moment_dtype=torch.bfloat16
+                              if cfg.adam_dtype == "bfloat16"
+                              else torch.float32)
+        model.init(torch.Generator(device=dev).manual_seed(0))
+        L.trainable_(model)
+        sharding.shard_model_(model, mesh, fsdp=cfg.fsdp)
+        opt = adamw_init(dict(model.named_parameters()), opt_cfg)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in next(
+            SyntheticDataset(cfg, SyntheticDataConfig(
+                TRAIN_BATCH, TRAIN_SEQ + 1), 0)).items()}
+        step = ts.make_train_step(model, cfg, opt_cfg)
+        fa.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with activation_mesh(mesh):
+            opt, m = step(opt, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = fa.LAUNCHES["flash_attention"]
+        peak = torch.cuda.max_memory_allocated() - held
+        del model, opt, step, m, batch
+    finally:
+        dist.destroy_process_group()
+    drop_model(torch)
+    ref = train["steps"][0]
+    rl = abs(loss - ref["loss"]) / abs(ref["loss"])
+    rg = abs(gnorm - ref["grad_norm"]) / abs(ref["grad_norm"])
+    print(f"(1, 1) mesh: loss {loss:.6f}, grad norm {gnorm:.5f} against 3v's "
+          f"step 0 {ref['loss']:.6f}, {ref['grad_norm']:.5f} (relative "
+          f"{rl:.2e}, {rg:.2e}); {secs:.3f} s (3v's step 0 "
+          f"{ref['seconds']:.3f} s), {launches} K6 launches, own peak "
+          f"{peak / 2**30:.2f} GiB (3v's {train['own_peak_gib']:.2f} GiB); "
+          f"{smi}")
+    check(rl <= SHARDED_WORLD1_RTOL and rg <= SHARDED_WORLD1_RTOL,
+          f"the (1, 1) step's loss and grad norm within "
+          f"{SHARDED_WORLD1_RTOL} of 3v's step 0")
+    check(launches == train["launches_per_step"],
+          f"{launches} K6 launches, as 3v's step")
+    return dict(path=f"3x(a): {TRAIN_ARCH} ({cfg.num_layers} layers) "
+                     f"make_train_step on a (1, 1) "
+                     f"mesh, world-1 NCCL, batch {TRAIN_BATCH} x "
+                     f"{TRAIN_SEQ} in {micro} microbatches",
+                launches=launches, step_s=secs, own_peak_gib=peak / 2**30,
+                loss=loss, grad_norm=gnorm, loss_rel=rl, gnorm_rel=rg)
+
+
+def sharded_gloo_ranks(torch, get_config, smi: str, work) -> dict:
+    """Phase 3x (b): ``SHARDED_TRAIN_RANKS`` gloo ranks spawned on cuda:0,
+    each run of ``SHARDED_TRAIN_RUNS`` on each of its meshes, held to rank
+    0's one-process step, then ``ef_psum``."""
+    import torch.multiprocessing as mp
+
+    paths = []
+    # -- (b): gloo ranks on cuda:0 --------------------------------------------
+    free = torch.cuda.mem_get_info()[0]
+    reck = {}
+    fits = []  # the card's reckoned peaks, all ranks together
+    for arch, cut, dname, b, s, mb, meshes in SHARDED_TRAIN_RUNS:
+        rcfg = get_config(arch).replace(**cut)
+        wb = torch.empty((), dtype=getattr(torch, dname)).element_size()
+        mbytes = 2 if rcfg.adam_dtype == "bfloat16" else 4
+        kept = 0  # each rank keeps its shards of weights and mu per mesh
+        for shape in meshes:
+            sizes = dict(data=shape[0], model=shape[1])
+            reck[arch, shape] = sharded_train_reckoning(
+                rcfg, sizes, wb, mbytes, b // shape[0], s, mb)
+            print(f"  {arch} {shape}: reckoned rank peak "
+                  f"{reckon_line(reck[arch, shape])}")
+            fits.append(SHARDED_TRAIN_RANKS * (reck[arch, shape]["total"]
+                                               + kept))
+            kept += reck[arch, shape]["weights"] \
+                + reck[arch, shape]["moments"] // 2
+        # then rank 0's one-process step beside every rank's kept shards
+        full = reck[arch, meshes[0]]["init_full"] // wb
+        one = train_peak_reckoning(rcfg, full, full * wb, mbytes, b // mb, s,
+                                   mb)
+        print(f"  {arch}: reckoned one-process peak {reckon_line(one)}")
+        fits.append(one["total"] + SHARDED_TRAIN_RANKS * kept)
+    worst_total = max(fits, default=0)
+    runs = [(a, c, d, b, s, m, list(ms))
+            for a, c, d, b, s, m, ms in SHARDED_TRAIN_RUNS]
+    phase(f"phase 3x: {SHARDED_TRAIN_RANKS} gloo ranks on cuda:0, runs "
+          f"{runs} "
+          f"(the ranks' reckoned peaks {worst_total / 2**30:.2f} GiB together"
+          f", {free / 2**30:.2f} GiB free)")
+    check(worst_total < min(DEVICE_PEAK_LIMIT, free - (4 << 30)),
+          "the ranks' reckoned peaks fit the card")
+    spec = dict(out=str(work), runs=SHARDED_TRAIN_RUNS)
+    t0 = time.perf_counter()
+    procs = mp.start_processes(
+        sharded_train_rank, args=(SHARDED_TRAIN_RANKS,
+                                  str(work / "gloo-store"), spec),
+        nprocs=SHARDED_TRAIN_RANKS, join=False, start_method="spawn")
+    deadline = time.monotonic() + 600
+    while not procs.join(timeout=2):  # a failed rank raises here
+        if time.monotonic() > deadline:
+            for p in procs.processes:
+                p.kill()
+            raise RuntimeError("the gloo ranks did not finish in 600 s")
+    ranks_s = time.perf_counter() - t0
+    ranks = [json.loads((work / f"rank{r}.json").read_text())
+             for r in range(SHARDED_TRAIN_RANKS)]
+    print(f"{SHARDED_TRAIN_RANKS} ranks spawned, run and joined in "
+          f"{ranks_s:.2f} s; {smi}")
+    for i, run in enumerate(ranks[0]["runs"]):
+        arch, shape = run["arch"], tuple(run["mesh"])
+        rcfg = get_config(arch).replace(
+            **{r[0]: r[1] for r in SHARDED_TRAIN_RUNS}[arch])
+        one = run["one_process"]
+        per_rank = [r["runs"][i] for r in ranks]
+        fp32 = run["dtype"] == "float32"
+        rl = abs(run["loss"] - one["loss"]) / abs(one["loss"])
+        rg = abs(run["grad_norm"] - one["grad_norm"]) / abs(one["grad_norm"])
+        layers = rcfg.num_layers
+        k6_want = layers * run["microbatches"] * 2
+        resident_want = reck[arch, shape]["weights"] \
+            + reck[arch, shape]["moments"]
+        print(f"  {arch} ({layers} layers, {run['dtype']}, fsdp "
+              f"{rcfg.fsdp}) on {shape}: batch {run['batch']} x "
+              f"{run['seq']} in {run['microbatches']} microbatches; loss "
+              f"{run['loss']:.6f} against one process {one['loss']:.6f} "
+              f"(relative {rl:.2e}), grad norm {run['grad_norm']:.5f} against "
+              f"{one['grad_norm']:.5f} ({rg:.2e}); parameters: max |diff| "
+              f"{run['param_max_abs_err']:.3e}, {run['leaves_bit_equal']} of "
+              f"{run['leaves']} leaves bit-equal, "
+              f"{run['params_out_of_limit']} elements past the limit; mu: "
+              f"largest leaf distance ‖Δ‖/‖mu‖ "
+              f"{run['mu_worst_distance']:.3e}"
+              f" ({run['mu_worst_leaf']}; limit {SHARDED_MU_TOL:.3e}), past "
+              f"it {run['mu_past']}, largest max |Δ| / max |mu| "
+              f"{run['mu_max_abs_rel']:.3e}; K6 calls "
+              f"on local heads: max |Δ| "
+              f"{max(r['k6_max_abs_err'] for r in per_rank):.3e}, row RMS "
+              f"max {max(r['k6_row_rms'] for r in per_rank):.3e} (bound "
+              f"{run['k6_row_rms_bound']:.3e}); build "
+              f"{[round(r['times']['build'], 2) for r in per_rank]} s, "
+              f"gather and check "
+              f"{[round(r['times']['check'], 2) for r in per_rank]} s; step "
+              f"{[round(r['seconds'], 3) for r in per_rank]} s a rank (one "
+              f"process {one['seconds']:.3f} s); K6 launches "
+              f"{[r['k6_launches'] for r in per_rank]}; peak "
+              f"{[round(r['peak'] / 2**30, 2) for r in per_rank]} GiB against "
+              f"the reckoned {reck[arch, shape]['total'] / 2**30:.2f}; "
+              f"resident {[round(r['resident'] / 2**30, 3) for r in per_rank]}"
+              f" GiB (reckoned {resident_want / 2**30:.3f}); {smi}")
+        lim_l = SHARDED_FP32_RTOL if fp32 else SHARDED_BF16_LOSS_RTOL
+        lim_g = SHARDED_FP32_RTOL if fp32 else SHARDED_BF16_GNORM_RTOL
+        check(rl <= lim_l and rg <= lim_g and all(
+            r["loss"] == run["loss"] for r in per_rank),
+              f"{arch} on {shape}: loss within {lim_l}, grad norm within "
+              f"{lim_g} of the one-process step, the same on every rank")
+        check(run["params_out_of_limit"] == 0,
+              f"{arch} on {shape}: every parameter within its limit")
+        check(not run["mu_past"] and run["leaves"] > 0,
+              f"{arch} on {shape}: every leaf's gradient (its first moment "
+              f"mu) within ‖Δ‖ <= {SHARDED_MU_TOL} ‖mu‖ of the one-process "
+              f"step's")
+        check(all(r["k6_calls"] == k6_want and r["k6_calls_ok"]
+                  for r in per_rank),
+              f"{arch} on {shape}: every rank's {k6_want} K6 calls within "
+              f"flash_within_tolerance and flash_row_rms on their inputs")
+        check(all(r["k6_launches"] == k6_want for r in per_rank),
+              f"{arch} on {shape}: {k6_want} K6 launches a rank ({layers} "
+              f"layers x {run['microbatches']} microbatches x 2), on its "
+              f"local heads")
+        check(all(r["peak"] <= PEAK_RECKON_SLACK * reck[arch, shape]["total"]
+                  for r in per_rank),
+              f"{arch} on {shape}: every rank's peak within "
+              f"{PEAK_RECKON_SLACK}x the reckoning")
+        check(all(r["resident"] == resident_want for r in per_rank),
+              f"{arch} on {shape}: every rank's resident weights and moments "
+              f"= the reckoning from the specs")
+        paths.append(dict(
+            path=f"3x(b): {arch} ({layers} layers, {run['dtype']}) on a "
+                 f"{shape} mesh of {SHARDED_TRAIN_RANKS} gloo ranks on cuda:0",
+            launches_per_rank=[r["k6_launches"] for r in per_rank],
+            step_s=[r["seconds"] for r in per_rank],
+            peak_gib=[r["peak"] / 2**30 for r in per_rank],
+            resident_gib=[r["resident"] / 2**30 for r in per_rank],
+            reckoned_gib=reck[arch, shape]["total"] / 2**30,
+            loss_rel=rl, gnorm_rel=rg,
+            param_max_abs_err=run["param_max_abs_err"],
+            mu_worst_distance=run["mu_worst_distance"],
+            mu_worst_leaf=run["mu_worst_leaf"],
+            mu_max_abs_rel=run["mu_max_abs_rel"],
+            k6_calls_max_abs_err=max(r["k6_max_abs_err"] for r in per_rank),
+            k6_calls_row_rms_max=max(r["k6_row_rms"] for r in per_rank),
+            one_process_s=one["seconds"]))
+    ef = [r["ef"] for r in ranks]
+    print(f"  ef_psum over {SHARDED_TRAIN_RANKS} ranks at one {EF_ARCH} "
+          f"layer's {ef[0]['leaves']} gradient leaves ({ef[0]['elements']:,} "
+          f"elements): {[round(e['seconds'], 3) for e in ef]} s a rank; "
+          f"worst |ef_psum - sum| {ef[0]['worst']['psum']:.3e}, "
+          f"|compress_decompress(sum) - sum| {ef[0]['worst']['cd']:.3e}, "
+          f"between them {ef[0]['worst']['between']:.3e}; past a bound: "
+          f"{[e['past'] for e in ef]}; digests equal "
+          f"{all(e['digest'] == ef[0]['digest'] for e in ef)}")
+    check(all(e["within_bounds"] for e in ef)
+          and all(e["digest"] == ef[0]["digest"] for e in ef),
+          "ef_psum: the same sum on every rank, within W·s/2 of the true sum "
+          "and within W·s/2 + s_sum/2 of compress_decompress of the summed "
+          "inputs, each residual within s/2 (each bound plus the fp32 "
+          "rounding, 2⁻²¹ of the largest sum)")
+
+    return dict(paths=paths, ranks_s=ranks_s, ef=ef[0])
+
+
+def sharded_local_heads(torch, dev, get_config, fa) -> list:
+    """Phase 3x (c): each model rank's local-head K6 call of gemma2-2b's
+    layer against the unsharded call's heads, in this process."""
+    cfg = get_config(TRAIN_ARCH)
+    # -- (c): local-head K6 calls in this process -------------------------------
+    phase("phase 3x: each model rank's local-head K6 call of gemma2-2b's "
+          "layer against the unsharded call's heads")
+    local = []
+    for n in sorted({m for _, m in SHARDED_TRAIN_MESHES}):
+        for window in (cfg.sliding_window, None):
+            case = local_head_k6_case(torch, fa, dev, n, window,
+                                      cfg.logit_softcap)
+            local.append(case)
+            for r in case["ranks"]:
+                print(f"  model axis {n}, window {window}, rank {r['rank']}: "
+                      f"q heads {r['q_heads']}, kv heads {r['kv_heads']}, "
+                      f"max |diff| {r['max_abs_err']:.3e}, row rms "
+                      f"{r['row_rms']:.3e}, bit-equal {r['bit_equal']}")
+    check(all(r["ok"] and r["row_rms"] <= fa.ROW_RMS_BOUND[torch.bfloat16]
+              and r["launches"] == 1 for c in local for r in c["ranks"]),
+          "every local-head K6 call within K6's contract of the unsharded "
+          "call's heads, one launch each")
+    return local
+
 
 def main() -> int:
     # torch.compile (the flex_attention yardstick of phase 4c) caches its
@@ -5499,6 +6220,8 @@ def main() -> int:
     grad = flash_grad_phase(torch, np, dev, fa, flush, get_config)
     train = train_phase(torch, np, dev, get_config, get_model, fa)
     train_cut = train_cut_phase(torch, np, dev, get_config, get_model, fa)
+    sharded_train = sharded_train_phase(torch, np, dev, get_config, get_model,
+                                        fa, train, smi)
     # K6's launches on each serving path of this slice, each read around
     # its own greedy_generate
     k6["serve_paths"] = [
@@ -5519,6 +6242,9 @@ def main() -> int:
                   f"microbatches", launches=r["launches"],
              step_s=r["kernel"]["seconds"]) for r in train_cut]
     k6["training"] = dict(gemma2=train, cut_depth=train_cut, gradient=grad)
+    # the sharded training paths: K6 on each rank's local heads
+    k6["sharded_train_paths"] = sharded_train["paths"]
+    k6["sharded_training"] = sharded_train
     grad_launches = {r["label"].split(" (")[0]: r["launches_per_step"]
                      for r in grad["shapes"]}
     check(train["launches_per_step"]

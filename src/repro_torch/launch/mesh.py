@@ -1,6 +1,7 @@
-"""Device meshes over ``torch.distributed`` for the sharded counting lanes.
+"""Device meshes over ``torch.distributed``: the sharded counting lanes'
+meshes, the production topologies and the local training meshes.
 
-The port of ``repro.launch.mesh``'s ``make_mesh`` and ``mesh_axes``. The
+The port of ``repro.launch.mesh``. The
 reference runs one process over every device of a JAX ``Mesh``; the port is
 SPMD: one process a rank (one rank a card under NCCL, as ``torchrun``
 launches it), and a mesh is a ``torch.distributed.device_mesh.DeviceMesh``
@@ -11,8 +12,16 @@ first::
     mesh = make_mesh((world,), ("data",))          # every rank, same order
 
 A rank's shard is its position in ``mesh.mesh.flatten()``, the counterpart
-of the reference's ``mesh.devices.flat``. The production and pod meshes of
-the reference have no counterpart here.
+of the reference's ``mesh.devices.flat``.
+
+The reference's production targets are meshes over the whole world:
+``make_production_mesh()`` is (16, 16) ``("data", "model")`` over 256
+ranks, ``make_production_mesh(multi_pod=True)`` (2, 16, 16) ``("pod",
+"data", "model")`` over 512; ``make_local_mesh(mp)`` splits whatever world
+there is as (world / mp, mp) ``("data", "model")`` (the training driver's
+``--model-parallel``). ``"pod"`` composes with ``"data"`` for the
+hierarchical gradient reduction (``data_axes``); ``"model"`` carries the
+tensor- and expert-parallel collectives.
 """
 
 from __future__ import annotations
@@ -21,9 +30,15 @@ from typing import Optional, Sequence, Tuple
 
 import torch.distributed as dist
 
+from repro_torch.models.meshctx import batch_axes
+
 __all__ = [
+    "PRODUCTION_SHAPES",
     "ProcessGroupNotInitializedError",
+    "data_axes",
+    "make_local_mesh",
     "make_mesh",
+    "make_production_mesh",
     "mesh_axes",
     "mesh_ranks",
     "mesh_shard_index",
@@ -89,6 +104,57 @@ def world_mesh(device_type: Optional[str] = None):
     require_process_group("a sharded lane without a mesh")
     return make_mesh((dist.get_world_size(),), ("data",),
                      device_type=device_type)
+
+
+#: The reference's production meshes: (shape, axes) by ``multi_pod``.
+PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: Optional[str] = None):
+    """The reference's production mesh over the whole world: (16, 16)
+    ``("data", "model")``, or (2, 16, 16) ``("pod", "data", "model")`` with
+    ``multi_pod``.
+
+    Raises:
+      ProcessGroupNotInitializedError: no default process group.
+      ValueError: the world is not 256 ranks (512 with ``multi_pod``).
+    """
+    require_process_group("make_production_mesh")
+    shape, axes = PRODUCTION_SHAPES[bool(multi_pod)]
+    need, world = 1, dist.get_world_size()
+    for s in shape:
+        need *= s
+    if world != need:
+        raise ValueError(f"the production mesh {shape} {axes} needs {need} "
+                         f"ranks; the process group has {world}")
+    return make_mesh(shape, axes, device_type=device_type)
+
+
+def make_local_mesh(model_parallel: int = 1, *,
+                    device_type: Optional[str] = None):
+    """Whatever world there is, split (world / ``model_parallel``,
+    ``model_parallel``) ``("data", "model")``.
+
+    Raises:
+      ProcessGroupNotInitializedError: no default process group.
+      ValueError: ``model_parallel`` is not a positive divisor of the world
+        size.
+    """
+    require_process_group("make_local_mesh")
+    world, mp = dist.get_world_size(), int(model_parallel)
+    if mp < 1 or world % mp:
+        raise ValueError(f"model_parallel={model_parallel} does not divide "
+                         f"the world of {world} ranks")
+    return make_mesh((world // mp, mp), ("data", "model"),
+                     device_type=device_type)
+
+
+def data_axes(mesh) -> Tuple[str, ...]:
+    """The axes that carry the batch (``meshctx.batch_axes``): ``("pod",
+    "data")`` where ``"pod"`` exists, in mesh order."""
+    return batch_axes(mesh_axes(mesh))
 
 
 def mesh_axes(mesh) -> Tuple[str, ...]:

@@ -37,7 +37,7 @@ import torch
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["opt_state_from_jax", "opt_state_to_jax", "params_from_jax",
-           "params_to_jax"]
+           "params_to_jax", "reference_path"]
 
 
 def _flatten(tree: Mapping, prefix: str = ""):
@@ -141,6 +141,43 @@ def params_from_jax(np_params: Mapping, cfg: ModelConfig
     return out
 
 
+def _owners(cfg: ModelConfig) -> Dict[str, Tuple[str, Optional[int],
+                                                   Optional[int]]]:
+    """port prefix -> (tree prefix, index or None, count or None)."""
+    owner = {}
+    for prefix, port, count in _layout(cfg):
+        if count is None:
+            owner[port] = (prefix, None, None)
+        else:
+            for i in range(count):
+                owner[port(i)] = (prefix, i, count)
+    return owner
+
+
+def _owner_of(name: str, owner: Mapping, cfg: ModelConfig):
+    """(the longest port prefix of ``name`` that ``owner`` holds, its
+    entry)."""
+    parts = name.split(".")
+    for n in range(len(parts), 0, -1):
+        key = ".".join(parts[:n])
+        if key in owner:
+            return key, owner[key]
+    raise ValueError(f"{name!r} is not a {cfg.family} model's parameter")
+
+
+def reference_path(name: str, cfg: ModelConfig) -> Tuple[str, bool]:
+    """The reference's tree path of the port's parameter ``name``, its keys
+    joined by "/" (``blocks.3.attn.wq.w`` → ``layers/attn/wq/w``), and
+    whether the reference stacks that leaf on a leading layer (or group)
+    axis that the port's per-layer tensor lacks.
+
+    Raises:
+      ValueError: ``name`` is not a parameter of ``cfg``'s family.
+    """
+    key, (prefix, i, _) = _owner_of(name, _owners(cfg), cfg)
+    return (prefix + name[len(key):]).replace(".", "/"), i is not None
+
+
 def params_to_jax(state_dict: Mapping[str, torch.Tensor], cfg: ModelConfig
                   ) -> Dict[str, object]:
     """The reference's parameter tree (numpy, stacked layers on a leading
@@ -150,24 +187,10 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor], cfg: ModelConfig
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
-    owner = {}  # port prefix -> (tree prefix, index or None, count)
-    for prefix, port, count in _layout(cfg):
-        if count is None:
-            owner[port] = (prefix, None, None)
-        else:
-            for i in range(count):
-                owner[port(i)] = (prefix, i, count)
+    owner = _owners(cfg)
     flat: Dict[str, object] = OrderedDict()
     for name, t in state_dict.items():
-        parts = name.split(".")
-        for n in range(len(parts), 0, -1):
-            key = ".".join(parts[:n])
-            if key in owner:
-                break
-        else:
-            raise ValueError(f"{name!r} is not a {cfg.family} model's "
-                             f"parameter")
-        prefix, i, count = owner[key]
+        key, (prefix, i, count) = _owner_of(name, owner, cfg)
         leaf = prefix + name[len(key):]
         if i is None:
             flat[leaf] = arr(t)

@@ -40,8 +40,17 @@ torch (the reference has no Pallas kernel for it): the one-hot (B, S, E, C)
 dispatch and combine, and the three expert products as ``torch.bmm`` over
 the expert axis on the (E, d, ff) / (E, ff, d) weights in place.
 ``quantize_kv`` / ``dequantize_kv`` are the int8 KV cache's symmetric
-per-head quantisation. ``constrain`` (``repro.models.meshctx``) is a no-op
-without a mesh and is left out.
+per-head quantisation.
+
+Under an active mesh (``repro_torch.models.meshctx``, the sharded train
+step) three places meet the other ranks, at the reference's ``constrain``
+points: ``attention`` lays q, k and v out by heads over ``"model"``
+(``meshctx.local_heads``) and runs K6 or the chunked scan, unchanged, on
+this rank's heads, then gathers the heads; ``moe`` runs this rank's
+experts (the expert input cut over ``"model"``, the expert stacks held
+split) and takes its load-balance means over the whole batch; ``remat``
+gathers a block's sharded parameters inside the block, so a recomputed
+block gathers them again. Without a mesh each is the one-card code.
 """
 
 from __future__ import annotations
@@ -57,6 +66,7 @@ from torch import nn
 
 from repro_torch.kernels.flash_attention.flash_attention import FlashAttention
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models import meshctx
 
 __all__ = [
     "ATTENTION_BACKENDS",
@@ -169,7 +179,13 @@ def trainable_(module: nn.Module) -> nn.Module:
 def remat(fn: Callable, on: bool, *args):
     """``fn(*args)``, under non-reentrant activation checkpointing when
     ``on`` and grad mode is on (the block's activations are recomputed in
-    the backward, as the reference's ``jax.checkpoint``)."""
+    the backward, as the reference's ``jax.checkpoint``). Under an active
+    mesh, the parameters of the modules among ``args`` are gathered inside
+    ``fn`` (``meshctx.gathered``), so a recomputed block gathers them
+    again."""
+    if meshctx.active_mesh() is not None:
+        fn = functools.partial(meshctx.run_gathered, fn,
+                               [a for a in args if isinstance(a, nn.Module)])
     if on and torch.is_grad_enabled():
         return torch.utils.checkpoint.checkpoint(fn, *args,
                                                  use_reentrant=False)
@@ -380,6 +396,10 @@ def attention(
 ) -> torch.Tensor:
     """GQA attention. Returns (B, S, Hq, hd) in q's dtype.
 
+    Under an active mesh each rank runs the heads ``meshctx.local_heads``
+    gives it and the output's heads are gathered (the rest of this
+    docstring holds per rank).
+
     ``backend="chunked"``, and every CPU tensor, takes the chunked-KV
     online-softmax scan: the KV axis in ``chunk``-sized tiles with a
     running (max, sumexp, out) accumulator, never the S×T logit matrix.
@@ -409,6 +429,17 @@ def attention(
     if backend not in ATTENTION_BACKENDS:
         raise ValueError(f"unknown attention backend {backend!r}; expected "
                          f"one of {ATTENTION_BACKENDS}")
+    # the reference's constrain(q|k|v, "batch", None, "model", None): under
+    # a mesh, this rank's heads (and the kv heads they read)
+    q, k, v, join = meshctx.local_heads(q, k, v)
+    return join(_attend(q, k, v, q_pos=q_pos, k_pos=k_pos, window=window,
+                        causal=causal, prefix_len=prefix_len, cap=cap,
+                        chunk=chunk, backend=backend))
+
+
+def _attend(q, k, v, *, q_pos, k_pos, window: int, causal: bool,
+            prefix_len: int, cap: Optional[float], chunk: int, backend: str):
+    """``attention`` on the heads it is given."""
     s, t = q.shape[1], k.shape[1]
     if backend == "chunked" or q.device.type == "cpu":
         if q_pos is None:
@@ -600,16 +631,22 @@ def moe(p, x: torch.Tensor, cfg):
     # (B, E·C, S) @ (B, S, d): slot (e, c) takes its token's row, or zeros
     ex_in = torch.bmm(disp.reshape(b, s, e * cap).transpose(1, 2), x)
     ex_in = ex_in.view(b, e, cap, d).transpose(0, 1).reshape(e, b * cap, d)
-    h = torch.bmm(ex_in, p["wi"])
-    gth = torch.bmm(ex_in, p["wg"])
+    # the reference's constrain(ex_in, "batch", "model", None, None): under
+    # a mesh, this rank's experts, whose stacks it holds split
+    ex_loc = meshctx.constrain(ex_in, "model", None, None)
+    h = torch.bmm(ex_loc, p["wi"])
+    gth = torch.bmm(ex_loc, p["wg"])
     h = (F.silu(gth.float()) * h.float()).to(x.dtype)
     del gth
     ex_out = torch.bmm(h, p["wo"])  # (E, B·C, d)
+    if ex_loc is not ex_in:
+        ex_out = meshctx.whole(ex_out, 0)
     ex_out = ex_out.view(e, b, cap, d).transpose(0, 1).reshape(b, e * cap, d)
     out = torch.bmm(comb.reshape(b, s, e * cap), ex_out)
     if "dense" in p:
         out = out + mlp(p["dense"], x)
-    density = r["flat"].float().mean(dim=(0, 1))
-    router_prob = r["probs"].mean(dim=(0, 1))
+    # over the whole batch: the means over every data rank's rows
+    density = meshctx.batch_mean(r["flat"].float().mean(dim=(0, 1)))
+    router_prob = meshctx.batch_mean(r["probs"].mean(dim=(0, 1)))
     aux = e * torch.sum(density * router_prob)
     return out, aux

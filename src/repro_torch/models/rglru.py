@@ -37,6 +37,7 @@ from torch import nn
 
 from repro_torch.graphs.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import meshctx
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ssm import causal_conv
 
@@ -296,11 +297,14 @@ class GriffinLM(nn.Module):
 
     def _train_group(self, blocks, x: torch.Tensor,
                      q_pos: torch.Tensor) -> torch.Tensor:
-        """Blocks ``blocks`` (index, kind) of the training forward."""
-        for i, kind in blocks:
-            p = self.blocks[i]
-            x = (self._rec_fwd(p, x) if kind == "rec"
-                 else self._attn_fwd(p, x, q_pos))[0]
+        """Blocks ``blocks`` (index, kind) of the training forward, their
+        sharded parameters gathered here under a mesh (``L.remat`` sees
+        indices, not modules)."""
+        with meshctx.gathered([self.blocks[i] for i, _ in blocks]):
+            for i, kind in blocks:
+                p = self.blocks[i]
+                x = (self._rec_fwd(p, x) if kind == "rec"
+                     else self._attn_fwd(p, x, q_pos))[0]
         return x
 
     def apply_train(self, batch: Dict[str, torch.Tensor]

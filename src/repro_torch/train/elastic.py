@@ -1,13 +1,14 @@
-"""The one-process parts of the reference's fault tolerance that the train
-driver uses: a heartbeat, the microbatch rescale and the auto-resuming
-trainer shell.
+"""Fault tolerance and elasticity: a heartbeat, the microbatch rescale
+and the auto-resuming trainer shell.
 
-The port of ``repro.train.elastic`` for one card. Checkpoints are written
-atomically every N steps (``checkpoint.py``) and the driver resumes from
+The port of ``repro.train.elastic``. Checkpoints are written atomically
+every N steps (``checkpoint.py``) and the driver resumes from
 ``latest_step`` on boot; the data pipeline's state is one integer
-(``data.py`` is step-indexed), so a resume is exact. The reference's
-restore under another mesh (``shardings``) has no counterpart here: a
-checkpoint is restored into the tensors of ``like`` where they lie.
+(``data.py`` is step-indexed), so a resume is exact. Checkpoints do not
+depend on the mesh: a restore places each leaf on the live mesh (the
+sharded leaves of ``like``, or ``shardings``), so a run saved on one mesh
+restarts on another, or on one card, and ``rescale_microbatches`` keeps
+the global batch when the data-parallel size changes.
 """
 
 from __future__ import annotations
@@ -71,16 +72,18 @@ class ElasticTrainer:
     keep: int = 3
     heartbeat: Optional[Heartbeat] = None
 
-    def resume_or_init(self, init_fn: Callable, like=None):
+    def resume_or_init(self, init_fn: Callable, like=None, shardings=None):
         """Returns (state, start_step). ``init_fn()`` builds fresh state;
         with a committed checkpoint, ``like`` (default ``init_fn()``) is
-        overwritten in place by the newest one and the start step is its
-        ``next_step``."""
+        overwritten in place by the newest one, its plain leaves placed by
+        ``shardings`` where given (``checkpoint.restore_checkpoint``), and
+        the start step is its ``next_step``."""
         step = ckpt.latest_step(self.ckpt_dir)
         if step is None:
             return init_fn(), 0
         like = like if like is not None else init_fn()
-        state, extra = ckpt.restore_checkpoint(self.ckpt_dir, step, like)
+        state, extra = ckpt.restore_checkpoint(self.ckpt_dir, step, like,
+                                               shardings)
         return state, int(extra.get("next_step", step))
 
     def maybe_save(self, step: int, state, *, force: bool = False) -> None:

@@ -15,6 +15,12 @@ parameter's and the moments' dtypes. Where the reference returns new
 trees, it writes the parameters and moments in place (under
 ``torch.no_grad()``), leaf by leaf, so the fp32 temporaries are one
 leaf's.
+
+Sharded parameters (``DTensor``s, ``train.sharding.shard_model_``) get
+moments of their placements, and the update runs on each rank's shards
+(it is elementwise); the global norm sums each leaf's shard over the mesh
+dims that split it (one all-reduce per split axis for the leaves that
+share it), so every rank clips by the whole gradient's norm.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ import math
 from typing import Dict, Mapping, NamedTuple
 
 import torch
+
+from repro_torch.train.sharding import local, placed_like
 
 __all__ = ["AdamWConfig", "OptState", "adamw_init", "adamw_update",
            "wsd_schedule"]
@@ -75,10 +83,12 @@ def wsd_schedule(step: torch.Tensor, cfg: AdamWConfig) -> torch.Tensor:
 
 def adamw_init(params: Mapping[str, torch.Tensor],
                cfg: AdamWConfig) -> OptState:
-    """Zero moments of each parameter's shape, on its device."""
+    """Zero moments of each parameter's shape, on its device (a sharded
+    parameter's: zero shards of its placements)."""
     def zeros():
-        return {name: torch.zeros(p.shape, dtype=cfg.moment_dtype,
-                                  device=p.device)
+        return {name: placed_like(torch.zeros(local(p).shape,
+                                              dtype=cfg.moment_dtype,
+                                              device=p.device), p)
                 for name, p in params.items()}
 
     dev = next(iter(params.values())).device if params else None
@@ -88,9 +98,28 @@ def adamw_init(params: Mapping[str, torch.Tensor],
 
 def _global_norm(grads) -> torch.Tensor:
     """sqrt of the sum over the leaves (in order) of each leaf's fp32 sum
-    of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in grads))
+    of squares. Sharded leaves: each shard's sum, grouped by the mesh dims
+    that split the leaf, each group summed over those dims (so a leaf
+    replicated over a dim is counted once)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    grads = list(grads)
+    if not any(isinstance(g, DTensor) for g in grads):
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in grads))
+    groups: Dict[tuple, torch.Tensor] = {}
+    for g in grads:
+        split = () if not isinstance(g, DTensor) else tuple(
+            m for m, p in enumerate(g.placements) if isinstance(p, Shard))
+        sq = torch.sum(torch.square(local(g).float()))
+        groups[split] = groups[split] + sq if split in groups else sq
+    mesh = next(g.device_mesh for g in grads if isinstance(g, DTensor))
+    total = None
+    for split, sq in groups.items():
+        for m in split:
+            torch.distributed.all_reduce(sq, group=mesh.get_group(m))
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
@@ -113,8 +142,9 @@ def adamw_update(grads: Mapping[str, torch.Tensor], state: OptState,
     c1 = 1.0 - cfg.b1 ** step.float()
     c2 = 1.0 - cfg.b2 ** step.float()
     for name, g in grads.items():
-        p, m, v = params[name], state.mu[name], state.nu[name]
-        g = g.float() * scale
+        p, m, v = (local(params[name]), local(state.mu[name]),
+                   local(state.nu[name]))
+        g = local(g).float() * scale
         m_new = cfg.b1 * m.float()
         m_new += (1 - cfg.b1) * g
         v_new = cfg.b2 * v.float()

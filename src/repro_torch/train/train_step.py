@@ -13,6 +13,21 @@ global batch (with each block rematerialised under ``cfg.remat``).
 
 The split is STRIDED (b-major), as the reference's: microbatch m takes
 the rows k·n + m of the global batch.
+
+Under an active mesh (``models.meshctx.activation_mesh``, the model's
+parameters sharded by ``sharding.shard_model_``) the step is SPMD: every
+rank is given the same global batch and keeps its rows of the data axes'
+split (``sharding.local_rows``), which it splits strided as above, so
+microbatch m holds the same rows as on one process. The cross-entropy's
+denominator ``ntok`` counts the whole microbatch over the data ranks, the
+MoE aux loss takes its means over the whole batch (``layers.moe``), and
+each parameter's gradient arrives summed over the data ranks in its
+parameter's placement (``meshctx.gather_param``), where the accumulators
+(local shards in ``cfg.grad_accum_dtype``) take it. The gradients are
+returned as ``DTensor``s of those placements, and ``adamw_update`` reads
+every shard for the global norm. The same step on every mesh: loss,
+``grad_norm``, parameters and moments are the one-process step's up to
+the order of the sums.
 """
 
 from __future__ import annotations
@@ -20,11 +35,14 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch import nn
 
 from repro_torch.models import layers as L
+from repro_torch.models import meshctx
 from repro_torch.models.config import ModelConfig
 from repro_torch.train.optimizer import (AdamWConfig, OptState, adamw_init,
                                          adamw_update)
+from repro_torch.train.sharding import local, local_rows, placed_like
 
 __all__ = ["make_grad_fn", "make_loss_fn", "make_train_step",
            "init_train_state"]
@@ -38,7 +56,10 @@ def make_loss_fn(model, cfg: ModelConfig) -> Callable:
     positions with ``labels >= 0``, divided by max(their count, 1), plus
     0.01 × the model's aux loss."""
     def loss_fn(batch: Dict[str, torch.Tensor]):
-        logits, aux = model.apply_train(batch)
+        # under a mesh: the parameters outside the blocks gathered here,
+        # each block's by layers.remat
+        with meshctx.gathered([model], skip=(nn.ModuleList,)):
+            logits, aux = model.apply_train(batch)
         labels = batch["labels"]
         valid = (labels >= 0).float()
         safe = torch.clamp(labels, min=0).long()
@@ -47,10 +68,13 @@ def make_loss_fn(model, cfg: ModelConfig) -> Callable:
         logits = logits.float()
         lse = torch.logsumexp(logits, dim=-1)
         ll = torch.gather(logits, -1, safe[..., None])[..., 0] - lse
-        ntok = torch.clamp(valid.sum(), min=1.0)
+        # under a mesh: the whole microbatch's tokens, and this rank's
+        # share of the cross-entropy (the shares sum to it)
+        ntok = torch.clamp(meshctx.batch_sum(valid.sum()), min=1.0)
         xent = -(ll * valid).sum() / ntok
         loss = xent + _MOE_AUX_WEIGHT * aux
-        return loss, {"xent": xent, "aux": aux, "ntok": ntok}
+        return loss, {"xent": meshctx.batch_sum(xent), "aux": aux,
+                      "ntok": ntok}
 
     return loss_fn
 
@@ -82,7 +106,9 @@ def make_grad_fn(model, cfg: ModelConfig, *,
     global batch (one pass, or the strided microbatches accumulated in
     ``cfg.grad_accum_dtype``, each divided by their count before it is
     added), and the loss metrics (averaged over the microbatches), detached.
-    Turns the model's gradients on."""
+    Turns the model's gradients on. Under an active mesh, ``batch`` is the
+    global batch and each gradient a ``DTensor`` in its parameter's
+    placement, summed over the data ranks."""
     n_micro = microbatches if microbatches is not None else cfg.microbatches
     acc_dtype = (torch.bfloat16 if cfg.grad_accum_dtype == "bfloat16"
                  else torch.float32)
@@ -96,19 +122,24 @@ def make_grad_fn(model, cfg: ModelConfig, *,
 
     def grad_fn(batch: Dict[str, torch.Tensor]):
         L.trainable_(model)
+        mesh = meshctx.active_mesh()
+        if mesh is not None:
+            batch = local_rows(batch, mesh)
         if n_micro <= 1:
             return one(batch)
-        acc = {n: torch.zeros(p.shape, dtype=acc_dtype, device=p.device)
-               for n, p in model.named_parameters()}
+        params = dict(model.named_parameters())
+        acc = {n: torch.zeros(local(p).shape, dtype=acc_dtype,
+                              device=local(p).device)
+               for n, p in params.items()}
         ms = []
         for mb in _microbatches(batch, n_micro):
             g, m = one(mb)
             for n, x in g.items():
-                acc[n] += x.to(acc_dtype) / n_micro
+                acc[n] += local(x).to(acc_dtype) / n_micro
             del g
             ms.append(m)
         metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
-        return acc, metrics
+        return {n: placed_like(a, params[n]) for n, a in acc.items()}, metrics
 
     return grad_fn
 

@@ -5,8 +5,11 @@ plain attention path, the encdec, ssm and hybrid models on the card
 against the CPU, K6's autograd Function (its gradients against the chunked
 path's in each mask mode, the bare kernel refusing inputs that require
 grad) and one microbatched backward of each family, the
-triangle service and the measured chooser on the card, and the sharded
-lanes on a world-1 NCCL group and on 4 gloo ranks sharing the card.
+triangle service and the measured chooser on the card, the sharded
+lanes on a world-1 NCCL group and on 4 gloo ranks sharing the card, and
+sharded training: each model rank's local-head K6 call against the
+unsharded call's heads, and one step on a (1, 1) mesh of a world-1 NCCL
+group against the one-card step.
 
 Marked ``cuda``: each test decides at run time whether a CUDA device is
 present and skips with a reason if not, so this file collects the same
@@ -1206,3 +1209,91 @@ def test_sharded_lanes_on_gloo_ranks_sharing_the_card(cuda, tmp_path):
         assert all(out["launches"][k] > 0 for k in
                    ("broadcast", "probe", "bitmap", "masked_spgemm",
                     "masked_spgemm_wgmma")), out["launches"]
+
+
+# chip_smoke.py phase 3x (c): gemma2-2b's layer (8 q heads, 4 kv heads, hd
+# 256, bf16, cap 50) split over a model axis of 2 ((2, 2) mesh) and 4
+# ((1, 4) mesh); window 4096 (its local layers) and none
+@pytest.mark.parametrize("window", [4096, None], ids=["local", "global"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_local_head_flash_calls_equal_unsharded_heads(cuda, n, window):
+    """Each model rank's K6 call on its own heads (``meshctx.head_split``:
+    its q heads and the kv heads they read) equals the same heads of the
+    unsharded call within K6's contract (``flash_within_tolerance``,
+    ``flash_row_rms``), one launch each."""
+    from repro_torch.models.meshctx import head_split
+
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    b, s, hq, hkv, hd = 1, 1024, 8, 4, 256
+    q = torch.randn(b, s, hq, hd, generator=gen, device=cuda).bfloat16()
+    k = torch.randn(b, s, hkv, hd, generator=gen, device=cuda).bfloat16()
+    v = torch.randn(b, s, hkv, hd, generator=gen, device=cuda).bfloat16()
+    kw = dict(causal=True, window=window, cap=50.0)
+    whole = fa.flash_attention_kernel(q, k, v, **kw)
+    for r in range(n):
+        qs, kv = head_split(hq, hkv, n, r)
+        assert len(qs) == hq // n and all(h // 2 in kv for h in qs)
+        idx = torch.tensor(kv, device=cuda)
+        ql = q[:, :, qs.start:qs.stop].contiguous()
+        kl, vl = k.index_select(2, idx), v.index_select(2, idx)
+        fa.reset_launch_counts()
+        got = fa.flash_attention_kernel(ql, kl, vl, **kw)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES == {"flash_attention": 1}
+        ok, err = fa.flash_within_tolerance(
+            got, whole[:, :, qs.start:qs.stop], ql, kl, vl, **kw)
+        assert ok, (r, err)
+        rows = fa.flash_row_rms(got, ql, kl, vl, **kw)
+        assert float(rows.max()) <= fa.ROW_RMS_BOUND[torch.bfloat16]
+
+
+def test_sharded_train_step_on_world1_nccl_group(cuda, tmp_path):
+    """One step of the reduced gemma2-2b (widened to d 128, head_dim 64 for
+    K6; fp32, two microbatches) on a (1, 1) mesh of a world-1 NCCL group
+    (``make_local_mesh``, ``shard_model_``, ``activation_mesh``) equals the
+    one-card step: loss and grad norm within 1e-5, parameters within the
+    reference's sharded-step tolerances (rtol 5e-4, atol 5e-5), the same
+    K6 launches (two an attention layer a microbatch)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models.meshctx import activation_mesh, full_value
+    from repro_torch.models.registry import get_model, get_reduced_config
+    from repro_torch.train import data, optimizer, sharding, train_step
+
+    cfg = get_reduced_config("gemma2-2b").replace(d_model=128, head_dim=64)
+    opt_cfg = optimizer.AdamWConfig(peak_lr=1e-3, warmup_steps=1,
+                                    moment_dtype=torch.float32)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in data.make_batch(
+        cfg, data.SyntheticDataConfig(4, 65), 0).items()}
+
+    def run(mesh):
+        model = get_model(cfg, device=cuda, dtype=torch.float32)
+        model.init(torch.Generator(device=cuda).manual_seed(0))
+        L.trainable_(model)
+        if mesh is not None:
+            sharding.shard_model_(model, mesh)
+        opt = optimizer.adamw_init(dict(model.named_parameters()), opt_cfg)
+        step = train_step.make_train_step(model, cfg, opt_cfg, microbatches=2)
+        fa.reset_launch_counts()
+        with activation_mesh(mesh):
+            opt, m = step(opt, batch)
+        torch.cuda.synchronize()
+        return ({k: float(x) for k, x in m.items()},
+                {n: full_value(p.detach()) for n, p in
+                 model.named_parameters()}, fa.LAUNCHES["flash_attention"])
+
+    want, want_p, want_k6 = run(None)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        got, got_p, got_k6 = run(make_local_mesh(1))
+    finally:
+        dist.destroy_process_group()
+    assert want_k6 == got_k6 == 2 * 2 * cfg.num_layers
+    for k in ("loss", "grad_norm", "ntok"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=k)
+    for n, w in want_p.items():
+        torch.testing.assert_close(got_p[n], w, rtol=5e-4, atol=5e-5)
