@@ -329,13 +329,33 @@ source, all started together), and runs, in order:
    sum and ``compress_decompress`` of the summed inputs; (c) each model
    rank's local-head K6 call of gemma2-2b's layer against the unsharded
    call's heads, within K6's contract;
+3y. sharded serving and the dry run held to the card: (a) gemma2-2b as
+   3v cuts it, served on a (1, 1) mesh of a world-1 NCCL group (prefill
+   and 16 greedy tokens, batch 2 × 1024), logits and tokens bit-equal to
+   one-card serving, K6 launches equal; (b) 4 gloo ranks spawned on
+   ``cuda:0``, 2 layers at published widths in bf16: gemma2-2b on (2, 2)
+   (kv heads split), paligemma-3b on (1, 4) (its cache split by
+   sequence, the decode's partial softmaxes merged), qwen1.5-32b on (1, 4)
+   (int8 cache, heads split), each a prefill of 1024 positions and 2
+   teacher-forced decode steps; each rank's teacher-forced last-position
+   logits within 3f's, 3r's and 3p's limits of rank 0's one-process
+   serve, its resident weights and cache equal to the reckoning from the
+   specs, each K6 call within K6's contract on its own inputs, its K6
+   launches counted; (c) the dry run (``launch.dryrun.trace_step`` on a
+   fake 4-rank group, one subprocess a rank, run beside (b)) against (b):
+   each rank's measured prefill peak within 1.1× the predicted + 256 MiB
+   and the predicted within 1.1× the measured, its predicted K6 calls =
+   its launches, its roofline bound <= its measured prefill seconds; then
+   ``lower_tc`` on a fake 256-rank group and one rank's share (32 tiles of
+   128) launched through K4 on the card, its time beside the priced bound;
 5. a ``{"lm_without_kernels": [...]}`` line (3t's run), a
    ``{"kernels": [...]}`` line, the card's name and power limit from
    nvidia-smi, and a last line ``{"ok": true, "device": {...}}``.
 
 The phases run in the order 1, 2, 3, 3b, 3c, 4, 3d, 4b, 3k, 3l, 3g–3j,
-3e, 3m, 3n, 3o, 3f, 4c, 3p, 3q, 3r, 3s, 3t, 3u, 4d, 3v, 3w, 3x, 5 (each
-of 3p–3x frees its model before the next): phase 4 needs the earlier lanes' plans (about 40 GiB), so
+3e, 3m, 3n, 3o, 3f, 4c, 3p, 3q, 3r, 3s, 3t, 3u, 4d, 3v, 3w, 3x, 3y, 5
+(each of 3p–3y frees its model before the next): phase 4 needs the
+earlier lanes' plans (about 40 GiB), so
 the new lanes wait until it has released them (phase 4b holds the hash
 paths' stages and releases them before the edge and dynamic lanes, and the
 tiled phases free their pinned host memory before the next), and the
@@ -351,7 +371,9 @@ int8, MoE, VLM, encdec and hybrid serving paths under ``serve_paths``
 of 3v and 3w under ``train_paths`` (4d's gradient checks and timings and
 both phases' runs under ``training``), and its launches a rank a step on
 3x's meshes under ``sharded_train_paths`` (3x's runs under
-``sharded_training``).
+``sharded_training``), its launches a rank's prefill on 3y's meshes under
+``sharded_serve_paths`` (3y's dry-run rows under ``sharded_serving``),
+and K4's launch of the paper core's dry-run share under ``dryrun_tc``.
 
 Any failed check raises, so the script exits non-zero and prints no last
 line. Without a CUDA device, or outside a checkout, it exits 2 at once.
@@ -676,16 +698,12 @@ def flash_pairs(np, s: int, t: int, causal: bool, window,
                 prefix: int = 0) -> int:
     """Unmasked (query, key) pairs of one (batch, q head): query i keeps
     keys j with (not causal or j <= i) and i - j < window, and every key
-    j < prefix (the bidirectional prefix)."""
-    i = np.arange(s, dtype=np.int64)
-    lo = np.zeros_like(i) if window is None else np.maximum(0, i - window + 1)
-    hi = np.minimum(t - 1, i) if causal else np.full_like(i, t - 1)
-    n = np.maximum(0, hi - lo + 1)
-    p = min(prefix, t)
-    if p:  # the prefix keys outside [lo, hi]
-        n = n + p - np.where(hi >= lo,
-                             np.maximum(0, np.minimum(hi, p - 1) - lo + 1), 0)
-    return int(n.sum())
+    j < prefix (the bidirectional prefix); the count the dry run prices
+    K6 by (``kernels.flash_attention.flash_pairs``)."""
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_pairs as kept_pairs
+
+    return kept_pairs(s, t, causal=causal, window=window, prefix_len=prefix)
 
 
 def flash_bound_ms(np, q, k, causal: bool, window, prefix: int = 0) -> dict:
@@ -5330,6 +5348,538 @@ def sharded_local_heads(torch, dev, get_config, fa) -> list:
     return local
 
 
+# -- phase 3y: sharded serving, and the dry run held to the card --------------
+
+# (a): gemma2-2b at published width and 3v's depth, served on a (1, 1) mesh
+# of a world-1 NCCL group: a prefill and 16 greedy tokens, bit-equal to
+# one-card greedy_generate (at one rank no gather runs)
+MESH1_BATCH, MESH1_PROMPT, MESH1_STEPS = 2, 1024, 16
+# (b): SHARDED_SERVE_RANKS gloo ranks on cuda:0, each model at published
+# widths cut to SHARDED_SERVE_LAYERS layers in bf16: (arch, mesh (data,
+# model), batch, prompt tokens, teacher-forced steps). gemma2-2b's 4 kv
+# heads split over 2 model ranks, paligemma-3b's 1 over none (its cache
+# splits by sequence: 256 patches + 766 tokens + 2 steps = 1024 slots over
+# 4 ranks, and each decode step merges 4 partial softmaxes), qwen1.5-32b's
+# 40 over 4 with the int8 cache. Two decode steps: every step gathers all
+# the weights through gloo's host staging (3-4 s a step with 4 ranks on
+# one NVIDIA H100 80GB HBM3 at 700 W, where 8 steps took 3y to 128 s)
+SHARDED_SERVE_RANKS = 4
+SHARDED_SERVE_LAYERS = 2
+SHARDED_SERVE_RUNS = (("gemma2-2b", (2, 2), 4, 1022, 2),
+                      ("paligemma-3b", (1, 4), 2, 766, 2),
+                      ("qwen1.5-32b", (1, 4), 2, 1022, 2))
+# a rank's teacher-forced last-position logits against rank 0's one-process
+# serve on the card: the limits phases 3f, 3r and 3p use for the family
+# (stated before the first run)
+SHARDED_SERVE_TOL = {"gemma2-2b": SERVE_LOGIT_TOL,
+                     "paligemma-3b": VLM_LOGIT_TOL,
+                     "qwen1.5-32b": INT8_LOGIT_TOL}
+# (c): each rank's measured prefill peak against the dry run's prediction
+# on a fake 4-rank group: measured <= 1.1 x predicted + 256 MiB (the CUDA
+# context's allocations, cuBLAS workspaces, the whole batch each rank is
+# given) and predicted <= 1.1 x measured
+DRYRUN_PEAK_SLACK, DRYRUN_PEAK_FLOOR = 1.1, 256 << 20
+# the paper core's dry-run cell: lower_tc's 8192 tiles of 128 over 256
+# ranks, one rank's 32 triples launched through K4 on the card
+DRYRUN_TC_TILES, DRYRUN_TC_BLOCK, DRYRUN_TC_CHIPS = 8192, 128, 256
+
+# one rank's prefill of each (b) run traced on meta on a fake 4-rank group
+# (argv: the rank, the runs as JSON), or lower_tc on a fake 256-rank group
+# (argv: "tc"): one process each, as a fake group holds one world
+_DRYRUN_PREDICT = r"""
+import json, sys
+import torch
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.registry import get_config
+
+if sys.argv[1] == "tc":
+    dryrun.fake_world(int(sys.argv[3]))
+    mesh = dryrun.production_mesh(False)
+    print(json.dumps(dryrun.lower_tc(mesh, tiles=int(sys.argv[2]),
+                                     block=int(sys.argv[4]))))
+    sys.exit(0)
+rank, runs = int(sys.argv[1]), json.loads(sys.argv[2])
+layers = int(sys.argv[3])
+dryrun.fake_world(4, rank)
+out = {}
+for arch, shape, b, prompt, steps in runs:
+    cfg = get_config(arch).replace(num_layers=layers)
+    mesh = make_mesh(tuple(shape), ("data", "model"), device_type="cpu")
+    batch = {"tokens": torch.empty((b, prompt), dtype=torch.int64,
+                                   device="meta")}
+    extra = 0
+    if cfg.family == "vlm":
+        batch["patches"] = torch.empty((b, cfg.vision_tokens, cfg.vision_dim),
+                                       dtype=torch.float32, device="meta")
+        extra = cfg.vision_tokens
+    out[arch] = dryrun.trace_step(cfg, "prefill", batch, mesh,
+                                  max_len=prompt + extra + steps)
+print(json.dumps(out))
+"""
+
+
+def serve_inputs(torch, np, cfg, b: int, prompt: int, steps: int, dev):
+    """Phase 3y's prompt batch of ``cfg`` (tokens, and patches for the VLM)
+    and its teacher-forced tokens, drawn from numpy seed 29."""
+    rng = np.random.default_rng(29)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (b, prompt))).to(dev)}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.vision_tokens, cfg.vision_dim)).astype(np.float32)).to(dev)
+    feed = torch.from_numpy(rng.integers(0, cfg.vocab, (b, steps))).to(dev)
+    return batch, feed
+
+
+def serve_reckoning(cfg, sizes: dict, b: int, max_len: int) -> dict:
+    """One rank's resident weights and cache in phase 3y(b), reckoned from
+    the sanitised specs (``param_specs``, ``cache_leaf_spec``) of ``cfg``'s
+    model in bf16 on the meta device on a mesh of ``sizes``."""
+    import torch
+
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import sharding
+
+    def local(n, spec):
+        for entry in spec:
+            for a in (() if entry is None else entry
+                      if isinstance(entry, tuple) else (entry,)):
+                n //= sizes.get(a, 1)
+        return n
+
+    model = get_model(cfg, device="meta", dtype=torch.bfloat16)
+    specs = sharding.param_specs(model, fsdp=cfg.fsdp)
+    weights = sum(local(p.numel(), sharding.sanitize_spec(
+        specs[n], p.shape, sizes)) * p.element_size()
+        for n, p in model.named_parameters())
+    cache = sum(local(x.numel(), sharding.cache_leaf_spec(
+        tuple(x.shape), sizes, b)) * x.element_size()
+        for x in model.init_cache(b, max_len).values()
+        if isinstance(x, torch.Tensor))
+    return dict(weights=weights, cache=cache)
+
+
+def teacher_forced_rows(torch, model, last, cache, feed):
+    """The last-position logits ``last`` of a prefill, then of each decode
+    step against its ``cache`` fed ``feed`` (this rank's rows under a
+    mesh): (rows, steps + 1, V) fp32 on the host."""
+    rows = [last.float().cpu()]
+    for i in range(feed.shape[1]):
+        lg, cache = model.decode_step(cache, feed[:, i:i + 1])
+        rows.append(lg[:, -1].float().cpu())
+    return torch.stack(rows, dim=1)
+
+
+def sharded_serve_rank(rank: int, world: int, store: str, spec: dict) -> None:
+    """Phase 3y (b): one of ``world`` gloo ranks on ``cuda:0``, spawned by
+    ``sharded_serve_phase``. For each run of ``SHARDED_SERVE_RUNS`` every
+    rank draws the same weights, shards them (``shard_model_``) and, under
+    ``activation_mesh``, prefills its rows with the peak reset just before
+    (its peak, seconds and K6 launches: phase (c)'s measured side), then
+    decodes teacher-forced from its cache; a second prefill holds each K6
+    call to K6's contract on the call's own inputs
+    (``contract_held_calls``). Then rank 0 serves each run in one
+    process. Writes each rank's last-position logits (``.npy``) and
+    ``serve_rank<rank>.json`` to ``spec["out"]``; raises on any fault,
+    which fails the phase."""
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models.meshctx import activation_mesh
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.train import sharding
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    out = dict(rank=rank, runs=[])
+    try:
+        for arch, shape, b, prompt, steps in spec["runs"]:
+            cfg = get_config(arch).replace(num_layers=spec["layers"])
+            extra = cfg.vision_tokens if cfg.family == "vlm" else 0
+            max_len = prompt + extra + steps
+            mesh = make_local_mesh(shape[1], device_type="cuda")
+            model = get_model(cfg, device=dev, dtype=torch.bfloat16)
+            model.init(torch.Generator(device=dev).manual_seed(0))
+            sharding.shard_model_(model, mesh, fsdp=cfg.fsdp)
+            batch, feed = serve_inputs(torch, np, cfg, b, prompt, steps, dev)
+            rows = sharding.serve_rows({"feed": feed}, mesh)["feed"]
+            resident_w = sharding.resident_bytes(list(model.parameters()))
+            gc.collect()
+            torch.cuda.empty_cache()
+            dist.barrier()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            with activation_mesh(mesh):
+                logits, cache = model.prefill(batch, max_len)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated()
+                launches = fa.LAUNCHES["flash_attention"]
+                resident_c = sharding.resident_bytes(
+                    [x for x in cache.values()
+                     if isinstance(x, torch.Tensor)])
+                last = logits[:, -1].clone()
+                del logits
+                forced = teacher_forced_rows(torch, model, last, cache, rows)
+                del cache
+                calls = []  # the serving path's K6 entry, as 3p-3r hold it
+                kernel = L.flash_attention
+                L.flash_attention = contract_held_calls(torch, fa, kernel,
+                                                        calls)
+                try:
+                    logits, _ = model.prefill(batch, max_len)
+                finally:
+                    L.flash_attention = kernel
+                del logits
+            np.save(os.path.join(spec["out"], f"{arch}_r{rank}.npy"),
+                    forced.numpy())
+            out["runs"].append(dict(
+                arch=arch, mesh=list(shape), prefill_s=secs, peak=peak,
+                k6_launches=launches, resident_weights=resident_w,
+                resident_cache=resident_c, k6_calls=len(calls),
+                k6_calls_ok=all(c[0] for c in calls),
+                k6_max_abs_err=max((c[1] for c in calls), default=0.0),
+                k6_row_rms=max((c[2] for c in calls), default=0.0)))
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+            dist.barrier()
+        if rank == 0:  # the one-process serves, the others idle
+            for arch, shape, b, prompt, steps in spec["runs"]:
+                cfg = get_config(arch).replace(num_layers=spec["layers"])
+                extra = cfg.vision_tokens if cfg.family == "vlm" else 0
+                model = get_model(cfg, device=dev, dtype=torch.bfloat16)
+                model.init(torch.Generator(device=dev).manual_seed(0))
+                batch, feed = serve_inputs(torch, np, cfg, b, prompt, steps,
+                                           dev)
+                logits, cache = model.prefill(batch, prompt + extra + steps)
+                last = logits[:, -1].clone()
+                del logits
+                forced = teacher_forced_rows(torch, model, last, cache, feed)
+                del cache
+                np.save(os.path.join(spec["out"], f"{arch}_one.npy"),
+                        forced.numpy())
+                del model
+                gc.collect()
+                torch.cuda.empty_cache()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+        release_host_memory(torch)
+    with open(os.path.join(spec["out"], f"serve_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def sharded_serve_phase(torch, np, dev, get_config, get_model,
+                        greedy_generate, fa, flush, smi: str) -> dict:
+    """Phase 3y: sharded serving. (a) gemma2-2b on a (1, 1) mesh of a
+    world-1 NCCL group against one-card serving (``serve_world1``); (b)
+    ``SHARDED_SERVE_RANKS`` gloo ranks spawned on cuda:0
+    (``sharded_serve_rank``); (c) the dry run's predictions for (b)'s
+    ranks, traced on fake groups in subprocesses started with (b), held to
+    (b)'s measurements, and the paper core's cell with one rank's share
+    launched through K4. Returns K6's and K4's paths and the runs."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "sharded_serve"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    world1 = serve_world1(torch, dev, get_config, get_model, greedy_generate,
+                          fa, smi, work)
+    # (c)'s predictions run on the host's cores beside (b)'s ranks
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    runs = json.dumps([list(r) for r in SHARDED_SERVE_RUNS])
+    preds = [subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN_PREDICT, str(r), runs,
+         str(SHARDED_SERVE_LAYERS)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+        for r in range(SHARDED_SERVE_RANKS)]
+    preds.append(subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN_PREDICT, "tc", str(DRYRUN_TC_TILES),
+         str(DRYRUN_TC_CHIPS), str(DRYRUN_TC_BLOCK)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    try:
+        ranks = sharded_serve_ranks(torch, np, get_config, smi, work)
+    finally:
+        outs = []
+        for p in preds:
+            try:
+                so, se = p.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                so, se = p.communicate()
+            outs.append((p.returncode, so, se))
+    for rc, _, se in outs:
+        check(rc == 0, f"a dry-run prediction process exited {rc}: "
+                       f"{se[-2000:]}")
+    predicted = [json.loads(so.splitlines()[-1]) for _, so, _ in outs]
+    paths = dryrun_against_card(torch, np, dev, fa, flush, smi, ranks,
+                                predicted[:-1], predicted[-1])
+    shutil.rmtree(work, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    print(f"phase 3y took {secs:.1f} s")
+    return dict(paths=[world1] + ranks["paths"], dryrun=paths["dryrun"],
+                tc=paths["tc"], seconds=secs)
+
+
+def serve_world1(torch, dev, get_config, get_model, greedy_generate, fa,
+                 smi: str, work) -> dict:
+    """Phase 3y (a): gemma2-2b at published width and 3v's depth, served on
+    a (1, 1) mesh of a world-1 NCCL group in this process, against
+    one-card serving of the same weights and prompt."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.meshctx import activation_mesh
+    from repro_torch.train import sharding
+
+    cfg = get_config(TRAIN_ARCH).replace(**TRAIN_CUT)
+    b, prompt, steps = MESH1_BATCH, MESH1_PROMPT, MESH1_STEPS
+    max_len = prompt + steps
+    phase(f"phase 3y: sharded serving, {TRAIN_ARCH} ({cfg.num_layers} "
+          f"layers) on a (1, 1) mesh of a world-1 NCCL group against "
+          f"one-card serving, batch {b} x {prompt}, {steps} tokens ({smi})")
+    model, _, _ = new_lm_model(torch, dev, get_model, cfg, torch.bfloat16)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, prompt), device=dev,
+                                     generator=gen)}
+    fa.reset_launch_counts()
+    want_logits, _ = model.prefill(batch, max_len)
+    want = greedy_generate(model, cfg, batch, steps=steps, max_len=max_len)
+    torch.cuda.synchronize()
+    want_launches = fa.LAUNCHES["flash_attention"]
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(work / "nccl-store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh(1)
+        sharding.shard_model_(model, mesh, fsdp=cfg.fsdp)
+        fa.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with activation_mesh(mesh):
+            logits, _ = model.prefill(batch, max_len)
+            toks = greedy_generate(model, cfg, batch, steps=steps,
+                                   max_len=max_len)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = fa.LAUNCHES["flash_attention"]
+        same_logits = bool(torch.equal(logits, want_logits))
+        same_toks = bool(torch.equal(toks, want))
+        del logits, want_logits, model
+    finally:
+        dist.destroy_process_group()
+    drop_model(torch)
+    print(f"(1, 1) mesh: prefill logits bit-equal {same_logits}, tokens "
+          f"bit-equal {same_toks} (first sequence {toks[0].tolist()}); "
+          f"{launches} K6 launches (one card {want_launches}); prefill and "
+          f"greedy_generate {secs:.3f} s; {smi}")
+    check(same_logits and same_toks,
+          "the (1, 1) mesh's prefill logits and greedy tokens bit-equal to "
+          "one-card serving")
+    check(launches == want_launches == 2 * cfg.num_layers,
+          f"{launches} K6 launches, as one-card serving (a layer a prefill, "
+          f"twice)")
+    return dict(path=f"3y(a): {TRAIN_ARCH} ({cfg.num_layers} layers) prefill "
+                     f"and greedy_generate on a (1, 1) mesh, world-1 NCCL, "
+                     f"batch {b} x {prompt}, {steps} tokens",
+                launches=launches, seconds=secs)
+
+
+def sharded_serve_ranks(torch, np, get_config, smi: str, work) -> dict:
+    """Phase 3y (b): ``SHARDED_SERVE_RANKS`` gloo ranks spawned on cuda:0,
+    each run of ``SHARDED_SERVE_RUNS`` held to rank 0's one-process serve,
+    each rank's resident weights and cache to the reckoning from the
+    specs, its K6 calls to K6's contract and its launches counted."""
+    import torch.multiprocessing as mp
+
+    phase(f"phase 3y: {SHARDED_SERVE_RANKS} gloo ranks on cuda:0, "
+          f"{SHARDED_SERVE_LAYERS} layers at published widths in bf16, runs "
+          f"{[list(r) for r in SHARDED_SERVE_RUNS]}")
+    spec = dict(out=str(work), runs=SHARDED_SERVE_RUNS,
+                layers=SHARDED_SERVE_LAYERS)
+    t0 = time.perf_counter()
+    procs = mp.start_processes(
+        sharded_serve_rank, args=(SHARDED_SERVE_RANKS,
+                                  str(work / "gloo-store"), spec),
+        nprocs=SHARDED_SERVE_RANKS, join=False, start_method="spawn")
+    deadline = time.monotonic() + 600
+    while not procs.join(timeout=2):  # a failed rank raises here
+        if time.monotonic() > deadline:
+            for p in procs.processes:
+                p.kill()
+            raise RuntimeError("the gloo ranks did not finish in 600 s")
+    ranks_s = time.perf_counter() - t0
+    ranks = [json.loads((work / f"serve_rank{r}.json").read_text())
+             for r in range(SHARDED_SERVE_RANKS)]
+    print(f"{SHARDED_SERVE_RANKS} ranks spawned, run and joined in "
+          f"{ranks_s:.2f} s; {smi}")
+    paths = []
+    for i, (arch, shape, b, prompt, steps) in enumerate(SHARDED_SERVE_RUNS):
+        cfg = get_config(arch).replace(num_layers=SHARDED_SERVE_LAYERS)
+        extra = cfg.vision_tokens if cfg.family == "vlm" else 0
+        sizes = dict(data=shape[0], model=shape[1])
+        reck = serve_reckoning(cfg, sizes, b, prompt + extra + steps)
+        one = np.load(work / f"{arch}_one.npy")
+        per_rank = [r["runs"][i] for r in ranks]
+        n = b // shape[0]
+        errs = []
+        for r in range(SHARDED_SERVE_RANKS):
+            got = np.load(work / f"{arch}_r{r}.npy")
+            lo = (r // shape[1]) * n
+            errs.append(float(np.abs(got - one[lo:lo + n]).max()))
+        tol = SHARDED_SERVE_TOL[arch]
+        print(f"  {arch} on {shape}: batch {b} x {prompt}"
+              f"{f' + {extra} patches' if extra else ''}, {steps} "
+              f"teacher-forced steps; last-position logits max |Δ| against "
+              f"rank 0's one-process serve {[round(e, 4) for e in errs]} "
+              f"(limit {tol}); prefill "
+              f"{[round(x['prefill_s'], 3) for x in per_rank]} s a rank; K6 "
+              f"launches {[x['k6_launches'] for x in per_rank]}; K6 calls "
+              f"max |Δ| {max(x['k6_max_abs_err'] for x in per_rank):.3e}, "
+              f"row RMS {max(x['k6_row_rms'] for x in per_rank):.3e}; "
+              f"resident weights "
+              f"{[x['resident_weights'] for x in per_rank]} B (reckoned "
+              f"{reck['weights']}), cache "
+              f"{[x['resident_cache'] for x in per_rank]} B (reckoned "
+              f"{reck['cache']}); prefill peak "
+              f"{[round(x['peak'] / 2**30, 3) for x in per_rank]} GiB; {smi}")
+        check(all(e <= tol for e in errs),
+              f"{arch} on {shape}: every rank's teacher-forced last-position "
+              f"logits within {tol} of the one-process serve's")
+        check(all(x["resident_weights"] == reck["weights"]
+                  and x["resident_cache"] == reck["cache"]
+                  for x in per_rank),
+              f"{arch} on {shape}: every rank's resident weights and cache "
+              f"= the reckoning from the specs")
+        check(all(x["k6_calls"] == SHARDED_SERVE_LAYERS and x["k6_calls_ok"]
+                  for x in per_rank),
+              f"{arch} on {shape}: every rank's {SHARDED_SERVE_LAYERS} K6 "
+              f"calls within flash_within_tolerance and flash_row_rms on "
+              f"their inputs")
+        check(all(x["k6_launches"] == SHARDED_SERVE_LAYERS
+                  for x in per_rank),
+              f"{arch} on {shape}: {SHARDED_SERVE_LAYERS} K6 launches a "
+              f"rank's prefill, on its own heads")
+        paths.append(dict(
+            path=f"3y(b): {arch} ({SHARDED_SERVE_LAYERS} layers, bf16) "
+                 f"prefill on a {shape} mesh of {SHARDED_SERVE_RANKS} gloo "
+                 f"ranks on cuda:0, batch {b} x {prompt + extra}",
+            launches_per_rank=[x["k6_launches"] for x in per_rank],
+            prefill_s=[x["prefill_s"] for x in per_rank],
+            peak_bytes=[x["peak"] for x in per_rank],
+            logits_max_abs_err=max(errs),
+            k6_calls_max_abs_err=max(x["k6_max_abs_err"] for x in per_rank),
+            k6_calls_row_rms_max=max(x["k6_row_rms"] for x in per_rank),
+            resident_weights=[x["resident_weights"] for x in per_rank],
+            resident_cache=[x["resident_cache"] for x in per_rank]))
+    return dict(paths=paths, ranks=ranks, ranks_s=ranks_s)
+
+
+def dryrun_against_card(torch, np, dev, fa, flush, smi: str, ranks: dict,
+                        predicted: list, tc: dict) -> dict:
+    """Phase 3y (c): each rank's predicted prefill peak, K6 calls and bound
+    (the dry run on a fake 4-rank group) against (b)'s measurements; then
+    the paper core's dry-run cell (``lower_tc``, a fake 256-rank group)
+    and one rank's share launched through K4 on the card, its time beside
+    the priced bound."""
+    from repro_torch.core.engine import MatrixLaunch
+    from repro_torch.kernels.masked_spgemm import LAUNCHES as MS_LAUNCHES
+    from repro_torch.kernels.masked_spgemm import (
+        launch_order, masked_spgemm_gathered_chunked)
+    from repro_torch.kernels.masked_spgemm import \
+        reset_launch_counts as reset_ms_launch_counts
+
+    phase("phase 3y: the dry run's predictions for each rank (a fake "
+          "4-rank group, meta tensors) against the card")
+    rows = []
+    for i, (arch, shape, *_rest) in enumerate(SHARDED_SERVE_RUNS):
+        for r in range(SHARDED_SERVE_RANKS):
+            pred = predicted[r][arch]
+            got = ranks["ranks"][r]["runs"][i]
+            peak = pred["memory"]["peak_bytes"]
+            rows.append(dict(
+                arch=arch, mesh=list(shape), rank=r, predicted_peak=peak,
+                measured_peak=got["peak"],
+                predicted_k6=pred["kernels"].get("flash_attention", 0),
+                launched_k6=got["k6_launches"],
+                bound_s=pred["roofline"]["bound"],
+                dominant=pred["roofline"]["dominant"],
+                prefill_s=got["prefill_s"]))
+            print(f"  {arch} {shape} rank {r}: peak predicted "
+                  f"{peak / 2**30:.3f} GiB, measured "
+                  f"{got['peak'] / 2**30:.3f} GiB; K6 calls predicted "
+                  f"{rows[-1]['predicted_k6']}, launched {got['k6_launches']};"
+                  f" bound {pred['roofline']['bound'] * 1e3:.3f} ms "
+                  f"({pred['roofline']['dominant']}) against the measured "
+                  f"prefill {got['prefill_s'] * 1e3:.3f} ms; {smi}")
+    check(all(x["measured_peak"] <= DRYRUN_PEAK_SLACK * x["predicted_peak"]
+              + DRYRUN_PEAK_FLOOR
+              and x["predicted_peak"] <= DRYRUN_PEAK_SLACK * x["measured_peak"]
+              for x in rows),
+          f"every rank's measured prefill peak <= {DRYRUN_PEAK_SLACK} x the "
+          f"predicted + {DRYRUN_PEAK_FLOOR >> 20} MiB, and the predicted <= "
+          f"{DRYRUN_PEAK_SLACK} x the measured")
+    check(all(x["predicted_k6"] == x["launched_k6"] for x in rows),
+          "every rank's predicted K6 calls = its K6 launches")
+    check(all(x["bound_s"] <= x["prefill_s"] for x in rows),
+          "every rank's roofline bound <= its measured prefill seconds")
+    # the paper core: one rank's share of lower_tc's cell through K4
+    t, blk = tc["tiles_per_shard"], tc["block"]
+    rng = np.random.default_rng(31)
+    tiles = [torch.from_numpy((rng.random((t, blk, blk)) < 0.1).astype(
+        np.float32)).to(dev).bfloat16() for _ in range(2)]
+    idx = torch.arange(t, dtype=torch.int32, device=dev)
+    args = (tiles[0], tiles[1], tiles[1], idx, idx, idx,
+            launch_order(idx, idx))
+    fn = MatrixLaunch("kernel")
+    reset_ms_launch_counts()
+    total = fn(*args)
+    torch.cuda.synchronize()
+    launches = MS_LAUNCHES["masked_spgemm_wgmma"]
+    want = masked_spgemm_gathered_chunked(*args[:6]).to(torch.int64).sum()
+    ms = time_ms(torch, lambda: fn(*args), 50, flush)
+    plain_ms = time_ms(torch, lambda: masked_spgemm_gathered_chunked(
+        *args[:6]), 20, flush)
+    library_ms = time_ms(torch, lambda: spgemm_library_gathered(
+        torch, *args[:6]), 20, flush)
+    bound_ms = tc["roofline"]["bound"] * 1e3
+    k4_ms, k4_by = spgemm_bound_ms(t, blk, spgemm_read_bytes(torch, args))
+    print(f"lower_tc on a fake {tc['chips']}-rank group: {t} triples of "
+          f"{blk} a rank, predicted peak "
+          f"{tc['memory']['peak_bytes'] / 2**20:.2f} MiB, bound "
+          f"{bound_ms:.6f} ms ({tc['roofline']['dominant']}; K4's own "
+          f"{k4_ms:.6f} ms, {k4_by}), launches "
+          f"{tc['kernels']}; on the card one rank's share through K4: "
+          f"{ms:.6f} ms (the plain version {plain_ms:.6f} ms, the library "
+          f"call {library_ms:.6f} ms), total {int(total)} (plain "
+          f"{int(want)}), {launches} launch; {smi}")
+    check(int(total) == int(want), "K4's share of the dry-run cell = its "
+                                   "plain version")
+    check(launches == 1 and tc["kernels"] == {"masked_spgemm_wgmma": 1},
+          "one K4 launch, as the dry run traced")
+    check(bound_ms <= ms and k4_ms <= ms,
+          "the priced bound (and K4's own) <= the measured time")
+    return dict(dryrun=rows, tc=dict(
+        path=f"3y(c): lower_tc's share of one of {tc['chips']} ranks, "
+             f"{t} triples of {blk} (bf16), through MatrixLaunch",
+        launches=launches, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms=k4_ms, bound_by=k4_by, dryrun_bound_ms=bound_ms,
+        dryrun_dominant=tc["roofline"]["dominant"],
+        predicted_peak_bytes=tc["memory"]["peak_bytes"]))
+
+
 def main() -> int:
     # torch.compile (the flex_attention yardstick of phase 4c) caches its
     # kernels inside the checkout's git-ignored build directory
@@ -6222,6 +6772,8 @@ def main() -> int:
     train_cut = train_cut_phase(torch, np, dev, get_config, get_model, fa)
     sharded_train = sharded_train_phase(torch, np, dev, get_config, get_model,
                                         fa, train, smi)
+    sharded_serve = sharded_serve_phase(torch, np, dev, get_config, get_model,
+                                        greedy_generate, fa, flush, smi)
     # K6's launches on each serving path of this slice, each read around
     # its own greedy_generate
     k6["serve_paths"] = [
@@ -6245,6 +6797,14 @@ def main() -> int:
     # the sharded training paths: K6 on each rank's local heads
     k6["sharded_train_paths"] = sharded_train["paths"]
     k6["sharded_training"] = sharded_train
+    # the sharded serving paths: K6 on each rank's heads, launches read
+    # around each prefill; the dry run held to them; K4's share of the
+    # paper core's dry-run cell
+    k6["sharded_serve_paths"] = sharded_serve["paths"]
+    k6["sharded_serving"] = dict(dryrun=sharded_serve["dryrun"],
+                                 seconds=sharded_serve["seconds"])
+    next(x for x in report if x["name"] == "masked_spgemm")["dryrun_tc"] = \
+        sharded_serve["tc"]
     grad_launches = {r["label"].split(" (")[0]: r["launches_per_step"]
                      for r in grad["shapes"]}
     check(train["launches_per_step"]

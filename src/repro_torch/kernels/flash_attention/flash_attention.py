@@ -24,6 +24,14 @@ Where the Pallas kernel asserts that S and T divide its tiles, the CUDA
 kernels take any S and T. Head dims 64, 128 and 256 (the dense configs'
 widths) are compiled; any other raises ``ValueError`` on either device.
 
+On ``meta`` tensors (the dry run, ``repro_torch.launch.dryrun``) the
+wrapper is shape-only: it returns ``torch.empty_like(q)`` on ``meta``,
+records the work the kernel would do on those inputs in the active tally
+(``launch.op_cost.record_kernel``: 4·hd FLOPs a valid (query, key) pair a
+q head, ``flash_pairs``, and q, k, v read and the output written once),
+and builds and launches nothing. The chunked plain path is never modelled
+there: its chunk tensors are not what the card allocates.
+
 The wrapper checks its inputs, allocates the output with ``torch.empty``,
 launches on PyTorch's current stream, raises if the launch reported a CUDA
 error, and adds one to ``LAUNCHES["flash_attention"]``. Launches happen
@@ -59,6 +67,7 @@ __all__ = [
     "LAUNCHES",
     "check_flash_inputs",
     "flash_attention_kernel",
+    "flash_pairs",
     "reset_launch_counts",
 ]
 
@@ -125,6 +134,44 @@ def check_flash_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"S·G must fit int32 and B·Hkv the grid (65535)")
 
 
+def flash_pairs(s: int, t: int, *, causal: bool, window: Optional[int],
+                prefix_len: int = 0) -> int:
+    """The (query, key) pairs K6's mask keeps for one head of one row: query
+    i at position i, key j at j, kept when ``j <= i`` (causal) and ``i - j
+    < window``, or when ``j < prefix_len``. Counted on the host in numpy
+    (no torch op: a dry run's tally sees none)."""
+    import numpy as np
+
+    i = np.arange(s, dtype=np.int64)
+    hi = np.minimum(i, t - 1) if causal else np.full_like(i, t - 1)
+    lo = np.zeros_like(i) if window is None else np.maximum(
+        i - int(window) + 1, 0)
+    kept = np.maximum(hi - lo + 1, 0)
+    pre = min(int(prefix_len), t)
+    if pre:
+        both = np.maximum(np.minimum(hi, pre - 1) - lo + 1, 0)
+        kept = kept + pre - both
+    return int(kept.sum())
+
+
+def _shape_only(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                causal: bool, window: Optional[int],
+                prefix_len: int) -> torch.Tensor:
+    """K6 on ``meta`` tensors: its output's shape and dtype, and its work
+    recorded in the active tally."""
+    from repro_torch.launch.op_cost import record_kernel
+
+    b, s, hq, hd = (int(x) for x in q.shape)
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    pairs = flash_pairs(s, int(k.shape[1]), causal=causal, window=window,
+                        prefix_len=prefix_len)
+    size = q.element_size()
+    record_kernel("flash_attention", flops=4.0 * hd * pairs * b * hq,
+                  dtype=q.dtype, bytes_read=size * (q.numel() + 2 * k.numel()),
+                  bytes_written=size * out.numel())
+    return out
+
+
 def _aligned(x: torch.Tensor) -> torch.Tensor:
     """Contiguous and 16-byte aligned (the kernels' vector loads). With hd
     in ``HEAD_DIMS`` (all >= 64), every stride of a contiguous 16-bit k or
@@ -139,7 +186,9 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            cap: Optional[float] = None,
                            prefix_len: int = 0) -> torch.Tensor:
     """Forward attention: K6 on CUDA tensors, the plain version
-    (``flash_attention_ref``) on CPU tensors.
+    (``flash_attention_ref``) on CPU tensors, shape-only on ``meta``
+    tensors (the output's shape and dtype, the work recorded in the active
+    ``launch.op_cost`` tally).
 
     Args:
       q: (B, S, Hq, hd); k, v: (B, T, Hkv, hd), one dtype (fp32, bf16 or
@@ -170,6 +219,9 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dev.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    cap=cap, prefix_len=prefix_len)
+    if dev.type == "meta":
+        return _shape_only(q, k, v, causal=causal, window=window,
+                           prefix_len=prefix_len)
     if dev.type != "cuda":
         raise ValueError(f"the flash_attention kernel takes CUDA tensors, got "
                          f"{dev}")

@@ -22,6 +22,13 @@ to float32 and runs the batched product there. ``masked_spgemm_kernel``
 keeps the stacked form: float32 (T, B, B) stacks, read through identity
 indices.
 
+On ``meta`` tensors (the dry run's ``lower_tc``) ``masked_spgemm_gathered``
+is shape-only: it returns a (T,) float32 ``meta`` tensor and records the
+kernel's work on those inputs in the active tally
+(``launch.op_cost.record_kernel``: 2·T·B³ FLOPs in the tiles' type; the
+tiles, the indices and the order read once, the partials written), and
+builds and launches nothing.
+
 The wrappers check their inputs, allocate the (T,) float32 output with
 ``torch.empty``, launch on PyTorch's current stream, raise if the launch
 reported a CUDA error, and add one to the route's counter. Launches happen
@@ -200,7 +207,8 @@ def masked_spgemm_gathered(l_blocks: torch.Tensor, u_blocks: torch.Tensor,
                            ) -> torch.Tensor:
     """Per-triple ``sum(a_blocks[a_index[t]] ∘ (l_blocks[l_index[t]] @
     u_blocks[u_index[t]]))``: K4 on CUDA tensors, the plain version on CPU
-    tensors.
+    tensors, shape-only on ``meta`` tensors (the work recorded in the
+    active ``launch.op_cost`` tally).
 
     Args:
       l_blocks, u_blocks, a_blocks: (n, B, B) 0/1 tile arrays, all float32
@@ -231,6 +239,18 @@ def masked_spgemm_gathered(l_blocks: torch.Tensor, u_blocks: torch.Tensor,
     if dev.type == "cpu":
         return masked_spgemm_gathered_chunked(l_blocks, u_blocks, a_blocks,
                                               l_index, u_index, a_index)
+    if dev.type == "meta":
+        from repro_torch.launch.op_cost import record_kernel
+
+        out = torch.empty(t, dtype=torch.float32, device=dev)
+        tiles = {id(x): x for x in (l_blocks, u_blocks, a_blocks)}
+        read = sum(x.numel() * x.element_size() for x in tiles.values()) \
+            + 4 * t * (3 + int(order is not None))
+        record_kernel("masked_spgemm_wgmma" if l_blocks.dtype == torch.bfloat16
+                      else "masked_spgemm", flops=2.0 * t * b ** 3,
+                      dtype=l_blocks.dtype, bytes_read=read,
+                      bytes_written=4 * t)
+        return out
     if dev.type != "cuda":
         raise ValueError(f"the masked_spgemm kernels take CUDA tensors, got {dev}")
     wgmma = l_blocks.dtype == torch.bfloat16

@@ -29,16 +29,33 @@ sync that ends a ``count()``, so a price is a lower bound on a stage's
 time. It is monotone in the work a lane gives the card, which is what
 ranking lanes needs (``core.calibrate.analytic_seed``). Nothing here
 launches a kernel or reads device memory.
+
+``roofline_terms`` is the counterpart of the reference's function of that
+name for a dry-run cell (``launch.dryrun``): the three terms of one rank's
+traced step (``launch.op_cost.OpCost``) at the card's rates,
+
+  compute    = Σ FLOPs of each dtype / its rate (bf16 and fp16 products
+               on the tensor cores, fp32 outside them: TF32 is off)
+  memory     = HBM bytes (the aten ops' and the kernels') / HBM rate
+  collective = Σ wire bytes of each collective / the rate of the slowest
+               link its group crosses
+
+with the reference's ring factors (``RING_FACTORS``). Ranks sit
+``RANKS_PER_NODE`` to a node in mesh order (rank // 8 is the node): a
+group within one node is priced at NVLink's rate, one that spans nodes
+at one InfiniBand link's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, Optional, Sequence
+from typing import Dict, Iterable, Optional, Sequence
 
 import torch
 
-__all__ = ["HW", "StageCost", "plan_seconds", "price_stage", "stage_cost"]
+__all__ = ["HW", "RANKS_PER_NODE", "RING_FACTORS", "RooflineResult",
+           "StageCost", "link_rate", "plan_seconds", "price_stage",
+           "roofline_terms", "stage_cost"]
 
 # NVIDIA H100 SXM5 80GB (the card the port runs on, "NVIDIA H100 80GB
 # HBM3"): NVIDIA's data sheet, dense rates at the 700 W limit
@@ -48,7 +65,31 @@ HW = dict(
     alu_ops=67e12,         # 32-bit operations/s outside the tensor cores
     bf16_flops=989e12,     # tensor-core bf16 FLOP/s
     fp32_flops=67e12,      # fp32 FLOP/s outside the tensor cores
+    # NVLink 4 within an 8-card HGX H100 node: 900 GB/s a card both ways,
+    # 450 GB/s a direction (NVIDIA H100 data sheet)
+    nvlink_bw=450e9,       # bytes/s a direction, a card
+    # across nodes: one 400 Gb/s NDR InfiniBand link a card (ConnectX-7,
+    # the DGX H100 reference design), 50 GB/s a direction
+    ib_bw=50e9,            # bytes/s a direction, a card
 )
+
+#: Cards a node (an HGX H100 board); ranks fill nodes in mesh order.
+RANKS_PER_NODE = 8
+
+#: Wire bytes of one rank a payload byte, by collective kind, for a group
+#: of n ranks: the ring algorithms' factors (the reference's
+#: ``collective_bytes``).
+RING_FACTORS = {
+    "all-reduce": lambda n: 2.0 * (n - 1) / n,
+    "all-gather": lambda n: (n - 1) / n,
+    "reduce-scatter": lambda n: (n - 1) / n,
+    "all-to-all": lambda n: (n - 1) / n,
+    "collective-permute": lambda n: 1.0,
+}
+
+# FLOP rates by dtype name: the tensor cores for 16-bit products, the
+# CUDA cores for fp32 (TF32 off) and anything else
+_FLOP_RATES = {"bfloat16": HW["bf16_flops"], "float16": HW["bf16_flops"]}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,3 +199,70 @@ def price_stage(stage) -> StageCost:
 def plan_seconds(plan) -> float:
     """The sum of the stage bounds of a ``TrianglePlan``'s ``count()``."""
     return float(sum(price_stage(st).seconds for st in plan.stages))
+
+
+def link_rate(ranks) -> float:
+    """The rate (bytes/s a direction) of the slowest link a collective
+    over global ``ranks`` crosses: NVLink within one node, InfiniBand
+    across nodes."""
+    nodes = {int(r) // RANKS_PER_NODE for r in ranks}
+    return HW["nvlink_bw"] if len(nodes) <= 1 else HW["ib_bw"]
+
+
+@dataclasses.dataclass
+class RooflineResult:
+    """One rank's three roofline terms (seconds) and what they price; the
+    reference's record, with the collectives also by link."""
+
+    flops: float
+    flops_by_dtype: Dict[str, float]
+    hbm_bytes: float
+    coll_bytes: float
+    coll_by_kind: Dict[str, float]
+    coll_by_link: Dict[str, float]
+    t_compute: float
+    t_memory: float
+    t_collective: float
+    dominant: str
+    model_flops: float
+    useful_ratio: float
+
+    @property
+    def bound(self) -> float:
+        """The step's least time: the largest of the three terms."""
+        return max(self.t_compute, self.t_memory, self.t_collective)
+
+    def as_dict(self) -> dict:
+        return dict(dataclasses.asdict(self), bound=self.bound)
+
+
+def roofline_terms(tally, *, model_flops_per_chip: float) -> RooflineResult:
+    """The terms of one rank's traced step ``tally`` (an ``OpCost``): the
+    aten ops' and the kernels' FLOPs by dtype and HBM bytes, and the
+    collectives' wire bytes, each at its rate."""
+    flops: Dict[str, float] = dict(tally.flops)
+    hbm = float(tally.bytes_read + tally.bytes_written)
+    for k in tally.kernels:
+        flops[k["dtype"]] = flops.get(k["dtype"], 0.0) + k["flops"]
+        hbm += k["bytes_read"] + k["bytes_written"]
+    t_c = sum(f / _FLOP_RATES.get(d, HW["fp32_flops"])
+              for d, f in flops.items())
+    by_kind: Dict[str, float] = {}
+    by_link = {"nvlink": 0.0, "infiniband": 0.0}
+    t_n = 0.0
+    for c in tally.collectives:
+        by_kind[c["kind"]] = by_kind.get(c["kind"], 0.0) + c["wire"]
+        rate = link_rate(c["ranks"])
+        by_link["nvlink" if rate == HW["nvlink_bw"] else "infiniband"] += \
+            c["wire"]
+        t_n += c["wire"] / rate
+    t_m = hbm / HW["hbm_bw"]
+    total = float(sum(flops.values()))
+    dominant = max((("compute", t_c), ("memory", t_m), ("collective", t_n)),
+                   key=lambda kv: kv[1])[0]
+    return RooflineResult(
+        flops=total, flops_by_dtype=flops, hbm_bytes=hbm,
+        coll_bytes=float(sum(by_kind.values())), coll_by_kind=by_kind,
+        coll_by_link=by_link, t_compute=t_c, t_memory=t_m, t_collective=t_n,
+        dominant=dominant, model_flops=float(model_flops_per_chip),
+        useful_ratio=(model_flops_per_chip / total) if total else 0.0)

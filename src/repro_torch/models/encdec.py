@@ -33,6 +33,13 @@ the encoder memory only through them. The cache holds ``k`` / ``v``
 cache, or past the position table, raises ``ValueError``, where the
 reference's ``dynamic_update_slice`` / ``dynamic_slice`` clamp the index
 (ROADMAP R12); so does a prompt longer than either.
+
+Under an active mesh serving is SPMD as ``TransformerLM``'s: ``prefill``
+takes the global batch and runs this rank's rows, ``decode_step`` this
+rank's rows' tokens, the parameters gathered block by block, and the
+caches are this rank's shards (``train.sharding.local_cache``): split
+over the kv heads where ``"model"`` divides them, else over the sequence
+(``layers.cache_decode_attention``, ``layers.cache_cross_attention``).
 """
 
 from __future__ import annotations
@@ -44,12 +51,17 @@ from torch import nn
 
 from repro_torch.graphs.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import meshctx
 from repro_torch.models.config import ModelConfig
+from repro_torch.train.sharding import layer_shards, new_cache, serve_rows
 
 __all__ = ["MAX_DECODE_POS", "WhisperModel", "sinusoid"]
 
 #: Rows of the learned decoder position table.
 MAX_DECODE_POS = 65536
+
+# the cache's per-layer leaves, in the order a layer writes them
+_CACHE_LEAVES = ("k", "v", "xk", "xv")
 
 
 def sinusoid(t: int, d: int, device=None) -> torch.Tensor:
@@ -174,25 +186,34 @@ class WhisperModel(nn.Module):
         return tuple(self._qkv(p["xattn"], memory, ("wk", "wv")))
 
     def _dec_layer(self, p, x: torch.Tensor, cross: Tuple[torch.Tensor, ...],
-                   *, cache=None, cur_pos: Optional[int] = None):
+                   *, cache=None, cur_pos: Optional[int] = None,
+                   shards=None):
         """One decoder layer over x (B, S, d) with ``cross = (xk, xv)``.
         Without ``cache``: causal self-attention over the positions
         ``arange(S)``; returns (x, (k, v)) for cache emission. With
         ``cache = (ck, cv)``, one token: its k and v written at ``cur_pos``
-        in place, attention over the cache."""
+        in place, attention over the cache (``shards``: the layer's
+        ``CacheShard``s of k, v and xk under a mesh)."""
         cfg = self.cfg
         q, k, v = self._qkv(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps))
         if cache is None:
             att = L.attention(q, k, v, backend=self.attn_backend)
         else:
             ck, cv = cache
-            ck[:, cur_pos] = k[:, 0]
-            cv[:, cur_pos] = v[:, 0]
-            att = L.decode_attention(q, ck, cv, cur_pos=cur_pos)
+            L.cache_write(ck, k, cur_pos, shards and shards[0])
+            L.cache_write(cv, v, cur_pos, shards and shards[1])
+            att = L.cache_decode_attention(q, ck, cv, cur_pos=cur_pos,
+                                           shard=shards and shards[0])
         x = x + self._out(p["attn"], att)
         h = L.rmsnorm(p["ln_x"], x, cfg.norm_eps)
         qx = self._qkv(p["xattn"], h, ("wq",))[0]
-        attx = L.attention(qx, *cross, causal=False, backend=self.attn_backend)
+        if cache is None:
+            attx = L.attention(qx, *cross, causal=False,
+                               backend=self.attn_backend)
+        else:
+            attx = L.cache_cross_attention(qx, *cross,
+                                           shard=shards and shards[2],
+                                           backend=self.attn_backend)
         x = x + self._out(p["xattn"], attx)
         x = x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps), "gelu")
         return x, (k, v)
@@ -211,17 +232,19 @@ class WhisperModel(nn.Module):
     def _decode(self, batch: Dict[str, torch.Tensor], cache):
         """Encode, then the decoder over the prompt, returning the logits:
         each layer's k and v go straight into ``cache["k"][i, :, :S]`` (and
-        ``v``) and its cross K/V into ``xk`` / ``xv``."""
+        ``v``) and its cross K/V into ``xk`` / ``xv`` (this rank's blocks
+        of them under a mesh)."""
         x = self._embed_prompt(batch["tokens"])
         memory = self.encode(batch["frames"])
-        s = x.shape[1]
+        shards = layer_shards(cache, _CACHE_LEAVES)
         for i, p in enumerate(self.dec_layers):
-            cross = self._cross_kv(p, memory)
-            x, (k, v) = self._dec_layer(p, x, cross)
-            cache["k"][i, :, :s] = k
-            cache["v"][i, :, :s] = v
-            cache["xk"][i] = cross[0]
-            cache["xv"][i] = cross[1]
+            with meshctx.gathered([p]):
+                cross = self._cross_kv(p, memory)
+                x, (k, v) = self._dec_layer(p, x, cross)
+            for j, val in enumerate((k, v) + cross):
+                L.cache_write(cache[_CACHE_LEAVES[j]][i], val, 0,
+                              shards and shards[j])
+            del k, v, cross
         return self._logits(x)
 
     # ----------------------------------------------------------- forwards
@@ -252,25 +275,31 @@ class WhisperModel(nn.Module):
                    dtype: Optional[torch.dtype] = None) -> Dict[str, object]:
         """Zero self caches ``k`` / ``v`` (L, B, max_len, kv, hd) and cross
         caches ``xk`` / ``xv`` (L, B, encoder_seq, kv, hd) (the weights'
-        dtype unless given) and ``pos = 0`` (a host int)."""
+        dtype unless given) and ``pos = 0`` (a host int). Under an active
+        mesh ``batch`` is the global batch and only this rank's shard is
+        allocated (``sharding.new_cache``)."""
         cfg = self.cfg
         dtype = self.embed.dtype if dtype is None else dtype
         kv = (cfg.num_layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
         xkv = (cfg.num_layers, batch, cfg.encoder_seq, cfg.kv_heads,
                cfg.head_dim)
-        dev = self.device
-        return {"k": torch.zeros(kv, dtype=dtype, device=dev),
-                "v": torch.zeros(kv, dtype=dtype, device=dev),
-                "xk": torch.zeros(xkv, dtype=dtype, device=dev),
-                "xv": torch.zeros(xkv, dtype=dtype, device=dev),
-                "pos": 0}
+
+        def build(dev):
+            return {"k": torch.zeros(kv, dtype=dtype, device=dev),
+                    "v": torch.zeros(kv, dtype=dtype, device=dev),
+                    "xk": torch.zeros(xkv, dtype=dtype, device=dev),
+                    "xv": torch.zeros(xkv, dtype=dtype, device=dev),
+                    "pos": 0}
+        return new_cache(build, batch, self.device)
 
     @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor], max_len: int
                 ) -> Tuple[torch.Tensor, Dict[str, object]]:
         """Encode, then the teacher-forced decoder over the prompt, emitting
         the caches: returns (logits (B, S, padded vocab) fp32, cache with
-        ``pos = S``). Each layer's self k and v are computed once.
+        ``pos = S``). Each layer's self k and v are computed once. Under
+        an active mesh ``batch`` is the global batch; the logits are this
+        rank's rows and the cache its shard.
 
         Raises:
           ValueError: S > max_len, or the frames are not (B, encoder_seq,
@@ -286,8 +315,12 @@ class WhisperModel(nn.Module):
         if s > max_len:
             raise ValueError(f"a prompt of {s} tokens exceeds max_len "
                              f"{max_len}")
-        cache = self.init_cache(b, max_len)
-        logits = self._decode(batch, cache)
+        mesh = meshctx.active_mesh()
+        if mesh is not None:
+            batch = serve_rows(batch, mesh)
+        with meshctx.gathered([self], skip=(nn.ModuleList,)):
+            cache = self.init_cache(b, max_len)
+            logits = self._decode(batch, cache)
         cache["pos"] = s
         return logits, cache
 
@@ -296,23 +329,29 @@ class WhisperModel(nn.Module):
                     ) -> Tuple[torch.Tensor, Dict[str, object]]:
         """tokens (B, 1): one token against the self cache and the cross
         K/V; returns (logits (B, 1, padded vocab) fp32, cache), the cache
-        updated in place and its ``pos`` advanced by one.
+        updated in place and its ``pos`` advanced by one. Under an active
+        mesh, ``tokens`` and the logits are this rank's rows.
 
         Raises:
           ValueError: ``pos`` past the cache's last slot or the position
-            table, where the reference would clamp it (ROADMAP R12).
+            table, where the reference would clamp it (ROADMAP R12); under
+            a mesh on every rank.
         """
         pos = int(cache["pos"])
-        max_len = cache["k"].shape[2]
+        shards = layer_shards(cache, _CACHE_LEAVES)
+        max_len = shards[0].shape[1] if shards else cache["k"].shape[2]
         if pos >= min(max_len, MAX_DECODE_POS):
             raise ValueError(f"decode at position {pos}: the cache holds "
                              f"{max_len} slots and the position table "
                              f"{MAX_DECODE_POS} rows (max_len must cover the "
                              f"prompt and every decoded token)")
-        x = self.embed[tokens] + self.dec_pos[pos][None, None]
-        for i, p in enumerate(self.dec_layers):
-            x, _ = self._dec_layer(p, x, (cache["xk"][i], cache["xv"][i]),
-                                   cache=(cache["k"][i], cache["v"][i]),
-                                   cur_pos=pos)
-        cache["pos"] = pos + 1
-        return self._logits(x), cache
+        with meshctx.gathered([self], skip=(nn.ModuleList,)):
+            x = self.embed[tokens] + self.dec_pos[pos][None, None]
+            for i, p in enumerate(self.dec_layers):
+                with meshctx.gathered([p]):
+                    x, _ = self._dec_layer(
+                        p, x, (cache["xk"][i], cache["xv"][i]),
+                        cache=(cache["k"][i], cache["v"][i]), cur_pos=pos,
+                        shards=shards)
+            cache["pos"] = pos + 1
+            return self._logits(x), cache

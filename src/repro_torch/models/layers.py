@@ -33,7 +33,8 @@ chunked scan on the same inputs (the reference differentiates its jnp
 path; it has no backward kernel).
 ``decode_attention`` and the hybrid's ring-buffer decode
 (``repro_torch.models.rglru.ring_decode_attention``) are plain torch on
-every device.
+every device. On ``meta`` tensors (the dry run) ``attention`` takes the
+kernel path, where K6's wrapper is shape-only, never the chunked scan.
 
 ``moe`` is the reference's grouped capacity-based top-k dispatch in plain
 torch (the reference has no Pallas kernel for it): the one-hot (B, S, E, C)
@@ -50,7 +51,15 @@ this rank's heads, then gathers the heads; ``moe`` runs this rank's
 experts (the expert input cut over ``"model"``, the expert stacks held
 split) and takes its load-balance means over the whole batch; ``remat``
 gathers a block's sharded parameters inside the block, so a recomputed
-block gathers them again. Without a mesh each is the one-card code.
+block gathers them again. Serving under a mesh reads its KV cache as this
+rank's shard (``train.sharding.local_cache``; ``cache_write`` writes a
+prompt's or a token's k and v into it, ``cache_decode_attention`` and
+``cache_cross_attention`` attend over it): a cache split over the kv
+heads attends on this rank's heads and gathers them; a cache split over
+the sequence (flash-decode style) attends over the live keys this rank
+holds (``decode_attention_partial``) and the ranks merge by their
+log-sum-exp (``meshctx.lse_merge``). Without a mesh each is the one-card
+code.
 """
 
 from __future__ import annotations
@@ -73,7 +82,11 @@ __all__ = [
     "NO_WINDOW",
     "ParamTree",
     "attention",
+    "cache_cross_attention",
+    "cache_decode_attention",
+    "cache_write",
     "decode_attention",
+    "decode_attention_partial",
     "dense",
     "dense_init",
     "dequantize_kv",
@@ -522,6 +535,123 @@ def decode_attention(
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgt,bthd->bhgd", p, v_cache[:, lo:pos + 1].float())
     return out.reshape(b, 1, hq, hd).to(q.dtype)
+
+
+def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, cap: Optional[float] = None):
+    """One query's attention over keys ``k``, ``v`` (B, T, Hkv, hd), every
+    one of them live, in the partial form a merge needs: (out (B, Hkv, G,
+    hd) = Σ exp(x − m)·v in fp32, m (B, Hkv, G) the largest logit x, l =
+    Σ exp(x − m)), with m = −inf, l = 0 and out = 0 for T = 0."""
+    b, _, hq, hd = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, hkv, g, hd).float()
+    if t == 0:
+        return (torch.zeros((b, hkv, g, hd), dtype=torch.float32,
+                            device=q.device),
+                torch.full((b, hkv, g), -math.inf, dtype=torch.float32,
+                           device=q.device),
+                torch.zeros((b, hkv, g), dtype=torch.float32,
+                            device=q.device))
+    logits = torch.einsum("bhgd,bthd->bhgt", qg, k.float())
+    logits = logits / math.sqrt(hd)
+    if cap is not None:
+        logits = softcap(logits, cap)
+    m = logits.amax(dim=-1)
+    p = torch.exp(logits - m[..., None])
+    return torch.einsum("bhgt,bthd->bhgd", p, v.float()), m, p.sum(dim=-1)
+
+
+def cache_write(c: torch.Tensor, x: torch.Tensor, start: int,
+                shard=None) -> None:
+    """Write ``x`` (B, S, ...) at positions [start, start + S) of dim 1 of
+    the cache slice ``c`` (B, T, ...), in place. With ``shard`` (a
+    ``train.sharding.CacheShard`` of ``c``'s layer) ``c`` is this rank's
+    block: only the positions it holds are written, and only its block of
+    the later dims (its kv heads)."""
+    s = x.shape[1]
+    if shard is None:
+        c[:, start:start + s] = x
+        return
+    t0, t1 = shard.ranges[1]
+    a, e = max(start, t0), min(start + s, t1)
+    if a >= e:
+        return
+    rest = tuple(slice(lo, hi) for lo, hi in shard.ranges[2:x.dim()])
+    c[:, a - t0:e - t0] = x[(slice(None), slice(a - start, e - start))
+                            + rest]
+
+
+def cache_decode_attention(q: torch.Tensor, ck: torch.Tensor,
+                           cv: torch.Tensor, *, cur_pos: int,
+                           window: int = NO_WINDOW,
+                           cap: Optional[float] = None, scales=None,
+                           shard=None) -> torch.Tensor:
+    """One token's attention (q (B, 1, Hq, hd)) over a layer's KV cache
+    ``ck``, ``cv`` (B, T, Hkv, hd), as ``decode_attention``; with
+    ``scales`` = (k_scale, v_scale) (B, T, Hkv) the cache is int8 and only
+    the live keys are dequantized. ``shard`` (the k leaf's
+    ``CacheShard`` of this layer) says which block of a cache split under
+    the active mesh this rank holds: its kv heads (q's heads that read
+    them run here, and the output's heads are gathered over ``"model"``),
+    or its positions (its live keys attend in partial form and the ranks
+    merge, ``meshctx.lse_merge``); ``scales`` stay whole over heads and
+    positions, as ``cache_specs`` splits 4-D leaves over the batch only."""
+    pos = int(cur_pos)
+    lo = max(0, pos + 1 - int(window))
+    if shard is None or not shard.split:
+        if scales is None:
+            return decode_attention(q, ck, cv, cur_pos=pos, window=window,
+                                    cap=cap)
+        ks, vs = scales
+        kd = dequantize_kv(ck[:, lo:pos + 1], ks[:, lo:pos + 1], q.dtype)
+        vd = dequantize_kv(cv[:, lo:pos + 1], vs[:, lo:pos + 1], q.dtype)
+        return decode_attention(q, kd, vd, cur_pos=pos - lo, window=window,
+                                cap=cap)
+    b, _, hq, hd = q.shape
+    (t0, t1), (h0, h1) = shard.ranges[1], shard.ranges[2]
+    if (h0, h1) != (0, shard.shape[2]):  # this rank's kv heads
+        g = hq // shard.shape[2]
+        if scales is not None:
+            scales = tuple(x[..., h0:h1] for x in scales)
+        out = cache_decode_attention(q[:, :, h0 * g:h1 * g], ck, cv,
+                                     cur_pos=pos, window=window, cap=cap,
+                                     scales=scales)
+        return meshctx.whole(out, 2, "model")
+    # this rank's positions [t0, t1): its live keys, merged over "model"
+    a, e = max(lo, t0), min(pos + 1, t1)
+    e = max(a, e)
+    if scales is None:
+        kl, vl = ck[:, a - t0:e - t0], cv[:, a - t0:e - t0]
+    else:
+        ks, vs = scales
+        kl = dequantize_kv(ck[:, a - t0:e - t0], ks[:, a:e], q.dtype)
+        vl = dequantize_kv(cv[:, a - t0:e - t0], vs[:, a:e], q.dtype)
+    out = meshctx.lse_merge(*decode_attention_partial(q, kl, vl, cap=cap))
+    return out.reshape(b, 1, hq, hd).to(q.dtype)
+
+
+def cache_cross_attention(q: torch.Tensor, xk: torch.Tensor,
+                          xv: torch.Tensor, *, shard=None,
+                          backend: str = "kernel") -> torch.Tensor:
+    """Non-causal attention of one token's q (B, 1, Hq, hd) over every key
+    of a cached ``xk``, ``xv`` (B, T, Hkv, hd) (whisper's decode
+    cross-attention): ``attention`` when the cache is whole; on a cache
+    split by kv heads (``shard``), this rank's heads through
+    ``attention``'s path (K6 on a card) and the heads gathered; split by
+    positions, ``cache_decode_attention`` with every key live."""
+    if shard is None or not shard.split:
+        return attention(q, xk, xv, causal=False, backend=backend)
+    (h0, h1), hkv = shard.ranges[2], shard.shape[2]
+    if (h0, h1) == (0, hkv):
+        return cache_decode_attention(q, xk, xv, cur_pos=shard.shape[1] - 1,
+                                      shard=shard)
+    g = q.shape[2] // hkv
+    out = _attend(q[:, :, h0 * g:h1 * g], xk, xv, q_pos=None, k_pos=None,
+                  window=NO_WINDOW, causal=False, prefix_len=0, cap=None,
+                  chunk=1024, backend=backend)
+    return meshctx.whole(out, 2, "model")
 
 
 def init_attention_block(gen: Optional[torch.Generator], cfg,

@@ -33,8 +33,16 @@ is SPMD, one process a rank, and these functions are where ranks meet:
   Expert stacks (``expert_parallel``) keep their ``"model"`` split: each
   rank runs its own experts (``layers.moe``).
 
-A sharded parameter read anywhere else (no active mesh, or a path the
-port does not shard, such as serving) raises: PyTorch refuses to mix
+Serving under a mesh (the models' ``prefill`` and ``decode_step``, and
+``train.serve_step.greedy_generate``) gathers parameters as training does,
+each block's inside the block and the others around the whole step, and
+runs on this rank's rows of the batch. Its KV cache is this rank's shard
+(``train.sharding.local_cache``); over a cache split by sequence the
+ranks' partial attentions meet in ``lse_merge``. ``gather_rows`` gives
+every rank the whole batch's rows of an output.
+
+A sharded parameter read anywhere else (no active mesh, or outside a
+gathered block) raises: PyTorch refuses to mix
 ``DTensor`` and plain tensor arguments, so no op falls back to a silent
 replicate. Every collective here is a plain ``torch.distributed`` call
 on the mesh's process groups.
@@ -53,7 +61,8 @@ import torch.distributed as dist
 
 __all__ = ["activation_mesh", "active_mesh", "batch_axes", "batch_mean",
            "batch_sum", "constrain", "full_value", "gather_param", "gathered",
-           "head_split", "local_heads", "run_gathered", "whole"]
+           "gather_rows", "head_split", "local_heads", "lse_merge",
+           "run_gathered", "whole"]
 
 _ACTIVE = None
 
@@ -265,6 +274,42 @@ def local_heads(q, k, v) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
         k_loc = _take(k, 2, kv, "model", mesh)
         v_loc = _take(v, 2, kv, "model", mesh)
     return q_loc, k_loc, v_loc, lambda o: whole(o, 2, "model")
+
+
+def lse_merge(out: torch.Tensor, m: torch.Tensor, l: torch.Tensor
+              ) -> torch.Tensor:
+    """Merge partial attentions over ``"model"`` of the active mesh: each
+    rank's (out = Σ exp(x − m)·v, m, l = Σ exp(x − m)) over its keys
+    (``layers.decode_attention_partial``). The largest m is all-reduced,
+    then the rescaled out and l in one all-reduce; returns Σ out / Σ l,
+    (..., hd) fp32. Without a mesh (or a model axis of one rank) the one
+    partial normalised."""
+    mesh = _ACTIVE
+    if mesh is not None and "model" in _names(mesh) \
+            and _size(mesh, "model") > 1:
+        group = mesh.get_group("model")
+        top = m.clone()
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+        w = torch.exp(m - top)
+        packed = torch.cat([out * w[..., None], (l * w)[..., None]], dim=-1)
+        dist.all_reduce(packed, group=group)
+        out, l = packed[..., :-1], packed[..., -1]
+    return out / l[..., None]
+
+
+def gather_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """The whole batch of ``x`` (this rank's rows leading) from every data
+    rank of the active mesh, in row order; ``x`` itself without a mesh or
+    when it already holds all ``rows`` rows (a batch the data axes do not
+    divide is replicated)."""
+    mesh = _ACTIVE
+    if mesh is None or x.shape[0] == rows:
+        return x
+    for a in reversed(_data_axes(mesh)):  # the inner axis first
+        n = _size(mesh, a)
+        if n > 1:
+            x = _gather_dim(x, 0, mesh.get_group(a), n)
+    return x
 
 
 class _BatchMean(torch.autograd.Function):

@@ -40,6 +40,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import meshctx
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ssm import causal_conv
+from repro_torch.train.sharding import new_cache, serve_rows
 
 __all__ = ["GriffinLM", "block_kinds", "ring_decode_attention", "rglru_scan",
            "rglru_step"]
@@ -286,10 +287,11 @@ class GriffinLM(nn.Module):
         q_pos = torch.arange(x.shape[1], device=x.device)
         blocks = []
         for kind, p in zip(self.kinds, self.blocks):
-            if kind == "rec":
-                x, c = self._rec_fwd(p, x)
-            else:
-                x, c = self._attn_fwd(p, x, q_pos, ring=ring)
+            with meshctx.gathered([p]):
+                if kind == "rec":
+                    x, c = self._rec_fwd(p, x)
+                else:
+                    x, c = self._attn_fwd(p, x, q_pos, ring=ring)
             blocks.append(c)
         return self._logits(x), blocks
 
@@ -336,25 +338,36 @@ class GriffinLM(nn.Module):
         """Empty block caches (recurrent: zero state (B, w) fp32 and conv
         tail; attention: zero rings of W = min(window, max_len) slots in
         the weights' dtype unless given, every slot position −1) and
-        ``pos = 0`` (a host int)."""
+        ``pos = 0`` (a host int). Under an active mesh ``batch`` is the
+        global batch and only this rank's rows are allocated
+        (``sharding.new_cache``)."""
         cfg = self.cfg
         dtype = self.embed.dtype if dtype is None else dtype
-        dev, win = self.device, self._ring_slots(max_len)
-        blocks = []
-        for kind in self.kinds:
-            if kind == "rec":
-                blocks.append((
-                    torch.zeros((batch, self.w), dtype=torch.float32,
-                                device=dev),
-                    torch.zeros((batch, cfg.conv_width - 1, self.w),
-                                dtype=dtype, device=dev)))
-            else:
-                ring = (batch, win, cfg.kv_heads, cfg.head_dim)
-                blocks.append((
-                    torch.zeros(ring, dtype=dtype, device=dev),
-                    torch.zeros(ring, dtype=dtype, device=dev),
-                    torch.full((win,), -1, dtype=torch.int32, device=dev)))
-        return {"blocks": blocks, "pos": 0}
+        win = self._ring_slots(max_len)
+
+        def build(dev):
+            blocks = []
+            for kind in self.kinds:
+                if kind == "rec":
+                    blocks.append((
+                        torch.zeros((batch, self.w), dtype=torch.float32,
+                                    device=dev),
+                        torch.zeros((batch, cfg.conv_width - 1, self.w),
+                                    dtype=dtype, device=dev)))
+                else:
+                    ring = (batch, win, cfg.kv_heads, cfg.head_dim)
+                    blocks.append((
+                        torch.zeros(ring, dtype=dtype, device=dev),
+                        torch.zeros(ring, dtype=dtype, device=dev),
+                        torch.full((win,), -1, dtype=torch.int32,
+                                   device=dev)))
+            return {"blocks": blocks, "pos": 0}
+        cache = new_cache(build, batch, self.device)
+        if "layout" in cache:  # a shard is zeros: its slots are empty too
+            for kind, c in zip(self.kinds, cache["blocks"]):
+                if kind == "attn":
+                    c[2].fill_(-1)
+        return cache
 
     @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor], max_len: int
@@ -362,9 +375,16 @@ class GriffinLM(nn.Module):
         """The forward over the prompt, emitting the decode caches: each
         recurrent block's last RG-LRU state and conv tail, each attention
         block's ring of the last W = min(window, max_len) positions.
-        Returns (logits (B, S, padded vocab) fp32, cache with ``pos = S``)."""
+        Returns (logits (B, S, padded vocab) fp32, cache with ``pos = S``).
+        Under an active mesh ``batch`` is the global batch; the logits and
+        the cache are this rank's rows."""
+        mesh = meshctx.active_mesh()
+        if mesh is not None:
+            batch = serve_rows(batch, mesh)
         tokens = batch["tokens"]
-        logits, blocks = self._forward(tokens, ring=self._ring_slots(max_len))
+        with meshctx.gathered([self], skip=(nn.ModuleList,)):
+            logits, blocks = self._forward(tokens,
+                                           ring=self._ring_slots(max_len))
         return logits, {"blocks": blocks, "pos": int(tokens.shape[1])}
 
     @torch.no_grad()
@@ -372,7 +392,8 @@ class GriffinLM(nn.Module):
                     ) -> Tuple[torch.Tensor, Dict[str, object]]:
         """tokens (B, 1): one token; returns (logits (B, 1, padded vocab)
         fp32, cache), the cache updated in place and its ``pos`` advanced
-        by one.
+        by one. Under an active mesh, ``tokens`` and the logits are this
+        rank's rows.
 
         Raises:
           ValueError: the ring holds fewer slots than the window (max_len
@@ -389,12 +410,15 @@ class GriffinLM(nn.Module):
                              f"would drop a key inside the window (max_len "
                              f"must cover the prompt and every decoded token, "
                              f"or the window)")
-        x = self._embed_tokens(tokens)
-        q_pos = torch.arange(pos, pos + 1, device=x.device)
-        for kind, p, c in zip(self.kinds, self.blocks, cache["blocks"]):
-            if kind == "rec":
-                x, _ = self._rec_fwd(p, x, cache=c)
-            else:
-                x, _ = self._attn_fwd(p, x, q_pos, cache=c, cur_pos=pos)
-        cache["pos"] = pos + 1
-        return self._logits(x), cache
+        with meshctx.gathered([self], skip=(nn.ModuleList,)):
+            x = self._embed_tokens(tokens)
+            q_pos = torch.arange(pos, pos + 1, device=x.device)
+            for kind, p, c in zip(self.kinds, self.blocks, cache["blocks"]):
+                with meshctx.gathered([p]):
+                    if kind == "rec":
+                        x, _ = self._rec_fwd(p, x, cache=c)
+                    else:
+                        x, _ = self._attn_fwd(p, x, q_pos, cache=c,
+                                              cur_pos=pos)
+            cache["pos"] = pos + 1
+            return self._logits(x), cache

@@ -31,7 +31,9 @@ from torch import nn
 
 from repro_torch.graphs.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import meshctx
 from repro_torch.models.config import ModelConfig
+from repro_torch.train.sharding import layer_shards, new_cache, serve_rows
 
 __all__ = ["MambaLM", "causal_conv", "ssd_chunked", "ssd_decode_step"]
 
@@ -195,12 +197,17 @@ class MambaLM(nn.Module):
 
     # ------------------------------------------------------------- blocks
 
-    def _layer_fwd(self, p, x: torch.Tensor, *, cache=None
+    def _layer_fwd(self, p, x: torch.Tensor, *, cache=None, shard=None
                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """One block. Without ``cache``: the chunked SSD over the sequence,
         returning (x, (final state, conv tail)). With ``cache = (ssm
         (b, h, p, n), conv (b, width − 1, conv_dim))``, one token: the
-        recurrence, the cache written in place; returns (x, cache)."""
+        recurrence, the cache written in place; returns (x, cache). Under a
+        mesh ``shard`` (the state's layer ``CacheShard``) says which block
+        of the head dim p this rank's state holds (``cache_specs`` splits
+        the 5-D state's dim 3 over ``"model"``): the recurrence runs on that
+        block, each p being independent, and y is gathered over
+        ``"model"``."""
         cfg = self.cfg
         b, s, _ = x.shape
         di, n = self.d_in, self.n
@@ -225,8 +232,11 @@ class MambaLM(nn.Module):
         if cache is None:
             y, state = ssd_chunked(xdt, a, Bm, Cm, cfg.ssm_chunk)
         else:
-            state, y = ssd_decode_step(ssm_state, xdt[:, 0], a[:, 0], Bm[:, 0],
-                                       Cm[:, 0])
+            p0, p1 = shard.ranges[2] if shard is not None else (0, self.p)
+            state, y = ssd_decode_step(ssm_state, xdt[:, 0, :, p0:p1],
+                                       a[:, 0], Bm[:, 0], Cm[:, 0])
+            if (p0, p1) != (0, self.p):
+                y = meshctx.whole(y, 2)
             y = y[:, None]
             ssm_state.copy_(state)
             conv_state.copy_(conv_tail)
@@ -261,42 +271,65 @@ class MambaLM(nn.Module):
         """Zero ``ssm`` (L, B, H, P, N) fp32 and ``conv`` (L, B, width − 1,
         conv_dim) states (the weights' dtype unless given) and ``pos = 0``
         (a host int). ``max_len`` is not used (the state does not grow), as
-        in the reference."""
+        in the reference. Under an active mesh ``batch`` is the global
+        batch and only this rank's shard is allocated
+        (``sharding.new_cache``: its rows, and its block of the state's
+        head dim p where ``"model"`` divides it, as ``cache_specs`` splits
+        a 5-D leaf)."""
         cfg = self.cfg
         dtype = self.embed.dtype if dtype is None else dtype
-        dev = self.device
-        return {
-            "ssm": torch.zeros((cfg.num_layers, batch, self.h, self.p, self.n),
-                               dtype=torch.float32, device=dev),
-            "conv": torch.zeros((cfg.num_layers, batch, cfg.conv_width - 1,
-                                 self.conv_dim), dtype=dtype, device=dev),
-            "pos": 0,
-        }
+
+        def build(dev):
+            return {
+                "ssm": torch.zeros((cfg.num_layers, batch, self.h, self.p,
+                                    self.n), dtype=torch.float32, device=dev),
+                "conv": torch.zeros((cfg.num_layers, batch,
+                                     cfg.conv_width - 1, self.conv_dim),
+                                    dtype=dtype, device=dev),
+                "pos": 0,
+            }
+        return new_cache(build, batch, self.device)
 
     @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor], max_len: int
                 ) -> Tuple[torch.Tensor, Dict[str, object]]:
         """The chunked-SSD forward over the prompt, emitting each layer's
         final state and conv tail: returns (logits (B, S, padded vocab)
-        fp32, cache with ``pos = S``). ``max_len`` is not used."""
-        x = self.embed[batch["tokens"]]
-        cache = self.init_cache(x.shape[0], max_len, dtype=x.dtype)
-        for i, p in enumerate(self.layers):
-            x, (state, conv_tail) = self._layer_fwd(p, x)
-            cache["ssm"][i] = state
-            cache["conv"][i] = conv_tail
-        cache["pos"] = x.shape[1]
-        return self._logits(x), cache
+        fp32, cache with ``pos = S``). ``max_len`` is not used. Under an
+        active mesh ``batch`` is the global batch; the logits and the cache
+        are this rank's rows."""
+        rows = batch["tokens"].shape[0]
+        mesh = meshctx.active_mesh()
+        if mesh is not None:
+            batch = serve_rows(batch, mesh)
+        with meshctx.gathered([self], skip=(nn.ModuleList,)):
+            x = self.embed[batch["tokens"]]
+            cache = self.init_cache(rows, max_len, dtype=x.dtype)
+            shards = layer_shards(cache, ("ssm", "conv"))
+            for i, p in enumerate(self.layers):
+                with meshctx.gathered([p]):
+                    x, (state, conv_tail) = self._layer_fwd(p, x)
+                for j, (name, val) in enumerate((("ssm", state),
+                                                 ("conv", conv_tail))):
+                    L.cache_write(cache[name][i], val, 0,
+                                  shards and shards[j])
+            cache["pos"] = x.shape[1]
+            return self._logits(x), cache
 
     @torch.no_grad()
     def decode_step(self, cache: Dict[str, object], tokens: torch.Tensor
                     ) -> Tuple[torch.Tensor, Dict[str, object]]:
         """tokens (B, 1): one token through the recurrence; returns (logits
         (B, 1, padded vocab) fp32, cache), the cache updated in place and
-        its ``pos`` advanced by one."""
-        x = self.embed[tokens]
-        for i, p in enumerate(self.layers):
-            x, _ = self._layer_fwd(p, x, cache=(cache["ssm"][i],
-                                                cache["conv"][i]))
-        cache["pos"] = int(cache["pos"]) + 1
-        return self._logits(x), cache
+        its ``pos`` advanced by one. Under an active mesh, ``tokens`` and
+        the logits are this rank's rows."""
+        shards = layer_shards(cache, ("ssm",))
+        with meshctx.gathered([self], skip=(nn.ModuleList,)):
+            x = self.embed[tokens]
+            for i, p in enumerate(self.layers):
+                with meshctx.gathered([p]):
+                    x, _ = self._layer_fwd(p, x, cache=(cache["ssm"][i],
+                                                        cache["conv"][i]),
+                                           shard=shards and shards[0])
+            cache["pos"] = int(cache["pos"]) + 1
+            return self._logits(x), cache

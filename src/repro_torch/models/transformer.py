@@ -32,6 +32,17 @@ A ``decode_step`` past the cache's last slot raises ``ValueError``, where
 the reference's ``dynamic_update_slice`` clamps the index and overwrites
 the last slot (ROADMAP R12); so does a ``prefill`` whose prefix and prompt
 exceed ``max_len``.
+
+Under an active mesh (``models.meshctx.activation_mesh``, the weights
+sharded by ``train.sharding.shard_model_``) serving is SPMD: ``prefill``
+takes the global batch and runs this rank's rows of it
+(``sharding.serve_rows``), ``decode_step`` this rank's rows' tokens; each
+block's parameters are gathered inside the block and the others around
+the step (``meshctx.gathered``), K6 runs on this rank's heads
+(``layers.attention``), the MoE on its experts, and ``init_cache``
+allocates only this rank's shard of the cache (``sharding.local_cache``:
+split over the kv heads where ``"model"`` divides them, else over the
+sequence). The logits returned are this rank's rows'.
 """
 
 from __future__ import annotations
@@ -44,7 +55,9 @@ from torch import nn
 
 from repro_torch.graphs.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import meshctx
 from repro_torch.models.config import ModelConfig
+from repro_torch.train.sharding import layer_shards, new_cache, serve_rows
 
 __all__ = ["TransformerLM"]
 
@@ -194,14 +207,27 @@ class TransformerLM(nn.Module):
     def _unembed(self, x: torch.Tensor) -> torch.Tensor:
         return L.unembed(x, self.embed, self.cfg.vocab, self.cfg.final_softcap)
 
+    def _write_cache(self, cache: tuple, shards, k: torch.Tensor,
+                     v: torch.Tensor, start: int) -> None:
+        """Write k and v (B, S, Hkv, hd) at positions [start, start + S) of
+        a layer's cache (``_layer_cache``), quantized first for the int8
+        cache; ``shards``, the layer's ``CacheShard``s under a mesh, say
+        which block of it this rank holds."""
+        vals = (*L.quantize_kv(k), *L.quantize_kv(v)) if self.quant \
+            else (k, v)
+        order = (0, 2, 1, 3) if self.quant else (0, 1)  # k, k_scale, v, ...
+        for j, (c, i) in enumerate(zip(cache, order)):
+            L.cache_write(c, vals[i], start, shards[j] if shards else None)
+
     def _layer_fwd(self, p, x: torch.Tensor, window: int, *,
                    q_pos: torch.Tensor, prefix_len: int = 0, cache=None,
-                   cur_pos: Optional[int] = None
+                   shards=None, cur_pos: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, Tuple[torch.Tensor, ...]]:
         """One block. Returns (x, aux, (k, v)): k/v for cache emission.
         With ``cache = (ck, cv)``, or ``(ck, cv, k_scale, v_scale)`` for
         the int8 cache, the new token's k/v are written at ``cur_pos`` in
-        place (quantized first) and attention reads the cache."""
+        place (quantized first) and attention reads the cache; ``shards``
+        are the layer's ``CacheShard``s of those leaves under a mesh."""
         cfg = self.cfg
         b, s, _ = x.shape
         hd, hq, hkv = cfg.head_dim, cfg.num_heads, cfg.kv_heads
@@ -212,24 +238,14 @@ class TransformerLM(nn.Module):
         q = L.rope(q, q_pos[None, :], cfg.rope_theta)
         k = L.rope(k, q_pos[None, :], cfg.rope_theta)
         if cache is not None:
-            end = cur_pos + s
-            if self.quant:
-                ck, cv, ks, vs = cache
-                ck[:, cur_pos:end], ks[:, cur_pos:end] = L.quantize_kv(k)
-                cv[:, cur_pos:end], vs[:, cur_pos:end] = L.quantize_kv(v)
-                # only the keys decode_attention reads: the masked ones
-                # weigh exactly 0 in the reference's full-cache softmax
-                lo = max(0, cur_pos + 1 - window)
-                kd = L.dequantize_kv(ck[:, lo:end], ks[:, lo:end], k.dtype)
-                vd = L.dequantize_kv(cv[:, lo:end], vs[:, lo:end], v.dtype)
-                att = L.decode_attention(q, kd, vd, cur_pos=cur_pos - lo,
-                                         window=window, cap=cfg.logit_softcap)
-            else:
-                ck, cv = cache
-                ck[:, cur_pos:end] = k
-                cv[:, cur_pos:end] = v
-                att = L.decode_attention(q, ck, cv, cur_pos=cur_pos,
-                                         window=window, cap=cfg.logit_softcap)
+            self._write_cache(cache, shards, k, v, cur_pos)
+            # with the int8 cache only the keys decode_attention reads are
+            # dequantized: the masked ones weigh exactly 0 in the
+            # reference's full-cache softmax
+            att = L.cache_decode_attention(
+                q, cache[0], cache[1], cur_pos=cur_pos, window=window,
+                cap=cfg.logit_softcap, scales=cache[2:] or None,
+                shard=shards[0] if shards else None)
         else:
             # q_pos is arange(S) here (prefill, apply_train): left as None,
             # the kernel path needs no device read to know it
@@ -287,84 +303,104 @@ class TransformerLM(nn.Module):
         """Zero (L, B, max_len, Hkv, hd) k and v caches (the weights' dtype
         unless given; int8 with (L, B, max_len, Hkv) bf16 ``k_scale`` and
         ``v_scale`` for ``kv_cache_dtype="int8"``) and ``pos = 0`` (a host
-        int)."""
+        int). Under an active mesh ``batch`` is the global batch and only
+        this rank's shard is allocated (``sharding.new_cache``), with its
+        ``"layout"``."""
         cfg = self.cfg
         shape = (cfg.num_layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
-        dev = self.device
-        if self.quant:
-            return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
-                    "v": torch.zeros(shape, dtype=torch.int8, device=dev),
-                    "k_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16,
-                                           device=dev),
-                    "v_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16,
-                                           device=dev),
-                    "pos": 0}
         dtype = self.embed.dtype if dtype is None else dtype
-        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                "v": torch.zeros(shape, dtype=dtype, device=dev),
-                "pos": 0}
+
+        def build(dev):
+            if self.quant:
+                return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                        "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                        "k_scale": torch.zeros(shape[:-1],
+                                               dtype=torch.bfloat16,
+                                               device=dev),
+                        "v_scale": torch.zeros(shape[:-1],
+                                               dtype=torch.bfloat16,
+                                               device=dev),
+                        "pos": 0}
+            return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                    "v": torch.zeros(shape, dtype=dtype, device=dev),
+                    "pos": 0}
+        return new_cache(build, batch, self.device)
+
+    def _names(self) -> Tuple[str, ...]:
+        return ("k", "v", "k_scale", "v_scale") if self.quant else ("k", "v")
 
     def _layer_cache(self, cache: Dict[str, object], i: int) -> tuple:
-        names = ("k", "v", "k_scale", "v_scale") if self.quant else ("k", "v")
-        return tuple(cache[n][i] for n in names)
+        return tuple(cache[n][i] for n in self._names())
 
     @torch.no_grad()
     def decode_step(self, cache: Dict[str, object], tokens: torch.Tensor
                     ) -> Tuple[torch.Tensor, Dict[str, object]]:
         """tokens (B, 1); cache from init_cache/prefill. One new token:
         returns (logits (B, 1, padded vocab) fp32, cache), the cache
-        updated in place and its ``pos`` advanced by one.
+        updated in place and its ``pos`` advanced by one. Under an active
+        mesh, ``tokens`` and the logits are this rank's rows (those of its
+        cache shard).
 
         Raises:
           ValueError: the cache is full (``pos`` = max_len), where the
-            reference would overwrite its last slot (ROADMAP R12).
+            reference would overwrite its last slot (ROADMAP R12); under a
+            mesh every rank raises, the slot past the last being none's.
         """
         cfg = self.cfg
         pos = int(cache["pos"])
-        max_len = cache["k"].shape[2]
+        shards = layer_shards(cache, self._names())
+        max_len = shards[0].shape[1] if shards else cache["k"].shape[2]
         if pos >= max_len:
             raise ValueError(f"decode at position {pos}: the cache holds "
                              f"{max_len} slots (max_len must cover the "
                              f"prefix, the prompt and every decoded token)")
-        x = self._embed_tokens(tokens)
-        q_pos = torch.arange(pos, pos + 1, device=x.device)
-        for i, (p, w) in enumerate(zip(self.blocks, self.windows)):
-            x, _, _ = self._layer_fwd(p, x, w, q_pos=q_pos,
-                                      cache=self._layer_cache(cache, i),
-                                      cur_pos=pos)
-        cache["pos"] = pos + 1
-        x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
-        return self._unembed(x), cache
+        with meshctx.gathered([self], skip=(nn.ModuleList,)):
+            x = self._embed_tokens(tokens)
+            q_pos = torch.arange(pos, pos + 1, device=x.device)
+            for i, (p, w) in enumerate(zip(self.blocks, self.windows)):
+                with meshctx.gathered([p]):
+                    x, _, _ = self._layer_fwd(
+                        p, x, w, q_pos=q_pos,
+                        cache=self._layer_cache(cache, i), shards=shards,
+                        cur_pos=pos)
+            cache["pos"] = pos + 1
+            x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
+            return self._unembed(x), cache
 
     @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor], max_len: int
                 ) -> Tuple[torch.Tensor, Dict[str, object]]:
         """Full forward over the prompt (after the VLM's prefix), emitting
         the KV cache: returns (logits (B, P + S, padded vocab) fp32, every
-        position as in the reference, cache with ``pos = P + S``).
+        position as in the reference, cache with ``pos = P + S``). Under an
+        active mesh ``batch`` is the global batch; the logits are this
+        rank's rows and the cache its shard.
 
         Raises:
           ValueError: P + S > max_len.
         """
         cfg = self.cfg
-        x, prefix_len = self._embed(batch["tokens"], batch.get("patches"))
-        b, s, _ = x.shape
-        if s > max_len:
-            raise ValueError(f"prefix and prompt of {s} positions exceed "
-                             f"max_len {max_len}")
-        q_pos = torch.arange(s, device=x.device)
-        cache = self.init_cache(b, max_len, dtype=x.dtype)
-        for i, (p, w) in enumerate(zip(self.blocks, self.windows)):
-            x, _, (k, v) = self._layer_fwd(p, x, w, q_pos=q_pos,
-                                           prefix_len=prefix_len)
-            if self.quant:  # per layer: never a stacked unquantized cache
-                cache["k"][i, :, :s], cache["k_scale"][i, :, :s] = \
-                    L.quantize_kv(k)
-                cache["v"][i, :, :s], cache["v_scale"][i, :, :s] = \
-                    L.quantize_kv(v)
-            else:
-                cache["k"][i, :, :s] = k
-                cache["v"][i, :, :s] = v
-        cache["pos"] = s
-        x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
-        return self._unembed(x), cache
+        rows = batch["tokens"].shape[0]
+        mesh = meshctx.active_mesh()
+        if mesh is not None:
+            batch = serve_rows(batch, mesh)
+        with meshctx.gathered([self], skip=(nn.ModuleList,)):
+            x, prefix_len = self._embed(batch["tokens"], batch.get("patches"))
+            s = x.shape[1]
+            if s > max_len:
+                raise ValueError(f"prefix and prompt of {s} positions exceed "
+                                 f"max_len {max_len}")
+            q_pos = torch.arange(s, device=x.device)
+            cache = self.init_cache(rows, max_len, dtype=x.dtype)
+            shards = layer_shards(cache, self._names())
+            for i, (p, w) in enumerate(zip(self.blocks, self.windows)):
+                with meshctx.gathered([p]):
+                    x, _, (k, v) = self._layer_fwd(p, x, w, q_pos=q_pos,
+                                                   prefix_len=prefix_len)
+                # per layer: never a stacked unquantized cache
+                self._write_cache(self._layer_cache(cache, i), shards, k, v,
+                                  0)
+                del k, v
+            cache["pos"] = s
+            x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
+            return self._unembed(x), cache

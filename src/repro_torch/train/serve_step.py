@@ -5,6 +5,11 @@ The port of ``repro.train.serve_step``. The model holds its weights, so
 these take no ``params``. The reference's ``lax.scan`` over decode steps is
 a Python loop here; the cache's position is a host int and each step's
 token stays on the device, so the loop never syncs the host.
+
+Under an active mesh (``models.meshctx.activation_mesh``) each rank
+prefills and decodes its rows of the batch against its shard of the
+cache, and ``greedy_generate`` gathers every row's tokens over the data
+axes at the end, so each rank returns the whole batch's.
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.models import meshctx
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["make_serve_fns", "greedy_generate"]
@@ -46,8 +52,11 @@ def greedy_generate(model, cfg: ModelConfig, prompt_batch: Dict[str, torch.Tenso
 
     Returns the (B, steps) tokens fed at each step, as the reference's scan
     emits them: the first is the argmax of the prefill's last position, and
-    the argmax of the last decode step is dropped.
+    the argmax of the last decode step is dropped. Under an active mesh
+    ``prompt_batch`` is the global batch; each rank runs its rows and
+    returns every row's tokens.
     """
+    rows = prompt_batch["tokens"].shape[0]
     logits, cache = model.prefill(prompt_batch, max_len)
     tok = torch.argmax(logits[:, -1:], dim=-1)  # (B, 1)
     del logits
@@ -57,5 +66,8 @@ def greedy_generate(model, cfg: ModelConfig, prompt_batch: Dict[str, torch.Tenso
         out.append(tok[:, 0])
         tok = torch.argmax(lg[:, -1:], dim=-1)
     if not out:
-        return torch.empty((tok.shape[0], 0), dtype=tok.dtype, device=tok.device)
-    return torch.stack(out, dim=1)  # (B, steps)
+        out = torch.empty((tok.shape[0], 0), dtype=tok.dtype,
+                          device=tok.device)
+    else:
+        out = torch.stack(out, dim=1)  # (this rank's rows, steps)
+    return meshctx.gather_rows(out, rows)

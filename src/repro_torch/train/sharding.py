@@ -33,8 +33,12 @@ without it the moments still shard over ``"model"``.
 
 A batch is split over the data axes (``("pod", "data")`` where a pod axis
 exists): ``batch_sharding`` gives its placements and ``local_rows`` this
-rank's rows. ``cache_specs`` ports the reference's KV/state-cache rule over
-the port's cache trees, which are laid out as the reference's.
+rank's rows (``serve_rows`` for serving, where a batch that the data axes
+do not divide is replicated, as the reference's sanitised spec does).
+``cache_specs`` ports the reference's KV/state-cache rule over the port's
+cache trees, which are laid out as the reference's; ``local_cache`` builds
+this rank's shard of a cache from it, each leaf a ``CacheShard`` in the
+cache's ``"layout"``.
 
 Specs are tuples; a mesh is a ``DeviceMesh`` or, for the spec functions,
 anything with a ``shape`` mapping of axis sizes (a dict is taken too).
@@ -52,7 +56,9 @@ from repro_torch.models.meshctx import batch_axes
 __all__ = ["NamedSharding", "axis_sizes", "batch_sharding", "cache_specs", "data_axis",
            "expert_parallel", "local", "local_rows", "param_shardings",
            "param_specs", "placed_like", "placements", "resident_bytes",
-           "sanitize_spec", "shard_like", "shard_model_"]
+           "sanitize_spec", "serve_rows", "shard_like", "shard_model_",
+           "CacheShard", "cache_leaf_spec", "layer_shards", "local_cache",
+           "new_cache"]
 
 # (regex over '/'-joined path, spec WITHOUT the stacked-layer leading axis)
 _RULES = [
@@ -235,12 +241,16 @@ def _local_slice(full: torch.Tensor, plc: Sequence, mesh) -> torch.Tensor:
 def shard_like(full: torch.Tensor, plc: Sequence, mesh, *,
                dtype: Optional[torch.dtype] = None):
     """The ``DTensor`` of ``full`` placed by ``plc`` on ``mesh``: a contiguous
-    copy of this rank's block (cast to ``dtype``), wrapped without a
-    collective (every rank holds the same ``full``)."""
+    copy of this rank's block (cast to ``dtype``; never a view of
+    ``full``), wrapped without a collective (every rank holds the same
+    ``full``)."""
     from torch.distributed.tensor import DTensor
 
+    # a copy: a block of a contiguous tensor (a split of dim 0) is a view,
+    # which would keep the whole full tensor alive beside the shard
     local = _local_slice(full, plc, mesh).to(
-        dtype=dtype or full.dtype).contiguous()
+        dtype=dtype or full.dtype, memory_format=torch.contiguous_format,
+        copy=True)
     return DTensor.from_local(local, mesh, tuple(plc), run_check=False,
                               shape=full.shape,
                               stride=torch.empty(full.shape,
@@ -339,6 +349,38 @@ def local_rows(batch: Mapping[str, torch.Tensor], mesh
     return out
 
 
+def serve_rows(batch: Mapping[str, torch.Tensor], mesh
+               ) -> Dict[str, torch.Tensor]:
+    """This rank's rows of each batch-leading tensor for serving: its block
+    of the data axes' split where they divide the rows, else every row
+    (replicated over the data ranks, as ``batch_sharding``'s sanitised
+    spec)."""
+    return {key: _local_slice(x, batch_sharding(mesh, x.shape).placements,
+                              mesh)
+            for key, x in batch.items()}
+
+
+def cache_leaf_spec(shape: Sequence[int], mesh, batch_size: int) -> Spec:
+    """The sanitised spec of one cache leaf of global ``shape``
+    (``cache_specs``' rule): the batch dim (the first of dims 0 and 1 of
+    size ``batch_size``) over the data axes; a 5-D (L, B, T, H, hd) KV leaf
+    also its heads over ``"model"`` where the axis divides them, else its
+    sequence (flash-decode style)."""
+    ax = _entry(data_axis(mesh))
+    sizes = axis_sizes(mesh)
+    entries = [None] * len(shape)
+    for i, d in enumerate(shape[:2]):  # batch dim is dim 0 or 1
+        if d == batch_size:
+            entries[i] = ax
+            break
+    if len(shape) >= 5:  # (L, B, T, H, hd): heads over model, else seq
+        if shape[3] % _axis_size(sizes, "model") == 0:
+            entries[3] = "model"
+        else:  # MHA archs (qwen 40H, minicpm 36H): flash-decode style
+            entries[2] = "model"
+    return sanitize_spec(tuple(entries), shape, mesh)
+
+
 def cache_specs(cache, mesh, batch_size: int):
     """KV/state caches: shard the batch dim (identified by size — caches
     are (L, B, ...) for the layer-stacked families but (B, ...) for the
@@ -349,23 +391,10 @@ def cache_specs(cache, mesh, batch_size: int):
     Returns the cache's structure (dicts, lists, tuples) with a sanitised
     spec in place of each tensor and None in place of anything else (the
     host int ``pos``)."""
-    ax = _entry(data_axis(mesh))
-    sizes = axis_sizes(mesh)
-
     def spec(x):
         if not isinstance(x, torch.Tensor):
             return None
-        entries = [None] * x.dim()
-        for i, d in enumerate(x.shape[:2]):  # batch dim is dim 0 or 1
-            if d == batch_size:
-                entries[i] = ax
-                break
-        if x.dim() >= 5:  # (L, B, T, H, hd): heads over model, else seq
-            if x.shape[3] % _axis_size(sizes, "model") == 0:
-                entries[3] = "model"
-            else:  # MHA archs (qwen 40H, minicpm 36H): flash-decode style
-                entries[2] = "model"
-        return sanitize_spec(tuple(entries), x.shape, mesh)
+        return cache_leaf_spec(tuple(x.shape), mesh, batch_size)
 
     def walk(node):
         if isinstance(node, Mapping):
@@ -375,6 +404,100 @@ def cache_specs(cache, mesh, batch_size: int):
         return spec(node)
 
     return walk(cache)
+
+
+class CacheShard(NamedTuple):
+    """Where this rank's block of a cache leaf lies: the leaf's global
+    ``shape`` and, on each dim, the global index range [lo, hi) it holds.
+    ``layer()`` is the same for one layer's slice (dim 0 dropped)."""
+    shape: tuple
+    ranges: tuple
+
+    def layer(self) -> "CacheShard":
+        return CacheShard(self.shape[1:], self.ranges[1:])
+
+    @property
+    def split(self) -> bool:
+        """Of a layer's shard ((B, T, ...), ``layer()``): whether a dim past
+        the batch is split (the heads or the sequence)."""
+        return any((lo, hi) != (0, n) for n, (lo, hi) in
+                   zip(self.shape[1:], self.ranges[1:]))
+
+
+def _block_ranges(shape: Sequence[int], plc: Sequence, mesh) -> tuple:
+    """The [lo, hi) of this rank's block of each dim under ``plc``, the mesh
+    dims in order (as ``_local_slice`` cuts them)."""
+    from torch.distributed.tensor import Shard
+
+    ranges = [[0, int(n)] for n in shape]
+    for m, p in enumerate(plc):
+        if isinstance(p, Shard):
+            lo, hi = ranges[p.dim]
+            step = (hi - lo) // mesh.size(m)
+            lo += mesh.get_local_rank(m) * step
+            ranges[p.dim] = [lo, lo + step]
+    return tuple(tuple(r) for r in ranges)
+
+
+def local_cache(cache, mesh, batch_size: int, device) -> Dict[str, Any]:
+    """This rank's shard of ``cache`` (a model's cache on ``meta``, of the
+    global batch ``batch_size``): each top-level tensor leaf becomes zeros
+    of its block's shape under ``cache_specs``' placements on ``device``,
+    and a nested list of leaves (the hybrid's blocks) each leaf the same;
+    the other entries (``pos``) are kept. The cache gains ``"layout"``:
+    {name: ``CacheShard``} of the top-level leaves."""
+    def local(x):
+        plc = placements(cache_leaf_spec(tuple(x.shape), mesh, batch_size),
+                         mesh)
+        ranges = _block_ranges(x.shape, plc, mesh)
+        return (torch.zeros([hi - lo for lo, hi in ranges], dtype=x.dtype,
+                            device=device),
+                CacheShard(tuple(int(n) for n in x.shape), ranges))
+
+    def walk(node):
+        if isinstance(node, torch.Tensor):
+            return local(node)[0]
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    out, layout = {}, {}
+    for key, x in cache.items():
+        if isinstance(x, torch.Tensor):
+            out[key], layout[key] = local(x)
+        else:
+            out[key] = walk(x)
+    out["layout"] = layout
+    return out
+
+
+def layer_shards(cache: Mapping[str, Any], names: Sequence[str]):
+    """The layer-level ``CacheShard``s of a sharded cache's leaves
+    ``names`` (a tuple in that order), or None for a whole cache (no
+    ``"layout"``)."""
+    layout = cache.get("layout")
+    if not layout:
+        return None
+    return tuple(layout[n].layer() for n in names)
+
+
+def new_cache(build, batch_size: int, device) -> Dict[str, Any]:
+    """A model's cache of ``batch_size`` rows: ``build(device)`` (the
+    model's tree of cache leaves) without an active mesh; under one, this
+    rank's shard of ``build("meta")`` (``local_cache``), so only the shard
+    is allocated."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    from repro_torch.models.meshctx import active_mesh
+
+    mesh = active_mesh()
+    if mesh is None:
+        return build(device)
+    # the global cache on meta is a template of shapes and dtypes: no
+    # dispatch mode (the dry run's tally) counts it as memory
+    with _disable_current_modes():
+        template = build("meta")
+    return local_cache(template, mesh, batch_size, device)
 
 
 def resident_bytes(tensors) -> int:

@@ -218,15 +218,35 @@ def test_kernel_wrapper_rejects_bad_inputs(bad, match):
         fa.flash_attention_kernel(q, k, k.clone(), window=bad.get("window"))
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor that claims a device that is neither CPU, CUDA nor meta and
+    holds no data: any op on it fails."""
+
+    @staticmethod
+    def __new__(cls, *shape):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, shape, dtype=torch.float32, device="xpu")
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} ran on a tensor without data")
+
+
 def test_non_cpu_requests_raise_without_a_card():
-    q = torch.empty(1, 8, 4, 64, device="meta")
-    k = torch.empty(1, 8, 2, 64, device="meta")
+    q, k = _Elsewhere(1, 8, 4, 64), _Elsewhere(1, 8, 2, 64)
     with pytest.raises(ValueError, match="takes CUDA tensors"):
         fa.flash_attention_kernel(q, k, k)
-    pos = torch.arange(8, device="meta")
     # a bidirectional prefix is the kernel's case: it reaches the wrapper
     with pytest.raises(ValueError, match="takes CUDA tensors"):
         port_layers.attention(q, k, k, prefix_len=2)
+    # meta tensors are the dry run's: shape-only, nothing launched
+    q = torch.empty(1, 8, 4, 64, device="meta")
+    k = torch.empty(1, 8, 2, 64, device="meta")
+    fa.reset_launch_counts()
+    out = port_layers.attention(q, k, k, prefix_len=2)
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert fa.LAUNCHES["flash_attention"] == 0
+    pos = torch.arange(8, device="meta")
     # cases the kernel does not take raise before any device work
     with pytest.raises(NotImplementedError, match="causal=False"):
         port_layers.attention(q, k, k, q_pos=pos, k_pos=pos, causal=False,
