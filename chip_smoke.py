@@ -223,19 +223,23 @@ source, all started together), and runs, in order:
    P off the tiles, P = S and P > S (every key visible) and a window
    beside the prefix, each within ``flash_within_tolerance`` and, 16-bit,
    ``flash_row_rms``; and every layer shape of 3p, 3q, 3s and 3u in bf16,
-   each held and timed as above beside ``flex_attention``: qwen1.5-32b
+   each held and timed as above beside a library call: qwen1.5-32b
    (2, 512, 40/40, 128), arctic-480b (2, 256, 56/8, 128), dbrx-132b
    (2, 256, 48/8, 128), whisper-medium's encoder (4, 1500, 16/16, 64, not
    causal), causal self-attention (4, 64), cross-attention (4, 64 against
    1500 keys, not causal) and decode cross-attention (4, 1 against 1500),
-   these four also beside ``scaled_dot_product_attention`` (no window or
+   these seven beside ``scaled_dot_product_attention`` (no window or
    softcap: the same function), and recurrentgemma-9b's local attention
-   (2, 4096, 16/1, 256, window 2048);
-3p. the int8 KV cache: qwen1.5-32b at its published width, 16 of its 64
-   layers (``INT8_LAYERS``, for the script's time; MHA 40/40, 17.1 GiB of
-   bf16 weights from seed 0, its config's ``kv_cache_dtype="int8"``),
+   (2, 4096, 16/1, 256, window 2048) beside ``flex_attention``; each
+   16-bit call's launch plan (rows a block, keys a tile, parts), and at
+   whisper's self and decode cross-attention and its decode step at batch
+   1 (keys split, merged by the second kernel) K6's kernel time from
+   ``torch.profiler`` beside its event time and the wrapper's host time;
+3p. the int8 KV cache: qwen1.5-32b at its published width, 8 of its 64
+   layers (``INT8_LAYERS``, for the script's time; MHA 40/40, bf16
+   weights from seed 0, its config's ``kv_cache_dtype="int8"``),
    batch 2, a 512-token prompt and 16 greedy tokens with K6's counter read
-   around them (16 launches); the peak
+   around them (8 launches); the peak
    reckoned before the run and measured after it (under 79 GiB); prefill
    seconds, decode ms per token, ``torch.profiler`` over one of each;
    ``quantize_kv`` of layer 0's k and v on the card against the CPU's and
@@ -257,20 +261,20 @@ source, all started together), and runs, in order:
    tokens: 18 K6 launches a prefill, each with ``prefix_len = 256``;
    teacher-forced against the chunked plain attention; the prefill again
    with fp32 weights, kernel and plain logits and caches within 1e-3;
-3s. encdec: whisper-medium at its published width (``WhisperModel``; 8 +
-   8 of its 24 + 24 layers, ``SERVE_CUTS``, for the script's time; d 1024,
+3s. encdec: whisper-medium at its published width (``WhisperModel``; 4 +
+   4 of its 24 + 24 layers, ``SERVE_CUTS``, for the script's time; d 1024,
    16 heads of 64, 1500 frames), batch 4, frames (4, 1500, 1024) from seed
-   2, a 64-token prompt and 32 greedy tokens: 24 K6 launches a prefill (8
-   encoder, 8 causal self, 8 cross-attention, the last two S = 64 against
-   T = 64 and 1500) and 8 a decode step (the one-query cross-attention);
-3t. ssm: mamba2-780m (``MambaLM``; 16 of its 48 layers, d 1536, 48 SSM
+   2, a 64-token prompt and 32 greedy tokens: 12 K6 launches a prefill (4
+   encoder, 4 causal self, 4 cross-attention, the last two S = 64 against
+   T = 64 and 1500) and 4 a decode step (the one-query cross-attention);
+3t. ssm: mamba2-780m (``MambaLM``; 8 of its 48 layers, d 1536, 48 SSM
    heads of 64, state 128, chunk 256), batch 2, a 4096-token prompt (16
    chunks) and 32 greedy tokens: no kernel (the reference has none for the
    family);
-3u. hybrid: recurrentgemma-9b (``GriffinLM``; 14 of its 38 layers: 10
-   RG-LRU and 4 local attention, d 4096, MQA 16/1 at head dim 256, window
+3u. hybrid: recurrentgemma-9b (``GriffinLM``; 8 of its 38 layers: 6
+   RG-LRU and 2 local attention, d 4096, MQA 16/1 at head dim 256, window
    2048, vocab 256,000), batch 2, a 4096-token prompt (the window cuts in
-   prefill, the ring wraps in decode) and 16 greedy tokens: 4 K6 launches
+   prefill, the ring wraps in decode) and 16 greedy tokens: 2 K6 launches
    a prefill;
    each of 3s–3u with bf16 weights from seed 0, its peak reckoned before
    the run and held to the reckoning after it, prefill seconds, decode ms
@@ -296,11 +300,11 @@ source, all started together), and runs, in order:
    backward with the softcap (gemma2-2b's global layer, static shapes) and
    SDPA forward + backward elsewhere (the mask as ``attn_mask``), and the
    backward's own peak beside 4·B·S·T·Hq·4 bytes;
-3v. training: gemma2-2b at its published width, 12 of its 26 layers
+3v. training: gemma2-2b at its published width, 6 of its 26 layers
    (bf16 weights from seed 0, bf16 moments, fp32 accumulators, remat),
    batch 8 × 2048 from ``SyntheticDataset`` in 8 microbatches, 4 steps
    through ``ElasticTrainer`` with a checkpoint after step 2: every loss
-   finite, every leaf's gradient finite with a norm above 0, 192 K6
+   finite, every leaf's gradient finite with a norm above 0, 96 K6
    launches a step, step seconds (median of steps 1–3), tokens/s, the
    model-FLOP rate against 989 TFLOP/s, the own peak within 1.1× its
    reckoning; then a fresh model resumes from the checkpoint (params and
@@ -316,7 +320,7 @@ source, all started together), and runs, in order:
 3x. sharded training over a ``DeviceMesh``: (a) gemma2-2b as 3v trains
    it, one step on a (1, 1) mesh of a world-1 NCCL group
    (``make_local_mesh``, ``shard_model_``, ``activation_mesh``), its loss
-   and grad norm within 1e-3 of 3v's step 0, 192 K6 launches; (b) 4 gloo
+   and grad norm within 1e-3 of 3v's step 0, 96 K6 launches; (b) 4 gloo
    ranks spawned on ``cuda:0``, one step of gemma2-2b (2 layers) on (2, 2)
    and (1, 4) meshes and of qwen1.5-32b (2 layers, FSDP) on (2, 2), at
    published widths in bf16, held to rank 0's one-process step on the
@@ -445,9 +449,9 @@ K6_EARLIER_MS = 328.678
 MARGIN_FACTOR = 10.0
 # phases 3p–3r: the rest of TransformerLM at published widths on one card
 INT8_ARCH = "qwen1.5-32b"  # 64 layers, its config's int8 KV cache
-# cut to 16 of its 64 layers (16.8 GiB of bf16 weights): the script's time
-# limit, with the training phases 4d, 3v and 3w added
-INT8_LAYERS = 16
+# cut to 8 of its 64 layers (16 until a whole run took 1232.5 s of its 1200
+# s on a slower host, NVIDIA H100 80GB HBM3 at 700.00 W): the script's time
+INT8_LAYERS = 8
 INT8_BATCH, INT8_PROMPT, INT8_STEPS = 2, 512, 16
 # arctic-480b and dbrx-132b at their published widths, cut in depth to fit
 # one 80 GB card: (arch, layers kept); 25.35 GiB a layer of arctic's and
@@ -484,14 +488,14 @@ ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_STEPS = 4, 64, 32
 SSM_ARCH = "mamba2-780m"  # 48 layers, d 1536, 48 SSM heads of 64, state 128
 SSM_BATCH, SSM_PROMPT, SSM_STEPS = 2, 4096, 32  # 16 chunks of 256
 HYBRID_ARCH = "recurrentgemma-9b"  # 38 layers, 12 local attention, MQA 16/1
-# 3s-3u cut in depth for the script's time, with the training phases 4d, 3v
-# and 3w added (a full run took 1119.6 s of its 1200 s on one card):
-# whisper-medium 8 + 8 of 24 + 24 layers, mamba2-780m 16 of 48,
-# recurrentgemma-9b 14 of 38 (4 block groups and the 2 recurrent blocks of
-# its remainder, 4 local-attention blocks)
-SERVE_CUTS = {"whisper-medium": dict(encoder_layers=8, num_layers=8),
-              "mamba2-780m": dict(num_layers=16),
-              "recurrentgemma-9b": dict(num_layers=14)}
+# 3s-3u cut in depth for the script's time (a full run took 1119.6 s of its
+# 1200 s on one card with 8 + 8, 16 and 14 layers, and 1232.5 s on a slower
+# host): whisper-medium 4 + 4 of 24 + 24 layers, mamba2-780m 8 of 48,
+# recurrentgemma-9b 8 of 38 (2 block groups and the 2 recurrent blocks of
+# its remainder, 2 local-attention blocks)
+SERVE_CUTS = {"whisper-medium": dict(encoder_layers=4, num_layers=4),
+              "mamba2-780m": dict(num_layers=8),
+              "recurrentgemma-9b": dict(num_layers=8)}
 # twice the 2048 window: the window cuts in prefill and the ring wraps in
 # decode
 HYBRID_BATCH, HYBRID_PROMPT, HYBRID_STEPS = 2, 4096, 16
@@ -766,12 +770,20 @@ def wgmma_build_facts(lib: Path, entry_re: str, label) -> dict:
 
 def flash_build_facts(lib: Path) -> dict:
     """K6's tensor-core instances, one per 16-bit type, head dim and prefix
-    mask (without, with)."""
-    return wgmma_build_facts(
-        lib, r"flash_fwd_wgmma_kernelI(13__nv_bfloat16|6__half)Li(\d+)ELb([01])E",
-        lambda h: f"flash_fwd_wgmma_kernel<"
-                  f"{'bf16' if 'bfloat' in h[1] else 'fp16'}, {h[2]}, "
-                  f"prefix {'true' if h[3] == '1' else 'false'}>")
+    mask (without, with), and the split launch's merge kernel, one per
+    16-bit type and head dim; and whether ptxas serialised any wgmma
+    (its "Potential Performance Loss" warning)."""
+    facts = wgmma_build_facts(
+        lib, r"flash_(fwd_wgmma|merge)_kernelI(13__nv_bfloat16|6__half)Li(\d+)E"
+             r"(Lb([01])E)?",
+        lambda h: f"flash_{h[1]}_kernel<"
+                  f"{'bf16' if 'bfloat' in h[2] else 'fp16'}, {h[3]}"
+                  + (f", prefix {'true' if h[5] == '1' else 'false'}>"
+                     if h[4] else ">"))
+    facts["serialized_wgmma_warnings"] = sum(
+        "Potential Performance Loss" in line
+        for line in lib.with_suffix(".log").read_text().splitlines())
+    return facts
 
 
 def spgemm_build_facts(lib: Path) -> dict:
@@ -2769,6 +2781,55 @@ def device_profile(torch, fn, host_ops: bool = True) -> dict:
                 idle_share=(1.0 - busy / wall) if n else None)
 
 
+def k6_device_time(torch, call, flush, reps: int = 10) -> dict:
+    """K6's own device time a call, apart from the wrapper's host work, each
+    call after an L2 flush as ``time_ms`` makes it: (a) ``torch.profiler``'s
+    mean duration of each K6 kernel it captured (the tensor-core kernel, and
+    the merge kernel of a split call), with the number captured (late in
+    this long process it has captured a quarter of them, or none); (b) CUDA
+    events around the call while a spin kernel (``torch.cuda._sleep``)
+    holds the device, so the host enqueues the events and K6 before the
+    device reaches them; and the wrapper's host time a call on the host
+    clock over calls that do not wait for the device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            call()
+        torch.cuda.synchronize()
+    seen = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and (
+                "flash_fwd" in e.name or "flash_merge" in e.name):
+            key = "merge" if "flash_merge" in e.name else "attention"
+            seen.setdefault(key, []).append(e.time_range.elapsed_us() / 1e3)
+    hidden = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(2_000_000)  # ~1 ms: longer than the host's work
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        call()
+        end.record()
+        end.synchronize()
+        hidden.append(start.elapsed_time(end))
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+    host_s = (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    return dict(
+        profiler_ms=(sum(statistics.mean(v) for v in seen.values())
+                     if seen else None),
+        profiler_captured={k: len(v) for k, v in seen.items()},
+        device_ms=statistics.median(hidden), host_ms=host_s * 1e3)
+
+
 def flash_phase(torch, np, dev, fa, flush, serve, lm_layers: dict) -> dict:
     """Phase 4c: K6 against its plain version, timed beside its bound, at
     the layer shapes of every serving path (``lm_layers``: K6's launches a
@@ -2786,7 +2847,8 @@ def flash_phase(torch, np, dev, fa, flush, serve, lm_layers: dict) -> dict:
     flex = torch.compile(flex_attention)
 
     def case(label, b, s, hq, hkv, hd, dtype, window, cap, per_prefill,
-             library=False, prefix=0, t=None, causal=True, sdpa=False):
+             library=False, prefix=0, t=None, causal=True, sdpa=False,
+             device_time=False):
         t = s if t is None else t
         gen = torch.Generator(device=dev).manual_seed(s + t + hq + hd + prefix)
         q = torch.randn(b, s, hq, hd, generator=gen, device=dev).to(dtype)
@@ -2833,6 +2895,29 @@ def flash_phase(torch, np, dev, fa, flush, serve, lm_layers: dict) -> dict:
                    row_rms=rows,
                    tflops=tflops, bound_share=bound["bound_ms"] / k_ms,
                    launches_per_prefill=per_prefill, **bound)
+        if dtype != torch.float32:  # the 16-bit kernel's launch plan
+            plan = fa.flash_plan(b, s, t, hq, hkv, hd, causal=causal,
+                                 window=window, prefix_len=min(prefix, t),
+                                 sm_count=torch.cuda.get_device_properties(
+                                     dev).multi_processor_count)
+            rec["plan"] = plan._asdict()
+            print(f"  plan at {label}: {plan.rows} rows a block, "
+                  f"{plan.keys}-key tiles, {plan.parts} part"
+                  f"{'s (split keys, then the merge kernel)' if plan.parts > 1 else ''}",
+                  flush=True)
+        if device_time:  # the kernels' own time, apart from the host's
+            rec.update(k6_device_time(torch, lambda: fa.flash_attention_kernel(
+                q, k, v, **kw), flush))
+            prof_ms = rec["profiler_ms"]
+            print(f"  K6's device time at {label}: torch.profiler "
+                  + ("captured no K6 kernel (not measured)" if prof_ms is None
+                     else f"{prof_ms:.4f} ms a call (kernels captured "
+                          f"{rec['profiler_captured']} of 10 calls)")
+                  + f"; CUDA events with the host's work hidden behind a "
+                  f"spin kernel {rec['device_ms']:.4f} ms; against "
+                  f"{k_ms:.4f} ms between CUDA events with it exposed; the "
+                  f"wrapper's host work {rec['host_ms']:.4f} ms a call (host "
+                  f"clock, no sync)", flush=True)
         if library:
             lib, mask_s = flex_library(torch, flex, create_block_mask, q, k,
                                        v, window, cap, prefix, causal)
@@ -2896,11 +2981,13 @@ def flash_phase(torch, np, dev, fa, flush, serve, lm_layers: dict) -> dict:
 
     # the layer shapes of phases 3p and 3q, at the group widths they give the
     # tensor-core kernel: qwen1.5-32b G = 1, dbrx-132b G = 6, arctic-480b
-    # G = 7 (head_dim 128, no window, no softcap)
+    # G = 7 (head_dim 128, no window, no softcap, so SDPA computes the same
+    # function and is their library call; flex_attention is not compiled
+    # for them)
     gqa_cases = [
         case(f"{arch} layer ({b_}, {s_}, {hq}/{hkv}, 128) bf16", b_, s_, hq,
              hkv, 128, torch.bfloat16, None, None, lm_layers[arch],
-             library=True)[0]
+             sdpa=True)[0]
         for arch, b_, s_, hq, hkv in (
             (INT8_ARCH, INT8_BATCH, INT8_PROMPT, 40, 40),
             ("arctic-480b", MOE_BATCH, MOE_PROMPT, 56, 8),
@@ -2918,11 +3005,39 @@ def flash_phase(torch, np, dev, fa, flush, serve, lm_layers: dict) -> dict:
         case(f"{ENCDEC_ARCH} {what} ({eb}, {s_} vs {t_}, 16/16, 64) bf16"
              f"{'' if causal else ', not causal'}", eb, s_, 16, 16, 64,
              torch.bfloat16, None, None, lm_layers[what], t=t_,
-             causal=causal, sdpa=True)[0]
+             causal=causal, sdpa=True,
+             device_time=what in ("self", "decode cross"))[0]
         for what, s_, t_, causal in (("encoder", et, et, False),
                                      ("self", es, es, True),
                                      ("cross", es, et, False),
                                      ("decode cross", 1, et, False))]
+    # a single stream's whisper-medium decode step (batch 1): 16 blocks walk
+    # the 1500 encoder frames, so K6 splits the keys and runs its merge
+    split_cases = [case(f"{ENCDEC_ARCH} decode cross (1, 1 vs {et}, 16/16, "
+                        f"64) bf16, not causal, batch 1", 1, 1, 16, 16, 64,
+                        torch.bfloat16, None, None, 0, t=et, causal=False,
+                        sdpa=True, device_time=True)[0]]
+    check(split_cases[0]["plan"]["parts"] > 1,
+          "K6 splits the keys of whisper-medium's batch-1 decode step")
+    for r in encdec_cases + split_cases:
+        print(f"  {r['label']}: K6 {r['ms']:.4f} ms ({r['bound_share'] * 100:.1f} "
+              f"% of the {r['bound_ms']:.4f} ms bound, {r['bound_by']}), SDPA "
+              f"{r['sdpa_ms']:.4f} ms: K6 x{r['ms'] / r['sdpa_ms']:.2f} "
+              f"({'no slower' if r['ms'] <= r['sdpa_ms'] else 'SLOWER'}); "
+              f"plan {r['plan']}", flush=True)
+    prefill = [r for r in encdec_cases if "decode" not in r["label"]]
+    enc_layers, dec_layers = lm_layers["whisper_depth"]
+    for depth, calls in (("served cut", {r["label"]: r["launches_per_prefill"]
+                                         for r in prefill}),
+                         ("published depth", {r["label"]: enc_layers
+                                              if "encoder" in r["label"]
+                                              else dec_layers
+                                              for r in prefill})):
+        k6_w = sum(r["ms"] * calls[r["label"]] for r in prefill)
+        sdpa_w = sum(r["sdpa_ms"] * calls[r["label"]] for r in prefill)
+        print(f"K6 per {ENCDEC_ARCH} prefill ({depth}, "
+              f"{sum(calls.values())} calls): {k6_w:.3f} ms against SDPA's "
+              f"{sdpa_w:.3f} ms (K6 x{k6_w / sdpa_w:.2f})", flush=True)
     hb, hs = HYBRID_BATCH, HYBRID_PROMPT
     hybrid_case = case(
         f"{HYBRID_ARCH} local layer ({hb}, {hs}, 16/1, 256) bf16, window "
@@ -3060,11 +3175,14 @@ def flash_phase(torch, np, dev, fa, flush, serve, lm_layers: dict) -> dict:
     for inst in build["instances"]:
         print(f"  build: {inst}")
     print(f"  build: {build['hgmma']} HGMMA instructions in the library's SASS")
-    check(len(build["instances"]) == 12 and all(
+    check(len(build["instances"]) == 18 and all(
         i.get("spill_stores") == 0 and i.get("spill_loads") == 0
         for i in build["instances"]),
         "ptxas: the twelve 16-bit K6 instances (six with the prefix mask) "
-        "compile without spills")
+        "and the six merge kernels compile without spills")
+    check(build["serialized_wgmma_warnings"] == 0,
+          f"ptxas serialised no wgmma of K6 "
+          f"({build['serialized_wgmma_warnings']} warnings)")
     check(build["hgmma"] > 0, f"the library holds {build['hgmma']} HGMMA "
                               f"(wgmma) instructions: the tensor cores run K6")
     return dict(
@@ -3082,16 +3200,23 @@ def flash_phase(torch, np, dev, fa, flush, serve, lm_layers: dict) -> dict:
                   "the fp32 plain version (flash_row_rms) <= 2^-7 (2^-10)",
         max_abs_err=max(r["max_abs_err"]
                         for r in path + ragged + gqa_cases + prefix_cases
-                        + encdec_cases + [hybrid_case]),
+                        + encdec_cases + split_cases + [hybrid_case]),
         ms=k6_prefill_ms, plain_ms=per_prefill("plain_ms"),
-        design="bf16 / fp16: flash_fwd_wgmma_kernel, 3 warpgroups (1 TMA "
-               "producer thread, 2 consumers of 64 rows), 128 (query, head) "
-               "rows of one kv head a block, a 2-stage ring of 64-key K/V "
-               "tiles by TMA (128-byte swizzle) and mbarriers, S = Q K^T by "
-               "wgmma m64n64k16 from shared memory, fp32 softmax in "
-               "registers, P in registers as wgmma's A for O += P V "
-               "(m64n<hd>k16, V MN-major), setmaxnreg 240 / 24; fp32: "
-               "flash_fwd_kernel on the CUDA cores",
+        design="bf16 / fp16: flash_fwd_wgmma_kernel, a TMA producer "
+               "warpgroup and consumer warpgroups of 64 (query, head) rows "
+               "of one kv head, K/V tiles by TMA (128-byte swizzle) and "
+               "mbarriers, S = Q K^T by wgmma from shared memory, fp32 "
+               "softmax in registers, P in registers as wgmma's A for O += "
+               "P V (m64n<hd>k16, V MN-major); a plan a head dim: hd 256 "
+               "(PR 16) 2 consumers, 64-key tiles, 2 stages, each tile in "
+               "turn, setmaxnreg 240 / 24; hd 128 2 consumers, 128-key "
+               "tiles, 3 stages; hd 64 3 consumers, 64-key tiles, 4 stages, "
+               "setmaxnreg 160 / 24; hd 64 and 128 issue tile i + 1's Q K^T "
+               "with tile i's P V and run the softmax under them, take 64 "
+               "rows a block where S G <= 64 and split the keys into parts "
+               "merged by flash_merge_kernel where few blocks walk a long "
+               "range (flash_plan); fp32: flash_fwd_kernel on the CUDA "
+               "cores",
         build=build, tflops=per_prefill("flops") / (k6_prefill_ms * 1e-3) / 1e12,
         bound_share=per_prefill("bound_ms") / k6_prefill_ms,
         bound_ms=per_prefill("bound_ms"),
@@ -3114,6 +3239,7 @@ def flash_phase(torch, np, dev, fa, flush, serve, lm_layers: dict) -> dict:
         serving=serve, shapes=path, ragged=ragged,
         row_rms_controls=controls, serve_shapes=gqa_cases,
         prefix_shapes=prefix_cases, encdec_shapes=encdec_cases,
+        split_shapes=split_cases,
         hybrid_shapes=[hybrid_case])
 
 
@@ -3907,12 +4033,13 @@ def own_model_phase(torch, np, dev, get_config, get_model, greedy_generate,
 
 # phase 3v: gemma2-2b trains at its published width: batch 8 x 2048 tokens
 # in its config's 8 microbatches (1 x 2048 each), 4 steps through
-# ElasticTrainer, a checkpoint after step 2. Its depth is cut to 12 of 26
-# layers (6 local and 6 global) for the script's time, with phase 3x added
-# (the whole run took 1030.3 s of its 1200 s at 26 layers, 3v 121 s of it;
-# NVIDIA H100 80GB HBM3, 700.00 W); 4d and 3x(a) follow the same cut
+# ElasticTrainer, a checkpoint after step 2. Its depth is cut to 6 of 26
+# layers (3 local and 3 global) for the script's time (the whole run took
+# 1030.3 s of its 1200 s at 26 layers, 3v 121 s of it, and 1232.5 s at 12
+# layers on a slower host, 3v 73 s of it; NVIDIA H100 80GB HBM3, 700.00 W);
+# 3x(a) and 3y(a) follow the same cut
 TRAIN_ARCH = "gemma2-2b"
-TRAIN_CUT = dict(num_layers=12)
+TRAIN_CUT = dict(num_layers=6)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_SAVE_EVERY = 8, 2048, 4, 2
 # phase 4d: dq, dk and dv through FlashAttention against autograd through
 # the chunked scan on the same inputs. The backward IS that scan's
@@ -4231,7 +4358,7 @@ def train_phase(torch, np, dev, get_config, get_model, fa) -> dict:
     of 8 x 2048 tokens, 4 steps through ``ElasticTrainer`` with a
     checkpoint after step 2. Checks: every loss finite; every trainable
     leaf's gradient finite with a norm above 0 (read at each step's
-    ``adamw_update``); 192 K6 launches a step (12 layers x 8 microbatches x
+    ``adamw_update``); 96 K6 launches a step (6 layers x 8 microbatches x
     the forward and the remat's recompute); the run's own peak within
     ``PEAK_RECKON_SLACK`` of the reckoning. Measures the step's seconds
     (median of steps 1-3), tokens/s, the model-FLOP rate against 989
@@ -6753,6 +6880,8 @@ def main() -> int:
                       "self": whisper.num_layers, "cross": whisper.num_layers,
                       "decode cross": whisper.num_layers,
                       "encoder_seq": whisper.encoder_seq,
+                      "whisper_depth": (get_config(ENCDEC_ARCH).encoder_layers,
+                                        get_config(ENCDEC_ARCH).num_layers),
                       HYBRID_ARCH: block_kinds(get_config(HYBRID_ARCH).replace(
                           **SERVE_CUTS[HYBRID_ARCH])).count("attn")})
     k6 = flash_phase(torch, np, dev, fa, flush, serve, lm_layers)

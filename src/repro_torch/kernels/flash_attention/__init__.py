@@ -3,10 +3,13 @@
 
 from repro_torch.kernels.flash_attention.flash_attention import (
     FlashAttention,
+    FlashPlan,
     HEAD_DIMS,
     LAUNCHES,
+    WGMMA_PLANS,
     check_flash_inputs,
     flash_attention_kernel,
+    flash_plan,
     reset_launch_counts,
 )
 from repro_torch.kernels.flash_attention.ops import BACKENDS, flash_attention
@@ -20,13 +23,16 @@ from repro_torch.kernels.flash_attention.ref import (
 __all__ = [
     "BACKENDS",
     "FlashAttention",
+    "FlashPlan",
     "HEAD_DIMS",
     "LAUNCHES",
     "ROW_RMS_BOUND",
+    "WGMMA_PLANS",
     "check_flash_inputs",
     "flash_attention",
     "flash_attention_kernel",
     "flash_attention_ref",
+    "flash_plan",
     "flash_row_rms",
     "flash_within_tolerance",
     "reset_launch_counts",

@@ -527,6 +527,20 @@ FLASH_CASES = [
     # recurrentgemma-9b's local attention: MQA 16/1 at head dim 256,
     # causal, window 2048 over a 4096-token prompt
     (2, 4096, 4096, 16, 1, 256, torch.bfloat16, True, 2048, None),
+    # the key split (``flash_plan`` cuts each block's keys into parts where
+    # few blocks walk a long range, merged by log-sum-exp): S·G <= 64 over
+    # a long T (8 parts each), causal with parts past the diagonal and
+    # empty ones (4 parts), a window (4 parts), rows with no valid key (2
+    # parts), whisper-medium's decode step at batch 1 (6 parts), bf16 and
+    # fp16
+    (2, 40, 3000, 8, 8, 128, torch.bfloat16, False, None, None),
+    (1, 3, 2000, 12, 4, 64, torch.float16, False, None, 50.0),
+    (1, 1, 5000, 16, 16, 128, torch.float16, False, None, None),
+    (1, 1024, 1024, 1, 1, 64, torch.bfloat16, True, None, None),
+    (1, 1024, 1024, 2, 1, 128, torch.float16, True, 600, None),
+    (1, 1000, 600, 2, 1, 64, torch.bfloat16, True, 50, None),
+    (1, 1000, 600, 2, 1, 64, torch.float16, False, 40, 30.0),
+    (1, 1, 1500, 16, 16, 64, torch.bfloat16, False, None, None),
 ]
 
 

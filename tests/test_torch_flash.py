@@ -14,14 +14,19 @@ another order); against the Pallas kernel 2e-3, as the reference's own
 test; bf16 outputs to one bf16 rounding step (2⁻⁷ relative).
 
 K6's numeric contract for 16-bit inputs (``flash_within_tolerance``): a
-torch emulation of the tensor-core kernel's arithmetic (128-row blocks,
-64-key tiles, the online softmax from the -1e30 sentinel, P rounded to the
-input type before P·V, the exact tile-skip rule) against the reference's
-oracle, the Pallas kernel in interpret mode and the port's plain version,
-within one output rounding plus the bf16 (fp16) weights' slack; and the
-same bound rejecting an emulation that skips the alpha rescale. With the
-VLM's bidirectional prefix, the emulation (every block from key 0) against
-the port's plain version and the reference's ``layers.attention``.
+torch emulation of the tensor-core kernel's arithmetic (the launch plan of
+``flash_plan``: rows a block and keys a tile of each head dim's
+``struct Plan`` in the source, the key split and its log-sum-exp merge;
+the online softmax from the -1e30 sentinel, P rounded to the input type
+before P·V, the exact tile-skip rule) against the reference's oracle, the
+Pallas kernel in interpret mode and the port's plain version, within one
+output rounding plus the bf16 (fp16) weights' slack; and the same bound
+rejecting an emulation that skips the alpha rescale. With the VLM's
+bidirectional prefix, the emulation (every block from key 0) against the
+port's plain version and the reference's ``layers.attention``. Splits
+where a part holds only masked keys or none, and rows with no valid key,
+against the oracle, and in fp32 against one pass. The plan function on
+whisper-medium's, the head-dim-128 layers' and head-dim-256 shapes.
 """
 
 import math
@@ -262,23 +267,23 @@ def test_non_cpu_requests_raise_without_a_card():
 
 # -- K6's numeric contract for 16-bit inputs ---------------------------------
 
-def _wgmma_tiles():
-    """(rows a block, keys a tile) of ``flash_fwd_wgmma_kernel``, read from
-    its source, so the emulation below follows the kernel's tiling."""
+def _wgmma_plans():
+    """{head dim: (consumer warpgroups, keys a tile)} of
+    ``flash_fwd_wgmma_kernel``, read from each ``struct Plan<HD>`` of its
+    source, so that the emulation below follows the kernel's tiling."""
     src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
            / "csrc" / "flash_attention.cu").read_text()
-    body = src[src.index("namespace hopper {"):]
+    plans = {}
+    for hd, body in re.findall(r"struct Plan<(\d+)> \{(.*?)\n\};", src,
+                               flags=re.S):
+        def const(name):
+            return int(re.search(rf"constexpr int {name} = (\d+);", body)[1])
 
-    def const(name):
-        return re.search(rf"constexpr int {name} = ([^;]+);", body)[1]
-
-    rows_wg, keys = int(const("kRowsWG")), int(const("kKeys"))
-    rows = const("kRows")
-    assert rows == "2 * kRowsWG", rows  # two consumer warpgroups
-    return 2 * rows_wg, keys
+        plans[int(hd)] = (const("kConsumers"), const("kKeys"))
+    return plans
 
 
-WGMMA_ROWS, WGMMA_KEYS = _wgmma_tiles()
+WGMMA_PLANS = _wgmma_plans()
 
 
 def _round_bits(p, bits):
@@ -287,21 +292,29 @@ def _round_bits(p, bits):
 
 
 def _emulate_wgmma_kernel(q, k, v, *, causal=True, window=None, cap=None,
-                          prefix_len=0, rescale=True, p_bits=None):
-    """The 16-bit kernel's arithmetic (``flash_fwd_wgmma_kernel``) in torch:
-    blocks of ``WGMMA_ROWS`` (query, head) rows of one kv head, each
-    visiting the ``WGMMA_KEYS``-key tiles of its key range (the kernel's
-    skip rule; with a prefix, from key 0 to at least its end), fp32 logits and online softmax from the -1e30 sentinel
-    (-inf past T), P rounded to the input type before P·V, acc / max(l,
-    1e-30) rounded once. Known faults: ``rescale=False`` drops the alpha
-    rescale of the accumulator; ``p_bits`` rounds P to that many
-    significant bits instead of the input type."""
+                          prefix_len=0, rescale=True, p_bits=None,
+                          parts=None):
+    """The 16-bit kernel's arithmetic (``flash_fwd_wgmma_kernel``) in torch,
+    on the launch plan the wrapper would pick (``fa.flash_plan``; head dims
+    below 64 take the head-dim-64 plan's tiles): blocks of ``rows`` (query,
+    head) rows of one kv head, each visiting the ``keys``-key tiles of its
+    key range (the kernel's skip rule; with a prefix, from key 0 to at least
+    its end), cut on tile boundaries into ``parts`` (``parts`` overrides the
+    plan's), each part an online softmax from the -1e30 sentinel (-inf past
+    T) with P rounded to the input type before P·V, the parts merged by
+    log-sum-exp, acc / max(l, 1e-30) rounded once. Known faults:
+    ``rescale=False`` drops the alpha rescale of the accumulator;
+    ``p_bits`` rounds P to that many significant bits instead of the input
+    type."""
     b, s, hq, hd = q.shape
     t, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     win = 1 << 30 if window is None else window
     pre = min(prefix_len, t)
-    rows_all, keys = WGMMA_ROWS, WGMMA_KEYS
+    plan = fa.flash_plan(b, s, t, hq, hkv, max(hd, 64), causal=causal,
+                         window=window, prefix_len=pre)
+    rows_all, keys = plan.rows, plan.keys
+    n_parts = plan.parts if parts is None else parts
     n_rows = s * g
     out = torch.empty(b, s, hq, hd, dtype=q.dtype)
     for bi in range(b):
@@ -315,37 +328,50 @@ def _emulate_wgmma_kernel(q, k, v, *, causal=True, window=None, cap=None,
                 s_lo, s_hi = r0 // g, min(n_rows - 1, r0 + rows_all - 1) // g
                 k_begin = max(0, s_lo - win + 1)
                 k_end = min(t, s_hi + 1) if causal else t
+                if s_hi - win + 1 > t - 1:  # a row with no valid key
+                    k_begin, k_end = 0, t
                 if pre > 0:  # every row sees the prefix
                     k_begin, k_end = 0, max(k_end, pre)
-                elif s_hi - win + 1 > t - 1:  # a row with no valid key
-                    k_begin, k_end = 0, t
                 k_begin = k_begin // keys * keys
-                m = torch.full((rows.shape[0],), -1e30)
-                l = torch.zeros(rows.shape[0])
-                acc = torch.zeros(rows.shape[0], hd)
-                for kt in range(k_begin, k_end, keys):
-                    kpos = torch.arange(kt, kt + keys)
-                    n = min(keys, t - kt)  # keys past T: zero rows
-                    kt_rows = torch.zeros(keys, hd)
-                    vt_rows = torch.zeros(keys, hd)
-                    kt_rows[:n], vt_rows[:n] = kf[kt:kt + n], vh[kt:kt + n].float()
-                    x = rows @ kt_rows.T * (1.0 / math.sqrt(hd))
-                    if cap is not None:
-                        x = torch.tanh(x / cap) * cap
-                    qk = spos[:, None] - kpos[None, :]
-                    valid = (qk < win) & ((qk >= 0) if causal else True)
-                    valid = valid | (kpos[None, :] < pre)
-                    x = torch.where(valid, x, torch.tensor(-1e30))
-                    x = torch.where(kpos[None, :] >= t, -math.inf, x)
-                    m_new = torch.maximum(m, x.amax(1))
-                    alpha = torch.exp(m - m_new)
-                    p = torch.exp(x - m_new[:, None])
-                    l = l * alpha + p.sum(1)
-                    pr = p.to(q.dtype).float() if p_bits is None \
-                        else _round_bits(p, p_bits)
-                    pv = pr @ vt_rows
-                    acc = (acc * alpha[:, None] if rescale else acc) + pv
-                    m = m_new
+                n_all = -(-(k_end - k_begin) // keys)
+                done = []
+                for z in range(n_parts):
+                    m = torch.full((rows.shape[0],), -1e30)
+                    l = torch.zeros(rows.shape[0])
+                    acc = torch.zeros(rows.shape[0], hd)
+                    for tile in range(n_all * z // n_parts,
+                                      n_all * (z + 1) // n_parts):
+                        kt = k_begin + tile * keys
+                        kpos = torch.arange(kt, kt + keys)
+                        n = min(keys, t - kt)  # keys past T: zero rows
+                        kt_rows = torch.zeros(keys, hd)
+                        vt_rows = torch.zeros(keys, hd)
+                        kt_rows[:n] = kf[kt:kt + n]
+                        vt_rows[:n] = vh[kt:kt + n].float()
+                        x = rows @ kt_rows.T * (1.0 / math.sqrt(hd))
+                        if cap is not None:
+                            x = torch.tanh(x / cap) * cap
+                        qk = spos[:, None] - kpos[None, :]
+                        valid = (qk < win) & ((qk >= 0) if causal else True)
+                        valid = valid | (kpos[None, :] < pre)
+                        x = torch.where(valid, x, torch.tensor(-1e30))
+                        x = torch.where(kpos[None, :] >= t, -math.inf, x)
+                        m_new = torch.maximum(m, x.amax(1))
+                        alpha = torch.exp(m - m_new)
+                        p = torch.exp(x - m_new[:, None])
+                        l = l * alpha + p.sum(1)
+                        pr = p.to(q.dtype).float() if p_bits is None \
+                            else _round_bits(p, p_bits)
+                        pv = pr @ vt_rows
+                        acc = (acc * alpha[:, None] if rescale else acc) + pv
+                        m = m_new
+                    done.append((m, l, acc))
+                # the merge: w = exp(m_p - max m), parts with no tile carry
+                # (m, l, acc) = (-1e30, 0, 0) and so add nothing
+                top = torch.stack([m for m, _, _ in done]).amax(0)
+                w = [torch.exp(m - top) for m, _, _ in done]
+                l = sum(wi * li for wi, (_, li, _) in zip(w, done))
+                acc = sum(wi[:, None] * ai for wi, (_, _, ai) in zip(w, done))
                 flat[r0:r0 + rows.shape[0]] = acc / l.clamp_min(1e-30)[:, None]
             out[bi, :, h * g:(h + 1) * g] = flat.reshape(s, g, hd)
     return out
@@ -423,9 +449,11 @@ def test_wgmma_arithmetic_matches_pallas_interpret(lmref, b, s, hq, hkv, hd,
     assert ok, err
 
 
+# shapes whose blocks walk several key tiles (with one tile a block there
+# is no rescale to skip)
 @pytest.mark.parametrize("dtype,shape", [
     (torch.bfloat16, EMULATION_SHAPES[7]),
-    (torch.float16, EMULATION_SHAPES[0]),
+    (torch.float16, (2, 300, 300, 8, 4, 16, True, 200, 50.0)),
 ])
 def test_contract_rejects_a_skipped_rescale(dtype, shape):
     b, s, t, hq, hkv, hd, causal, window, cap = shape
@@ -534,5 +562,147 @@ def test_wgmma_arithmetic_with_prefix_within_contract(lmref, b, s, hq, hkv,
 
 
 def test_emulation_tiles_fit_wgmma():
-    # two consumer warpgroups of wgmma's M = 64 rows; keys in steps of K = 16
-    assert WGMMA_ROWS == 2 * 64 and WGMMA_KEYS % 16 == 0
+    # the source's plans are the wrapper's; up to three consumer
+    # warpgroups of wgmma's M = 64 rows; keys a tile are a wgmma N that
+    # the kernel issues (64 or 128) and a multiple of its K = 16; head dim
+    # 256 keeps PR 16's two warpgroups of 64-key tiles
+    assert set(WGMMA_PLANS) == set(fa.HEAD_DIMS)
+    for hd, (consumers, keys) in WGMMA_PLANS.items():
+        assert fa.WGMMA_PLANS[hd] == dict(consumers=consumers, keys=keys)
+        assert 1 <= consumers <= 3 and keys in (64, 128) and keys % 16 == 0
+    assert WGMMA_PLANS[256] == (2, 64)
+
+
+# -- the launch plan and the key split ---------------------------------------
+
+# (label, (b, s, t, hq, hkv, hd, causal, window, prefix), (rows, keys, parts))
+PLAN_CASES = [
+    # whisper-medium at batch 4, prompt 64 (16/16 heads of 64): the encoder
+    # takes 192-row blocks; the decoder's self-attention, its cross-
+    # attention and a decode step's one-query cross-attention have S·G <=
+    # 64 (one warpgroup); 64 blocks fill half the card, so no split
+    ("whisper encoder", (4, 1500, 1500, 16, 16, 64, False, None, 0),
+     (192, 128, 1)),
+    ("whisper self", (4, 64, 64, 16, 16, 64, True, None, 0), (64, 128, 1)),
+    ("whisper cross", (4, 64, 1500, 16, 16, 64, False, None, 0),
+     (64, 128, 1)),
+    ("whisper decode cross", (4, 1, 1500, 16, 16, 64, False, None, 0),
+     (64, 128, 1)),
+    # at batch 1 its 16 blocks leave most SMs idle: 6 parts of 2 tiles
+    ("whisper decode cross, batch 1", (1, 1, 1500, 16, 16, 64, False, None,
+                                       0), (64, 128, 6)),
+    ("whisper cross, batch 1", (1, 64, 1500, 16, 16, 64, False, None, 0),
+     (64, 128, 6)),
+    # head dim 128: the served qwen1.5-32b, arctic-480b, dbrx-132b layers
+    ("qwen1.5-32b", (2, 512, 512, 40, 40, 128, True, None, 0), (192, 64, 1)),
+    # arctic-480b: 3-warpgroup blocks would run two rounds of 160 on 132 SMs
+    ("arctic-480b", (2, 256, 256, 56, 8, 128, True, None, 0), (128, 64, 1)),
+    ("dbrx-132b", (2, 256, 256, 48, 8, 128, True, None, 0), (192, 64, 1)),
+    # head dim 256 keeps PR 16's plan, even where few blocks walk a long
+    # key range or S·G is below 64
+    ("gemma2-2b global", (2, 6144, 6144, 8, 4, 256, True, None, 0),
+     (128, 64, 1)),
+    ("hd 256, one query", (1, 1, 4096, 8, 8, 256, False, None, 0),
+     (128, 64, 1)),
+    ("paligemma-3b", (2, 512, 512, 8, 1, 256, True, None, 256), (128, 64, 1)),
+    # short key ranges are never cut: a part keeps at least 2 tiles
+    ("short keys", (1, 1, 384, 4, 4, 64, False, None, 0), (64, 128, 1)),
+    # the card's split cases (tests/test_torch_cuda.py FLASH_CASES) do split
+    # (few blocks: one warpgroup each, so that more SMs share them)
+    ("causal, few rows", (1, 1024, 1024, 1, 1, 64, True, None, 0),
+     (64, 128, 4)),
+    ("causal window", (1, 1024, 1024, 2, 1, 128, True, 600, 0),
+     (64, 64, 4)),
+    ("rows with no key", (1, 1000, 600, 2, 1, 64, True, 50, 0),
+     (64, 128, 2)),
+    ("S·G <= 64, long T", (2, 40, 3000, 8, 8, 128, False, None, 0),
+     (64, 64, 8)),
+]
+
+
+@pytest.mark.parametrize("label,shape,want",
+                         PLAN_CASES, ids=[c[0] for c in PLAN_CASES])
+def test_flash_plan_on_the_path_shapes(label, shape, want):
+    b, s, t, hq, hkv, hd, causal, window, prefix = shape
+    got = fa.flash_plan(b, s, t, hq, hkv, hd, causal=causal, window=window,
+                        prefix_len=prefix, sm_count=132)
+    assert tuple(got) == want, (label, got)
+    # the meta default is the H100's 132 SMs; a card with more SMs takes
+    # blocks of no more rows, and never cuts a part below 2 tiles
+    assert fa.flash_plan(b, s, t, hq, hkv, hd, causal=causal, window=window,
+                         prefix_len=prefix) == got
+    more = fa.flash_plan(b, s, t, hq, hkv, hd, causal=causal, window=window,
+                         prefix_len=prefix, sm_count=1000)
+    assert more.rows <= got.rows and more.keys == got.keys
+    assert more.parts == 1 or more.parts * 2 <= -(-t // more.keys)
+
+
+# (b, s, t, hq, hkv, hd, causal, window, cap, parts): the key split where a
+# part holds only masked keys or nothing, and where rows have no valid key
+SPLIT_SHAPES = [
+    (1, 200, 200, 2, 1, 64, True, None, None, 4),    # parts past the diagonal; an empty part
+    (2, 300, 300, 4, 2, 64, True, 40, 50.0, 3),      # a window: parts wholly before it
+    (1, 200, 50, 4, 2, 64, True, 20, None, 2),       # rows with no key; one tile, 2 parts
+    (1, 200, 50, 4, 2, 64, False, 10, 50.0, 3),      # the same, not causal
+    (1, 150, 600, 4, 2, 128, False, None, None, 3),  # 128-key tiles
+    (1, 400, 400, 2, 1, 128, True, 100, 30.0, 4),    # causal window, 128-key tiles
+    (2, 3, 700, 10, 2, 64, False, None, None, 5),    # S·G = 15: one warpgroup
+]
+
+
+@pytest.mark.parametrize("b,s,t,hq,hkv,hd,causal,window,cap,parts",
+                         SPLIT_SHAPES)
+def test_wgmma_split_within_contract_bf16(lmref, b, s, t, hq, hkv, hd, causal,
+                                          window, cap, parts):
+    """A split launch's arithmetic (each part from the -1e30 sentinel, the
+    parts merged by log-sum-exp) against the reference's oracle and the
+    port's plain version, within K6's contract and row bound."""
+    import jax.numpy as jnp
+
+    arrays = _qkv(b, s, hq, hkv, hd, seed=3 * s + t + parts, t=t)
+    q, k, v = _torch16(arrays, torch.bfloat16)
+    kw = dict(causal=causal, window=window, cap=cap)
+    got = _emulate_wgmma_kernel(q, k, v, parts=parts, **kw)
+    assert bool(torch.isfinite(got.float()).all())
+    ok, err = fa.flash_within_tolerance(got, fa.flash_attention_ref(
+        q, k, v, **kw), q, k, v, **kw)
+    assert ok, err
+    rows = fa.flash_row_rms(got, q, k, v, **kw)
+    assert float(rows.max()) <= fa.ROW_RMS_BOUND[torch.bfloat16]
+    jq, jk, jv = (jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v))
+    want = torch.from_numpy(np.asarray(lmref.flashref.flash_attention_ref(
+        jq, jk, jv, **kw), np.float32)).bfloat16()
+    ok, err = fa.flash_within_tolerance(got, want, q, k, v, **kw)
+    assert ok, err
+
+
+@pytest.mark.parametrize("b,s,t,hq,hkv,hd,causal,window,cap,parts",
+                         SPLIT_SHAPES)
+def test_wgmma_split_equals_one_pass(b, s, t, hq, hkv, hd, causal, window,
+                                     cap, parts):
+    """In fp32 (no rounding of P or of the output) a split visits the same
+    keys as one pass and differs only in the order of its sums: masked
+    parts are wiped and rows with no valid key keep their uniform average."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(b, s, hq, hkv, hd, seed=parts,
+                                                  t=t))
+    kw = dict(causal=causal, window=window, cap=cap)
+    one = _emulate_wgmma_kernel(q, k, v, parts=1, **kw)
+    split = _emulate_wgmma_kernel(q, k, v, parts=parts, **kw)
+    np.testing.assert_allclose(split.numpy(), one.numpy(), rtol=2e-5,
+                               atol=2e-6)
+    np.testing.assert_allclose(one.numpy(), fa.flash_attention_ref(
+        q, k, v, **kw).numpy(), rtol=2e-5, atol=2e-5)
+
+
+def test_wgmma_split_with_prefix_within_contract():
+    """A split with the bidirectional prefix and a window (two intervals of
+    valid keys a row, parts between them wholly masked) against the plain
+    version."""
+    q, k, v = _torch16(_qkv(1, 300, 4, 2, 64, seed=17), torch.bfloat16)
+    kw = dict(causal=True, window=16, cap=50.0, prefix_len=129)
+    got = _emulate_wgmma_kernel(q, k, v, parts=4, **kw)
+    ok, err = fa.flash_within_tolerance(got, fa.flash_attention_ref(
+        q, k, v, **kw), q, k, v, **kw)
+    assert ok, err
+    assert float(fa.flash_row_rms(got, q, k, v, **kw).max()) \
+        <= fa.ROW_RMS_BOUND[torch.bfloat16]
