@@ -49,6 +49,7 @@ from repro_torch.core.engine import (
 from repro_torch.core.options import CountOptions
 from repro_torch.graphs.device import resolve_device
 from repro_torch.graphs.formats import Graph, normalize_edge_updates
+from repro_torch.spans import span
 
 __all__ = ["CountResult", "CounterSession", "DynamicTriangleCounter",
            "TriangleCounter", "graph_fingerprint", "warn_deprecated"]
@@ -198,23 +199,24 @@ class CounterSession:
 
     def count(self) -> CountResult:
         """Count triangles (a device replay after the first call)."""
-        plan = self.plan
-        t0 = time.perf_counter()
-        c = plan.count()
-        exec_seconds = time.perf_counter() - t0
-        meta = dict(plan.meta)
-        if self.algorithm == "subgraph":
-            meta["num_embeddings"] = 6 * c  # all |Aut(K3)| automorphisms
-        return CountResult(
-            count=c,
-            algorithm=self.algorithm,
-            options=self.options,
-            bucket_strategies=meta.get("bucket_strategies"),
-            prep_seconds=float(plan.prep_seconds),
-            exec_seconds=exec_seconds,
-            plan=plan,
-            meta=meta,
-        )
+        with span("tc.count"):
+            plan = self.plan
+            t0 = time.perf_counter()
+            c = plan.count()
+            exec_seconds = time.perf_counter() - t0
+            meta = dict(plan.meta)
+            if self.algorithm == "subgraph":
+                meta["num_embeddings"] = 6 * c  # all |Aut(K3)| automorphisms
+            return CountResult(
+                count=c,
+                algorithm=self.algorithm,
+                options=self.options,
+                bucket_strategies=meta.get("bucket_strategies"),
+                prep_seconds=float(plan.prep_seconds),
+                exec_seconds=exec_seconds,
+                plan=plan,
+                meta=meta,
+            )
 
     def count_with_stats(self) -> Tuple[int, Dict[str, Any]]:
         """``(count, stats)``: the count and the plan's meta, with the

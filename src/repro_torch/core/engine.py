@@ -108,6 +108,7 @@ from repro_torch.kernels.hash_tc.ops import (
 )
 from repro_torch.kernels.masked_spgemm import launch_order
 from repro_torch.kernels.masked_spgemm.ops import masked_spgemm_gathered_counts
+from repro_torch.spans import span
 
 __all__ = [
     "ALGORITHMS",
@@ -186,7 +187,8 @@ class _BoundedLRU:
                     break
             ev.wait()  # someone else is building this key; re-check
         try:
-            fn = builder()
+            with span("tc.cache.build"):
+                fn = builder()
         except BaseException:
             with self._lock:
                 self._pending.pop(key).set()
@@ -660,6 +662,8 @@ class _Stage:
     executable: Callable
     args: Tuple[torch.Tensor, ...]  # resident (u, v), (l, u, a) or (v, src, table)
     shape_key: tuple
+    # the profiler span run() records under, named when the stage is bound
+    span_name: str
     strategy: Optional[str] = None
     bitmap_bits: Optional[int] = None
     # (src, dst) per row — filtered stages only, for the per-vertex path
@@ -667,7 +671,8 @@ class _Stage:
 
     def run(self) -> torch.Tensor:
         """One stage: the kernel launch plus its int64 reduction."""
-        return self.executable(*self.args)
+        with span(self.span_name):
+            return self.executable(*self.args)
 
 
 def _matrix_chunk_args(views: Tuple[torch.Tensor, ...]) -> tuple:
@@ -701,6 +706,7 @@ class _TiledStage:
     shape_key: tuple        # the whole unit's shape (meta parity with _Stage)
     chunk_shape_key: tuple  # the launch's shape class
     device: torch.device
+    span_name: str
     strategy: Optional[str] = None
     bitmap_bits: Optional[int] = None
     # host (src, dst) row views per chunk: filtered stages only
@@ -723,15 +729,16 @@ class _TiledStage:
     def run(self) -> torch.Tensor:
         """Stream every chunk through the cached launch; the int64 total
         stays on the device."""
-        total = torch.zeros((), dtype=torch.int64, device=self.device)
+        with span(self.span_name):
+            total = torch.zeros((), dtype=torch.int64, device=self.device)
 
-        def consume(views):
-            total.add_(self.executable(*self.launch_args(views)))
+            def consume(views):
+                total.add_(self.executable(*self.launch_args(views)))
 
-        if self._slots is None and self.device.type == "cuda":
-            self._slots = self._allocate(self.chunks, self.fills)
-        self._stream(self.chunks, self.fills, consume, self._slots)
-        return total
+            if self._slots is None and self.device.type == "cuda":
+                self._slots = self._allocate(self.chunks, self.fills)
+            self._stream(self.chunks, self.fills, consume, self._slots)
+            return total
 
     def run_vertex(self, fn: Callable, total: torch.Tensor) -> None:
         """Stream (u, v, src, dst) chunks through the per-vertex launch
@@ -850,12 +857,15 @@ class TrianglePlan:
           RuntimeError: the full variant's total is not a multiple of 6
             (a broken kernel or layout).
         """
-        total = torch.zeros((), dtype=torch.int64, device=self.device)
-        for st in self.stages:
-            total += st.run()
-        if self.group is not None:
-            dist.all_reduce(total, group=self.group)
-        total = int(total)
+        with span("tc.plan.count"):
+            total = torch.zeros((), dtype=torch.int64, device=self.device)
+            for st in self.stages:
+                total += st.run()
+            if self.group is not None:
+                with span("tc.allreduce"):
+                    dist.all_reduce(total, group=self.group)
+            with span("tc.sync"):
+                total = int(total)
         if total % self.divisor:
             raise RuntimeError(
                 f"total {total} is not a multiple of divisor {self.divisor}")
@@ -1045,39 +1055,43 @@ def _bucket_stages(buckets: List[DeviceBucket], n: int, backend: str,
     # padding rows (-1/-2) are negative and never match in any core
     id_range = n + 2
     stages = []
-    for b in buckets:
-        strat, bits = _resolve_bucket_strategy(b.width, id_range, strategy,
-                                               bitmap_bits)
-        if bucket_is_tiled(b.e_pad, b.width, max_device_bytes):
-            chunk = _tile_chunk_rows(b.e_pad, _bucket_nbytes(1, b.width),
-                                     max_device_bytes)
-            cuts = range(0, b.e_pad, chunk)
-            stages.append(_TiledStage(
-                executable=get_executable("intersection", backend,
-                                          (chunk, b.width), strategy=strat,
-                                          bitmap_bits=bits),
-                chunks=[(b.u_lists[s:s + chunk], b.v_lists[s:s + chunk])
-                        for s in cuts],
-                fills=(-1, -2),  # whole-row padding: zero matches
-                chunk_rows=chunk,
+    with span("tc.prep.bind"):
+        for b in buckets:
+            strat, bits = _resolve_bucket_strategy(b.width, id_range,
+                                                   strategy, bitmap_bits)
+            if bucket_is_tiled(b.e_pad, b.width, max_device_bytes):
+                chunk = _tile_chunk_rows(b.e_pad, _bucket_nbytes(1, b.width),
+                                         max_device_bytes)
+                cuts = range(0, b.e_pad, chunk)
+                stages.append(_TiledStage(
+                    executable=get_executable("intersection", backend,
+                                              (chunk, b.width),
+                                              strategy=strat,
+                                              bitmap_bits=bits),
+                    chunks=[(b.u_lists[s:s + chunk], b.v_lists[s:s + chunk])
+                            for s in cuts],
+                    fills=(-1, -2),  # whole-row padding: zero matches
+                    chunk_rows=chunk,
+                    shape_key=b.shape,
+                    chunk_shape_key=(chunk, b.width),
+                    device=device,
+                    strategy=strat,
+                    bitmap_bits=bits,
+                    vertex_chunks=[(b.src[s:s + chunk], b.dst[s:s + chunk])
+                                   for s in cuts] if per_vertex else None,
+                    span_name=f"tc.stage {strat} w{b.width} tiled",
+                ))
+                continue
+            stages.append(_Stage(
+                executable=get_executable("intersection", backend, b.shape,
+                                          strategy=strat, bitmap_bits=bits),
+                args=(b.u_lists, b.v_lists),
                 shape_key=b.shape,
-                chunk_shape_key=(chunk, b.width),
-                device=device,
                 strategy=strat,
                 bitmap_bits=bits,
-                vertex_chunks=[(b.src[s:s + chunk], b.dst[s:s + chunk])
-                               for s in cuts] if per_vertex else None,
+                vertex_args=(b.src, b.dst) if per_vertex else None,
+                span_name=f"tc.stage {strat} w{b.width}",
             ))
-            continue
-        stages.append(_Stage(
-            executable=get_executable("intersection", backend, b.shape,
-                                      strategy=strat, bitmap_bits=bits),
-            args=(b.u_lists, b.v_lists),
-            shape_key=b.shape,
-            strategy=strat,
-            bitmap_bits=bits,
-            vertex_args=(b.src, b.dst) if per_vertex else None,
-        ))
     return stages, dict(
         bucket_shapes=[s.shape_key for s in stages],
         bucket_strategies=[(s.shape_key[1], s.strategy) for s in stages],
@@ -1125,6 +1139,7 @@ def _plan_matrix(g: Graph, block, permute: bool, backend: str,
             chunk_shape_key=chunk_key,
             device=device,
             launch_args=_matrix_chunk_args,
+            span_name=f"tc.stage matrix b{block} tiled",
         ))
     elif t:
         l_blocks, u_blocks, l_index, u_index, a_index = sched.to_device(device)
@@ -1135,7 +1150,8 @@ def _plan_matrix(g: Graph, block, permute: bool, backend: str,
         shape_key = (sched.num_triples, block, block)
         stages.append(_Stage(
             executable=get_executable("matrix", backend, shape_key),
-            args=args, shape_key=shape_key))
+            args=args, shape_key=shape_key,
+            span_name=f"tc.stage matrix b{block}"))
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     tiled = [st for st in stages if isinstance(st, _TiledStage)]
@@ -1252,6 +1268,7 @@ def _plan_hash(g: Graph, backend: str, widths: Sequence[int],
                 args=(v_lists, src, probe_row_ends(v_lists, g.n),
                       compact.chain_ptr, compact.chain_vals),
                 shape_key=shape_key,
+                span_name=f"tc.stage hash w{width}",
             ))
         meta.update(hash_num_buckets=num_buckets, hash_depth=depth,
                     table_width=table_width, table_bytes=compact.nbytes)
@@ -1331,7 +1348,8 @@ def _shard_stages(sharded: ShardedDeviceCSR, backend: str, strategy: str,
             stages.append(_Stage(
                 executable=fn,
                 args=(b.u_lists[:b.valid], b.v_lists[:b.valid]),
-                shape_key=shape_key, strategy=strat, bitmap_bits=bits))
+                shape_key=shape_key, strategy=strat, bitmap_bits=bits,
+                span_name=f"tc.stage {strat} w{b.width}"))
     return stages, specs
 
 
@@ -1400,7 +1418,8 @@ def _plan_matrix_distributed(g: Graph, mesh, block, permute: bool,
             tile_bytes = sum(x.numel() * x.element_size()
                              for x in (l_blocks, u_blocks, *index))
             stages.append(_Stage(executable=fn, args=args,
-                                 shape_key=shape_key))
+                                 shape_key=shape_key,
+                                 span_name=f"tc.stage matrix b{block}"))
     meta = dict(
         permute=permute,
         schedule_seconds=t1 - t0,
@@ -1494,44 +1513,47 @@ def plan_triangle_count(
         mesh = world_mesh(device.type) if mesh is None else mesh
         _check_mesh_device(mesh, device)
         group = mesh_group(mesh)
-    t0 = time.perf_counter()
-    if algorithm == "intersection":
-        stages, divisor, meta = _plan_intersection(
-            g, variant, backend, widths, strategy, bitmap_bits, prep_backend,
-            shape_policy, device, max_device_bytes,
-        )
-    elif algorithm == "matrix":
-        stages, divisor, meta = _plan_matrix(g, block, permute, backend,
-                                             device, max_device_bytes)
-    elif algorithm == "subgraph":
-        stages, divisor, meta = _plan_subgraph(
-            g, backend, widths, strategy, bitmap_bits, prep_backend,
-            shape_policy, device, max_device_bytes,
-        )
-    elif algorithm == "hash":
-        stages, divisor, meta = _plan_hash(g, backend, widths, prep_backend,
-                                           shape_policy, device)
-    elif algorithm == "bfs":
-        stages, divisor, meta = _plan_bfs(g, backend, widths, strategy,
-                                          bitmap_bits, shape_policy, device)
-    elif algorithm == "intersection_distributed":
-        stages, divisor, meta = _plan_intersection_distributed(
-            g, mesh, variant, backend, widths, strategy, bitmap_bits,
-            prep_backend, shape_policy, device)
-    else:
-        stages, divisor, meta = _plan_matrix_distributed(
-            g, mesh, block, permute, backend, device)
-    if group is not None:
-        meta["mesh"] = mesh_cache_component(mesh)
-    meta["graph"] = g.name
-    meta["n"], meta["m"] = g.n, g.m_undirected
-    meta["device"] = str(device)
-    plan = TrianglePlan(algorithm=algorithm, backend=backend, device=device,
-                        stages=stages, divisor=divisor, meta=meta,
-                        prep_seconds=0.0, group=group)
-    plan.synchronize()
-    plan.prep_seconds = time.perf_counter() - t0
-    return plan
+    with span("tc.prep"):
+        t0 = time.perf_counter()
+        if algorithm == "intersection":
+            stages, divisor, meta = _plan_intersection(
+                g, variant, backend, widths, strategy, bitmap_bits,
+                prep_backend, shape_policy, device, max_device_bytes,
+            )
+        elif algorithm == "matrix":
+            stages, divisor, meta = _plan_matrix(
+                g, block, permute, backend, device, max_device_bytes)
+        elif algorithm == "subgraph":
+            stages, divisor, meta = _plan_subgraph(
+                g, backend, widths, strategy, bitmap_bits, prep_backend,
+                shape_policy, device, max_device_bytes,
+            )
+        elif algorithm == "hash":
+            stages, divisor, meta = _plan_hash(
+                g, backend, widths, prep_backend, shape_policy, device)
+        elif algorithm == "bfs":
+            stages, divisor, meta = _plan_bfs(
+                g, backend, widths, strategy, bitmap_bits, shape_policy,
+                device)
+        elif algorithm == "intersection_distributed":
+            stages, divisor, meta = _plan_intersection_distributed(
+                g, mesh, variant, backend, widths, strategy, bitmap_bits,
+                prep_backend, shape_policy, device)
+        else:
+            stages, divisor, meta = _plan_matrix_distributed(
+                g, mesh, block, permute, backend, device)
+        if group is not None:
+            meta["mesh"] = mesh_cache_component(mesh)
+        meta["graph"] = g.name
+        meta["n"], meta["m"] = g.n, g.m_undirected
+        meta["device"] = str(device)
+        plan = TrianglePlan(algorithm=algorithm, backend=backend,
+                            device=device, stages=stages, divisor=divisor,
+                            meta=meta, prep_seconds=0.0, group=group)
+        with span("tc.prep.sync"):
+            plan.synchronize()
+        plan.prep_seconds = time.perf_counter() - t0
+        return plan
 
 
 def plan_hash_count(

@@ -70,6 +70,7 @@ from repro_torch.kernels.masked_spgemm.masked_spgemm import (
     WGMMA_BLOCKS,
     launch_order,
 )
+from repro_torch.spans import span
 
 __all__ = [
     "DeviceBucket",
@@ -248,17 +249,18 @@ def _gather_buckets(dg: DeviceGraph, src: torch.Tensor, dst: torch.Tensor,
     ``max_device_bytes`` is gathered chunk by chunk into host arrays
     (``_gather_bucket_host``)."""
     n = dg.n
-    dmax = int(deg.max())  # one scalar sync picks the top-bucket width
-    bounds = [int(w) for w in widths]
-    if dmax > bounds[-1]:
-        bounds.append(next_pow2(dmax))
-    ssrc, sdst, counts, starts = _bucket_sort_dev(
-        src, dst, valid, deg,
-        torch.tensor(bounds, dtype=torch.int32, device=dg.device),
-        n=n, num_bounds=len(bounds),
-    )
-    counts_h = counts.tolist()  # one small sync for the static extents
-    starts_h = starts.tolist()
+    with span("tc.prep.bucket_sort"):
+        dmax = int(deg.max())  # one scalar sync picks the top-bucket width
+        bounds = [int(w) for w in widths]
+        if dmax > bounds[-1]:
+            bounds.append(next_pow2(dmax))
+        ssrc, sdst, counts, starts = _bucket_sort_dev(
+            src, dst, valid, deg,
+            torch.tensor(bounds, dtype=torch.int32, device=dg.device),
+            n=n, num_bounds=len(bounds),
+        )
+        counts_h = counts.tolist()  # one small sync for the static extents
+        starts_h = starts.tolist()
     # the (n, W) neighbour matrix only as wide as the widest non-empty
     # bucket: at n = 12M and W = 512 it would be 25 GB for buckets of width 8
     top = max((w for w, c in zip(bounds, counts_h) if c), default=bounds[0])
@@ -271,12 +273,14 @@ def _gather_buckets(dg: DeviceGraph, src: torch.Tensor, dst: torch.Tensor,
             continue
         e_pad = dg.policy.round_edges(c)
         args = (ssrc, sdst, int(starts_h[i]), c, nbrs)
-        if bucket_is_tiled(e_pad, w, max_device_bytes):
-            u, v, sb, db = _gather_bucket_host(
-                *args, n=n, e_pad=e_pad, width=w,
-                max_device_bytes=max_device_bytes)
-        else:
-            u, v, sb, db = _gather_bucket_dev(*args, n=n, e_pad=e_pad, width=w)
+        with span("tc.prep.gather"):
+            if bucket_is_tiled(e_pad, w, max_device_bytes):
+                u, v, sb, db = _gather_bucket_host(
+                    *args, n=n, e_pad=e_pad, width=w,
+                    max_device_bytes=max_device_bytes)
+            else:
+                u, v, sb, db = _gather_bucket_dev(*args, n=n, e_pad=e_pad,
+                                                  width=w)
         out.append(DeviceBucket(width=w, edges=c, u_lists=u, v_lists=v,
                                 src=sb, dst=db))
     return out

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.graphs.formats import Graph
+from repro_torch.spans import span
 
 __all__ = [
     "DEFAULT_SHAPE_POLICY",
@@ -717,19 +718,22 @@ class DeviceGraph:
     @classmethod
     def from_graph(cls, g: Graph, policy: ShapePolicy = DEFAULT_SHAPE_POLICY,
                    *, device: Union[str, torch.device]) -> "DeviceGraph":
-        return cls(DeviceCSR.from_graph(g, policy, device=device),
-                   policy=policy, name=g.name)
+        with span("tc.prep.upload"):
+            return cls(DeviceCSR.from_graph(g, policy, device=device),
+                       policy=policy, name=g.name)
 
     def forward(self) -> ForwardEdges:
         """Degree-rank forward orientation (rank = (degree, id)), cached."""
         if self._fwd is None:
-            mf_pad = max(1, self.csr.m_pad // 2)
-            fsrc, fdst, kvalid, frow_ptr, fdeg = _orient_by_rank_dev(
-                self.csr.row_ptr, self.csr.col_idx, self.m,
-                torch.diff(self.csr.row_ptr), n=self.n, m_pad=self.csr.m_pad, mf_pad=mf_pad,
-            )
-            self._fwd = ForwardEdges(fsrc, fdst, kvalid, frow_ptr, fdeg,
-                                     m=self.m // 2)
+            with span("tc.prep.orient"):
+                mf_pad = max(1, self.csr.m_pad // 2)
+                fsrc, fdst, kvalid, frow_ptr, fdeg = _orient_by_rank_dev(
+                    self.csr.row_ptr, self.csr.col_idx, self.m,
+                    torch.diff(self.csr.row_ptr), n=self.n,
+                    m_pad=self.csr.m_pad, mf_pad=mf_pad,
+                )
+                self._fwd = ForwardEdges(fsrc, fdst, kvalid, frow_ptr, fdeg,
+                                         m=self.m // 2)
         return self._fwd
 
     def level_oriented(self, lvl: torch.Tensor) -> ForwardEdges:
@@ -749,18 +753,17 @@ class DeviceGraph:
         undirected adjacency rows.
         """
         key = (int(width), bool(oriented))
-        if key not in self._nbrs:
-            if oriented:
-                fwd = self.forward()
-                self._nbrs[key] = _padded_neighbors_dev(
-                    fwd.src, fwd.dst, fwd.kvalid, fwd.row_ptr,
-                    n=self.n, width=int(width),
-                )
-            else:
-                self._nbrs[key] = _padded_neighbors_dev(
-                    self.edge_sources(), self.csr.col_idx, self.edge_valid(),
-                    self.csr.row_ptr, n=self.n, width=int(width),
-                )
+        if key in self._nbrs:
+            return self._nbrs[key]
+        if oriented:
+            fwd = self.forward()
+            args = (fwd.src, fwd.dst, fwd.kvalid, fwd.row_ptr)
+        else:
+            args = (self.edge_sources(), self.csr.col_idx, self.edge_valid(),
+                    self.csr.row_ptr)
+        with span("tc.prep.neighbors"):
+            self._nbrs[key] = _padded_neighbors_dev(*args, n=self.n,
+                                                    width=int(width))
         return self._nbrs[key]
 
     def __repr__(self) -> str:

@@ -22,6 +22,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Sequence
 
+from repro_torch.spans import span
+
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "find_nvcc", "load_library"]
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -74,7 +76,8 @@ def build(name: str) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with span("tc.nvcc"):
+        proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}) building {src}:\n"

@@ -47,6 +47,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.hash_tc.build import CompactHashTable, compact_hash_table
+from repro_torch.spans import span
 
 __all__ = [
     "LAUNCHES",
@@ -266,16 +267,17 @@ def hash_probe_compact_kernel(w_lists: torch.Tensor, src: torch.Tensor,
         return hash_probe_compact_chunked(w_lists, src, row_end, compact)
     if dev.type != "cuda":
         raise ValueError(f"the hash_probe kernel takes CUDA tensors, got {dev}")
-    out = torch.empty(e, dtype=torch.int32, device=dev)
-    if e == 0 or n == 0:
-        return out.zero_()
-    lib = _build.load_library("hash_probe", _SIGNATURES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tc_hash_probe_compact(
-            w_lists.data_ptr(), src.data_ptr(), row_end.data_ptr(),
-            compact.chain_ptr.data_ptr(), compact.chain_vals.data_ptr(),
-            out.data_ptr(), e, w, n, b, stream)
+    with span("tc.launch"):
+        out = torch.empty(e, dtype=torch.int32, device=dev)
+        if e == 0 or n == 0:
+            return out.zero_()
+        lib = _build.load_library("hash_probe", _SIGNATURES)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.tc_hash_probe_compact(
+                w_lists.data_ptr(), src.data_ptr(), row_end.data_ptr(),
+                compact.chain_ptr.data_ptr(), compact.chain_vals.data_ptr(),
+                out.data_ptr(), e, w, n, b, stream)
     if err != 0:
         raise RuntimeError(f"tc_hash_probe_compact launch failed with CUDA "
                            f"error {err} at (E, W) = ({e}, {w}), (n, B) = "

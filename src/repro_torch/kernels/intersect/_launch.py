@@ -15,6 +15,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.spans import span
 
 __all__ = ["LAUNCHES", "check_lists", "launch_counts", "reset_launch_counts"]
 
@@ -74,17 +75,20 @@ def launch_counts(strategy: str, u: torch.Tensor, v: torch.Tensor,
       ValueError: see ``check_lists``, or tensors not on a CUDA device.
       RuntimeError: the build failed or the launch reported a CUDA error.
     """
-    e, w = check_lists(u, v)
-    if u.device.type != "cuda":
-        raise ValueError(f"the {strategy} kernel takes CUDA tensors, got {u.device}")
-    out = torch.empty(e, dtype=torch.int32, device=u.device)
-    if e == 0 or w == 0:
-        return out.zero_()
-    lib = _build.load_library("intersect", _SIGNATURES)
-    fn = getattr(lib, _FUNCTIONS[strategy])
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(u.data_ptr(), v.data_ptr(), out.data_ptr(), e, w, *extra, stream)
+    with span("tc.launch"):
+        e, w = check_lists(u, v)
+        if u.device.type != "cuda":
+            raise ValueError(f"the {strategy} kernel takes CUDA tensors, "
+                             f"got {u.device}")
+        out = torch.empty(e, dtype=torch.int32, device=u.device)
+        if e == 0 or w == 0:
+            return out.zero_()
+        lib = _build.load_library("intersect", _SIGNATURES)
+        fn = getattr(lib, _FUNCTIONS[strategy])
+        with torch.cuda.device(u.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = fn(u.data_ptr(), v.data_ptr(), out.data_ptr(), e, w, *extra,
+                     stream)
     if err != 0:
         raise RuntimeError(f"{_FUNCTIONS[strategy]} launch failed with CUDA "
                            f"error {err} at (E, W) = ({e}, {w})")

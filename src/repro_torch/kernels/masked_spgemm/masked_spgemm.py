@@ -43,6 +43,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.spans import span
 
 __all__ = [
     "LAUNCHES",
@@ -263,25 +264,27 @@ def masked_spgemm_gathered(l_blocks: torch.Tensor, u_blocks: torch.Tensor,
     if wgmma and any(x.data_ptr() % 16 for x in (l_blocks, u_blocks,
                                                   a_blocks)):
         raise ValueError("bf16 tiles must start 16-byte aligned (TMA)")
-    out = torch.empty(t, dtype=torch.float32, device=dev)
-    if t == 0:
-        return out
-    lib = _build.load_library("masked_spgemm", _SIGNATURES)
-    ptrs = [x.data_ptr() for x in (l_index, u_index, a_index)]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        if wgmma:
-            name = "masked_spgemm_wgmma"
-            err = lib.tc_masked_spgemm_wgmma(
-                l_blocks.data_ptr(), l_blocks.shape[0], u_blocks.data_ptr(),
-                u_blocks.shape[0], a_blocks.data_ptr(), a_blocks.shape[0],
-                *ptrs, None if order is None else order.data_ptr(),
-                out.data_ptr(), t, b, stream)
-        else:
-            name = "masked_spgemm"
-            err = lib.tc_masked_spgemm(
-                l_blocks.data_ptr(), u_blocks.data_ptr(), a_blocks.data_ptr(),
-                *ptrs, out.data_ptr(), t, b, stream)
+    with span("tc.launch"):
+        out = torch.empty(t, dtype=torch.float32, device=dev)
+        if t == 0:
+            return out
+        lib = _build.load_library("masked_spgemm", _SIGNATURES)
+        ptrs = [x.data_ptr() for x in (l_index, u_index, a_index)]
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            if wgmma:
+                name = "masked_spgemm_wgmma"
+                err = lib.tc_masked_spgemm_wgmma(
+                    l_blocks.data_ptr(), l_blocks.shape[0],
+                    u_blocks.data_ptr(), u_blocks.shape[0],
+                    a_blocks.data_ptr(), a_blocks.shape[0], *ptrs,
+                    None if order is None else order.data_ptr(),
+                    out.data_ptr(), t, b, stream)
+            else:
+                name = "masked_spgemm"
+                err = lib.tc_masked_spgemm(
+                    l_blocks.data_ptr(), u_blocks.data_ptr(),
+                    a_blocks.data_ptr(), *ptrs, out.data_ptr(), t, b, stream)
     if err != 0:
         raise RuntimeError(f"tc_{name} launch failed with CUDA error {err} at "
                            f"(T, B) = ({t}, {b})")

@@ -226,6 +226,36 @@ def test_counter_on_card_matches_scipy(cuda, strategy):
             .triangles_per_vertex())
 
 
+def test_spans_on_the_card(cuda):
+    """Under a CUDA profiler each stage's span holds its one ``tc.launch``,
+    the profiler sees the kernels, and the spans add no launch counter."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = rmat_graph(12, 8, seed=2)
+    tc = TriangleCounter(g, algorithm="intersection")
+    want = tc.count().count
+    before = dict(LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = tc.count().count
+    events = list(prof.profiler.kineto_results.events())
+    cpu = torch.autograd.DeviceType.CPU
+    spans = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+             for e in events if e.device_type() == cpu
+             and e.is_user_annotation() and e.name().startswith("tc.")]
+    launches = [x for x in spans if x[2] == "tc.launch"]
+    stages = [x for x in spans if x[2].startswith("tc.stage")]
+    assert got == want == triangle_count_scipy(g)
+    assert set(LAUNCHES) == set(before)
+    assert sum(LAUNCHES[k] - before[k] for k in LAUNCHES) == len(launches) \
+        == len(stages) == tc.plan.num_stages
+    assert all(sum(s[0] <= x[0] and x[1] <= s[1] for x in launches) == 1
+               for s in stages)
+    assert [x[2] for x in spans].count("tc.sync") == 1
+    assert any(e.device_type() != cpu and not e.is_user_annotation()
+               for e in events)
+
+
 def tiles(t: int, b: int, seed: int):
     """Random 0/1 (T, B, B) float32 L, U, A stacks, density 0.02–0.5."""
     rng = np.random.default_rng(seed)
