@@ -14,8 +14,8 @@ source, all started together), and runs, in order:
 2. the main path (intersection lane): ``TriangleCounter(rmat_graph(18, 16,
    seed=1))`` with default options (auto → intersection, buckets on the
    card), checked against the forward-DAG scipy oracle and 82,629,122, with
-   the broadcast and probe kernels' launch counters read around it;
-   per-vertex counts must sum to 3 × count;
+   the launch counters read around it (K1 and K2's CSR form launch, the
+   padded K2 does not); per-vertex counts must sum to 3 × count;
 3. each strategy forced in turn on every non-tiny Table-1 analogue of
    ``graphs/datasets.py``, counts against ``triangle_count_scipy`` and
    per-vertex counts against the filtered auto run; the bitmap kernel's
@@ -39,7 +39,9 @@ source, all started together), and runs, in order:
    buckets go to K2 with u ids dropped in place, against the CPU's plain
    path and 6 × scipy, with K2's counter read around them;
 4. each kernel against its plain torch version on the card, exactly, at
-   the shapes its path gave it and on ragged shapes (K2 also at W = 2048
+   the shapes its path gave it (K2's CSR form at the main path's probe
+   buckets, read from the forward CSR; the padded K2 at phase 3g's tiled
+   chunks, its main path now) and on ragged shapes (K2 also at W = 2048
    and 8192, the bfs lane's widths, and on the row families of
    ``tests/probe_rows.py``; K1 and K3 on those of ``tests/intersect_rows.py``:
    unsorted rows, duplicates, ids outside the bitmap, W from 1 to 63, K3's
@@ -51,8 +53,9 @@ source, all started together), and runs, in order:
    the kernel's time (CUDA events, L2
    flushed before each launch), the plain version's time, the bound (K2:
    the bytes it must read, with the rows its range test skips, beside the
-   all-bytes bound and the ``torch.searchsorted`` yardstick; also its time
-   on the widest bucket's real rows alone, beside the whole bucket) and,
+   all-bytes bound and the ``torch.searchsorted`` yardstick; K2's CSR
+   form: each row a live edge needs read once, its row offsets and ends,
+   the endpoints and counts, ``csr_read_bound``) and,
    for the masked SpGEMM, the library call on the same tiles (K4 in both
    launch orders, and beside it the float32 yardstick on gathered stacks
    and the float32 CUDA-core kernel on the same triples, and a diagnostic
@@ -100,8 +103,9 @@ source, all started together), and runs, in order:
    ``recount()`` with K1–K3's counters read around it, against the kept
    count and ``triangle_count_forward_scipy(snapshot())``, and each of the
    recount's stages held against its plain version (``recount_path`` in
-   the kernels line); shorter streams on coauthors-like and road-like
-   (int32 keys); a ``{"lanes": ...}`` line with the two lanes' numbers;
+   the kernels line; its probe buckets through K2's CSR form); shorter
+   streams on coauthors-like and road-like (int32 keys); a
+   ``{"lanes": ...}`` line with the two lanes' numbers;
 3g. tiled counting: the pinned host-to-device rate (1 GiB, median of 5),
    then ``TriangleCounter(rmat_graph(18, 16, seed=1),
    max_device_bytes=1 << 30)``: its (2097152, 128) bucket streams in 4
@@ -352,12 +356,18 @@ source, all started together), and runs, in order:
    its launches, its roofline bound <= its measured prefill seconds; then
    ``lower_tc`` on a fake 256-rank group and one rank's share (32 tiles of
    128) launched through K4 on the card, its time beside the priced bound;
+4e. K2's form on the forward CSR at the probe buckets of the graph500-s19
+   benchmark cell's graph (``tcbench``'s generator, seed 2300000306):
+   exactly equal to its plain version and to the padded K2 on the same
+   buckets, each timed (CUDA events, L2 flushed) beside two bounds, the
+   needed rows read once and the graph read once; ``python3 chip_smoke.py
+   k2csr`` runs this phase alone (about a minute of command time);
 5. a ``{"lm_without_kernels": [...]}`` line (3t's run), a
    ``{"kernels": [...]}`` line, the card's name and power limit from
    nvidia-smi, and a last line ``{"ok": true, "device": {...}}``.
 
 The phases run in the order 1, 2, 3, 3b, 3c, 4, 3d, 4b, 3k, 3l, 3g–3j,
-3e, 3m, 3n, 3o, 3f, 4c, 3p, 3q, 3r, 3s, 3t, 3u, 4d, 3v, 3w, 3x, 3y, 5
+3e, 3m, 3n, 3o, 3f, 4c, 3p, 3q, 3r, 3s, 3t, 3u, 4d, 3v, 3w, 3x, 3y, 4e, 5
 (each of 3p–3y frees its model before the next): phase 4 needs the
 earlier lanes' plans (about 40 GiB), so
 the new lanes wait until it has released them (phase 4b holds the hash
@@ -508,6 +518,10 @@ KERNELS = {
         replaces="src/repro/kernels/intersect/intersect.py:41"),
     "probe": dict(
         name="intersect_probe", plain="intersect_counts_probe",
+        replaces="src/repro/kernels/intersect/probe.py:61"),
+    # K2's second form: the same function read from the forward CSR
+    "probe_csr": dict(
+        name="intersect_probe_csr", plain="intersect_counts_probe_csr",
         replaces="src/repro/kernels/intersect/probe.py:61"),
     "bitmap": dict(
         name="intersect_bitmap", plain="intersect_counts_bitmap",
@@ -971,6 +985,177 @@ def time_ms(torch, fn, reps: int, flush) -> float:
     return statistics.median(times)
 
 
+def csr_read_bound(torch, row_ptr, col, src, dst, w: int) -> dict:
+    """K2's CSR form's least time on the rows (src, dst) of a forward CSR,
+    each row cut to its first ``w`` ids: it must read every row that some
+    live edge needs once (live: both rows non-empty and their id ranges
+    overlap), every endpoint's two row offsets once, the first and last
+    id of each other non-empty row once, the endpoints and the counts;
+    against one operation an id of a live edge's two rows at the card's
+    32-bit rate. The per-row reckoning, each edge's two real rows with no
+    reuse between edges, is returned beside it as ``per_row_bytes``: what
+    a design that shares no row would read, not a bound."""
+    s, d = src.long(), dst.long()
+    ls = (row_ptr[s + 1] - row_ptr[s]).clamp(max=w).long()
+    ld = (row_ptr[d + 1] - row_ptr[d]).clamp(max=w).long()
+    both = (ls > 0) & (ld > 0)
+    top = max(int(col.numel()) - 1, 0)
+
+    def ends(x, lens):
+        lo = row_ptr[x].long()
+        return (col[lo.clamp(max=top)].long(),
+                col[(lo + lens - 1).clamp(min=0, max=top)].long())
+
+    first_s, last_s = ends(s, ls)
+    first_d, last_d = ends(d, ld)
+    live = both & (first_s <= last_d) & (first_d <= last_s)
+    needed = torch.unique(torch.cat([s[live], d[live]]))
+    seen = torch.unique(torch.cat([s, d]))
+    seen_len = (row_ptr[seen + 1] - row_ptr[seen]).clamp(max=w).long()
+    needed_ids = int((row_ptr[needed + 1] - row_ptr[needed])
+                     .clamp(max=w).sum())
+    ends_only = int((seen_len > 0).sum()) - int(needed.numel())
+    e = int(src.numel())
+    read = (4 * needed_ids + 8 * ends_only
+            + 2 * row_ptr.element_size() * int(seen.numel())
+            + (src.element_size() + dst.element_size() + 4) * e)
+    ops = int(((ls + ld) * live).sum())
+    t_bytes = read / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ALU_OPS_PER_S * 1e3
+    ms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    per_row = int(((ls + ld) * both).sum()) * 4 + 12 * e
+    return dict(bound_ms=ms, bound_by=by, needed_bytes=read,
+                needed_rows=int(needed.numel()), live_rows=int(live.sum()),
+                per_row_bytes=per_row,
+                per_row_ms=per_row / HBM_BYTES_PER_S * 1e3,
+                src_runs=int((src[1:] != src[:-1]).sum()) + 1 if e else 0,
+                distinct_dst=int(torch.unique(dst).numel()))
+
+
+def csr_case(torch, st, flush) -> dict:
+    """Hold one CSR-form probe stage (``CsrProbeLaunch`` on ``(row_ptr,
+    col, src, dst)``) against its plain version, exactly, and time both
+    (CUDA events, L2 flushed); its bound is ``csr_read_bound``'s. Returns
+    the shape's record."""
+    from repro_torch.kernels.intersect import (
+        intersect_counts_probe_csr, intersect_counts_probe_csr_kernel)
+
+    row_ptr, col, src, dst = st.args
+    w, e = int(st.shape_key[1]), int(src.numel())
+    k_out = intersect_counts_probe_csr_kernel(row_ptr, col, src, dst, w)
+    p_out = intersect_counts_probe_csr(row_ptr, col, src, dst, w)
+    torch.cuda.synchronize()
+    err = int((k_out.long() - p_out.long()).abs().max()) if e else 0
+    check(err == 0, f"probe_csr kernel == plain on {e} rows of "
+                    f"{tuple(st.shape_key)}")
+    del k_out, p_out
+    k_ms = time_ms(torch, lambda: intersect_counts_probe_csr_kernel(
+        row_ptr, col, src, dst, w), 7, flush)
+    p_ms = time_ms(torch, lambda: intersect_counts_probe_csr(
+        row_ptr, col, src, dst, w), 3, flush)
+    shape = dict(shape=[e, w], of=list(st.shape_key), ms=k_ms, plain_ms=p_ms,
+                 max_abs_err=err,
+                 **csr_read_bound(torch, row_ptr, col, src, dst, w))
+    print(f"  probe_csr ({e}, {w}) of {tuple(st.shape_key)} "
+          f"({shape['src_runs']} src runs, {shape['distinct_dst']} distinct "
+          f"dst): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; needed rows "
+          f"once {shape['bound_ms']:.4f} ms ({shape['bound_by']}, "
+          f"{shape['needed_bytes']} B; kernel at "
+          f"{100 * shape['bound_ms'] / k_ms:.2f} % of it); each edge's two "
+          f"rows, no reuse, would read {shape['per_row_bytes']} B "
+          f"({shape['per_row_ms']:.4f} ms)", flush=True)
+    return shape
+
+
+def csr_stages(stages) -> list:
+    """The stages that launch K2's CSR form (``CsrProbeLaunch``)."""
+    from repro_torch.core.engine import CsrProbeLaunch
+
+    return [st for st in stages if isinstance(st.executable, CsrProbeLaunch)]
+
+
+# phase 4e's cell and seed: graph500-s19, as the benchmark makes it
+K2CSR_CONFIG = "graph500-s19"
+K2CSR_SEED = 2300000306
+
+
+def probe_csr_phase(torch, np, dev, flush) -> dict:
+    """Phase 4e: K2's CSR form at the probe buckets of the graph500-s19
+    cell's graph (``tcbench``'s generator and configuration, seed
+    ``K2CSR_SEED``), each held against its plain version and timed by
+    ``csr_case`` (bound: the needed rows read once); the padded K2 timed
+    beside it on the same buckets' padded rows (which that plan keeps for
+    ``triangles_per_vertex`` and no longer launches on) and held equal;
+    and the graph read once (``tcbench.roofline``) against the buckets'
+    total. Returns the phase's numbers."""
+    sys.path.insert(0, str(ROOT))
+    from tcbench import spec
+    from tcbench.roofline import count_bound_bytes
+
+    from repro_torch.core import TriangleCounter
+    from repro_torch.graphs import graph_from_arrays
+    from repro_torch.kernels.intersect import (
+        LAUNCHES, intersect_counts_probe_csr_kernel,
+        intersect_counts_probe_kernel, reset_launch_counts)
+
+    phase(f"phase 4e: K2 on the forward CSR at the {K2CSR_CONFIG} cell's "
+          f"probe buckets (seed {K2CSR_SEED})")
+    cfg = spec.load_config(K2CSR_CONFIG)
+    gen = spec.load_named("generators", cfg["generator"])
+    n, row_ptr, col_idx = gen.make(cfg["params"], K2CSR_SEED, dev)
+    g = graph_from_arrays(n, row_ptr.cpu().numpy(), col_idx.cpu().numpy(),
+                          name=K2CSR_CONFIG)
+    del row_ptr, col_idx
+    tc = TriangleCounter(g)
+    want = tc.count().count
+    stages = csr_stages(tc.plan.stages)
+    reset_launch_counts()
+    got = tc.count().count
+    launches = dict(LAUNCHES)
+    print(f"graph: n={n} m={g.m_undirected}; buckets "
+          f"{tc.plan.shape_keys}; launches a count {launches}")
+    check(got == want, f"count() = {got} twice")
+    check(launches["probe_csr"] == len(stages) >= 1
+          and launches["probe"] == 0,
+          f"{len(stages)} CSR-form probe launches a count, no padded one")
+    graph_ms = count_bound_bytes(n, g.m_undirected) / HBM_BYTES_PER_S * 1e3
+    count_ms = time_ms(torch, lambda: tc.count(), 7, flush)
+    rows = []
+    for st in stages:
+        row = csr_case(torch, st, flush)
+        row_ptr, col, src, dst = st.args
+        u, v = st.rows
+        e, w = row["shape"]
+        csr = intersect_counts_probe_csr_kernel(row_ptr, col, src, dst, w)
+        pad = intersect_counts_probe_kernel(u, v)
+        torch.cuda.synchronize()
+        check(torch.equal(pad[:e], csr) and not bool(pad[e:].any()),
+              f"w{w}: the padded K2 on the bucket's padded rows == the CSR "
+              f"form on its {e} real rows")
+        del csr, pad
+        must = probe_read_bound(torch, u, v)
+        pad_ms = time_ms(torch, lambda: intersect_counts_probe_kernel(u, v),
+                         7, flush)
+        row.update(padded_shape=list(u.shape), padded_ms=pad_ms,
+                   padded_must_read_ms=must["must_read_ms"])
+        print(f"  w{w}: padded K2 on {tuple(u.shape)} {pad_ms:.4f} ms "
+              f"(its must-read {must['must_read_ms']:.4f} ms)", flush=True)
+        rows.append(row)
+    total = sum(r["ms"] for r in rows)
+    padded = sum(r["padded_ms"] for r in rows)
+    print(f"  probe buckets: CSR form {total:.4f} ms against padded K2 "
+          f"{padded:.4f} ms (x{padded / total:.2f}); needed rows once "
+          f"{sum(r['bound_ms'] for r in rows):.4f} ms; the graph read once "
+          f"{graph_ms:.4f} ms (CSR form at {100 * graph_ms / total:.3f} % "
+          f"of it); count() {count_ms:.4f} ms (events, L2 flushed)",
+          flush=True)
+    return dict(config=K2CSR_CONFIG, seed=K2CSR_SEED, n=n,
+                m_undirected=g.m_undirected, launches=launches,
+                graph_bound_ms=graph_ms, count_ms=count_ms, buckets=rows,
+                ms=total, padded_ms=padded,
+                bound_ms=sum(r["bound_ms"] for r in rows))
+
+
 def ragged_lists(np, rng, e: int, w: int, id_hi: int, pad_rows: int):
     """(E, W) int32 u/v pairs of sorted unique ids below ``id_hi`` with
     in-row sentinels n = id_hi (u) / n + 1 (v), random row lengths, and
@@ -1407,6 +1592,17 @@ def tiled_batch_phase(torch, np, dev, ctx) -> None:
                    streamed_bytes=streamed, h2d_bytes_per_s=rate,
                    bound_s=bound_s, peak_gib=peak,
                    prep_s=first.prep_seconds, tpv_s=tpv_s))
+    # the padded K2's main path: a resident device-prepped count launches
+    # K2's CSR form, a tiled one the padded K2 on every chunk
+    probe = entries["probe"]
+    shapes = list(probe["tiled_path"]["shapes"])
+    check(bool(shapes), "the padded K2 has shapes on its path (the tiled "
+                        "chunks)")
+    probe.update(launches=launches["probe"], shapes=shapes,
+                 bound_by=max(shapes, key=lambda x: x["bound_ms"])["bound_by"],
+                 **{k: sum(x[k] for x in shapes) for k in (
+                     "ms", "plain_ms", "bound_ms", "yardstick_ms",
+                     "all_bytes_bound_ms")})
     del tc, first, warm, tpv, g
     release_host_memory(torch)
 
@@ -1891,16 +2087,26 @@ def edge_dynamic_phase(torch, np, dev, ctx) -> None:
     reset_launch_counts()
     for st in recount_stages:
         st.run()
-    by_strategy = {}
+    # the recount's resident probe buckets launch K2's CSR form
+    on_csr = csr_stages(recount_stages)
+    by_kernel = {}
     for st in recount_stages:
-        by_strategy.setdefault(st.strategy, []).append(intersect_case(
+        if any(st is x for x in on_csr):
+            by_kernel.setdefault("probe_csr", []).append(
+                csr_case(torch, st, ctx["flush"]))
+            continue
+        by_kernel.setdefault(st.strategy, []).append(intersect_case(
             st.strategy, types.SimpleNamespace(args=st.args,
                                                bitmap_bits=st.bitmap_bits)))
-    for strategy, shapes in by_strategy.items():
-        entry = entries[strategy]
+    check(len(on_csr) >= 1 and recount_launches["probe_csr"] >= len(on_csr)
+          and recount_launches["probe"] == 0,
+          "the recount's probe buckets launched K2's CSR form, not the "
+          "padded K2")
+    for kernel, shapes in by_kernel.items():
+        entry = entries[kernel]
         entry["recount_path"] = dict(
             path="DynamicTriangleCounter(rmat_graph(18)) recount() after 64 "
-                 "batches", launches=recount_launches[strategy],
+                 "batches", launches=recount_launches[kernel],
             shapes=shapes)
         entry["max_abs_err"] = max([entry["max_abs_err"]]
                                    + [x["max_abs_err"] for x in shapes])
@@ -1911,7 +2117,7 @@ def edge_dynamic_phase(torch, np, dev, ctx) -> None:
                     first_batch_ms=first_s[0] * 1e3, growths=growths,
                     recount_s=recount_s,
                     peak_gib=(torch.cuda.max_memory_allocated() - held) / 2**30)
-    del dc, p, recount_stages, snap
+    del dc, p, recount_stages, on_csr, snap
     gc.collect()
     torch.cuda.empty_cache()
     for name in ("coauthors-like", "road-like"):
@@ -2033,7 +2239,8 @@ def chooser_phase(torch, np, dev, ctx) -> dict:
           f"lanes (prep, 1 warm-up and 3 timed counts each); launches "
           f"{launches}; table device {table.device!r}")
     check(table.device != "cpu" and launches["broadcast"] > 0
-          and launches["probe"] > 0 and launches["hash_probe"] > 0
+          and launches["probe"] + launches["probe_csr"] > 0
+          and launches["hash_probe"] > 0
           and launches["masked_spgemm"] + launches["masked_spgemm_wgmma"] > 0,
           "calibrate ran the lanes' kernels on the card (K1, K2, K4, K5)")
 
@@ -2634,9 +2841,15 @@ def sharded_phase(torch, np, dev, ctx) -> None:
     check(scale != 17 or truth == EXPECTED_SCALE17,
           f"the scipy supports sum to 3 × {truth}")
     whole = TriangleCounter(g)
-    whole_bytes = sum(st.args[0].numel() * 8 for st in whole.plan.stages)
+    # a resident probe bucket's arguments are the CSR; its padded rows
+    # are kept beside them
+    whole_bytes = sum((st.rows or st.args)[0].numel() * 8
+                      for st in whole.plan.stages)
     check(whole.count().count == truth, "the single-card lane = scipy")
+    # the ranks were reckoned against the card's free memory before it
     del whole
+    gc.collect()
+    torch.cuda.empty_cache()
     spec = dict(graph=g, bitmap_graph=coauthors, matrix_graph=orkut,
                 out=str(work))
     t0 = time.perf_counter()
@@ -6105,8 +6318,10 @@ def main() -> int:
     check(first.algorithm == "intersection", "auto resolved to intersection")
     check(all(r.count == EXPECTED_SCALE18 for r in [first] + warm),
           f"count() = {first.count} every time, = oracle")
-    check(main_launches["broadcast"] > 0 and main_launches["probe"] > 0,
-          "broadcast and probe kernels launched by count()")
+    check(main_launches["broadcast"] > 0 and main_launches["probe_csr"] > 0
+          and main_launches["probe"] == 0,
+          "broadcast and K2's CSR form launched by count(), the padded K2 "
+          "not")
     check(int(tpv.sum()) == 3 * first.count,
           f"triangles_per_vertex().sum() = {int(tpv.sum())} = 3 × count")
     check(tpv.shape == (g.n,) and int(tpv.min()) >= 0,
@@ -6115,9 +6330,6 @@ def main() -> int:
     # phase 3g holds the tiled plan to these
     main_count, main_tpv = first.count, tpv
     main_warm_s = statistics.median(r.exec_seconds for r in warm)
-    # the first ``edges`` rows of each bucket are real, the rest padding
-    stage_edges = {id(st): e for st, e in zip(main_stages,
-                                              first.meta["bucket_edges"])}
 
     # -- phase 3: each strategy forced on the Table-1 analogues -------------
     phase("phase 3: strategies forced on the Table-1 analogues")
@@ -6145,8 +6357,12 @@ def main() -> int:
         print("  " + "; ".join(line), flush=True)
     forced_launches = dict(LAUNCHES)
     print(f"launches in phase 3: {forced_launches}")
-    check(all(v > 0 for v in forced_launches.values()),
-          "every kernel launched by the forced runs")
+    # a forced probe on a device-prepped filtered plan reads the CSR
+    check(all(forced_launches[k] > 0
+              for k in ("broadcast", "bitmap", "probe_csr"))
+          and forced_launches["probe"] == 0,
+          "K1, K3 and K2's CSR form launched by the forced runs, the padded "
+          "K2 not")
 
     # -- phase 3b: the matrix lane ------------------------------------------
     phase("phase 3b: matrix lane, TriangleCounter(orkut-like, algorithm='matrix')")
@@ -6309,9 +6525,13 @@ def main() -> int:
         "probe": (intersect_counts_probe_kernel, intersect_counts_probe),
         "bitmap": (intersect_counts_bitmap_kernel, intersect_counts_bitmap),
     }
+    # the main path's probe buckets launch K2's CSR form (its own entry
+    # below); the padded K2's main path is phase 3g's tiled count, whose
+    # chunks that phase holds and times
+    main_csr = csr_stages(main_stages)
     paths = {
         "broadcast": [st for st in main_stages if st.strategy == "broadcast"],
-        "probe": [st for st in main_stages if st.strategy == "probe"],
+        "probe": [],
         "bitmap": bitmap_stages,
     }
     def intersect_case(strategy, st):
@@ -6357,33 +6577,12 @@ def main() -> int:
                 f"{100 * shape['bound_ms'] / shape['ms']:.1f} % of it), "
                 f"torch.searchsorted {shape['yardstick_ms']:.4f} ms")
 
-    def real_rows_slice(stages):
-        """K2 on the widest path bucket's first ``edges`` rows (its real
-        ones) beside the whole bucket: what its pow2 padding rows still
-        cost after the range test."""
-        st = max(stages, key=lambda x: x.args[0].numel())
-        edges = stage_edges[id(st)]
-        u, v = (x[:edges] for x in st.args)
-        k_out = intersect_counts_probe_kernel(u, v)
-        p_out = intersect_counts_probe(u, v)
-        torch.cuda.synchronize()
-        err = int((k_out.long() - p_out.long()).abs().max())
-        check(err == 0, f"probe kernel == plain on the first {edges} rows of "
-                        f"{tuple(st.args[0].shape)}")
-        k_ms = time_ms(torch, lambda: intersect_counts_probe_kernel(u, v), 7,
-                       flush)
-        whole = time_ms(torch, lambda: intersect_counts_probe_kernel(*st.args),
-                        7, flush)
-        extra = probe_read_bound(torch, u, v)
-        print(f"  probe first {edges} rows of {tuple(st.args[0].shape)}: "
-              f"kernel {k_ms:.4f} ms against {whole:.4f} ms for the whole "
-              f"bucket (its {st.args[0].shape[0] - edges} padding rows cost "
-              f"{whole - k_ms:.4f} ms); must-read bound "
-              f"{extra['must_read_ms']:.4f} ms", flush=True)
-        return dict(shape=list(u.shape), of=list(st.args[0].shape), ms=k_ms,
-                    whole_bucket_ms=whole, padding_rows_ms=whole - k_ms,
-                    bound_ms=extra["must_read_ms"], live_rows=extra["live_rows"],
-                    max_abs_err=err)
+    def add_shape(entry, shape):
+        entry["shapes"].append(shape)
+        entry["ms"] += shape["ms"]
+        entry["plain_ms"] += shape["plain_ms"]
+        entry["bound_ms"] += shape["bound_ms"]
+        entry["max_abs_err"] = max(entry["max_abs_err"], shape["max_abs_err"])
 
     report = []
     for strategy in wrappers:
@@ -6391,36 +6590,38 @@ def main() -> int:
                      source="src/repro_torch/csrc/intersect.cu",
                      replaces=KERNELS[strategy]["replaces"],
                      plain=KERNELS[strategy]["plain"],
-                     path=("scale-18 R-MAT count()" if strategy != "bitmap"
-                           else "forced bitmap on the Table-1 analogues"),
+                     path={"broadcast": "scale-18 R-MAT count()",
+                           "probe": "phase 3g: scale-18 R-MAT count() tiled "
+                                    "under max_device_bytes 1 GiB",
+                           "bitmap": "forced bitmap on the Table-1 "
+                                     "analogues"}[strategy],
+                     # phase 3g fills in the padded K2's launches
                      launches=(main_launches if strategy != "bitmap"
-                               else forced_launches)[strategy],
+                               else forced_launches)[strategy]
+                     if strategy != "probe" else 0,
                      tolerance=0, max_abs_err=0, ms=0.0, plain_ms=0.0,
                      bound_ms=0.0,
                      bound_by=None, library_ms=None, shapes=[])
         for st in paths[strategy]:
-            shape = intersect_case(strategy, st)
-            entry["shapes"].append(shape)
-            entry["ms"] += shape["ms"]
-            entry["plain_ms"] += shape["plain_ms"]
-            entry["bound_ms"] += shape["bound_ms"]
-            entry["max_abs_err"] = max(entry["max_abs_err"], shape["max_abs_err"])
-        check(bool(entry["shapes"]), f"{strategy} kernel has shapes on its path")
-        # the largest shape's bound names the kernel's
-        entry["bound_by"] = max(entry["shapes"], key=lambda x: x["bound_ms"])["bound_by"]
-        if strategy == "probe":
+            add_shape(entry, intersect_case(strategy, st))
+        if strategy != "probe":
+            check(bool(entry["shapes"]),
+                  f"{strategy} kernel has shapes on its path")
+            # the largest shape's bound names the kernel's
+            entry["bound_by"] = max(entry["shapes"],
+                                    key=lambda x: x["bound_ms"])["bound_by"]
+        else:
             entry["yardstick"] = "torch.searchsorted(v, u, out_int32=True) " \
                                  "(positions only, not the same function)"
-            entry["yardstick_ms"] = sum(x["yardstick_ms"] for x in entry["shapes"])
+            entry["yardstick_ms"] = 0.0
             entry["bound"] = ("must-read bytes: both rows where the id ranges "
                               "overlap, the row ends elsewhere")
-            entry["all_bytes_bound_ms"] = sum(x["all_bytes_bound_ms"]
-                                              for x in entry["shapes"])
-            entry["real_rows_slice"] = real_rows_slice(paths["probe"])
+            entry["all_bytes_bound_ms"] = 0.0
         # the subgraph lane's buckets on the road_central-sized grid, kept
         # apart from the scale-18 totals above
         sub = [intersect_case(strategy, st) for st in subgraph_stages
-               if st.strategy == strategy]
+               if st.strategy == strategy and not any(
+                   st is x for x in csr_stages(subgraph_stages))]
         if sub:
             entry["subgraph_path"] = dict(
                 path=f"grid_graph({GRID_SIDE}) subgraph count()",
@@ -6428,6 +6629,34 @@ def main() -> int:
             entry["max_abs_err"] = max([entry["max_abs_err"]]
                                        + [x["max_abs_err"] for x in sub])
         report.append(entry)
+    # K2's CSR form on the main path's resident probe buckets
+    entry = dict(name=KERNELS["probe_csr"]["name"], route="cuda",
+                 source="src/repro_torch/csrc/intersect.cu",
+                 replaces=KERNELS["probe_csr"]["replaces"],
+                 plain=KERNELS["probe_csr"]["plain"],
+                 path="scale-18 R-MAT count()",
+                 launches=main_launches["probe_csr"], tolerance=0,
+                 max_abs_err=0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                 bound_by=None, library_ms=None, shapes=[],
+                 bound=("needed bytes: each row that a live edge needs, "
+                        "once; the row offsets and ends; the endpoints and "
+                        "counts"))
+    for st in main_csr:
+        add_shape(entry, csr_case(torch, st, flush))
+    check(len(main_csr) >= 1 and main_launches["probe_csr"]
+          == len(main_csr) * counts_run,
+          f"K2's CSR form has {len(main_csr)} shapes on its path, one "
+          f"launch each a count()")
+    entry["bound_by"] = max(entry["shapes"],
+                            key=lambda x: x["bound_ms"])["bound_by"]
+    sub = [csr_case(torch, st, flush) for st in csr_stages(subgraph_stages)]
+    if sub:
+        entry["subgraph_path"] = dict(
+            path=f"grid_graph({GRID_SIDE}) subgraph count()",
+            launches=subgraph_launches["probe_csr"], shapes=sub)
+        entry["max_abs_err"] = max([entry["max_abs_err"]]
+                                   + [x["max_abs_err"] for x in sub])
+    report.append(entry)
 
     rng = np.random.default_rng(0)
     ragged = [(1, 8, 50, 0), (255, 8, 64, 3), (257, 32, 300, 17),
@@ -6736,8 +6965,8 @@ def main() -> int:
     report.append(entry)
 
     # release every plan of phases 2-3c: the new lanes run on an empty card
-    del (main_stages, bitmap_stages, subgraph_stages, paths, first, warm, s,
-         c, res, base, st, l, u, a, v, shapes, ragged, entry)
+    del (main_stages, main_csr, bitmap_stages, subgraph_stages, paths, first,
+         warm, s, c, res, base, st, l, u, a, v, shapes, ragged, entry)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"released the earlier lanes' plans: memory_allocated "
@@ -6745,7 +6974,7 @@ def main() -> int:
 
     report.append(hash_phase(torch, np, dev, flush, analogues, truths))
     edge_ctx = dict(entries=entries, intersect_case=intersect_case,
-                    main_tpv=main_tpv, analogues=analogues)
+                    main_tpv=main_tpv, analogues=analogues, flush=flush)
     edge_dynamic_phase(torch, np, dev, edge_ctx)
     tiled_ctx = dict(
         entries=entries, k4=next(x for x in report
@@ -6959,6 +7188,10 @@ def main() -> int:
     # its serving run is reported beside the kernels
     ssm_path = dict(ssm, kernels="none: the reference has no Pallas kernel "
                                  "for the ssm family")
+    # K2's CSR form at the benchmark cell's buckets, once everything above
+    # has been released
+    entries["probe_csr"]["benchmark_cell"] = probe_csr_phase(
+        torch, np, dev, flush)
     for entry in report:
         entry.update(max_abs_diff=entry["max_abs_err"], kernel_ms=entry["ms"])
 
@@ -6972,5 +7205,31 @@ def main() -> int:
     return 0
 
 
+def main_k2csr() -> int:
+    """``python3 chip_smoke.py k2csr``: phase 4e alone (K2's CSR form at
+    the graph500-s19 cell's probe buckets), with the environment line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+
+    from repro_torch.kernels import _build
+
+    dev = torch.device("cuda")
+    print(f"nvidia-smi name, power.limit: {nvidia_smi_line()}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    lib = _build.build("intersect")
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        if "Used" in line or "spill" in line or "Compiling entry" in line:
+            print(f"  ptxas: {line.strip()}")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    result = probe_csr_phase(torch, np, dev, flush)
+    print(json.dumps({"k2_csr_form": result}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main_k2csr() if sys.argv[1:] == ["k2csr"] else main())

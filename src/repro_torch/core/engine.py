@@ -94,6 +94,7 @@ from repro_torch.kernels.intersect.ops import (
     STRATEGIES,
     choose_strategy,
     intersect_counts,
+    intersect_counts_csr,
     intersect_matches,
     intersect_matches_both,
     resolve_mask_strategy,
@@ -113,6 +114,7 @@ from repro_torch.spans import span
 __all__ = [
     "ALGORITHMS",
     "BatchLaunch",
+    "CsrProbeLaunch",
     "DISTRIBUTED_ALGORITHMS",
     "DeltaLaunch",
     "DynamicPlan",
@@ -307,6 +309,24 @@ class IntersectLaunch:
         counts = intersect_counts(u_lists, v_lists, strategy=self.strategy,
                                   backend=self.backend,
                                   bitmap_bits=self.bitmap_bits)
+        return counts.sum(dtype=torch.int64)
+
+
+@dataclasses.dataclass(frozen=True)
+class CsrProbeLaunch:
+    """A resident probe bucket's launch on the forward CSR: calling it on
+    ``(row_ptr, col, src, dst)``, the forward-oriented CSR and the
+    bucket's real rows' endpoints, reads each row pair from the CSR at its
+    real length (cut to ``width``) and returns the bucket total as an int64
+    scalar tensor on the CSR's device."""
+
+    backend: str
+    width: int
+
+    def __call__(self, row_ptr: torch.Tensor, col: torch.Tensor,
+                 src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+        counts = intersect_counts_csr(row_ptr, col, src, dst,
+                                      width=self.width, backend=self.backend)
         return counts.sum(dtype=torch.int64)
 
 
@@ -513,7 +533,9 @@ def get_executable(algorithm: str, backend: str, shape_key: tuple, *,
 
     Args:
       algorithm: "intersection" (a bucket's count; the subgraph and bfs
-        lanes' buckets use it too), "matrix" (the tile triples' unique
+        lanes' buckets use it too), "intersection_csr" (a resident probe
+        bucket's count read from the forward CSR; ``shape_key`` ``(E, W)``),
+        "matrix" (the tile triples' unique
         tiles and indices, ``shape_key`` ``(T, B, B)``), "hash" (a
         bucket's hash probe, ``shape_key`` ``(E, W, B, D)``: the shape
         class of the reference's dense table rides in the key), "vertex"
@@ -548,7 +570,8 @@ def get_executable(algorithm: str, backend: str, shape_key: tuple, *,
     if algorithm.endswith("_distributed") and mesh is None:
         raise ValueError(f"algorithm {algorithm!r} needs a mesh; pass mesh=")
     if algorithm in ("intersection", "edge", "intersection_distributed",
-                     "edge_distributed") and strategy not in STRATEGIES:
+                     "edge_distributed", "intersection_csr") \
+            and strategy not in STRATEGIES:
         raise ValueError(f"unresolved strategy {strategy!r}; "
                          f"expected one of {STRATEGIES}")
     # the wide key mode's trailing marker keeps the two key dtypes apart
@@ -556,6 +579,11 @@ def get_executable(algorithm: str, backend: str, shape_key: tuple, *,
         else tuple(shape_key)
     if algorithm in ("intersection", "intersection_distributed"):
         builder = functools.partial(IntersectLaunch, strategy, backend, bitmap_bits)
+    elif algorithm == "intersection_csr":
+        if strategy != "probe":
+            raise ValueError(f"the CSR route is the probe strategy's, not "
+                             f"{strategy!r}'s")
+        builder = functools.partial(CsrProbeLaunch, backend, int(shape_key[1]))
     elif algorithm in ("matrix", "matrix_distributed"):
         builder = functools.partial(MatrixLaunch, backend)
     elif algorithm == "hash":
@@ -668,6 +696,9 @@ class _Stage:
     bitmap_bits: Optional[int] = None
     # (src, dst) per row — filtered stages only, for the per-vertex path
     vertex_args: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    # the bucket's padded (u, v) rows where ``args`` hold the forward CSR
+    # instead (a resident probe bucket); the per-vertex path reads them
+    rows: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     def run(self) -> torch.Tensor:
         """One stage: the kernel launch plus its int64 reduction."""
@@ -922,7 +953,7 @@ class TrianglePlan:
                 continue
             e, w = st.shape_key
             fn = get_executable("vertex", self.backend, (e, w, n_local))
-            total += fn(*st.args, *st.vertex_args)
+            total += fn(*(st.rows or st.args), *st.vertex_args)
         total = total.cpu().numpy()
         vertex_map = self.meta.get("vertex_map")
         if vertex_map is not None:  # host-prep subgraph: pruned ids -> original
@@ -1006,14 +1037,29 @@ def _plan_intersection(g: Graph, variant: str, backend: str,
                        device: torch.device,
                        max_device_bytes: Optional[int] = None,
                        ) -> Tuple[List[_Stage], int, dict]:
-    buckets = _buckets_for_plan(g, variant, widths, prep_backend,
-                                shape_policy, device, max_device_bytes)
+    """The intersection lane's stages over ``g`` (a host ``Graph``, or a
+    ``DeviceGraph`` with ``prep_backend="device"``). A device-prepped
+    filtered plan hands its forward CSR to the stages, so that a resident
+    probe bucket reads its rows from there (``CsrProbeLaunch``)."""
+    policy = shape_policy if shape_policy is not None else DEFAULT_SHAPE_POLICY
+    csr = None
+    if prep_backend == "device" and variant == "filtered":
+        dg = g if isinstance(g, DeviceGraph) \
+            else DeviceGraph.from_graph(g, policy, device=device)
+        buckets = _buckets_for_plan(dg, variant, widths, prep_backend,
+                                    shape_policy, device, max_device_bytes)
+        if buckets:  # the stages keep the CSR's two tensors, not the graph
+            fwd = dg.forward()
+            csr = (fwd.row_ptr, fwd.dst)
+        del dg
+    else:
+        buckets = _buckets_for_plan(g, variant, widths, prep_backend,
+                                    shape_policy, device, max_device_bytes)
     stages, bucket_meta = _bucket_stages(buckets, g.n, backend, strategy,
                                          bitmap_bits,
                                          per_vertex=(variant == "filtered"),
                                          max_device_bytes=max_device_bytes,
-                                         device=device)
-    policy = shape_policy if shape_policy is not None else DEFAULT_SHAPE_POLICY
+                                         device=device, csr=csr)
     tiled = [st for st in stages if isinstance(st, _TiledStage)]
     meta = dict(
         variant=variant,
@@ -1044,13 +1090,18 @@ def _bucket_stages(buckets: List[DeviceBucket], n: int, backend: str,
                    strategy: str, bitmap_bits: Optional[int], *,
                    per_vertex: bool, max_device_bytes: Optional[int] = None,
                    device: Optional[torch.device] = None,
+                   csr: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                    ) -> Tuple[list, dict]:
     """Bind each bucket to its cached intersection launch, with the
     strategy resolved per bucket; ``per_vertex`` keeps the forward
     endpoints for the per-vertex stage. A bucket over ``max_device_bytes``
     (held on the host by the prep) becomes a ``_TiledStage`` whose launch
-    is cached at the chunk shape ``(chunk_rows, W)``. Returns the stages
-    and their bucket meta (shapes, strategies, edges)."""
+    is cached at the chunk shape ``(chunk_rows, W)``. Given the forward
+    CSR ``(row_ptr, col)`` the buckets were gathered from, a resident
+    probe bucket reads its real rows from it instead of its padded copies
+    (``CsrProbeLaunch`` on the bucket's first ``edges`` endpoints; the
+    padded rows stay for the per-vertex path). Returns the stages and
+    their bucket meta (shapes, strategies, edges)."""
     # real ids [0, n) plus the in-row sentinels n (u) and n + 1 (v); whole
     # padding rows (-1/-2) are negative and never match in any core
     id_range = n + 2
@@ -1080,6 +1131,18 @@ def _bucket_stages(buckets: List[DeviceBucket], n: int, backend: str,
                     vertex_chunks=[(b.src[s:s + chunk], b.dst[s:s + chunk])
                                    for s in cuts] if per_vertex else None,
                     span_name=f"tc.stage {strat} w{b.width} tiled",
+                ))
+                continue
+            if csr is not None and strat == "probe":
+                stages.append(_Stage(
+                    executable=get_executable("intersection_csr", backend,
+                                              b.shape, strategy=strat),
+                    args=csr + (b.src[:b.edges], b.dst[:b.edges]),
+                    shape_key=b.shape,
+                    strategy=strat,
+                    vertex_args=(b.src, b.dst) if per_vertex else None,
+                    rows=(b.u_lists, b.v_lists),
+                    span_name=f"tc.stage {strat} w{b.width}",
                 ))
                 continue
             stages.append(_Stage(

@@ -1,10 +1,12 @@
 // Batched set intersection for the intersection lane, sm_90a.
 //
-// Three kernels, one per strategy of repro_torch.kernels.intersect.ops. Each
-// takes two int32 (E, W) row-major arrays u and v and writes the int32 (E,)
-// per-row count. Any E >= 1 and W >= 1 are accepted: a kernel masks its own
-// ragged edge, so callers never pad rows to a tile multiple. Row offsets are
-// 64-bit (E * W passes 2^31 on the largest buckets).
+// Three kernels, one per strategy of repro_torch.kernels.intersect.ops, and
+// the probe strategy's second form on the forward CSR (probe_csr_kernel,
+// further down, which reads each row pair from the CSR instead). Each of
+// the three takes two int32 (E, W) row-major arrays u and v and writes the
+// int32 (E,) per-row count. Any E >= 1 and W >= 1 are accepted: a kernel
+// masks its own ragged edge, so callers never pad rows to a tile multiple.
+// Row offsets are 64-bit (E * W passes 2^31 on the largest buckets).
 //
 // What each reads of the rows' order: broadcast (K1) counts all equal
 // (u[j], v[k]) pairs and takes any rows, unsorted and with duplicates; probe
@@ -32,6 +34,7 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <mutex>
 
 namespace {
@@ -501,6 +504,261 @@ probe_merge_kernel(const int* __restrict__ u, const int* __restrict__ v,
 }
 
 // ---------------------------------------------------------------------------
+// K2 on the forward CSR — probe_csr_kernel.
+// Replaces repro/kernels/intersect/probe.py:61 _probe_kernel
+// (intersect_counts_probe_pallas) as probe_merge_kernel does, for the
+// resident buckets of a plan prepped on the device: the same function,
+// each row's count of N+(src) ids found in N+(dst), but the rows are read
+// where they live, in the forward-oriented CSR (row_ptr, col), at their
+// real lengths (each cut to the bucket width W), instead of from the
+// bucket's padded (E, W) copies. An empty forward row gives 0 without a
+// load; no padding id is read. The rows are a simple graph's: sorted, each
+// id once, so the count is also that of N+(dst) ids found in N+(src). The
+// caller launches the bucket's real rows only (its padding rows carry
+// src = dst = 0, which read as CSR rows would count |N+(0)|).
+//
+// Bound: bytes. The least is the graph read once (4 bytes an undirected
+// edge and 4 a row offset). A design that reuses nothing reads each live
+// edge's two rows, (d+(src) + d+(dst)) * 4 bytes, with 8 bytes of
+// endpoints and 4 of count an edge: on the scale-19 Kronecker graph's
+// widest bucket 10.5 GB, against 26.7 GB of padded must-read. Two reuses
+// bring the reads toward the first bound:
+// - A bucket keeps CSR order, so src repeats in runs (21.6 rows a run on
+//   that bucket). A warp builds a set of N+(src) in its shared memory once
+//   a run, and each row of the run streams only N+(dst) past it.
+// - The N+(dst) of a bucket are few and hot (16,655 distinct vertices,
+//   14 MB on that bucket, against 50 MB of L2). They are read by ordinary
+//   cached loads; the streamed endpoints and counts are read and written
+//   evict-first (__ldcs, __stcs), so they do not push the hot rows out.
+// Why a set and not probe_merge_kernel's merge path: with the rows at
+// their real lengths the merge's chain of dependent shared-memory steps,
+// not the bytes, set the time (on that bucket 6.8 of 7.8 ms with the row
+// copies left out). A lookup per N+(dst) id is independent of the others:
+// each lane loads kCsrUnroll ids of the row at once, 32 lanes a warp, and
+// looks each up. The set (CsrSet) is a table of 4-slot buckets, read by
+// one 16-byte load a lookup, behind a filter word a bucket that turns
+// away most ids the set lacks with one 4-byte load. On that bucket, L2
+// flushed: a linear-probing table alone took 5.5 ms, with a filter 4.7,
+// with buckets 4.0, without the per-id range test 3.5, with one hash for
+// bucket and filter 3.4; the buckets without the filter 3.7, and an exact
+// bitmap of all n ids shared by a block (runs are short: its syncs and
+// idle warps) 5.9. The time goes to instructions a looked-up id, and to
+// the warp waiting for its longest probe chain. A row stops once every
+// lane's ids pass the largest id of N+(src).
+// The grid is persistent; warp g takes the batches g, g + G, ... of 32
+// rows (fewer where 32 would leave warps idle); a batch's endpoints are
+// read two batches ahead and their CSR offsets one batch ahead, a lane a
+// row, and its counts are written by one coalesced store. A set longer
+// than the table (W past kCsrMaxSlots / 2) is built and probed in pieces,
+// and none is kept across rows.
+// ---------------------------------------------------------------------------
+
+constexpr int kCsrUnroll = 4;        // N+(dst) ids a lane loads at once
+constexpr int kCsrMaxSlots = 4096;   // a warp's table, at most (16 KB)
+constexpr int kCsrEmpty = -1;        // a free slot (ids are >= 0)
+
+// log2 of the slots a set of len ids takes: at least twice len, at least
+// 32 (8 buckets), a power of two.
+__host__ __device__ __forceinline__ int csr_table_bits(long long len) {
+  int bits = 5;
+  while ((1LL << bits) < 2 * len) ++bits;
+  return bits;
+}
+
+// Ints a warp's table and filter take for tables of up to 2^bits slots:
+// the slots, and a filter word a 4-slot bucket.
+__host__ __device__ __forceinline__ int csr_warp_ints(int bits) {
+  return (1 << bits) + (1 << (bits - 2));
+}
+
+// A warp's set of N+(src) ids: a table of 2^bits slots in buckets of 4,
+// each filled from its first slot, a full bucket spilling into the next;
+// and in front of it a filter word a bucket, in which each id sets one bit,
+// so that most lookups of ids the set lacks end at one load. One hash of
+// the id picks both its home bucket (top bits) and its filter bit (the
+// next five).
+struct CsrSet {
+  int* table;
+  unsigned* filter;
+  int bits;
+
+  __device__ __forceinline__ unsigned hash(int x) const {
+    return static_cast<unsigned>(x) * 0x9E3779B1u;
+  }
+  __device__ __forceinline__ unsigned bucket(unsigned h) const {
+    return h >> (34 - bits);
+  }
+  __device__ __forceinline__ unsigned flag(unsigned h) const {
+    return 1u << (h >> (29 - bits) & 31u);
+  }
+};
+
+// The warp's 32 lanes clear the set's slots and filter words.
+__device__ __forceinline__ void csr_clear(const CsrSet& set, int lane) {
+  for (int i = lane; i < (1 << set.bits); i += 32) set.table[i] = kCsrEmpty;
+  for (int i = lane; i < (1 << (set.bits - 2)); i += 32) set.filter[i] = 0u;
+}
+
+// The warp's 32 lanes add the len ids at g to the cleared set.
+__device__ __forceinline__ void csr_build(const CsrSet& set,
+                                          const int* __restrict__ g, int len,
+                                          int lane) {
+  const unsigned mask = (1u << (set.bits - 2)) - 1u;  // buckets
+  for (int i0 = 0; i0 < len; i0 += 32 * kCsrUnroll) {
+    int x[kCsrUnroll];
+#pragma unroll
+    for (int j = 0; j < kCsrUnroll; ++j) {
+      const int i = i0 + j * 32 + lane;
+      x[j] = i < len ? g[i] : kCsrEmpty;
+    }
+#pragma unroll
+    for (int j = 0; j < kCsrUnroll; ++j) {
+      if (x[j] == kCsrEmpty) continue;
+      const unsigned h = set.hash(x[j]);
+      atomicOr(set.filter + set.bucket(h), set.flag(h));
+      for (unsigned b = set.bucket(h);; b = (b + 1u) & mask) {
+        int k = 0;
+        while (k < 4 && atomicCAS(set.table + 4 * b + k, kCsrEmpty, x[j]) !=
+                            kCsrEmpty)
+          ++k;
+        if (k < 4) break;
+      }
+    }
+  }
+}
+
+// This lane's count of the len sorted ids at g that the set holds; hi is
+// the set's largest id.
+__device__ __forceinline__ int csr_probe(const CsrSet& set,
+                                         const int* __restrict__ g, int len,
+                                         int hi, int lane) {
+  const unsigned mask = (1u << (set.bits - 2)) - 1u;  // buckets
+  const int4* buckets = reinterpret_cast<const int4*>(set.table);
+  int cnt = 0;
+  for (int i0 = 0; i0 < len; i0 += 32 * kCsrUnroll) {
+    int x[kCsrUnroll];
+#pragma unroll
+    for (int j = 0; j < kCsrUnroll; ++j) {
+      const int i = i0 + j * 32 + lane;
+      x[j] = i < len ? g[i] : 0x7fffffff;
+    }
+    unsigned home[kCsrUnroll];
+    unsigned maybe = 0u;  // ids the filter passes
+#pragma unroll
+    for (int j = 0; j < kCsrUnroll; ++j) {
+      const unsigned h = set.hash(x[j]);
+      home[j] = set.bucket(h);
+      maybe |= static_cast<unsigned>((set.filter[home[j]] & set.flag(h)) != 0u)
+               << j;
+    }
+#pragma unroll
+    for (int j = 0; j < kCsrUnroll; ++j) {
+      if (!(maybe >> j & 1u)) continue;
+      for (unsigned b = home[j];; b = (b + 1u) & mask) {
+        const int4 t = buckets[b];
+        if (t.x == x[j] || t.y == x[j] || t.z == x[j] || t.w == x[j]) {
+          ++cnt;
+          break;
+        }
+        if (t.w == kCsrEmpty) break;  // a free slot: x would be here
+      }
+    }
+    // the ids are sorted: once every lane's last is past hi, so is the rest
+    if (__all_sync(0xffffffffu, x[kCsrUnroll - 1] > hi)) break;
+  }
+  return cnt;
+}
+
+__global__ void __launch_bounds__(kThreads)
+probe_csr_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
+                 const int* __restrict__ src, const int* __restrict__ dst,
+                 int* __restrict__ out, int E, int W, int max_bits,
+                 int batch) {
+  extern __shared__ __align__(16) int csr_sets[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int* base = csr_sets + (size_t)warp * csr_warp_ints(max_bits);
+  CsrSet set{base, reinterpret_cast<unsigned*>(base + (1 << max_bits)),
+             max_bits};
+  csr_clear(set, lane);
+  __syncwarp();
+  const int nbatch = (E + batch - 1) / batch;
+  const int G = gridDim.x * (kThreads / 32);
+  const int first = blockIdx.x * (kThreads / 32) + warp;
+
+  // a lane a row: batch ib + 2G's endpoints (s_), ib + G's CSR offsets (r_)
+  bool sv = false, rv = false;
+  int s_src = 0, s_dst = 0;
+  int r_a0 = 0, r_a1 = 0, r_b0 = 0, r_b1 = 0;
+  auto fetch = [&](int b) {
+    rv = sv;
+    if (rv) {
+      r_a0 = row_ptr[s_src];
+      r_a1 = row_ptr[s_src + 1];
+      r_b0 = row_ptr[s_dst];
+      r_b1 = row_ptr[s_dst + 1];
+    }
+    const long long row = (long long)b * batch + lane;
+    sv = b < nbatch && lane < batch && row < E;
+    if (sv) {
+      s_src = __ldcs(src + row);
+      s_dst = __ldcs(dst + row);
+    }
+  };
+  fetch(first);
+  fetch(first + G);
+
+  int t_a0 = -1;    // the N+(src) the set holds, by its offset in col
+  int hi = -1;      // its largest id
+  for (int ib = first; ib < nbatch; ib += G) {
+    const bool cv = rv;
+    const int c_a0 = r_a0, c_lu = min(r_a1 - r_a0, W);
+    const int c_b0 = r_b0, c_lv = min(r_b1 - r_b0, W);
+    fetch(ib + 2 * G);
+    int mine = 0;
+    unsigned live = __ballot_sync(0xffffffffu, cv && c_lu > 0 && c_lv > 0);
+    while (live) {
+      const int bit = __ffs(live) - 1;
+      live &= live - 1u;
+      const int a0 = __shfl_sync(0xffffffffu, c_a0, bit);
+      const int lu = __shfl_sync(0xffffffffu, c_lu, bit);
+      const int b0 = __shfl_sync(0xffffffffu, c_b0, bit);
+      const int lv = __shfl_sync(0xffffffffu, c_lv, bit);
+      int cnt = 0;
+      if (lu <= (1 << max_bits) / 2) {
+        if (a0 != t_a0) {  // a new run of src: its set replaces the last
+          __syncwarp();
+          csr_clear(set, lane);
+          set.bits = csr_table_bits(lu);
+          t_a0 = a0;
+          hi = col[a0 + lu - 1];
+          __syncwarp();
+          csr_build(set, col + a0, lu, lane);
+          __syncwarp();
+        }
+        cnt = csr_probe(set, col + b0, lv, hi, lane);
+      } else {  // longer than the table: in pieces, none kept
+        const int piece = (1 << max_bits) / 2;
+        for (int c = 0; c < lu; c += piece) {
+          const int len = min(piece, lu - c);
+          __syncwarp();
+          csr_clear(set, lane);
+          set.bits = max_bits;
+          __syncwarp();
+          csr_build(set, col + a0 + c, len, lane);
+          __syncwarp();
+          cnt += csr_probe(set, col + b0, lv, col[a0 + c + len - 1], lane);
+        }
+        t_a0 = -1;
+      }
+      cnt = __reduce_add_sync(0xffffffffu, cnt);
+      if (lane == bit) mine = cnt;
+    }
+    if (cv) __stcs(out + (long long)ib * batch + lane, mine);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K3 — packed bitmap.
 // Replaces repro/kernels/intersect/bitmap.py _bitmap_kernel
 // (intersect_counts_bitmap_pallas, body _pack_and_probe). The TPU kernel
@@ -739,6 +997,7 @@ cudaError_t device_facts(int dev, DeviceFacts* out) {
   };
   optin(reinterpret_cast<const void*>(probe_kernel(true)));
   optin(reinterpret_cast<const void*>(probe_kernel(false)));
+  optin(reinterpret_cast<const void*>(probe_csr_kernel));
   for (const BitmapKernel fn : kBitmapKernels)
     optin(reinterpret_cast<const void*>(fn));
   if (err != cudaSuccess) return err;
@@ -841,6 +1100,39 @@ int tc_probe_counts(const int* u, const int* v, int* out, int E, int W,
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       u, v, out, E, W, tw, vec16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2 on the forward CSR: out[e] = |N+(src[e]) ∩ N+(dst[e])| for the E rows
+// of a bucket of width W, each row read from col at
+// [row_ptr[x], row_ptr[x + 1]), at most W ids.
+int tc_probe_csr_counts(const int* row_ptr, const int* col, const int* src,
+                        const int* dst, int* out, int E, int W,
+                        void* stream) {
+  // a warp's table: 2W slots, at most kCsrMaxSlots
+  const int max_bits = csr_table_bits(std::min(W, kCsrMaxSlots / 2));
+  const size_t smem = sizeof(int) * (kThreads / 32) * csr_warp_ints(max_bits);
+  const void* fn = reinterpret_cast<const void*>(probe_csr_kernel);
+  int dev = 0, per_sm = 0;
+  DeviceFacts d;
+  cudaError_t err = current_device(&dev, &d);
+  if (err == cudaSuccess)
+    err = blocks_per_sm(dev, fn, kThreads, smem, &per_sm);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // rows a warp takes at once: 32, or fewer where that leaves warps idle
+  const long long warps = (long long)(per_sm > 0 ? per_sm : 1) * d.sms *
+                          (kThreads / 32);
+  const int batch = (int)std::min<long long>(
+      kProbeBatch, std::max<long long>(1, (E + warps - 1) / warps));
+  const long long batches = (E + (long long)batch - 1) / batch;
+  unsigned int grid = 0;
+  err = persistent_grid(dev, d, fn, kThreads, smem,
+                        (batches + kThreads / 32 - 1) / (kThreads / 32),
+                        &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  probe_csr_kernel<<<grid, kThreads, smem, st>>>(row_ptr, col, src, dst, out,
+                                                 E, W, max_bits, batch);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,6 +18,7 @@ from repro_torch.kernels.intersect.ops import (
     choose_mask_strategy,
     choose_strategy,
     intersect_counts,
+    intersect_counts_csr,
     intersect_matches,
     intersect_matches_both,
     packed_bits,
@@ -26,7 +27,10 @@ from repro_torch.kernels.intersect.ops import (
 )
 from repro_torch.kernels.intersect.probe import (
     intersect_counts_probe,
+    intersect_counts_probe_csr,
+    intersect_counts_probe_csr_kernel,
     intersect_counts_probe_kernel,
+    probe_csr_rows,
 )
 from repro_torch.kernels.intersect.ref import (
     intersect_counts_probe_ref,
@@ -45,8 +49,11 @@ __all__ = [
     "intersect_counts_bitmap_kernel",
     "intersect_counts_bitmap_ref",
     "intersect_counts_broadcast",
+    "intersect_counts_csr",
     "intersect_counts_kernel",
     "intersect_counts_probe",
+    "intersect_counts_probe_csr",
+    "intersect_counts_probe_csr_kernel",
     "intersect_counts_probe_kernel",
     "intersect_counts_probe_ref",
     "intersect_counts_ref",
@@ -54,6 +61,7 @@ __all__ = [
     "intersect_matches_bitmap",
     "intersect_matches_both",
     "packed_bits",
+    "probe_csr_rows",
     "reset_launch_counts",
     "resolve_mask_strategy",
     "resolve_strategy",

@@ -33,7 +33,9 @@ from repro_torch.kernels.intersect.bitmap import (
 )
 from repro_torch.kernels.intersect.intersect import intersect_counts_kernel
 from repro_torch.kernels.intersect.probe import (
+    intersect_counts_probe_csr_kernel,
     intersect_counts_probe_kernel,
+    probe_csr_rows,
     probe_matches,
 )
 from repro_torch.kernels.intersect.ref import intersect_counts_ref
@@ -46,6 +48,7 @@ __all__ = [
     "choose_mask_strategy",
     "choose_strategy",
     "intersect_counts",
+    "intersect_counts_csr",
     "intersect_matches",
     "intersect_matches_both",
     "packed_bits",
@@ -235,6 +238,32 @@ def intersect_counts(
         return intersect_counts_probe_kernel(u_lists, v_lists)
     return intersect_counts_bitmap_kernel(u_lists, v_lists,
                                           num_bits=int(bitmap_bits))
+
+
+def intersect_counts_csr(row_ptr: torch.Tensor, col: torch.Tensor,
+                         src: torch.Tensor, dst: torch.Tensor, *, width: int,
+                         backend: str = "kernel") -> torch.Tensor:
+    """Per-edge |N⁺(src) ∩ N⁺(dst)| with both rows read from a forward CSR
+    at their real lengths (each cut to its first ``width`` ids): the probe
+    strategy's form for rows that live in the CSR.
+
+    Args:
+      row_ptr, col: the forward CSR, int32; rows sorted ascending, each
+        id once.
+      src, dst: (E,) int32 endpoints of real rows.
+      width: the bucket width.
+      backend: "kernel" (K2's CSR form on a CUDA tensor, its plain version
+        on a CPU tensor) or "ref" (the oracle on the gathered rows).
+
+    Returns:
+      (E,) int32 counts.
+    """
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+    if backend == "ref":
+        return intersect_counts_ref(*probe_csr_rows(row_ptr, col, src, dst,
+                                                    width))
+    return intersect_counts_probe_csr_kernel(row_ptr, col, src, dst, width)
 
 
 def _broadcast_mask(u_lists: torch.Tensor, v_lists: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,13 @@ taken u element's lower bound), skips rows whose id ranges cannot meet
 without loading them, and pipelines the rest through shared memory; both
 rows must be sorted ascending. ``intersect_counts_probe`` is its plain
 torch version: ``torch.searchsorted`` plus a gather, in row chunks.
+
+K2's second form reads each row pair straight from the forward-oriented
+CSR at its real length: ``intersect_counts_probe_csr_kernel`` launches
+``probe_csr_kernel`` on a bucket's endpoints (``src``, ``dst``) and the CSR
+(``row_ptr``, ``col``); ``intersect_counts_probe_csr`` is its plain
+version, which gathers the padded rows (``probe_csr_rows``) and probes
+them as above.
 """
 
 from __future__ import annotations
@@ -19,8 +26,9 @@ import torch
 
 from repro_torch.kernels.intersect import _launch
 
-__all__ = ["intersect_counts_probe", "intersect_counts_probe_kernel",
-           "probe_matches"]
+__all__ = ["intersect_counts_probe", "intersect_counts_probe_csr",
+           "intersect_counts_probe_csr_kernel", "intersect_counts_probe_kernel",
+           "probe_csr_rows", "probe_matches"]
 
 # elements of u searched per chunk of the plain version
 _CHUNK_ELEMS = 1 << 24
@@ -72,3 +80,73 @@ def intersect_counts_probe_kernel(u_lists: torch.Tensor,
     if u_lists.device.type == "cpu":
         return intersect_counts_probe(u_lists, v_lists)
     return _launch.launch_counts("probe", u_lists, v_lists)
+
+
+def probe_csr_rows(row_ptr: torch.Tensor, col: torch.Tensor,
+                   src: torch.Tensor, dst: torch.Tensor, width: int):
+    """The padded (E, width) int32 (u, v) rows of the edges (src, dst) of
+    a forward CSR with ``n = len(row_ptr) - 1`` rows: u[e] is N⁺(src[e]),
+    v[e] is N⁺(dst[e]), each its first ``width`` ids, padded with the
+    in-row sentinels n (u) and n + 1 (v), the layout of a prepped bucket's
+    real rows."""
+    n = int(row_ptr.shape[0]) - 1
+    lanes = torch.arange(width, device=row_ptr.device)
+
+    def side(ends, fill):
+        ends = ends.long()
+        start = row_ptr[ends].long()
+        length = row_ptr[ends + 1].long() - start
+        keep = lanes < length[:, None]
+        if col.numel() == 0:  # no row holds an id
+            return torch.full(keep.shape, fill, dtype=torch.int32,
+                              device=keep.device)
+        idx = torch.where(keep, start[:, None] + lanes, 0)
+        return torch.where(keep, col[idx], fill).to(torch.int32)
+
+    return side(src, n), side(dst, n + 1)
+
+
+def intersect_counts_probe_csr(row_ptr: torch.Tensor, col: torch.Tensor,
+                               src: torch.Tensor, dst: torch.Tensor,
+                               width: int) -> torch.Tensor:
+    """Plain torch form of K2 on the forward CSR: (E,) int32 count of
+    N⁺(src) ids found in N⁺(dst), each row cut to its first ``width`` ids;
+    the padded rows (``probe_csr_rows``) probed in row chunks."""
+    e = int(src.shape[0])
+    out = torch.zeros(e, dtype=torch.int32, device=src.device)
+    step = max(1, _CHUNK_ELEMS // max(int(width), 1))
+    for s in range(0, e, step):
+        u, v = probe_csr_rows(row_ptr, col, src[s:s + step], dst[s:s + step],
+                              width)
+        out[s:s + step] = intersect_counts_probe(u, v)
+    return out
+
+
+def intersect_counts_probe_csr_kernel(row_ptr: torch.Tensor,
+                                      col: torch.Tensor, src: torch.Tensor,
+                                      dst: torch.Tensor,
+                                      width: int) -> torch.Tensor:
+    """Per-edge probe counts read from the forward CSR: K2's CSR form on
+    CUDA tensors, the plain version on CPU tensors.
+
+    Args:
+      row_ptr: (n + 1,) int32 row offsets of the forward CSR.
+      col: int32 ids, each row ``col[row_ptr[x]:row_ptr[x + 1]]`` sorted
+        ascending with each id once, as a simple graph's forward rows are
+        (slots past ``row_ptr[n]`` are never read).
+      src, dst: (E,) int32 endpoints of the rows to count, in [0, n); a
+        bucket's real rows only (its padding rows carry 0, whose CSR row
+        is no padding).
+      width: the bucket width; each row is cut to its first ``width`` ids.
+
+    Returns:
+      (E,) int32 counts.
+
+    Raises:
+      ValueError: bad inputs or an unsupported device.
+      RuntimeError: the kernel did not build or launch.
+    """
+    _launch.check_csr_rows(row_ptr, col, src, dst, width)
+    if row_ptr.device.type == "cpu":
+        return intersect_counts_probe_csr(row_ptr, col, src, dst, width)
+    return _launch.launch_csr_counts(row_ptr, col, src, dst, width)

@@ -171,14 +171,17 @@ def price_stage(stage) -> StageCost:
     """The bound of one ``TrianglePlan`` stage (a ``_Stage`` or a
     ``_TiledStage``), from its shape key, its launch's kind and its
     arguments' sizes and dtypes."""
-    from repro_torch.core.engine import (HashLaunch, IntersectLaunch,
-                                         MatrixLaunch, _TiledStage)
+    from repro_torch.core.engine import (CsrProbeLaunch, HashLaunch,
+                                         IntersectLaunch, MatrixLaunch,
+                                         _TiledStage)
 
     fn = stage.executable
     tiled = isinstance(stage, _TiledStage)
     launches = stage.num_chunks if tiled else 1
     shape = stage.chunk_shape_key if tiled else stage.shape_key
-    if isinstance(fn, IntersectLaunch):
+    if isinstance(fn, (IntersectLaunch, CsrProbeLaunch)):
+        # a probe bucket read from the forward CSR is priced as the padded
+        # rows it reads in place of: a bound above its real rows' bytes
         return stage_cost("intersection", shape, launches=launches)
     if isinstance(fn, MatrixLaunch):
         # resident: (l, u, u, li, ui, ai, order); a chunk: (l, u, li, ui,

@@ -27,6 +27,7 @@ import torch
 
 import hash_rows
 import intersect_rows
+import probe_csr_rows
 import probe_rows
 
 from repro_torch.core import (TriangleCounter, subgraph_match_triangle,
@@ -39,6 +40,8 @@ from repro_torch.kernels.intersect import (
     intersect_counts_broadcast,
     intersect_counts_kernel,
     intersect_counts_probe,
+    intersect_counts_probe_csr,
+    intersect_counts_probe_csr_kernel,
     intersect_counts_probe_kernel,
     intersect_counts_ref,
     reset_launch_counts,
@@ -105,7 +108,14 @@ def test_launch_counters_and_input_checks(cuda):
     intersect_counts_probe_kernel(u, v)
     intersect_counts_bitmap_kernel(u, v, num_bits=128)
     intersect_counts_kernel(u[:0], v[:0])  # empty: no launch
-    assert LAUNCHES == {"broadcast": 1, "probe": 1, "bitmap": 1}
+    row_ptr, col = (x.to(cuda) for x in probe_csr_rows.edge_csr(
+        {0: [1, 2], 1: [2]}, 3))
+    ends = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    assert intersect_counts_probe_csr_kernel(row_ptr, col, ends, ends.flip(0),
+                                             4).tolist() == [1, 1]
+    intersect_counts_probe_csr_kernel(row_ptr, col, ends[:0], ends[:0], 4)
+    assert LAUNCHES == {"broadcast": 1, "probe": 1, "bitmap": 1,
+                        "probe_csr": 1}
     with pytest.raises(ValueError, match="int32"):
         intersect_counts_kernel(u.long(), v.long())
     with pytest.raises(ValueError, match="but v_lists on"):
@@ -140,6 +150,92 @@ def test_probe_kernel_empty_launches_nothing(cuda):
     reset_launch_counts()
     out = intersect_counts_probe_kernel(u[:0], v[:0])
     assert out.shape == (0,) and LAUNCHES["probe"] == 0
+
+
+@pytest.mark.parametrize("width", [1, 5, 33, 128, 512, 1024, 8192, 10000])
+def test_probe_csr_kernel_on_rows_to_the_edge(cuda, width):
+    """K2's CSR form equals ``np.intersect1d`` on the rows of
+    ``probe_csr_rows.row_cases`` (empty rows, disjoint and touching
+    ranges, rows past the width; at 10000 ids N⁺(src) is longer than a
+    warp's table and is built and probed in pieces of 2048), with the
+    pairs repeated past one sweep of
+    the persistent grid, and on the CSR copied to start 1, 2 and 3 ints
+    past a 16-byte boundary."""
+    rows, n, pairs = probe_csr_rows.row_cases(width, seed=width)
+    want = probe_csr_rows.numpy_counts(rows, pairs, width)
+    assert list(want[:7]) == probe_csr_rows.FIXED_COUNTS
+    row_ptr, col = (x.to(cuda) for x in probe_csr_rows.edge_csr(rows, n))
+    reps = max(1, 400_000 // len(pairs)) if width <= 1024 else 4
+    src = torch.tensor([a for a, _ in pairs] * reps, dtype=torch.int32,
+                       device=cuda)
+    dst = torch.tensor([b for _, b in pairs] * reps, dtype=torch.int32,
+                       device=cuda)
+    want_all = torch.from_numpy(np.tile(want, reps)).to(cuda)
+    reset_launch_counts()
+    for k in (0, 1, 2, 3):
+        c = probe_csr_rows.offset_copy(col, k) if k else col
+        got = intersect_counts_probe_csr_kernel(row_ptr, c, src, dst, width)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and torch.equal(got, want_all), k
+    assert LAUNCHES["probe_csr"] == 4 and LAUNCHES["probe"] == 0
+
+
+@pytest.mark.parametrize("scale", [16, 17])
+def test_probe_csr_kernel_on_rmat_probe_buckets(cuda, scale):
+    """On an R-MAT's probe buckets K2's CSR form equals its plain version
+    and the padded K2, row by row, on the CSR as allocated and copied to
+    start off a 16-byte boundary; the bucket's padding rows are never
+    handed to it."""
+    from repro_torch.core import prep
+    from repro_torch.graphs.device import DeviceGraph
+
+    g = rmat_graph(scale, 16, seed=1)
+    dg = DeviceGraph.from_graph(g, device=cuda)
+    buckets = prep.prepare_intersection_buckets_device(dg)
+    fwd = dg.forward()
+    probes = [b for b in buckets if b.width >= 64]
+    assert {128, 512} <= {b.width for b in probes}
+    for b in probes:
+        e = b.edges
+        src, dst = b.src[:e], b.dst[:e]
+        padded = intersect_counts_probe_kernel(b.u_lists, b.v_lists)
+        plain = intersect_counts_probe_csr(fwd.row_ptr.cpu(), fwd.dst.cpu(),
+                                           src.cpu(), dst.cpu(), b.width)
+        for k in (0, 1, 3):
+            col = probe_csr_rows.offset_copy(fwd.dst, k) if k else fwd.dst
+            got = intersect_counts_probe_csr_kernel(fwd.row_ptr, col, src,
+                                                    dst, b.width)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), plain), (b.shape, k)
+        assert torch.equal(padded[:e].cpu(), plain), b.shape
+        assert not padded[e:].any()
+
+
+def test_count_takes_the_csr_route_and_tiled_the_padded(cuda):
+    """Across one ``count()`` of a resident session each probe bucket runs
+    K2's CSR form once and the padded K2 never; a plan whose probe buckets
+    are all tiled runs the padded K2 on each chunk and the CSR form never."""
+    from repro_torch.core.engine import CsrProbeLaunch, _TiledStage
+
+    g = rmat_graph(16, 16, seed=1)
+    tc = TriangleCounter(g)
+    want = tc.count().count
+    probes = sum(isinstance(st.executable, CsrProbeLaunch)
+                 for st in tc.plan.stages)
+    assert probes >= 2
+    reset_launch_counts()
+    assert tc.count().count == want == triangle_count_scipy(g)
+    assert LAUNCHES["probe_csr"] == probes and LAUNCHES["probe"] == 0
+    tiled = TriangleCounter(g, max_device_bytes=1 << 22)
+    chunks = sum(st.num_chunks for st in tiled.plan.stages
+                 if isinstance(st, _TiledStage) and st.strategy == "probe")
+    assert chunks and not any(isinstance(st.executable, CsrProbeLaunch)
+                              for st in tiled.plan.stages)
+    reset_launch_counts()
+    assert tiled.count().count == want
+    assert LAUNCHES["probe"] == chunks and LAUNCHES["probe_csr"] == 0
+    np.testing.assert_array_equal(tc.triangles_per_vertex(),
+                                  tiled.triangles_per_vertex())
 
 
 def _on_card(cuda, make, case):
